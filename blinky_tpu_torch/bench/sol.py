@@ -2,17 +2,22 @@
 Pallas probes, as hand-written CUDA kernels (``csrc/sol.cu``).
 
 * :func:`onehot_gather` (K3): the row gather written as a one-hot matrix
-  product, per window ``onehot(idx[w]) [T, R] @ src[w] [R, B]`` in int8 with
-  int32 sums -- the formulation ``blinky_tpu`` measured against the direct
-  gather, kept as a probe of the same idea against K1 here.
+  product, per window ``onehot(idx[w]) [T, R] @ src[w] [R, B]`` with 8-bit
+  operands and int32 sums, on the tensor cores -- the formulation
+  ``blinky_tpu`` measured against the direct gather, kept as a probe of the
+  same idea against K1 here.
 * :func:`stream_read` (K4): the sum of a ``[rows, 1024]`` u8 array into one
   wrapping int32 -- the card's streaming read rate.
+* :func:`mxu_matmul`: the XLA probe of the same name, the card's int8 and
+  bf16 matrix-product rate at the one-hot gather's shapes -- K3's
+  yardstick.  It is a plain product (``torch._int_mm``, ``torch.matmul``),
+  as the JAX package leaves it to XLA, not one of the port's kernels.
 
 Each wrapper runs its plain PyTorch version for CPU tensors and launches its
-kernel for CUDA tensors.  :func:`run_sol` times both probes at the JAX
-package's full-size shapes (``sol.py:307``, ``:310``) with CUDA events; it
-needs a card.  The XLA probes (``stream_copy``, ``row_gather``,
-``element_gather``, ``mxu_matmul``) are not ported yet.
+kernel for CUDA tensors.  :func:`run_sol` times the probes at the JAX
+package's full-size shapes (``sol.py:305-310``) with CUDA events; it needs a
+card.  The other XLA probes (``stream_copy``, ``row_gather``,
+``element_gather``) are not ported yet.
 """
 
 from __future__ import annotations
@@ -70,8 +75,6 @@ def onehot_gather(idx, src):
                          f"on {idx.device}")
     if not _build.on_card(k, src.device):
         return onehot_gather_plain(idx, src)
-    if W > 65535:
-        raise ValueError(f"{k}: at most 65535 windows, got {W}")
     T = idx.shape[1]
     out = torch.empty((W, T, B), dtype=torch.uint8, device=src.device)
     if out.numel():
@@ -126,17 +129,27 @@ stream_read.launches = 0
 # ------------------------------------------------------------------- probes
 
 
+def full_screen_ms(ms: float, windows: int, t_rows: int,
+                   screen_pixels: int = 1920 * 1080) -> float:
+    """The time of *windows* windows of *t_rows* indices, extrapolated to a
+    whole screen of *screen_pixels* indices, as
+    ``blinky_tpu/bench/sol.py:214-218`` does (there rounded to 0.1 ms)."""
+    return ms * -(-screen_pixels // t_rows) / windows
+
+
 def onehot_probe(device, windows: int = 64, t_rows: int = 384,
                  r_rows: int = 2048, row_bytes: int = 1024,
-                 iters: int = 10) -> dict:
+                 iters: int = 20, src_hi: int = 128) -> dict:
     """Time K3 and its plain version at the full-size probe shape
-    (``blinky_tpu/bench/sol.py:307``), and check that they agree."""
+    (``blinky_tpu/bench/sol.py:307``), and check that they agree.  Source
+    bytes are drawn from [0, *src_hi*): 128 is the JAX probe's int8-safe
+    range, 256 every u8 value."""
     device = torch.device(device)
     rng = np.random.default_rng(0)
     idx = torch.from_numpy(
         rng.integers(0, r_rows, (windows, t_rows)).astype(np.int32)).to(device)
     src = torch.from_numpy(rng.integers(
-        0, 128, (windows, r_rows, row_bytes)).astype(np.uint8)).to(device)
+        0, src_hi, (windows, r_rows, row_bytes)).astype(np.uint8)).to(device)
     out = onehot_gather(idx, src)
     ms = cuda_ms(lambda: onehot_gather(idx, src), iters)
     plain = onehot_gather_plain(idx, src)
@@ -144,9 +157,10 @@ def onehot_probe(device, windows: int = 64, t_rows: int = 384,
     macs = float(windows) * t_rows * r_rows * row_bytes
     nbytes = windows * (r_rows * row_bytes + t_rows * row_bytes + 4 * t_rows)
     return dict(probe="onehot_gather", windows=windows, T=t_rows, R=r_rows,
-                B=row_bytes, iters=iters, ms=ms, plain_ms=plain_ms,
+                B=row_bytes, src_hi=src_hi, iters=iters, ms=ms, plain_ms=plain_ms,
                 tmacs=macs / (ms * 1e-3) / 1e12, gbps=nbytes / (ms * 1e-3) / 1e9,
                 ns_per_index=ms * 1e6 / (windows * t_rows),
+                full_screen_ms=full_screen_ms(ms, windows, t_rows),
                 max_abs_err=int((out.int() - plain.int()).abs().max()),
                 equal=bool(torch.equal(out, plain)))
 
@@ -170,6 +184,35 @@ def stream_read_probe(device, nbytes: int = 1 << 30, iters: int = 10) -> dict:
                 equal=bool(torch.equal(out, plain)))
 
 
+# ------------------------------------------------------------ matmul rate
+
+
+def matmul_product(a, b):
+    """The product :func:`mxu_matmul` times: int8 with int32 sums through
+    ``torch._int_mm``, bf16 through ``torch.matmul``."""
+    if a.dtype == torch.int8:
+        return torch._int_mm(a, b)
+    return torch.matmul(a, b)
+
+
+def mxu_matmul(device, m: int = 384, k: int = 2048, n: int = 1024,
+               dtype: str = "int8", iters: int = 50) -> dict:
+    """The card's multiply-add rate at the one-hot gather's shapes
+    (``blinky_tpu/bench/sol.py:118``, full size at ``:305-306``): ``[m, k]
+    @ [k, n]`` of ones in int8 (int32 sums) or bf16."""
+    device = torch.device(device)
+    dt = torch.int8 if dtype == "int8" else torch.bfloat16
+    a = torch.ones((m, k), dtype=dt, device=device)
+    b = torch.ones((n, k), dtype=dt, device=device).t()  # column-major, as cuBLASLt's int8 takes it
+    ms = cuda_ms(lambda: matmul_product(a, b), iters)
+    return dict(probe="mxu_matmul", m=m, k=k, n=n, dtype=dtype, iters=iters,
+                ms=ms, tmacs=float(m) * k * n / (ms * 1e-3) / 1e12)
+
+
 def run_sol(device) -> list:
-    """Both ported Pallas probes at their full-size shapes, on a card."""
-    return [onehot_probe(device), stream_read_probe(device)]
+    """The ported probes at their full-size shapes, on a card: K3 with the
+    JAX probe's source values and with every u8 value, K4, and the int8 and
+    bf16 matrix-product rates."""
+    return [onehot_probe(device), onehot_probe(device, src_hi=256),
+            stream_read_probe(device), mxu_matmul(device, dtype="int8"),
+            mxu_matmul(device, dtype="bf16")]

@@ -97,6 +97,56 @@ def test_probe_kernels_equal_plain(cuda_device):
     torch.cuda.synchronize()
 
 
+# K3 (onehot_gather) on its edges: W, T, R, B, source kind, index kind.
+# Its tiles are 192 rows t by 128 columns b, its chunks 128 source rows r.
+ONEHOT_CASES = {
+    "T191": (2, 191, 300, 128, "u8", "mixed"),
+    "T192": (2, 192, 300, 128, "u8", "mixed"),
+    "T193": (2, 193, 300, 128, "u8", "mixed"),
+    "R127": (2, 100, 127, 128, "u8", "mixed"),
+    "R128": (2, 100, 128, 128, "u8", "mixed"),
+    "R129": (2, 100, 129, 128, "u8", "mixed"),
+    "B127": (2, 100, 300, 127, "u8", "mixed"),  # not a multiple of 16: plain loads
+    "B128": (2, 100, 300, 128, "u8", "mixed"),  # TMA
+    "B129": (2, 100, 300, 129, "u8", "mixed"),
+    "B144": (2, 100, 300, 144, "u8", "mixed"),  # TMA, a ragged second b tile
+    "B32_off16": (2, 70, 300, 32, "u8_offset", "mixed"),  # src 1 byte off 16: plain loads
+    "R1": (2, 50, 1, 32, "u8", "mixed"),
+    "idx_out_of_range": (2, 100, 64, 64, "u8", "out_of_range"),
+    "src_0_255": (2, 200, 260, 256, "u8", "mixed"),
+    "src_all_255": (2, 200, 260, 256, "255", "mixed"),
+    "many_tiles_tma": (70, 384, 520, 256, "u8", "mixed"),    # several tiles per block
+    "many_tiles_plain": (70, 390, 300, 200, "u8", "mixed"),
+    "W70000": (70_000, 1, 2, 1, "u8", "mixed"),   # once over the grid's z limit
+    "T2100000": (1, 2_100_000, 2, 1, "u8", "mixed"),  # once over 65535 blocks of 32 rows
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(ONEHOT_CASES))
+def test_onehot_gather_edges_equal_plain(cuda_device, case):
+    W, T, R, B, src_kind, idx_kind = ONEHOT_CASES[case]
+    rng = np.random.default_rng(len(case) * 7919 + T)
+    if idx_kind == "out_of_range":
+        idx = rng.choice(np.array([-1, R, 2**31 - 1], np.int32), (W, T))
+    else:
+        idx = rng.integers(-2, R + 2, (W, T)).astype(np.int32)
+    n = W * R * B
+    if src_kind == "255":
+        flat = torch.full((n,), 255, dtype=torch.uint8, device=cuda_device)
+    else:
+        flat = torch.from_numpy(rng.integers(0, 256, n + 16, dtype=np.uint8)).to(cuda_device)
+        flat = flat[1:1 + n] if src_kind == "u8_offset" else flat[:n]
+    src = flat.reshape(W, R, B)
+    assert (src.data_ptr() % 16 != 0) == (src_kind == "u8_offset")
+    idx = torch.from_numpy(idx).to(cuda_device)
+    n0 = sol.onehot_gather.launches
+    got = sol.onehot_gather(idx, src)
+    torch.cuda.synchronize()
+    assert sol.onehot_gather.launches == n0 + 1
+    _equal(got, sol.onehot_gather_plain(idx, src))
+
+
 @pytest.mark.cuda
 def test_launch_counters_count_launches(cuda_device):
     src, idx, valid, bg = _case(8, torch.uint8, 1, cuda_device)

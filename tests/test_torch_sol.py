@@ -1,6 +1,8 @@
 """The port's speed-of-light probes (blinky_tpu_torch.bench.sol) against
 blinky_tpu's Pallas kernels, run in interpret mode on the CPU as
-tests/test_sol.py runs them.  Tolerance 0: the outputs are integers."""
+tests/test_sol.py runs them, and against the JAX probes' arithmetic.
+Tolerance 0: the outputs are integers (the bf16 products are small
+integers, exact in bf16)."""
 
 import jax
 import jax.numpy as jnp
@@ -10,6 +12,7 @@ import torch
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
+import blinky_tpu.bench.sol as jsol
 from blinky_tpu.bench.sol import _stream_read_kernel, pallas_onehot_gather_call
 from blinky_tpu_torch.bench import sol
 
@@ -44,6 +47,77 @@ def test_onehot_gather_plain_equals_pallas(W, T, R, B, hi, lo):
     np.testing.assert_array_equal(got.numpy(), expect)
 
 
+@pytest.mark.parametrize("W,T,R,B,idx_kind,src_kind", [
+    (1, 191, 130, 16, "mixed", "u8"),     # K3's tile edges: T = 192 - 1, R = 128 + 2
+    (1, 193, 127, 17, "mixed", "u8"),     # T = 192 + 1, R = 128 - 1, B ragged
+    (2, 9, 129, 127, "mixed", "u8"),      # R = 128 + 1, B = 128 - 1
+    (1, 12, 40, 129, "mixed", "u8"),      # B = 128 + 1
+    (2, 30, 1, 32, "mixed", "u8"),        # R = 1
+    (2, 24, 50, 48, "out_of_range", "u8"),  # every row empty: -1, R, 2^31 - 1
+    (2, 24, 50, 48, "mixed", "all255"),   # 255 is -1 as int8 and wraps back
+])
+def test_onehot_gather_edges_equal_pallas(W, T, R, B, idx_kind, src_kind):
+    rng = np.random.default_rng(T * 1000 + R + B)
+    if idx_kind == "out_of_range":
+        idx = rng.choice(np.array([-1, R, 2**31 - 1], np.int32), (W, T))
+    else:
+        idx = rng.integers(-2, R + 2, (W, T)).astype(np.int32)
+    if src_kind == "all255":
+        src = np.full((W, R, B), 255, np.uint8)
+    else:
+        src = rng.integers(0, 256, (W, R, B)).astype(np.uint8)
+    expect = np.asarray(pallas_onehot_gather_call(
+        jnp.asarray(idx), jnp.asarray(src), interpret=True))
+    got = sol.onehot_gather(torch.from_numpy(idx), torch.from_numpy(src))
+    np.testing.assert_array_equal(got.numpy(), expect)
+    if idx_kind == "out_of_range":
+        assert not expect.any()
+
+
+@pytest.mark.parametrize("windows,t_rows,screen_pixels,seconds", [
+    (64, 384, 1920 * 1080, 0.0123),    # the full-size probe's shape
+    (2, 128, 1920 * 1080, 0.00437),    # bench.py --sol --quick's
+    (3, 7, 1000, 0.5),                 # a screen that is not a multiple of T
+    (64, 384, 640 * 480, 0.000093),
+])
+def test_full_screen_ms_equals_jax(monkeypatch, windows, t_rows, screen_pixels,
+                                   seconds):
+    """blinky_tpu/bench/sol.py:214-218's extrapolation, with its timer
+    replaced by a fixed time so that no kernel runs."""
+    iters = 4
+    monkeypatch.setattr(jsol, "_run_timed", lambda *a, **k: seconds * iters)
+    expect = jsol.pallas_onehot_gather(windows, t_rows, 16, 8, iters=iters,
+                                       screen_pixels=screen_pixels,
+                                       interpret=True)["full_screen_ms"]
+    got = sol.full_screen_ms(seconds * 1e3, windows, t_rows, screen_pixels)
+    assert round(got, 1) == expect
+    assert got == pytest.approx(
+        seconds * -(-screen_pixels // t_rows) / windows * 1e3, rel=1e-12)
+
+
+@pytest.mark.parametrize("m,k,n,dtype", [
+    (17, 32, 8, "int8"),
+    (48, 256, 128, "int8"),
+    (24, 32, 16, "bf16"),
+])
+def test_matmul_product_equals_dot_general(m, k, n, dtype):
+    """mxu_matmul's product against blinky_tpu/bench/sol.py:131's
+    dot_general: int8 with int32 sums over every int8 value; bf16 on small
+    integers, whose products and sums bf16 holds exactly."""
+    rng = np.random.default_rng(m * k + n)
+    lo, hi = (-128, 128) if dtype == "int8" else (-2, 3)
+    a = rng.integers(lo, hi, (m, k))
+    b = rng.integers(lo, hi, (k, n))
+    jdt, acc = (jnp.int8, jnp.int32) if dtype == "int8" else (jnp.bfloat16, jnp.float32)
+    expect = np.asarray(jax.lax.dot_general(
+        jnp.asarray(a, jdt), jnp.asarray(b, jdt), (((1,), (0,)), ((), ())),
+        preferred_element_type=acc)).astype(np.float64)
+    tdt = torch.int8 if dtype == "int8" else torch.bfloat16
+    got = sol.matmul_product(torch.from_numpy(a).to(tdt), torch.from_numpy(b).to(tdt))
+    assert got.dtype == (torch.int32 if dtype == "int8" else torch.bfloat16)
+    np.testing.assert_array_equal(got.double().numpy(), expect)
+
+
 @pytest.mark.parametrize("rows,block_rows,fill", [
     (64, 16, None),        # random bytes
     (10240, 2048, 255),    # 255 * 10 MiB > 2^31: the int32 sum wraps
@@ -73,6 +147,9 @@ def test_wrappers_check_operands():
         sol.stream_read(torch.zeros((4, 512), dtype=torch.uint8))
     with pytest.raises(ValueError, match="no kernel for device meta"):
         sol.stream_read(torch.zeros((4, 1024), dtype=torch.uint8, device="meta"))
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        sol.onehot_gather(torch.zeros((2, 3), dtype=torch.int32, device="meta"),
+                          torch.zeros((2, 4, 8), dtype=torch.uint8, device="meta"))
     assert sol.onehot_gather.launches == 0 and sol.stream_read.launches == 0
 
 
