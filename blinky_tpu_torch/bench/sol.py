@@ -154,15 +154,26 @@ def onehot_probe(device, windows: int = 64, t_rows: int = 384,
     ms = cuda_ms(lambda: onehot_gather(idx, src), iters)
     plain = onehot_gather_plain(idx, src)
     plain_ms = cuda_ms(lambda: onehot_gather_plain(idx, src), iters)
+    # the library call for the same function: every index is in range here
+    rows = idx.long()[:, :, None].expand(-1, -1, row_bytes)
+    library_equal = bool(torch.equal(torch.gather(src, 1, rows), out))
+    library_ms = cuda_ms(lambda: torch.gather(src, 1, rows), iters)
+    # the product's multiply-adds, and the least bytes of the function: a
+    # gather reads each distinct row that idx names once, not all of src
     macs = float(windows) * t_rows * r_rows * row_bytes
-    nbytes = windows * (r_rows * row_bytes + t_rows * row_bytes + 4 * t_rows)
+    rows_read = int(torch.unique(idx.long() + r_rows * torch.arange(
+        windows, device=device)[:, None]).numel())
+    nbytes = rows_read * row_bytes + windows * t_rows * (row_bytes + 4)
     return dict(probe="onehot_gather", windows=windows, T=t_rows, R=r_rows,
                 B=row_bytes, src_hi=src_hi, iters=iters, ms=ms, plain_ms=plain_ms,
+                macs=macs, bytes=nbytes,
                 tmacs=macs / (ms * 1e-3) / 1e12, gbps=nbytes / (ms * 1e-3) / 1e9,
                 ns_per_index=ms * 1e6 / (windows * t_rows),
                 full_screen_ms=full_screen_ms(ms, windows, t_rows),
                 max_abs_err=int((out.int() - plain.int()).abs().max()),
-                equal=bool(torch.equal(out, plain)))
+                equal=bool(torch.equal(out, plain)),
+                library="torch.gather(src, 1, idx[..., None].expand(W, T, B))",
+                library_ms=library_ms, library_equal=library_equal)
 
 
 def stream_read_probe(device, nbytes: int = 1 << 30, iters: int = 10) -> dict:
@@ -177,11 +188,17 @@ def stream_read_probe(device, nbytes: int = 1 << 30, iters: int = 10) -> dict:
     ms = cuda_ms(lambda: stream_read(x), iters)
     plain = stream_read_plain(x)
     plain_ms = cuda_ms(lambda: stream_read_plain(x), iters)
+    # the library call: an int32 sum if it wraps as K4's does, else int64
+    dtype = torch.int32
+    if not torch.equal(x.sum(dtype=dtype).reshape(1, 1), out):
+        dtype = torch.int64
+    library_ms = cuda_ms(lambda: x.sum(dtype=dtype), iters)
     return dict(probe="stream_read", bytes=rows * 1024, iters=iters, ms=ms,
                 plain_ms=plain_ms, gbps=rows * 1024 / (ms * 1e-3) / 1e9,
                 plain_gbps=rows * 1024 / (plain_ms * 1e-3) / 1e9,
                 max_abs_err=abs(int(out.item()) - int(plain.item())),
-                equal=bool(torch.equal(out, plain)))
+                equal=bool(torch.equal(out, plain)),
+                library=f"x.sum(dtype={dtype})", library_ms=library_ms)
 
 
 # ------------------------------------------------------------ matmul rate

@@ -28,12 +28,13 @@ __host__ __device__ __forceinline__ int pixels_per_step(int per_pixel) {
 }
 
 // Blocks for a block-stride loop over `steps` block steps: at most one wave
-// of resident blocks (2048 threads per SM), at least one block.
-inline int wave_blocks(long long steps) {
+// of `per_sm` resident blocks on every SM (by default 2048 threads per SM),
+// at least one block.
+inline int wave_blocks(long long steps, int per_sm = 2048 / kThreads) {
   int dev = 0, sms = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  long long cap = (long long)(sms > 0 ? sms : 1) * (2048 / kThreads);
+  long long cap = (long long)(sms > 0 ? sms : 1) * (per_sm > 0 ? per_sm : 1);
   if (steps < 1) steps = 1;
   return (int)(steps < cap ? steps : cap);
 }

@@ -6,10 +6,12 @@
 // operands and int32 sums, stored as u8.  It exists to be measured against
 // K1, the direct row gather, and it stays a matrix product on the tensor
 // cores: T * R * B multiply-adds per window.
-//   Bound on the card: operations and bytes together.  At the probe's shape
-//   (64 windows x 384 x 2048 x 1024) it does 51.5 G multiply-adds, 52 us at
-//   the H100's 989 int8 TMAC/s, and must read the 134 MB source and write
-//   the 25 MB output, 48 us at 3.35 TB/s.
+//   Bound on the card: the function is a gather, bound by bytes: it reads
+//   the rows idx names and writes the output, about 48 MB at the probe's
+//   shape (64 windows x 384 x 2048 x 1024), 14 us at 3.35 TB/s.  The
+//   product has a floor of its own, operations and bytes together: 51.5 G
+//   multiply-adds, 52 us at the H100's 989 int8 TMAC/s, and the whole
+//   134 MB source read and the 25 MB output written, 48 us.
 //   Design: the transposed product out[w]^T = src[w]^T @ onehot[w]^T, on
 //   wgmma.mma_async m64n192k32 .u8.u8 with s32 sums.  wgmma reads an 8-bit
 //   operand from shared memory K-major only, and src arrives with B, not R,

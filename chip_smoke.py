@@ -13,14 +13,24 @@ version.  Phases:
    (K2), and the speed-of-light probe entry point runs (K3, K4); the counters
    are read, and the renders are held against the plain versions on the card,
    against ``host_remap`` for frames 0 and 63, and against the golden screens
-   of ``tests/goldens/panini__cube__fov180.npz``;
+   of ``tests/goldens/panini__cube__fov180.npz``.  Then every K1 and K2
+   variant at 1080p B=64 (K1 on u8, on true-colour u32 with the tint, on the
+   12-plane expanded rubix source; K2 rubix, decode, rubix + decode and the
+   expanded decode, and rubix on a uniformly random and on an all-zero
+   source) is held bit-equal to its plain version and timed beside it, with
+   its bytes, its bound at 3.35 TB/s and its share of that bound;
 3. every source kind through ``RemapKernel``, and out-of-range indices under
    the clip and the fill rule, against the plain versions;
 4. the headline shape: a texel-compacted 1080p source at B = 1024 and 4096;
 5. the probes' results: K3 at 64x384x2048x1024 (the JAX probe's source
    values below 128, and every u8 value), its extrapolation to a 1080p
    screen beside K1's 1080p time, K4 over 1 GiB, and the card's int8 and
-   bf16 matrix-product rates at the one-hot gather's shapes, K3's yardstick.
+   bf16 matrix-product rates at the one-hot gather's shapes, K3's yardstick;
+   the library call beside K3 (``torch.gather``) and K4 (``x.sum``).
+
+The line before the card's name and power limit lists every kernel with its
+launches in phase 2's run, its time, its plain version's and its library
+call's time where one PyTorch call computes the same function, and its bound.
 
 Catches nothing: any failure exits non-zero before the last line, which is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 at once.
@@ -39,6 +49,8 @@ import torch
 ROOT = Path(__file__).resolve().parent
 B_MAIN = 64
 ITERS = 10
+# an H100 SXM's published device-memory rate at 700 W
+HBM_BYTES_PER_S = 3.35e12
 
 
 def require(cond, what):
@@ -61,6 +73,7 @@ def main():
     from blinky_tpu_torch.bench.throughput import run_gather_throughput
     from blinky_tpu_torch.io.cubemap import synthetic_cubemap, synthetic_cubemap_batch
     from blinky_tpu_torch.kernels import _build, remap
+    from blinky_tpu_torch.palette import rgba_lut
 
     dev = torch.device("cuda")
     kernels = {"remap_gather": remap.remap_gather, "remap_lut": remap.remap_lut,
@@ -145,23 +158,57 @@ def main():
             "64x48 rubix screen differs from the golden")
     phase(2, "64x48 screen and rubix screen equal tests/goldens/panini__cube__fov180.npz")
 
-    main_ms = {
-        "remap_gather": cuda_ms_pair(
-            lambda: remap.remap_gather(src, k.flat_idx, k.valid, k.background,
-                                            fill=True),
-            lambda: remap.remap_gather_plain(src, k.flat_idx, k.valid, k.background,
-                                             fill=True)),
-        "remap_lut": cuda_ms_pair(
-            lambda: remap.remap_lut(src, k.flat_idx, k.valid, k.tint,
-                                         k.background, k.tint_lut),
-            lambda: remap.remap_lut_plain(src, k.flat_idx, k.valid, k.tint,
-                                          k.background, k.tint_lut)),
+    # Every K1 and K2 variant at 1080p B=64, each first held bit-equal to its
+    # plain version on these inputs, then timed beside it against its bound:
+    # the bytes it must move (per-pixel operands, the source rows that this
+    # lensmap reads, the output) at the card's 3.35 TB/s.
+    n = k.flat_idx.numel()
+    tr, tm = k.tint_rgb_mask
+    src32 = torch.from_numpy(rgba_lut(sess.palette).view(np.int32)).to(dev)[src.long()]
+    expanded = torch.from_numpy(remap.expand_frames_tinted(frames, sess.palette)).to(dev)
+    expanded = expanded.reshape(-1, B_MAIN)
+    noise = torch.randint(0, 256, src.shape, dtype=torch.uint8, device=dev,
+                          generator=torch.Generator(dev).manual_seed(0))
+    zeros = torch.zeros_like(src)
+    gather_args = {  # K1: (src, idx, bg, keywords)
+        "K1 u8 (render)": (src, k.flat_idx, k.background, dict(fill=True)),
+        "K1 true-colour tint (u32)": (src32, k.flat_idx, k.background_rgba,
+                                      dict(tint_rgb=tr, tint_mask=tm)),
+        "K1 expanded 12-plane rubix (clip)": (expanded, k.flat_idx_rubix, k.background, {}),
     }
-    nbytes = out.numel() * 2 + out.shape[0] * out.shape[1] * 6
-    for name, (ms, plain_ms) in main_ms.items():
-        phase(2, f"{name} at 1080p B={B_MAIN} (full [6,1080,1080,{B_MAIN}] source): "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; "
-              f"{B_MAIN / (ms * 1e-3):.1f} frames/s; {nbytes / (ms * 1e-3) / 1e9:.1f} GB/s")
+    lut_args = {  # K2: (src, idx, tint_lut, rgb_lut, fill)
+        "K2 rubix (render f_rubix)": (src, k.flat_idx, k.tint_lut, None, True),
+        "K2 rubix, uniformly random source": (noise, k.flat_idx, k.tint_lut, None, True),
+        "K2 rubix, all-zero source": (zeros, k.flat_idx, k.tint_lut, None, True),
+        "K2 decode (render decode_rgb)": (src, k.flat_idx, None, k.rgb_lut, True),
+        "K2 rubix + decode": (src, k.flat_idx, k.tint_lut, k.rgb_lut, True),
+        "K2 expanded decode (clip)": (expanded, k.flat_idx_rubix, None, k.rgb_lut, False),
+    }
+    variants = {}
+    for name, (s_, idx, bg, kw) in gather_args.items():
+        run = (lambda s_=s_, idx=idx, bg=bg, kw=kw:
+               remap.remap_gather(s_, idx, k.valid, bg, **kw))
+        ref = (lambda s_=s_, idx=idx, bg=bg, kw=kw:
+               remap.remap_gather_plain(s_, idx, k.valid, bg, **kw))
+        per_pixel = 4 + 1 + s_.element_size() + (5 if "tint_rgb" in kw else 0)
+        rows = source_rows(idx, k.valid, s_.shape[0], kw.get("fill", False))
+        nbytes = n * per_pixel + (rows + n) * B_MAIN * s_.element_size()
+        variants[name] = time_variant(name, run, ref, nbytes)
+    for name, (s_, idx, tl, rgb, fill) in lut_args.items():
+        run = (lambda s_=s_, idx=idx, tl=tl, rgb=rgb, fill=fill:
+               remap.remap_lut(s_, idx, k.valid, k.tint, k.background, tl, rgb, fill=fill))
+        ref = (lambda s_=s_, idx=idx, tl=tl, rgb=rgb, fill=fill:
+               remap.remap_lut_plain(s_, idx, k.valid, k.tint, k.background, tl, rgb,
+                                     fill=fill))
+        per_pixel = 4 + 1 + 1 + (1 if tl is not None else 0)
+        tables = (tl.numel() if tl is not None else 0) + (rgb.numel() if rgb is not None else 0)
+        rows = source_rows(idx, k.valid, s_.shape[0], fill)
+        nbytes = (n * per_pixel + tables + rows * B_MAIN
+                  + n * B_MAIN * (3 if rgb is not None else 1))
+        variants[name] = time_variant(name, run, ref, nbytes)
+    del src32, expanded, noise, zeros
+    main_ms = {"remap_gather": variants["K1 u8 (render)"],
+               "remap_lut": variants["K2 rubix (render f_rubix)"]}
     walls = []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -234,43 +281,80 @@ def main():
     for p in onehots:
         require(p["equal"], f"onehot_gather (source values < {p['src_hi']}) differs "
                 f"from the plain version (max {p['max_abs_err']})")
+        bound_ms = p["bytes"] / HBM_BYTES_PER_S * 1e3
         phase(5, f"onehot_gather {p['windows']}x{p['T']}x{p['R']}x{p['B']}, source "
               f"values < {p['src_hi']}: kernel {p['ms']:.4f} ms ({p['tmacs']:.2f} TMAC/s, "
-              f"{p['gbps']:.1f} GB/s, {p['ns_per_index']:.3f} ns/index, full 1080p screen "
-              f"{p['full_screen_ms']:.4f} ms), plain {p['plain_ms']:.4f} ms; bit-equal")
+              f"{p['ns_per_index']:.3f} ns/index, full 1080p screen "
+              f"{p['full_screen_ms']:.4f} ms), plain {p['plain_ms']:.4f} ms; bit-equal; "
+              f"the gather's {p['bytes']} bytes, bound {bound_ms:.4f} ms, "
+              f"{100 * bound_ms / p['ms']:.1f} % of it ({p['gbps']:.1f} GB/s)")
     oh = onehots[0]
     phase(5, f"one-hot gather as a matrix product, a full 1080p screen at B={oh['B']}: "
           f"{oh['full_screen_ms']:.4f} ms; K1's direct gather of a 1080p screen at "
-          f"B={B_MAIN}: {main_ms['remap_gather'][0]:.4f} ms")
+          f"B={B_MAIN}: {main_ms['remap_gather']['ms']:.4f} ms")
     phase(5, "matrix-product rate at the one-hot gather's shapes (torch._int_mm, "
           "torch.matmul): " + ", ".join(
               f"{d} {p['m']}x{p['k']}x{p['n']} {p['ms']:.4f} ms {p['tmacs']:.2f} TMAC/s"
               for d, p in mxu.items()) + f"; K3 {oh['tmacs']:.2f} TMAC/s")
+    require(oh["library_equal"], "torch.gather differs from onehot_gather")
+    phase(5, f"onehot_gather's library call, {oh['library']}: {oh['library_ms']:.4f} ms")
     require(sr["equal"], "stream_read differs from the plain version")
     phase(5, f"stream_read {sr['bytes']} bytes: kernel {sr['ms']:.4f} ms "
           f"({sr['gbps']:.1f} GB/s), plain {sr['plain_ms']:.4f} ms "
-          f"({sr['plain_gbps']:.1f} GB/s)")
+          f"({sr['plain_gbps']:.1f} GB/s), library call {sr['library']} "
+          f"{sr['library_ms']:.4f} ms")
 
+    k1, k2 = main_ms["remap_gather"], main_ms["remap_lut"]
     rows = [
         ("remap_gather", "remap_gather.cu", "blinky_tpu/kernels/remap.py:88",
-         err["render"], *main_ms["remap_gather"]),
+         err["render"], k1["ms"], k1["plain_ms"], k1["bound_ms"], "bytes", None, None),
         ("remap_lut", "remap_lut.cu", "blinky_tpu/kernels/remap.py:56",
-         max(err["render f_rubix"], err["render decode_rgb"]), *main_ms["remap_lut"]),
+         max(err["render f_rubix"], err["render decode_rgb"]), k2["ms"], k2["plain_ms"],
+         k2["bound_ms"], "bytes", None, None),
         ("onehot_gather", "sol.cu", "blinky_tpu/bench/sol.py:149",
-         max(p["max_abs_err"] for p in onehots), oh["ms"], oh["plain_ms"]),
+         max(p["max_abs_err"] for p in onehots), oh["ms"], oh["plain_ms"],
+         oh["bytes"] / HBM_BYTES_PER_S * 1e3, "bytes", oh["library_ms"], oh["library"]),
         ("stream_read", "sol.cu", "blinky_tpu/bench/sol.py:222",
-         sr["max_abs_err"], sr["ms"], sr["plain_ms"]),
+         sr["max_abs_err"], sr["ms"], sr["plain_ms"],
+         (sr["bytes"] + 4) / HBM_BYTES_PER_S * 1e3, "bytes", sr["library_ms"], sr["library"]),
     ]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"blinky_tpu_torch/csrc/{src_file}",
          "replaces": replaces, "launches": launches[name], "max_abs_err": e,
-         "ms": ms, "plain_ms": plain_ms}
-        for name, src_file, replaces, e, ms, plain_ms in rows]}))
+         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+         "library_ms": library_ms, "library": library}
+        for name, src_file, replaces, e, ms, plain_ms, bound_ms, bound_by, library_ms,
+        library in rows]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def source_rows(idx, valid, rows, fill):
+    """How many distinct source rows the valid pixels read under the fill
+    or the clip rule: the rows a remap must read at least once."""
+    i = idx[valid].long()
+    if fill:
+        i = torch.where(i < 0, i + rows, i)
+        i = i[(i >= 0) & (i < rows)]
+    else:
+        i = i.clamp(0, rows - 1)
+    return int(torch.unique(i).numel())
+
+
+def time_variant(name, kernel, plain, nbytes):
+    """Holds ``kernel()`` bit-equal to ``plain()``, then times both and
+    prints the kernel's time beside its bound, *nbytes* at the card's
+    memory rate."""
+    require(torch.equal(kernel(), plain()), f"{name} differs from its plain version")
+    ms, plain_ms = cuda_ms_pair(kernel, plain)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    phase(2, f"{name} at 1080p B={B_MAIN}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; "
+          f"{nbytes} bytes, bound {bound_ms:.4f} ms, {100 * bound_ms / ms:.1f} % of it "
+          f"({nbytes / (ms * 1e-3) / 1e9:.1f} GB/s); bit-equal")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms)
 
 
 def cuda_ms_pair(kernel, plain):

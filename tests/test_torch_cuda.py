@@ -80,6 +80,84 @@ def test_remap_kernels_equal_plain(cuda_device, B):
     torch.cuda.synchronize()
 
 
+# K2 (remap_lut) on its edges: B, pixels N, source rows R, and what is
+# special.  B % 16 == 0 with aligned pointers takes 16-texel vectors, any
+# other B (or a source that starts off a 16-byte boundary) single texels;
+# B >= 4096 makes rows longer than a block's 256 threads, and more than
+# 1,024 items per pixel (4 per thread) makes the block walk a pixel in
+# several passes, the last one ragged.
+LUT_CASES = {
+    "B16": (16, 500, 96, ""),
+    "B32": (32, 500, 96, ""),
+    "B64": (64, 500, 96, ""),
+    "B256": (256, 300, 96, ""),
+    "B4112": (4112, 40, 96, ""),      # 257 vectors per pixel
+    "B16400": (16400, 7, 24, ""),     # 1,025 vectors: a second pass of one
+    "B21184": (21184, 5, 24, ""),     # 1,324 vectors: a second pass ends mid-warp
+    "B1": (1, 3000, 96, ""),
+    "B15": (15, 500, 96, ""),
+    "B17": (17, 500, 96, ""),
+    "B300": (300, 300, 96, ""),
+    "B1100": (1100, 20, 48, ""),      # a second pass of 76 texels
+    "B2600": (2600, 9, 48, ""),       # three passes, the last of 552 texels
+    "B64_off16": (64, 500, 96, "offset"),  # src 1 byte off 16: single texels
+    "tint_0_255": (32, 2560, 96, "tint_all"),
+    "src_every_u8": (16, 600, 256, "src_all"),
+    "all_invalid": (64, 500, 96, "invalid"),
+    "N1": (64, 1, 96, ""),
+    "N2100000_B16": (16, 2_100_000, 1000, ""),  # several chunks per block
+}
+
+
+def _lut_case(case, device):
+    B, n, R, kind = LUT_CASES[case]
+    rng = np.random.default_rng(len(case) * 104729 + n + B)
+    flat = rng.integers(0, 256, R * B + 16, dtype=np.uint8)
+    if kind == "src_all":  # row r holds r, r + 1, ...: every value in every lane
+        flat[:R * B] = ((np.arange(R)[:, None] + np.arange(B)[None, :]) % 256).reshape(-1)
+    flat = torch.from_numpy(flat).to(device)
+    src = (flat[1:1 + R * B] if kind == "offset" else flat[:R * B]).reshape(R, B)
+    assert (src.data_ptr() % 16 != 0) == (kind == "offset")
+    idx = rng.integers(-2 * R - 3, 2 * R + 3, n).astype(np.int32)
+    valid = rng.random(n) < (0.0 if kind == "invalid" else 0.8)
+    tint = (np.arange(n) % 256 if kind == "tint_all"
+            else rng.integers(0, 256, n)).astype(np.uint8)
+    bg = rng.integers(0, 256, n, dtype=np.uint8)
+    return (src, *(torch.from_numpy(a).to(device) for a in (idx, valid, tint, bg)))
+
+
+def _lut_equals_plain(src, idx, valid, tint, bg, device):
+    """K2 against its plain version for every table combination under both
+    out-of-range rules; each call launches the kernel once."""
+    pal = torch.from_numpy(default_palette()).to(device)
+    tl = torch.from_numpy(tint_lut(default_palette())).to(device)
+    n0 = remap.remap_lut.launches
+    for luts in ((tl, None), (None, pal), (tl, pal)):
+        for fill in (False, True):
+            got = remap.remap_lut(src, idx, valid, tint, bg, *luts, fill=fill)
+            torch.cuda.synchronize()
+            _equal(got, remap.remap_lut_plain(src, idx, valid, tint, bg, *luts, fill=fill))
+    assert remap.remap_lut.launches == n0 + 6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(LUT_CASES))
+def test_remap_lut_edges_equal_plain(cuda_device, case):
+    _lut_equals_plain(*_lut_case(case, cuda_device), cuda_device)
+
+
+@pytest.mark.cuda
+def test_remap_lut_random_frames_1080p(cuda_device):
+    """The 1080p main path's operands with uniformly random source bytes at
+    B=64: the table lookups' worst case for shared-memory bank conflicts."""
+    k = remap.RemapKernel(Session(1920, 1080, device="cpu").lensmap, default_palette(),
+                          device=cuda_device)
+    g = torch.Generator(cuda_device).manual_seed(3)
+    src = torch.randint(0, 256, (6 * 1080 * 1080, 64), dtype=torch.uint8,
+                        device=cuda_device, generator=g)
+    _lut_equals_plain(src, k.flat_idx, k.valid, k.tint, k.background, cuda_device)
+
+
 @pytest.mark.cuda
 def test_probe_kernels_equal_plain(cuda_device):
     rng = np.random.default_rng(5)

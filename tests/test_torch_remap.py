@@ -229,10 +229,11 @@ def test_remap_gather_tint_vs_jax(B):
 
 
 @pytest.mark.parametrize("rubix,decode", [(True, False), (False, True), (True, True)])
-@pytest.mark.parametrize("B", [1, 6])
+@pytest.mark.parametrize("B", [1, 6, 16, 64])
 def test_remap_lut_vs_jax(rubix, decode, B, pal):
     """remap_impl: fill rule, the tint LUT filling 255 past its 1,792
-    entries (tint values up to 255 here), background, RGB decode."""
+    entries (tint values up to 255 here), background, RGB decode.  B = 16
+    and 64 are the widths that take K2's 16-texel vectors on a card."""
     src, idx, valid, bg = _rand_case(B, np.uint8, seed=40 + B)
     tint = np.random.default_rng(50 + B).integers(0, 256, idx.size, dtype=np.uint8)
     tl = tint_lut(pal)
@@ -247,14 +248,15 @@ def test_remap_lut_vs_jax(rubix, decode, B, pal):
     np.testing.assert_array_equal(got.numpy(), expect.reshape(got.shape))
 
 
-def test_remap_lut_clip_decode_vs_jax(pal):
+@pytest.mark.parametrize("B", [5, 16])
+def test_remap_lut_clip_decode_vs_jax(B, pal):
     """The decode after an expanded gather: clip rule, then rgb_lut."""
-    src, idx, valid, bg = _rand_case(5, np.uint8, seed=60)
+    src, idx, valid, bg = _rand_case(B, np.uint8, seed=55 + B)
     g = jremap.remap_gather_impl(
         jnp.asarray(src), jnp.asarray(idx.reshape(7, 9)),
         jnp.asarray(valid.reshape(7, 9)), jnp.asarray(bg.reshape(7, 9)))
     expect = np.asarray(jnp.take(jnp.asarray(pal), g.astype(jnp.int32), axis=0))
-    got = remap.remap_lut(_t(src.reshape(-1, 5)), _t(idx), _t(valid),
+    got = remap.remap_lut(_t(src.reshape(-1, B)), _t(idx), _t(valid),
                           torch.zeros(idx.size, dtype=torch.uint8), _t(bg),
                           rgb_lut=_t(pal), fill=False)
     np.testing.assert_array_equal(got.numpy(), expect.reshape(got.shape))
