@@ -9,12 +9,14 @@ device work runs through hand-written CUDA kernels for Hopper
 :mod:`blinky_tpu_torch.kernels._build`), each with a plain PyTorch version
 beside it that serves tensors on the CPU.
 
-This package never imports ``jax`` or ``blinky_tpu``.  Devices are always
-explicit: every entry point that touches tensors takes a ``device``.
+This package never imports ``jax`` or ``blinky_tpu``.  Every entry point
+that touches tensors takes a ``device``, ``"cuda"`` unless the caller asks
+for the CPU; nothing probes for a card and nothing falls back.
 
     >>> import blinky_tpu_torch as bt
-    >>> sess = bt.Session(640, 480, device="cuda")
+    >>> sess = bt.Session(640, 480)        # on "cuda"
     >>> out = sess.render(frames)          # [6,S,S,B] u8 -> [H,W,B] u8
+    >>> posed = sess.render_posed(frames, poses)   # [B,3] degrees -> [B,H,W]
 """
 
 __version__ = "0.1.0"
@@ -24,8 +26,9 @@ import torch
 from blinky_tpu_torch import geometry, palette  # noqa: F401,E402
 
 
-def device(name) -> torch.device:
-    """``torch.device(name)``; no probing and no default device."""
+def device(name="cuda") -> torch.device:
+    """``torch.device(name)``, the card unless *name* says otherwise; no
+    probing."""
     return torch.device(name)
 
 

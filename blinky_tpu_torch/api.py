@@ -1,19 +1,24 @@
 """Session: the console-semantics API surface, static views only.
 
-The port of :class:`blinky_tpu.api.Session` for the static remap: the
-``F_Init`` defaults (``engine/NQ/fisheye.c:668-672``), the console
-tokenizer, the lens/globe/zoom/rubix commands, the change-driven lensmap
-rebuild of ``F_RenderView`` (``fisheye.c:698-811``) on the exact float64
-host builder, and the remap of frame batches on a device through
-:class:`blinky_tpu_torch.kernels.remap.RemapKernel`::
+The port of :class:`blinky_tpu.api.Session` for the static remap and the
+posed playback: the ``F_Init`` defaults (``engine/NQ/fisheye.c:668-672``),
+the console tokenizer, the lens/globe/zoom/rubix commands, the
+change-driven lensmap rebuild of ``F_RenderView`` (``fisheye.c:698-811``) on
+the exact float64 host builder, the remap of frame batches on a device
+through :class:`blinky_tpu_torch.kernels.remap.RemapKernel`, and
+:meth:`Session.render_posed`, every frame at its own view rotation through
+:class:`blinky_tpu_torch.kernels.static_ray.StaticRayPosedKernel`::
 
-    sess = Session(1920, 1080, device="cuda")   # panini + cube, f_fov 180
+    sess = Session(1920, 1080)                   # panini + cube, f_fov 180, on "cuda"
     out = sess.render(frames)                    # [6, S, S, B] u8 -> [H, W, B] u8
+    posed = sess.render_posed(frames, poses)     # + [B, 3] degrees -> [B, H, W] u8
 
-What ``blinky_tpu``'s Session has beyond this raises ``NotImplementedError``
+The device defaults to ``"cuda"``; nothing probes and nothing falls back,
+so on a machine without a card a render with the default raises.  What
+``blinky_tpu``'s Session has beyond this raises ``NotImplementedError``
 naming it: the ``fisheye 0`` plain view, pose tracking, time-sliced builds,
 script directories, key bindings, config files, ``f_saveglobe`` and
-``f_dumppal``, and the posed, equirect, anti-aliased and sharded renders.
+``f_dumppal``, and the equirect, anti-aliased and sharded renders.
 ``Unknown command`` is kept for names neither package knows.
 """
 
@@ -27,7 +32,9 @@ import torch
 from blinky_tpu_torch import globes as globes_mod
 from blinky_tpu_torch import lenses as lenses_mod
 from blinky_tpu_torch import palette as palette_mod
-from blinky_tpu_torch.kernels.remap import RemapKernel, host_remap
+from blinky_tpu_torch.kernels.remap import (
+    RemapKernel, expanded_flat_idx, frames_tensor, frames_to_rgba, host_remap,
+)
 from blinky_tpu_torch.lensmap import Zoom, ZoomError, build_lensmap, calc_scale
 
 HELP_TEXT = """-----------------------------
@@ -50,7 +57,7 @@ _UNPORTED_COMMANDS = frozenset({
 # blinky_tpu's other Session entry points that the port does not have yet
 _UNPORTED_METHODS = frozenset({
     "press_key", "build_progress", "warm_device_builder", "render_sharded",
-    "render_posed", "posed_pending", "render_aa", "render_equirect",
+    "render_aa", "render_equirect",
     "config_str", "write_config", "exec_config", "complete_lens",
     "complete_globe",
 })
@@ -280,8 +287,9 @@ def _atoi(s: str) -> int:
 
 class Session:
     """The console state of one view: lens, globe, zoom and rubix, a
-    lensmap rebuilt lazily on change, and the remap kernel that renders
-    frame batches on *device* (``torch.device`` or its name; no default).
+    lensmap rebuilt lazily on change, and the kernels that render frame
+    batches on *device* (``torch.device`` or its name, ``"cuda"`` unless
+    the caller asks for another).
     """
 
     def __init__(
@@ -291,7 +299,7 @@ class Session:
         platesize: Optional[int] = None,
         palette: Optional[np.ndarray] = None,
         *,
-        device,
+        device="cuda",
         echo: bool = False,
         defaults: bool = True,
         lens_dirs=(),
@@ -332,7 +340,16 @@ class Session:
 
         self._changed = True
         self._lensmap = None
+        self._lensmap_meta = None  # (lens, globe)
         self._background = None
+        self._background_gen = 0
+        self._posed_cache = None  # (key, StaticRayPosedKernel)
+        self._posed_scale = None  # ((zoom, lens, width, height), zoom scale)
+        self._posed_cap = None  # ((key, planes), batch cap)
+        self._posed_async = None  # the one background table build
+        self._posed_async_fail = None  # (key, failures, error)
+        self._ray_tables = None  # (generation, {render_scale: RayTable})
+        self._auto_scale_probes = None  # (key, (t21, t81, t2h, k_hi))
 
         self._commands = {
             "fisheye": self._cmd_fisheye,
@@ -543,6 +560,7 @@ class Session:
         the globe), re-solve the zoom, rebuild the gather table on the
         exact float64 host builder."""
         self._lensmap = None
+        self._lensmap_meta = None
         self._kernel = None
         if not (self.lens_valid and self.globe_valid):
             self._changed = False
@@ -571,6 +589,10 @@ class Session:
             pad_size=self.rubix_pad_size,
             backend="numpy",
         )
+        # what the table was built from, recorded now rather than inferred
+        # later; the view is always the identity (setviewangles is not
+        # ported), so it is not recorded
+        self._lensmap_meta = (self.lens, self.globe)
         self._changed = False
 
     @property
@@ -588,12 +610,16 @@ class Session:
         # the remap kernel bakes the palette's LUTs in at construction
         self._palette = np.asarray(pal, dtype=np.uint8)
         self._kernel = None
+        self._posed_cache = None  # its RGBA background decodes the palette
 
     def set_background(self, background) -> None:
         """Set the underlay shown where the lensmap is unmapped (the
         reference's ``Draw_TileClear`` tile, ``fisheye.c:802``)."""
         self._background = np.asarray(background, dtype=np.uint8)
+        # a generation counter, not id(): a freed array's id can be reused
+        self._background_gen += 1
         self._kernel = None  # rebuilt lazily in render() from the lensmap
+        self._posed_cache = None
 
     def set_size(self, width: int, height: int, platesize: Optional[int] = None) -> None:
         self.width_px = int(width)
@@ -604,6 +630,7 @@ class Session:
             # a screen-sized underlay can't survive a resize (the reference
             # re-tiles its background per frame, fisheye.c:802)
             self._background = None
+            self._background_gen += 1
         self._changed = True  # sizechange, fisheye.c:709
 
     def _prepare(self, frames) -> None:
@@ -659,3 +686,339 @@ class Session:
         rubix = self.rubix_enabled if rubix is None else rubix
         return host_remap(lm, frames, self.palette, self._background,
                           rubix=rubix, decode_rgb=decode_rgb)
+
+    # ---------------------------------------------------------------- posed
+    def render_posed(self, frames, poses, render_scale=1,
+                     target_fps: float = 60.0, exact: bool = False,
+                     block: bool = True):
+        """Per-frame-pose playback: every frame gets its own view rotation.
+
+        ``frames``: [P, S, S, B] (u8 plates, the expanded [12, ...] rubix
+        layout, or packed RGBA u32), a NumPy array or a tensor; ``poses``:
+        [B, 3] (pitch, yaw, roll) degrees or precomputed [B, 3, 3] bases.
+        Returns a [B, H, W] tensor on the session's device (``torch.uint32``
+        for RGBA).  Rubix rides the source: an expanded source renders
+        tinted, a raw one untinted; the ``f_rubix`` flag is not consulted.
+
+        The path is the static-ray recomposition
+        (:mod:`blinky_tpu_torch.kernels.static_ray`): one camera-ray table
+        per (lens, zoom, size), then per pose a lens-free rotate, plate
+        resolve and gather, fused in one CUDA kernel on a card.
+
+        ``render_scale`` k > 1 builds at 1/k of the screen and
+        nearest-upsamples, with the full-resolution background.
+        ``render_scale="auto"`` probes the pipeline on this device (cached
+        per lens, size and source kind), fits ``d + B(c + b/k²)`` and takes
+        the smallest k predicted to sustain *target_fps* at this batch.
+
+        ``exact=True`` builds every pose's lensmap on the exact float64
+        host path instead (the table a static render at those angles
+        uses), then gathers all poses in one launch of
+        :func:`blinky_tpu_torch.kernels.posed.gather_posed`.
+
+        ``block=False`` makes a first call for a new (lens, zoom, size,
+        scale) return at once: the table builds on a background thread
+        while the call renders a coarser-scale preview of the same poses.
+        :attr:`posed_pending` says when the build is done; the next call
+        swaps it in.  A failed build re-raises on the next call, and after
+        three failures on one key the error sticks.  ``exact=True``
+        ignores ``block``.
+        """
+        from blinky_tpu_torch.bench.autobatch import (
+            feasible_batch, posed_bytes_per_lane,
+        )
+        from blinky_tpu_torch.kernels.posed import (
+            bases_from_pose_track, check_render_scale,
+        )
+
+        if not (self.fisheye_enabled and self.lens_valid and self.globe_valid):
+            raise ValueError("render_posed needs fisheye enabled and a valid lens/globe")
+        if not hasattr(frames, "ndim"):
+            frames = np.asarray(frames)
+        if frames.ndim != 4:
+            raise ValueError("render_posed takes a frame batch [P, S, S, B]")
+        S = frames.shape[1]
+        poses = np.asarray(poses, dtype=np.float64)
+        bases = poses if poses.ndim == 3 else bases_from_pose_track(poses)
+        # the zoom is re-solved only when what it depends on was replaced
+        # (Zoom and lenses are immutable)
+        zkey = (self.zoom, self.lens, self.width_px, self.height_px)
+        if self._posed_scale is None or self._posed_scale[0] != zkey:
+            self._posed_scale = (zkey, calc_scale(*zkey))
+        scale = self._posed_scale[1]
+        B = frames.shape[-1]
+        if bases.shape != (B, 3, 3):
+            raise ValueError(f"bases must be [B={B}, 3, 3], got {bases.shape}")
+        is_rgba = _is_rgba(frames)
+        if B == 0:
+            # nothing to build or gather, but bad arguments still fail
+            if render_scale != "auto":
+                check_render_scale(self.width_px, self.height_px, int(render_scale))
+            return torch.empty((0, self.height_px, self.width_px),
+                               dtype=torch.uint32 if is_rgba else torch.uint8,
+                               device=self.device)
+        if render_scale == "auto":
+            render_scale = 1 if exact else self._auto_render_scale(
+                frames, bases, scale, float(target_fps))
+        k = int(render_scale)
+        if exact:
+            return self._render_posed_exact(frames, bases, scale, k)
+        key = (self.lens, self.globe, scale, self.width_px, self.height_px, S,
+               self.rubix_numcells, self.rubix_cell_size, self.rubix_pad_size,
+               self._background_gen, is_rgba, k)
+        # a batch larger than the device holds splits; every chunk reuses
+        # the same kernel.  Free memory is read again only for a new key or
+        # a batch above the cap last read
+        ckey = (key, frames.shape[0])
+        if self._posed_cap is None or self._posed_cap[0] != ckey or B > self._posed_cap[1]:
+            self._posed_cap = (ckey, feasible_batch(posed_bytes_per_lane(
+                S, frames.shape[0], self.width_px, self.height_px, rgba=is_rgba), 0,
+                device=self.device))
+        cap = self._posed_cap[1]
+        if B > cap:
+            return torch.cat([
+                self.render_posed(frames[..., i:i + cap], bases[i:i + cap],
+                                  render_scale=k, block=block)
+                for i in range(0, B, cap)])
+        if self._posed_cache is None or self._posed_cache[0] != key:
+            tables = self._ray_table_stash(scale, S)
+            if block:
+                kernel = self._posed_kernel(scale, S, k, is_rgba, tables)
+                tables[k] = kernel.ray_table
+            else:
+                kernel = self._posed_async_kernel(key, scale, S, k, is_rgba, tables)
+                if kernel is None:
+                    # the build is in flight: a coarse preview, whose kernel
+                    # caches under its own key
+                    pk = self._posed_preview_scale(k)
+                    if pk is not None:
+                        return self.render_posed(frames, bases, render_scale=pk)
+                    kernel = self._posed_async_join(key, scale, S, k, is_rgba, tables)
+            self._posed_cache = (key, kernel)
+        return self._posed_cache[1](frames, bases)
+
+    @property
+    def posed_pending(self) -> bool:
+        """True while a ``render_posed(block=False)`` background table
+        build is still running (previews are being served)."""
+        pend = self._posed_async
+        return bool(pend is not None and pend["thread"].is_alive())
+
+    def _posed_kernel(self, scale, S, k, is_rgba, tables):
+        from blinky_tpu_torch.kernels.static_ray import StaticRayPosedKernel
+
+        return StaticRayPosedKernel(
+            self.lens, self.globe, self.width_px, self.height_px, scale,
+            platesize=S, numcells=self.rubix_numcells,
+            cell_size=self.rubix_cell_size, pad_size=self.rubix_pad_size,
+            background=self._posed_background(is_rgba), render_scale=k,
+            ray_table=tables.get(k),
+            lensmap=self._reusable_static_lensmap(scale, S, k),
+            device=self.device)
+
+    def _posed_preview_scale(self, render_scale):
+        """The coarsest valid render_scale above the requested one: the
+        preview's resolution while the native table builds."""
+        from blinky_tpu_torch.kernels.posed import check_render_scale
+
+        for k in (4, 3, 2):
+            if k <= int(render_scale):
+                break
+            try:
+                check_render_scale(self.width_px, self.height_px, k)
+                return k
+            except ValueError:
+                continue
+        return None
+
+    def _posed_async_kernel(self, key, scale, S, render_scale, is_rgba, tables):
+        """The finished kernel when the background build for *key* has
+        landed, else start that build (once) and return None.  One async
+        slot per session: while a build for a stale key runs, none other
+        starts.  A failed build re-raises here, and after three failures
+        on one key the error re-raises with no new build."""
+        import threading
+
+        pend = self._posed_async
+        if pend is not None and pend["key"] == key:
+            if pend["thread"].is_alive():
+                return None
+            self._posed_async = None
+            if pend["error"] is not None:
+                last = self._posed_async_fail
+                n = last[1] + 1 if (last and last[0] == key) else 1
+                self._posed_async_fail = (key, n, pend["error"])
+                raise pend["error"]
+            self._posed_async_fail = None
+            kernel = pend["result"]
+            tables[render_scale] = kernel.ray_table
+            return kernel
+        if pend is not None:
+            if pend["thread"].is_alive():
+                return None
+            self._posed_async = None
+        last = self._posed_async_fail
+        if last is not None and last[0] == key and last[1] >= 3:
+            raise last[2]
+        holder = {"key": key, "result": None, "error": None}
+
+        def build():
+            try:
+                holder["result"] = self._posed_kernel(scale, S, render_scale,
+                                                      is_rgba, tables)
+            except BaseException as e:  # re-raised on the caller's thread
+                holder["error"] = e
+
+        holder["thread"] = threading.Thread(target=build, name="posed-table-build",
+                                            daemon=True)
+        self._posed_async = holder
+        holder["thread"].start()
+        return None
+
+    def _posed_async_join(self, key, scale, S, render_scale, is_rgba, tables):
+        """Block until the build for *key* lands and return its kernel; a
+        build for a stale key in flight is joined first, never run beside
+        ours."""
+        while True:
+            kernel = self._posed_async_kernel(key, scale, S, render_scale,
+                                              is_rgba, tables)
+            if kernel is not None:
+                return kernel
+            self._posed_async["thread"].join()
+
+    def _ray_table_stash(self, scale, platesize):
+        """``{render_scale: RayTable}`` for the current (lens, globe, zoom,
+        size) generation, shared by the auto-scale probes and the real
+        kernel; one generation only, replaced on any change (the tables
+        live on the device)."""
+        gen = (self.lens, self.globe, float(scale), self.width_px,
+               self.height_px, platesize)
+        if self._ray_tables is None or self._ray_tables[0] != gen:
+            self._ray_tables = (gen, {})
+        return self._ray_tables[1]
+
+    def _reusable_static_lensmap(self, scale, platesize, render_scale):
+        """The session's built static lensmap when it can seed a ray table:
+        built from this lens and globe with the identity view
+        (``_lensmap_meta``), at this size, plate size and zoom scale, for a
+        full-resolution posed grid."""
+        lm, meta = self._lensmap, self._lensmap_meta
+        if lm is None or meta is None or render_scale != 1:
+            return None
+        if not (meta[0] is self.lens and meta[1] is self.globe):
+            return None
+        if (lm.width_px, lm.height_px, lm.platesize) != (
+                self.width_px, self.height_px, platesize):
+            return None
+        return lm if lm.scale == float(scale) else None
+
+    def _auto_render_scale(self, frames, bases, scale, target_fps):
+        """Dynamic resolution: time the posed pipeline at (B=2, k=1),
+        (B=8, k=1) and (B=2, k=max), the best of two runs each, fit
+        ``chunk_cost(B, k) = d + B(c + b/k²)`` and return the smallest
+        valid k whose predicted per-pose cost at this batch meets
+        *target_fps*.  The probes are cached per (lens, globe, size, source
+        kind, rubix grid, background); their tables land in the ray-table
+        stash for the real kernel."""
+        import time
+
+        from blinky_tpu_torch.kernels.posed import check_render_scale
+
+        S, B = frames.shape[1], frames.shape[-1]
+        is_rgba = _is_rgba(frames)
+        candidates = []
+        for k in (1, 2, 3, 4, 6, 8):
+            try:
+                check_render_scale(self.width_px, self.height_px, k)
+            except ValueError:
+                continue
+            candidates.append(k)
+        if len(candidates) < 2:
+            return candidates[0] if candidates else 1
+        key = (self.lens, self.globe, self.width_px, self.height_px, S, is_rgba,
+               self.rubix_numcells, self.rubix_cell_size, self.rubix_pad_size,
+               self._background_gen)
+        if self._auto_scale_probes is not None and self._auto_scale_probes[0] == key:
+            t21, t81, t2h, k_hi = self._auto_scale_probes[1]
+        else:
+            k_hi = candidates[-1]
+            first, _ = frames_tensor(frames[..., :1])
+            first = first.to(self.device)
+            base_b = np.ascontiguousarray(bases[:1]).astype(np.float32)
+            pf = {n: first.repeat(1, 1, 1, n) for n in (2, 8)}
+            if is_rgba:
+                pf = {n: f.view(torch.uint32) for n, f in pf.items()}
+            pb = {n: np.repeat(base_b, n, axis=0) for n in (2, 8)}
+            tables = self._ray_table_stash(scale, S)
+            on_card = self.device.type == "cuda"
+
+            def probe(n, k):
+                kernel = self._posed_kernel(scale, S, k, is_rgba, tables)
+                tables[k] = kernel.ray_table
+                best = np.inf
+                for i in range(3):  # a warm-up, then the best of two
+                    t0 = time.perf_counter()
+                    kernel(pf[n], pb[n])
+                    if on_card:
+                        torch.cuda.synchronize(self.device)
+                    if i:
+                        best = min(best, time.perf_counter() - t0)
+                return best  # seconds a chunk
+
+            t21, t81, t2h = probe(2, 1), probe(8, 1), probe(2, k_hi)
+            self._auto_scale_probes = (key, (t21, t81, t2h, k_hi))
+        cb = max(0.0, (t81 - t21) / 6.0)  # c + b: a pose at k=1
+        d = max(0.0, t21 - 2.0 * cb)  # a call's floor
+        b = min(max(0.0, (t21 - t2h) / (2.0 * (1.0 - 1.0 / (k_hi * k_hi)))), cb)
+        c = cb - b
+        budget = 1.0 / target_fps if target_fps > 0 else np.inf
+        for k in candidates:
+            if d / B + c + b / (k * k) <= budget:
+                return k
+        return candidates[-1]
+
+    def _posed_background(self, is_rgba):
+        """The posed screens' background: the session's (or zeros),
+        decoded through the session palette for RGBA sources."""
+        bg = self._background_np()
+        return frames_to_rgba(bg, self.palette) if is_rgba else bg
+
+    def _render_posed_exact(self, frames, bases, scale, k):
+        """``render_posed(exact=True)``: one float64 host build per pose,
+        with the pose's basis composed in (the table a static render at
+        those angles uses), then every pose's gather in one launch of
+        :func:`blinky_tpu_torch.kernels.posed.gather_posed`, which
+        nearest-upsamples by *k* under the upsampled validity mask."""
+        from blinky_tpu_torch.kernels.posed import (
+            check_render_scale, gather_posed, prep_posed_inputs,
+        )
+        from blinky_tpu_torch.kernels.static_ray import background_tensor
+
+        check_render_scale(self.width_px, self.height_px, k)
+        W, H = self.width_px // k, self.height_px // k
+        S = frames.shape[1]
+        is_rgba = _is_rgba(frames)
+        bg = background_tensor(self._posed_background(is_rgba), self.height_px,
+                               self.width_px, self.device)
+        src, _, expanded = prep_posed_inputs(frames, bases, S, bg, self.device)
+        idx = np.empty((len(bases), H, W), np.int32)
+        valid = np.empty((len(bases), H, W), bool)
+        for b, basis in enumerate(np.asarray(bases, np.float64)):
+            lm = build_lensmap(
+                self.lens, self.globe, scale * k, W, H, S,
+                numcells=self.rubix_numcells, cell_size=self.rubix_cell_size,
+                pad_size=self.rubix_pad_size, backend="numpy",
+                view_basis=(basis[0], basis[1], basis[2]))
+            # rubix rides the source: the expanded layout's tinted half
+            idx[b] = expanded_flat_idx(lm) if expanded else lm.flat_idx
+            valid[b] = lm.valid
+        out = gather_posed(src, torch.from_numpy(idx).to(self.device),
+                           torch.from_numpy(valid).to(self.device), bg, k)
+        return out.view(torch.uint32) if is_rgba else out
+
+
+def _is_rgba(frames) -> bool:
+    """Whether *frames* (NumPy or tensor) hold packed RGBA words."""
+    if isinstance(frames, torch.Tensor):
+        return frames.dtype == torch.uint32
+    return frames.dtype == np.uint32

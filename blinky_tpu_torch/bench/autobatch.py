@@ -1,0 +1,88 @@
+"""Memory-aware batch sizing for the posed path: how many poses one call
+may take before the Session splits the batch.
+
+The port of the part of :mod:`blinky_tpu.bench.autobatch` that
+``Session.render_posed`` needs: :func:`feasible_batch` and the per-lane
+byte models.  Each pipeline states its per-lane (per-pose) byte cost, and
+the planner returns the largest batch that fits the device budget.
+
+What replaces the JAX module's TPU constants:
+
+* the budget is the card's own free memory, read from
+  ``torch.cuda.mem_get_info`` when the call is planned (the JAX package
+  reads the TPU's ``memory_stats`` or a documented v5e capacity), times
+  :data:`BUDGET_FRACTION`;
+* the v5e ``EFFECTIVE_FRACTION`` (1.0286: XLA kept ~3 % less live than
+  that model counted) has no counterpart: PyTorch runs eagerly and
+  allocates exactly the tensors the model counts, so the fraction is
+  below 1 instead (see :data:`BUDGET_FRACTION`);
+* the 128-lane ``QUANTUM`` was the TPU's minor tile dimension, on which the
+  batch axis of the gathered rows lay.  The posed kernels take poses along
+  their grid's second dimension, eight to a block, and a partial group
+  costs nothing, so the batch is not rounded at all.
+
+The calibrate walk that measured the v5e's boundary is not ported.
+"""
+
+from __future__ import annotations
+
+import os
+
+import torch
+
+from blinky_tpu_torch.palette import MAX_PLATES
+
+# Of the free memory, what a posed call may plan to fill.  The caching
+# allocator rounds each block up (to 2 MB for large ones) and may not find
+# one contiguous free range for a tensor of hundreds of MB after other
+# frees; a tenth held back covers both at the posed path's few large
+# tensors a call.
+BUDGET_FRACTION = 0.9
+
+
+def device_memory_bytes(device) -> int:
+    """Free memory on *device* now: the card's, from
+    ``torch.cuda.mem_get_info``, or the host's available physical memory
+    for a CPU device."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return int(torch.cuda.mem_get_info(device)[0])
+    return int(os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE"))
+
+
+def effective_budget_bytes(device) -> int:
+    return int(device_memory_bytes(device) * BUDGET_FRACTION)
+
+
+def feasible_batch(src_bytes_per_lane, out_bytes_per_lane, *, device="cuda",
+                   budget=None) -> int:
+    """Largest batch whose per-lane live set (source + output) fits the
+    budget, by default :func:`effective_budget_bytes` of *device*.  Always
+    >= 1, so callers can chunk by it."""
+    budget = effective_budget_bytes(device) if budget is None else int(budget)
+    per_lane = float(src_bytes_per_lane) + float(out_bytes_per_lane)
+    return max(int(budget // max(per_lane, 1.0)), 1)
+
+
+def screen_bytes_per_lane(width, height, rgba=False) -> int:
+    """The materialized [H, W] screen, per lane."""
+    return width * height * (4 if rgba else 1)
+
+
+def planes_bytes_per_lane(planesize, nplanes, rgba=False, expanded=False) -> int:
+    """[NP, S, S, B] plate-plane source on the device: one lane's bytes.  A
+    P < MAX_PLATES source is zero-padded to MAX_PLATES planes, the
+    expanded layout is always 2 * MAX_PLATES."""
+    np_ = 2 * MAX_PLATES if expanded else max(nplanes, MAX_PLATES)
+    return np_ * planesize * planesize * (4 if rgba else 1)
+
+
+def posed_bytes_per_lane(planesize, nplanes, width, height, rgba=False,
+                         expanded=False) -> int:
+    """What a static-ray posed call keeps per pose: the caller's frames on
+    the device, their pose-major copy (``prep_posed_inputs``) and the
+    full-resolution screen.  The JAX pipeline also held a [H/k, W/k] int32
+    index table and its bool mask per pose; the fused kernel (K6) writes
+    none, so the render scale does not enter the count."""
+    planes = planes_bytes_per_lane(planesize, nplanes, rgba, expanded)
+    return 2 * planes + screen_bytes_per_lane(width, height, rgba)

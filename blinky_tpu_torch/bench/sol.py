@@ -137,7 +137,7 @@ def full_screen_ms(ms: float, windows: int, t_rows: int,
     return ms * -(-screen_pixels // t_rows) / windows
 
 
-def onehot_probe(device, windows: int = 64, t_rows: int = 384,
+def onehot_probe(device="cuda", windows: int = 64, t_rows: int = 384,
                  r_rows: int = 2048, row_bytes: int = 1024,
                  iters: int = 20, src_hi: int = 128) -> dict:
     """Time K3 and its plain version at the full-size probe shape
@@ -176,7 +176,7 @@ def onehot_probe(device, windows: int = 64, t_rows: int = 384,
                 library_ms=library_ms, library_equal=library_equal)
 
 
-def stream_read_probe(device, nbytes: int = 1 << 30, iters: int = 10) -> dict:
+def stream_read_probe(device="cuda", nbytes: int = 1 << 30, iters: int = 10) -> dict:
     """Time K4 and its plain version over *nbytes* (1 GiB in
     ``blinky_tpu/bench/sol.py:310``), and check that they agree."""
     device = torch.device(device)
@@ -212,7 +212,7 @@ def matmul_product(a, b):
     return torch.matmul(a, b)
 
 
-def mxu_matmul(device, m: int = 384, k: int = 2048, n: int = 1024,
+def mxu_matmul(device="cuda", m: int = 384, k: int = 2048, n: int = 1024,
                dtype: str = "int8", iters: int = 50) -> dict:
     """The card's multiply-add rate at the one-hot gather's shapes
     (``blinky_tpu/bench/sol.py:118``, full size at ``:305-306``): ``[m, k]
@@ -226,7 +226,7 @@ def mxu_matmul(device, m: int = 384, k: int = 2048, n: int = 1024,
                 ms=ms, tmacs=float(m) * k * n / (ms * 1e-3) / 1e12)
 
 
-def run_sol(device) -> list:
+def run_sol(device="cuda") -> list:
     """The ported probes at their full-size shapes, on a card: K3 with the
     JAX probe's source values and with every u8 value, K4, and the int8 and
     bf16 matrix-product rates."""

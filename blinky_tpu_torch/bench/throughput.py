@@ -20,7 +20,7 @@ from blinky_tpu_torch.kernels.remap import (
 from blinky_tpu_torch.lensmap import Zoom, build_lensmap, calc_scale
 
 
-def device_source_texels(platesize, batch, rgba, texels, *, device,
+def device_source_texels(platesize, batch, rgba, texels, *, device="cuda",
                          chunk: int = 128):
     """Synthetic source in the texel-compacted layout of
     ``kernels.remap.compact_texels``, made on *device*: [R, B] u8, or the
@@ -47,7 +47,7 @@ def device_source_texels(platesize, batch, rgba, texels, *, device,
     return out
 
 
-def run_gather_throughput(batch: int, *, device, iters: int = 10,
+def run_gather_throughput(batch: int, *, device="cuda", iters: int = 10,
                           width: int = 1920, height: int = 1080,
                           platesize: int = 1080, lens_name: str = "panini",
                           globe_name: str = "cube", zoom=Zoom("fov", 180),

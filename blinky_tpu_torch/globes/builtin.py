@@ -11,6 +11,7 @@ from __future__ import annotations
 import math
 
 import numpy as np
+import torch
 
 from blinky_tpu_torch import xmath as m
 from blinky_tpu_torch.globes import make_globe, register
@@ -107,18 +108,44 @@ def tetra():
 _FAST_BIG_FOV = 160.0
 
 
+def fast_resolver_consts():
+    """(dist, half window) of ``globes/fast.lua:10-27`` in double: the wide
+    plate's pinhole distance and half the sharp plate's window on it."""
+    dist = 0.5 / math.tan(_FAST_BIG_FOV * math.pi / 180 / 2)
+    size = 2 * dist * math.tan(math.pi / 4)
+    return dist, size / 2
+
+
 def _fast_resolver(x, y, z, globe):
     """``globe_plate`` of ``globes/fast.lua:10-27``: rays in the central
     window of the sharp 90° plate resolve to plate 0, the rest of the front
     hemisphere to the wide plate 1, and the back hemisphere to none (-1)."""
     xp_ = m.xp(x, y, z)
-    dist = 0.5 / math.tan(_FAST_BIG_FOV * math.pi / 180 / 2)
-    size = 2 * dist * math.tan(math.pi / 4)
+    dist, half = fast_resolver_consts()
     u = m.safe_div(x, z) * dist
     v = m.safe_div(y, z) * dist
-    small = (m.abs(u) < size / 2) & (m.abs(v) < size / 2)
+    small = (m.abs(u) < half) & (m.abs(v) < half)
     plate = xp_.where(small, 0, 1).astype(xp_.int32)
     return xp_.where(z <= 0, np.int32(-1), plate)
+
+
+def fast_resolver_torch(x, y, z):
+    """:func:`_fast_resolver` on float32 tensors, evaluated as the JAX
+    package's float32 builder evaluates it: the double constants round to
+    float32 (a Python scalar is weakly typed there), each operation rounds
+    on its own.  Returns int32 plates, -1 for none."""
+    dist, half = (float(np.float32(c)) for c in fast_resolver_consts())
+    zero = z == 0
+    den = torch.where(zero, 1.0, z)
+    u = torch.where(zero, 0.0, x / den) * dist
+    v = torch.where(zero, 0.0, y / den) * dist
+    small = (u.abs() < half) & (v.abs() < half)
+    plate = torch.where(small, 0, 1).to(torch.int32)
+    return torch.where(z <= 0, -1, plate).to(torch.int32)
+
+
+# globe resolvers the float32 torch builder has a twin for
+TORCH_RESOLVERS = {_fast_resolver: fast_resolver_torch}
 
 
 def fast():

@@ -408,6 +408,20 @@ def _tint_rgb_mask_np(lensmap):
 # ------------------------------------------------------------------ kernel
 
 
+def frames_tensor(frames):
+    """Frames (NumPy or tensor) -> (tensor, is_rgba): packed RGBA as int32
+    bits, any dtype but u8/u32 normalized to u8 palette indices.  A NumPy
+    array becomes a contiguous CPU tensor; a tensor stays where it is."""
+    if isinstance(frames, torch.Tensor):
+        if frames.dtype == torch.uint32:
+            return frames.view(torch.int32), True
+        return (frames if frames.dtype == torch.uint8 else frames.to(torch.uint8)), False
+    a = np.asarray(frames)
+    is_rgba = a.dtype == np.uint32
+    a = a.view(np.int32) if is_rgba else a.astype(np.uint8, copy=False)
+    return torch.from_numpy(np.ascontiguousarray(a)), is_rgba
+
+
 def _rgba_bits(a: np.ndarray, device) -> torch.Tensor:
     """Packed RGBA uint32 NumPy array -> its int32 bits on *device*."""
     return torch.from_numpy(
@@ -433,10 +447,11 @@ class RemapKernel:
       post-gather tint.  Returns ``torch.uint32``.
 
     Frames may be NumPy arrays or tensors; they are moved to the kernel's
-    device.  Outputs are tensors on that device.
+    device (``"cuda"`` unless the caller asks for another).  Outputs are
+    tensors on that device.
     """
 
-    def __init__(self, lensmap, palette=None, background=None, *, device):
+    def __init__(self, lensmap, palette=None, background=None, *, device="cuda"):
         from blinky_tpu_torch import palette as pal
 
         self.device = torch.device(device)
@@ -504,23 +519,9 @@ class RemapKernel:
                 self.device)
         return self._background_rgba
 
-    def _source(self, frames):
-        """Frames -> (contiguous tensor on the device, is_rgba); RGBA as
-        int32 bits, any other dtype normalized to u8 palette indices."""
-        if isinstance(frames, torch.Tensor):
-            is_rgba = frames.dtype == torch.uint32
-            if is_rgba:
-                frames = frames.view(torch.int32)
-            elif frames.dtype != torch.uint8:
-                frames = frames.to(torch.uint8)
-            return frames.to(self.device).contiguous(), is_rgba
-        a = np.asarray(frames)
-        is_rgba = a.dtype == np.uint32
-        a = a.view(np.int32) if is_rgba else a.astype(np.uint8, copy=False)
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device), is_rgba
-
     def __call__(self, frames, rubix: bool = False, decode_rgb: bool = False):
-        frames, is_rgba = self._source(frames)
+        frames, is_rgba = frames_tensor(frames)
+        frames = frames.to(self.device).contiguous()
         squeeze = frames.dim() == 3  # single frame [P, S, S]
         if squeeze:
             frames = frames[..., None]

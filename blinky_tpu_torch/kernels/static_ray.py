@@ -1,0 +1,353 @@
+"""Static-ray pose recomposition: pose playback with no lens math per pose.
+
+The port of :mod:`blinky_tpu.kernels.static_ray`.  In the reference a view
+rotation never touches the lensmap: the pose enters through the plate
+render basis (``F_RenderView``, ``engine/NQ/fisheye.c:750,2427-2450``),
+while the lensmap depends only on (lens, globe, zoom, size)
+(``fisheye.c:2346-2397``).  So:
+
+1. Once per (lens, zoom scale, size), build a per-pixel **ray table**: the
+   pre-rotation camera-frame rays of the inverse build, here always on the
+   host in float64 and truncated to float32
+   (:func:`ray_table_from_lens`), or texel-center rays rebuilt from a
+   lensmap (:func:`ray_table_from_lensmap`).
+2. Per pose, rotate the rays, resolve each to a plate and a texel
+   (:func:`blinky_tpu_torch.lensmap.builder.rays_to_lensmap_torch`, in
+   float32) and gather one texel per pixel from that pose's own frame.
+
+On a card step 2 is one hand-written CUDA kernel, K6
+(``blinky_static_ray_posed`` in ``csrc/posed.cu``): the index math and the
+gather fused, so the per-pose index table is never written.
+:func:`static_ray_posed` launches it for tensors on a card and runs its
+plain version, :func:`static_ray_posed_plain`, for tensors on the CPU.
+
+The JAX package evaluates a jittable lens in float32 on the device for its
+table; the port's table takes the JAX code's ``backend="numpy"`` route
+until the float32 lens stage is ported with the device builder, so its
+screens may differ from the JAX package's at a few boundary texels.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from blinky_tpu_torch.kernels import _build
+from blinky_tpu_torch.kernels.posed import (
+    check_gather_operands, check_render_scale, gather_posed_plain,
+    prep_posed_inputs,
+)
+from blinky_tpu_torch.lensmap.builder import (
+    TINT_NONE, LensMap, lens_ray_grid, plate_dists_f32, plate_resolver_mode,
+    rays_to_lensmap_torch, rubix_grid_consts,
+)
+from blinky_tpu_torch.palette import MAX_PLATES
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class RayTable:
+    """Per-pixel pre-rotation camera-frame rays for one (lens, zoom, size).
+
+    Components are stored **unnormalized** in float32, as three [H, W]
+    planes (NumPy arrays on the host, tensors after :meth:`device`), with
+    the bool [H, W] ``lens_valid`` mask.  A table built by the JAX package
+    (``blinky_tpu.kernels.static_ray.RayTable``) carries over by handing
+    its arrays, as NumPy arrays, to this constructor.
+    """
+
+    width_px: int
+    height_px: int
+    vx: object  # f32 [H, W]
+    vy: object
+    vz: object
+    lens_valid: object  # bool [H, W]
+    source: str = "lens"  # "lens" (exact rays) | "lensmap" (texel centers)
+
+    def device(self, device="cuda") -> "RayTable":
+        """The same table with its planes as contiguous tensors on
+        *device* (uploaded once; a table already there is returned as it
+        is)."""
+        dev = torch.device(device)
+
+        def up(a, dtype):
+            t = a if isinstance(a, torch.Tensor) else torch.from_numpy(
+                np.ascontiguousarray(a))
+            return t.to(device=dev, dtype=dtype).contiguous()
+
+        planes = {f: up(getattr(self, f), dt) for f, dt in (
+            ("vx", torch.float32), ("vy", torch.float32), ("vz", torch.float32),
+            ("lens_valid", torch.bool))}
+        if all(t is getattr(self, f) for f, t in planes.items()):
+            return self
+        return dataclasses.replace(self, **planes)
+
+
+def ray_table_from_lens(lens, scale, width_px, height_px,
+                        backend="numpy") -> RayTable:
+    """Ray table for an inverse-capable lens: run the lens stage once.
+
+    ``backend="numpy"`` (the only one ported) evaluates the lens math in
+    float64 on the host and truncates the rays to float32 at the table
+    boundary, as the JAX code's ``backend="numpy"`` branch does; the
+    per-pose rotation then runs in float32.  The JAX package's default
+    for a jittable lens evaluates the lens in float32 on the device; that
+    stage comes with the float32 device builder, and until then
+    ``backend="torch"`` raises ``NotImplementedError``.
+    """
+    if getattr(lens, "map_type", "inverse") != "inverse":
+        raise ValueError(
+            f"lens '{getattr(lens, 'name', lens)}' has no inverse map — "
+            "build its table from a forward-rasterized lensmap "
+            "(ray_table_from_lensmap)")
+    if backend == "torch":
+        raise NotImplementedError(
+            "ray_table_from_lens(backend='torch'), the float32 lens stage, "
+            "waits for the float32 device builder, which is not ported yet")
+    if backend != "numpy":
+        raise ValueError(f"unknown ray-table backend {backend!r}")
+    with np.errstate(all="ignore"):
+        vx, vy, vz, lens_valid = lens_ray_grid(
+            lens, np.float64(scale), width_px, height_px)
+    shape = (height_px, width_px)
+    return RayTable(
+        int(width_px), int(height_px),
+        np.broadcast_to(np.asarray(vx), shape).astype(np.float32),
+        np.broadcast_to(np.asarray(vy), shape).astype(np.float32),
+        np.broadcast_to(np.asarray(vz), shape).astype(np.float32),
+        np.asarray(lens_valid),
+        source="lens",
+    )
+
+
+def ray_table_from_lensmap(lm: LensMap, globe) -> RayTable:
+    """Ray table reconstructed from a BUILT lensmap (the route of the
+    forward-only lenses): each valid pixel's stored (plate, px, py)
+    becomes its texel CENTER ray via ``plate_uv_to_ray``
+    (``fisheye.c:1198-1214``) with the C types, u/v recentered in double
+    and truncated to f32, then the f32 ``VectorMA`` chain
+    ``dist*fwd + u*right + v*up``, left unnormalized.  Pure NumPy."""
+    plate = np.asarray(lm.plate)
+    px = np.asarray(lm.px)
+    py = np.asarray(lm.py)
+    valid = np.asarray(lm.valid)
+    S = lm.platesize
+    u32 = (((px.astype(np.float64) + 0.5) / S) - 0.5).astype(np.float32)
+    v32 = (-(((py.astype(np.float64) + 0.5) / S) - 0.5)).astype(np.float32)
+    fwd = np.asarray(globe.forward, np.float32)
+    rgt = np.asarray(globe.right, np.float32)
+    up = np.asarray(globe.up, np.float32)
+    dist = np.asarray(globe.dist, np.float32)
+    rx = np.zeros(plate.shape, np.float32)
+    ry = np.zeros(plate.shape, np.float32)
+    rz = np.zeros(plate.shape, np.float32)
+    for k in range(globe.numplates):
+        sel = valid & (plate == k)
+        # VectorMA order (mathlib.c:349-355): dist*fwd, then += u*right,
+        # then += v*up, all f32, left to right
+        rx = np.where(sel, dist[k] * fwd[k, 0] + u32 * rgt[k, 0] + v32 * up[k, 0], rx)
+        ry = np.where(sel, dist[k] * fwd[k, 1] + u32 * rgt[k, 1] + v32 * up[k, 1], ry)
+        rz = np.where(sel, dist[k] * fwd[k, 2] + u32 * rgt[k, 2] + v32 * up[k, 2], rz)
+    return RayTable(lm.width_px, lm.height_px, rx, ry, rz, valid,
+                    source="lensmap")
+
+
+def build_ray_table(lens, globe, scale, width_px, height_px,
+                    platesize=None, lensmap=None) -> RayTable:
+    """Route a lens to its ray-table source: an inverse lens to the host
+    float64 lens stage; a forward-only lens to the texel centers of
+    *lensmap* when its size and zoom scale match (the forward rasterizer
+    that would build one is not ported yet)."""
+    if platesize is None:
+        platesize = min(width_px, height_px)
+    if getattr(lens, "map_type", "inverse") == "inverse":
+        return ray_table_from_lens(lens, scale, width_px, height_px)
+    if lensmap is None or lensmap.width_px != width_px \
+            or lensmap.height_px != height_px \
+            or lensmap.platesize != platesize \
+            or lensmap.scale != float(scale):
+        raise NotImplementedError(
+            f"lens '{lens.name}' is forward-mapped; the forward rasterizer "
+            "is not ported yet")
+    return ray_table_from_lensmap(lensmap, globe)
+
+
+# the plate constants K6 takes by value: per plate forward, right, up, dist
+_PLATE_FLOATS = 10
+_RESOLVERS = {"maxdot": 0, "fast": 1}
+
+
+def _plate_consts(globe) -> np.ndarray:
+    out = np.zeros((MAX_PLATES, _PLATE_FLOATS), np.float32)
+    n = globe.numplates
+    out[:n, 0:3] = np.asarray(globe.forward, np.float32)
+    out[:n, 3:6] = np.asarray(globe.right, np.float32)
+    out[:n, 6:9] = np.asarray(globe.up, np.float32)
+    out[:n, 9] = plate_dists_f32(globe)
+    return out.reshape(-1)
+
+
+def _check_table(kernel, table, device):
+    hb, wb = table.height_px, table.width_px
+    for name, dtype in (("vx", torch.float32), ("vy", torch.float32),
+                        ("vz", torch.float32), ("lens_valid", torch.bool)):
+        t = getattr(table, name)
+        if (not isinstance(t, torch.Tensor) or t.dtype != dtype
+                or tuple(t.shape) != (hb, wb) or not t.is_contiguous()
+                or t.device != device):
+            raise ValueError(
+                f"{kernel}: ray table {name} must be a contiguous {dtype} "
+                f"tensor of shape {(hb, wb)} on {device} (RayTable.device)")
+
+
+def static_ray_posed_plain(src, table, bases, globe, platesize, numcells,
+                           cell_size, pad_size, expanded, background, k):
+    """K6's plain version: per pose, :func:`rays_to_lensmap_torch` of the
+    rotated table, the expanded source's tinted-half offset
+    (``expanded_flat_idx``, ``fisheye.c:2416-2419``), then
+    :func:`gather_posed_plain` -> [B, H, W]."""
+    S = platesize
+    lm = rays_to_lensmap_torch(globe, table.vx, table.vy, table.vz,
+                               table.lens_valid, S, numcells, cell_size,
+                               pad_size, view_basis=bases)
+    idx, valid = lm["flat_idx"], lm["valid"]
+    if expanded:
+        idx = idx + torch.where((lm["tint"] != TINT_NONE) & valid,
+                                MAX_PLATES * S * S, 0).to(torch.int32)
+    return gather_posed_plain(src, idx, valid, background, k)
+
+
+def static_ray_posed(src, table, bases, globe, platesize, numcells,
+                     cell_size, pad_size, expanded, background, k):
+    """K6, E with D fused: per pose, rotate the ray table by ``bases[b]``,
+    resolve plate and texel as :func:`rays_to_lensmap_torch` does, and
+    gather from pose ``b``'s frame -> [B, H, W].
+
+    ``src`` [B, N] u8 or int32 bits, pose-major (:func:`prep_posed_inputs`),
+    N = 6·S² or 12·S² when *expanded*; ``table`` a :class:`RayTable` on the
+    device, [H/k, W/k]; ``bases`` [B, 3, 3] f32; ``background`` [H, W] of
+    src's dtype; ``k`` the render scale.
+    """
+    name = "static_ray_posed"
+    check_gather_operands(name, src, table.height_px, table.width_px, background, k)
+    dev = src.device
+    _check_table(name, table, dev)
+    B, N = src.shape
+    S = int(platesize)
+    if N != (2 if expanded else 1) * MAX_PLATES * S * S:
+        raise ValueError(f"{name}: src has {N} texels a pose; platesize {S} "
+                         f"{'expanded ' if expanded else ''}needs "
+                         f"{(2 if expanded else 1) * MAX_PLATES * S * S}")
+    if (bases.dtype != torch.float32 or tuple(bases.shape) != (B, 3, 3)
+            or not bases.is_contiguous() or bases.device != dev):
+        raise ValueError(f"{name}: bases must be a contiguous float32 [B={B}, 3, 3] "
+                         f"tensor on {dev}, got {bases.dtype} {tuple(bases.shape)}")
+    mode = plate_resolver_mode(globe)
+    if not _build.on_card(name, dev):
+        return static_ray_posed_plain(src, table, bases, globe, S, numcells,
+                                      cell_size, pad_size, expanded, background, k)
+    from blinky_tpu_torch.globes.builtin import fast_resolver_consts
+
+    hb, wb = table.height_px, table.width_px
+    out = torch.empty((B, hb * k, wb * k), dtype=src.dtype, device=dev)
+    if out.numel():
+        plates = _plate_consts(globe)
+        fast_dist, fast_half = (float(np.float32(c)) for c in fast_resolver_consts())
+        unit, block, pad = rubix_grid_consts(S, numcells, cell_size, pad_size)
+        lib = _build.library()
+        with torch.cuda.device(dev):
+            rc = lib.blinky_static_ray_posed(
+                table.vx.data_ptr(), table.vy.data_ptr(), table.vz.data_ptr(),
+                table.lens_valid.data_ptr(), hb, wb, bases.data_ptr(), B,
+                plates.ctypes.data, globe.numplates, _RESOLVERS[mode],
+                fast_dist, fast_half, unit, block, pad, S, int(expanded),
+                src.data_ptr(), N, src.element_size(), background.data_ptr(),
+                int(k), out.data_ptr(), _build.stream(dev))
+        _build.check(rc, name)
+        static_ray_posed.launches += 1
+    return out
+
+
+static_ray_posed.launches = 0
+
+
+def background_tensor(background, height_px, width_px, device):
+    """A NumPy [H, W] background (u8, or u32 packed RGBA) -> its tensor on
+    *device*: u8, or the RGBA words as int32 bits."""
+    if background is None:
+        background = np.zeros((height_px, width_px), np.uint8)
+    background = np.asarray(background)
+    if background.size != height_px * width_px:
+        raise ValueError(
+            f"background must be [{height_px}, {width_px}], "
+            f"got {background.shape}")
+    background = background.reshape(height_px, width_px)
+    a = (background.view(np.int32) if background.dtype == np.uint32
+         else background.astype(np.uint8, copy=False))
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+class StaticRayPosedKernel:
+    """Per-frame-pose playback through a static ray table.
+
+    Usage::
+
+        k = StaticRayPosedKernel(lens, globe, W, H, scale, device="cuda")
+        out = k(frames, bases)   # [P, S, S, B] + [B, 3, 3] -> [B, H, W]
+
+    ``frames``: plain u8 plates, the expanded [12, ...] rubix layout, or
+    either as packed RGBA u32 (NumPy ``uint32`` or ``torch.uint32``).
+    Construction builds (or takes, as ``ray_table``) the table at the build
+    grid, 1/``render_scale`` of the screen, and uploads it to *device*
+    once.  Calls return tensors on *device*, ``torch.uint32`` for RGBA.
+    """
+
+    def __init__(self, lens, globe, width_px, height_px, scale,
+                 platesize=None, numcells=10, cell_size=4.0, pad_size=1.0,
+                 background=None, render_scale=1, ray_table=None,
+                 lensmap=None, *, device="cuda"):
+        plate_resolver_mode(globe)  # a globe without a twin raises here
+        self.device = torch.device(device)
+        self.lens = lens
+        self.globe = globe
+        self.width_px = int(width_px)
+        self.height_px = int(height_px)
+        self.render_scale = int(render_scale)
+        check_render_scale(self.width_px, self.height_px, self.render_scale)
+        self.platesize = int(platesize) if platesize else min(width_px, height_px)
+        self.scale = float(scale)
+        self.numcells = float(numcells)
+        self.cell_size = float(cell_size)
+        self.pad_size = float(pad_size)
+        k = self.render_scale
+        W, H = self.width_px // k, self.height_px // k
+        if ray_table is None:
+            # the table is built at the BUILD grid size with the k-scaled
+            # zoom (the every-k-th-ray identity, kernels/posed.py)
+            ray_table = build_ray_table(lens, globe, self.scale * k, W, H,
+                                        self.platesize, lensmap=lensmap)
+        if (ray_table.width_px, ray_table.height_px) != (W, H):
+            raise ValueError(
+                f"ray table is {ray_table.width_px}x{ray_table.height_px}, "
+                f"kernel build grid is {W}x{H}")
+        self.ray_table = ray_table.device(self.device)
+        self.background = background_tensor(background, self.height_px,
+                                             self.width_px, self.device)
+
+    def __call__(self, frames, bases):
+        src, bases, expanded = prep_posed_inputs(
+            frames, bases, self.platesize, self.background, self.device)
+        out = static_ray_posed(src, self.ray_table, bases, self.globe,
+                               self.platesize, self.numcells, self.cell_size,
+                               self.pad_size, expanded, self.background,
+                               self.render_scale)
+        return out.view(torch.uint32) if out.dtype == torch.int32 else out
+
+
+def static_ray_posed_sharded(*args, **kwargs):
+    """Not ported: the pose-sharded static-ray pipeline waits for
+    multi-GPU."""
+    raise NotImplementedError(
+        "static_ray_posed_sharded waits for multi-GPU support, which is not "
+        "ported to blinky_tpu_torch yet")

@@ -1,12 +1,15 @@
-"""Lensmap builder: the exact float64 host path.
+"""Lensmap builder: the exact float64 host path, and the float32 ray
+resolve on torch.
 
 Reference: ``create_lensmap`` (``engine/NQ/fisheye.c:2367-2397``) and the
 inverse scan ``resume_lensmap_inverse`` (``fisheye.c:2084-2124``).  This is
 :mod:`blinky_tpu.lensmap.builder`'s NumPy float64 branch (glibc libm via
 :mod:`blinky_tpu_torch.xmath`), which the static ``Session`` path always
 takes; it bit-equals the JAX package's ``build_lensmap(backend="numpy")``.
-The float32 device builder and the forward-lens rasterizer are not ported
-yet.
+:func:`rays_to_lensmap_torch` is the float32 second half of the JAX
+package's device builder, on tensors: the posed path's per-pose resolve.
+The float32 lens stage (the rest of the device builder) and the
+forward-lens rasterizer are not ported yet.
 """
 
 from __future__ import annotations
@@ -222,6 +225,157 @@ def rays_to_lensmap(globe, vx, vy, vz, lens_valid, platesize,
         plate=plate_out,
         px=np.where(valid, px, 0).astype(np.int32),
         py=np.where(valid, py, 0).astype(np.int32),
+        valid=valid,
+        tint=tint,
+        flat_idx=flat_idx,
+        plates_used=used,
+    )
+
+
+def plate_resolver_mode(globe) -> str:
+    """How the float32 torch builder (and the posed kernel) resolves a
+    ray's plate on *globe*: ``"maxdot"`` (the strict first-max of the
+    forward dots) or ``"fast"`` (the ``fast`` globe's resolver twin).  Any
+    other resolver (a script's ``globe_plate``) has no twin yet."""
+    from blinky_tpu_torch.globes.builtin import TORCH_RESOLVERS
+
+    if globe.plate_resolver is None:
+        return "maxdot"
+    if globe.plate_resolver in TORCH_RESOLVERS:
+        return "fast"
+    raise NotImplementedError(
+        f"globe '{globe.name}': its plate resolver has no float32 torch "
+        "twin (script globe resolvers are not ported yet)")
+
+
+def plate_dists_f32(globe) -> list:
+    """Per-plate pinhole distance as the float32 builder uses it:
+    ``0.5 / tan(fov/2)`` in double from the f32-stored fov
+    (``fisheye.c:2060``), then rounded to float32."""
+    return [float(np.float32(0.5 / math.tan(float(globe.fov_rad[k]) / 2)))
+            for k in range(globe.numplates)]
+
+
+def rubix_grid_consts(platesize, numcells, cell_size, pad_size):
+    """(unit size in pixels, block size, pad size) of the rubix grid test,
+    all doubles, as the float32 builder computes them: block size and unit
+    count from the float32 parameters in float32, the unit size in double
+    (the x64 test mesh and the C; see :func:`rubix_grid_mask`)."""
+    f32 = np.float32
+    nc, cs, ps = f32(numcells), f32(cell_size), f32(pad_size)
+    with np.errstate(all="ignore"):
+        block = ps + cs
+        num_units = nc * block + ps
+        unit = np.float64(platesize) / np.float64(num_units)
+    return float(unit), float(block), float(ps)
+
+
+def rays_to_lensmap_torch(globe, vx, vy, vz, lens_valid, platesize,
+                          numcells, cell_size, pad_size, view_basis=None):
+    """:func:`rays_to_lensmap` in float32 on torch tensors of any device:
+    the lens-independent half of the JAX package's float32 builder
+    (``blinky_tpu.lensmap.builder.rays_to_lensmap`` with ``dtype`` f32).
+
+    ``vx, vy, vz`` f32 and ``lens_valid`` bool, [H, W]; ``view_basis`` None
+    or a [..., 3, 3] tensor of (forward, right, up) rows, whose leading
+    dims the outputs gain.  Each operation rounds on its own, in the JAX
+    code's order: the f32 rotation ``rx*right + ry*up + rz*forward``;
+    ``normalize_c`` with an f32 sqrt (a zero length leaves the ray, a NaN
+    length is truthy); f32 ``DotProduct``s; the strict-``>`` first-max
+    plate (NaN keeps plate 0) or the ``fast`` resolver's twin; f32
+    ``safe_div``, ``* dist``, ``+ 0.5``; truncation of ``u * S``; the
+    rubix grid test in double (:func:`rubix_grid_consts`).  No ``addcmul``
+    or other fused multiply-add: the CUDA posed kernel, which this is the
+    plain version of, rounds the same way.  Returns the fields of
+    :func:`rays_to_lensmap` as tensors.
+    """
+    S = platesize
+    f32 = torch.float32
+    dev = vx.device
+    vx, vy, vz = (t.to(f32) for t in (vx, vy, vz))
+    if view_basis is not None:
+        vb = view_basis.to(device=dev, dtype=f32)
+        lead = tuple(vb.shape[:-2])
+
+        def c(i, j):  # basis row i (0 fwd, 1 right, 2 up), component j
+            return vb[..., i, j].reshape(lead + (1,) * vx.dim())
+
+        vx, vy, vz = (
+            vx * c(1, 0) + vy * c(2, 0) + vz * c(0, 0),
+            vx * c(1, 1) + vy * c(2, 1) + vz * c(0, 1),
+            vx * c(1, 2) + vy * c(2, 2) + vz * c(0, 2),
+        )
+
+    # normalize_c (mathlib.c:412-429) with the f32 sqrt of the f32 builder
+    sumsq = vx * vx + vy * vy + vz * vz
+    length = torch.sqrt(sumsq)
+    nonzero = length != 0
+    one = torch.ones_like(length)
+    inv = torch.where(nonzero, one / torch.where(nonzero, length, one), one)
+    vx, vy, vz = vx * inv, vy * inv, vz * inv
+
+    n = globe.numplates
+    frames = [np.asarray(a, np.float32) for a in (globe.forward, globe.right, globe.up)]
+
+    def dot3(vecs, k):  # f32 DotProduct with plate k's stored vec_t frame
+        return (vx * float(vecs[k, 0]) + vy * float(vecs[k, 1])
+                + vz * float(vecs[k, 2]))
+
+    dF = [dot3(frames[0], k) for k in range(n)]
+    if plate_resolver_mode(globe) == "fast":
+        from blinky_tpu_torch.globes.builtin import TORCH_RESOLVERS
+
+        plate = TORCH_RESOLVERS[globe.plate_resolver](vx, vy, vz)
+        pc = plate.clamp(0, n - 1)
+    else:
+        best = dF[0]
+        pc = torch.zeros(best.shape, dtype=torch.int32, device=dev)
+        for k in range(1, n):
+            m_k = dF[k] > best  # strict >: first maximum wins; NaN keeps 0
+            best = torch.where(m_k, dF[k], best)
+            pc = torch.where(m_k, k, pc)
+        plate = pc
+
+    # frame dots of the selected plate (ray_to_plate_uv, fisheye.c:2052-2058)
+    rz, rx, ry = dF[0], dot3(frames[1], 0), dot3(frames[2], 0)
+    dists = plate_dists_f32(globe)
+    dist = torch.full_like(rz, dists[0])
+    for k in range(1, n):
+        sel = pc == k
+        rz = torch.where(sel, dF[k], rz)
+        rx = torch.where(sel, dot3(frames[1], k), rx)
+        ry = torch.where(sel, dot3(frames[2], k), ry)
+        dist = torch.where(sel, dists[k], dist)
+
+    zero = rz == 0
+    den = torch.where(zero, 1.0, rz)
+    u = torch.where(zero, 0.0, rx / den) * dist + 0.5
+    v = torch.where(zero, 0.0, -ry / den) * dist + 0.5
+    uv_valid = ~zero & (u >= 0) & (u <= 1) & (v >= 0) & (v <= 1)
+    u = torch.where(uv_valid, u, 0.0)
+    v = torch.where(uv_valid, v, 0.0)
+    px = (u * S).to(torch.int32)  # C truncation cast, fisheye.c:1988
+    py = (v * S).to(torch.int32)
+    in_bounds = (px >= 0) & (px < S) & (py >= 0) & (py < S)  # fisheye.c:1971
+    valid = lens_valid.to(dev) & (plate >= 0) & uv_valid & in_bounds
+
+    # the rubix grid test (set_lensmap_grid, fisheye.c:1922-1960) in double;
+    # the unit size is a device tensor, so no backend turns the division
+    # into a multiply by its reciprocal
+    unit, block, pad = rubix_grid_consts(S, numcells, cell_size, pad_size)
+    unit = torch.tensor(unit, dtype=torch.float64, device=dev)
+    ongrid = ((torch.fmod(px.to(torch.float64) / unit, block) < pad)
+              | (torch.fmod(py.to(torch.float64) / unit, block) < pad))
+    tint = torch.where(valid & ~ongrid, pc, TINT_NONE).to(torch.uint8)
+
+    flat_idx = torch.where(valid, pc * (S * S) + py * S + px, 0).to(torch.int32)
+    plate_out = torch.where(valid, pc, -1).to(torch.int32)
+    used = torch.stack([((plate_out == p) & valid).flatten(-2).any(-1)
+                        for p in range(MAX_PLATES)], dim=-1)
+    return dict(
+        plate=plate_out,
+        px=torch.where(valid, px, 0).to(torch.int32),
+        py=torch.where(valid, py, 0).to(torch.int32),
         valid=valid,
         tint=tint,
         flat_idx=flat_idx,

@@ -3,9 +3,9 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from ``blinky_tpu_torch/csrc`` and drives
-the port's main path, ``Session.render`` at 1920x1080 (panini + cube,
-``f_fov 180``), then checks and times every kernel against its plain PyTorch
-version.  Phases:
+the port's two main paths at 1920x1080 (panini + cube, ``f_fov 180``):
+``Session.render`` and ``Session.render_posed``; then checks and times every
+kernel against its plain PyTorch version.  Phases:
 
 1. set-up: the card's name and power limit, the kernel build;
 2. main path: with every launch counter at 0, the Session renders a
@@ -26,11 +26,24 @@ version.  Phases:
    values below 128, and every u8 value), its extrapolation to a 1080p
    screen beside K1's 1080p time, K4 over 1 GiB, and the card's int8 and
    bf16 matrix-product rates at the one-hot gather's shapes, K3's yardstick;
-   the library call beside K3 (``torch.gather``) and K4 (``x.sum``).
+   the library call beside K3 (``torch.gather``) and K4 (``x.sum``);
+6. the posed path: with every launch counter at 0, ``Session.render_posed``
+   renders 64 seeded poses of the 1080p batch (K6) for the u8, the expanded
+   12-plane rubix and the RGBA u32 source at render_scale 1 and 2, and two
+   poses with ``exact=True`` (K5); the counters are read.  Each screen is
+   held bit-equal to ``static_ray_posed_plain`` on the card (8 poses at a
+   time), the exact screens to ``host_remap`` of the exact host build at each
+   pose, the identity pose near the static render; ``render_scale="auto"``
+   at 60 fps; K5 alone on the plain version's indices.  Then K6 on every
+   variant and K5 are timed at B=64 and B=1 beside their plain versions,
+   with their bytes, float32 operations and bound and the wrapper's host
+   time a call, and the ray-table build, the pose-major transpose, the host
+   steps of a call and ``render_posed``'s wall clock.
 
 The line before the card's name and power limit lists every kernel with its
-launches in phase 2's run, its time, its plain version's and its library
-call's time where one PyTorch call computes the same function, and its bound.
+launches in its path's run (phase 2 for K1-K4, phase 6 for K5 and K6), its
+time, its plain version's and its library call's time where one PyTorch call
+computes the same function, and its bound.
 
 Catches nothing: any failure exits non-zero before the last line, which is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 at once.
@@ -51,6 +64,11 @@ B_MAIN = 64
 ITERS = 10
 # an H100 SXM's published device-memory rate at 700 W
 HBM_BYTES_PER_S = 3.35e12
+# its float32 operations a second outside the tensor cores, one a lane and
+# clock (67 TFLOP/s counts a fused multiply-add as two), and its float64
+# ones (34 TFLOP/s, the same way); NVIDIA's H100 SXM data sheet
+F32_OPS_PER_S = 33.5e12
+F64_OPS_PER_S = 17e12
 
 
 def require(cond, what):
@@ -304,6 +322,9 @@ def main():
           f"({sr['plain_gbps']:.1f} GB/s), library call {sr['library']} "
           f"{sr['library_ms']:.4f} ms")
 
+    posed_launches, posed_rows = posed_phase(dev, frames, frames_dev, kernels)
+    launches.update(posed_launches)
+
     k1, k2 = main_ms["remap_gather"], main_ms["remap_lut"]
     rows = [
         ("remap_gather", "remap_gather.cu", "blinky_tpu/kernels/remap.py:88",
@@ -317,7 +338,7 @@ def main():
         ("stream_read", "sol.cu", "blinky_tpu/bench/sol.py:222",
          sr["max_abs_err"], sr["ms"], sr["plain_ms"],
          (sr["bytes"] + 4) / HBM_BYTES_PER_S * 1e3, "bytes", sr["library_ms"], sr["library"]),
-    ]
+    ] + posed_rows
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"blinky_tpu_torch/csrc/{src_file}",
          "replaces": replaces, "launches": launches[name], "max_abs_err": e,
@@ -330,6 +351,259 @@ def main():
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+POSED_B = 64
+CHUNK = 8
+
+
+def posed_poses(n, seed=6):
+    """n seeded (pitch, yaw, roll) poses: yaw over 0-360, pitch over +-60,
+    roll over +-30, with the identity first and (89, 180, 0) second."""
+    rng = np.random.default_rng(seed)
+    poses = np.stack([rng.uniform(-60, 60, n), rng.uniform(0, 360, n),
+                      rng.uniform(-30, 30, n)], axis=1)
+    poses[0] = (0.0, 0.0, 0.0)
+    poses[1] = (89.0, 180.0, 0.0)
+    return poses
+
+
+def k6_ops_per_pose_pixel(globe):
+    """Float32 operations K6 does for one pose and build pixel, as
+    csrc/posed.cu does them: the rotation (9 mul, 6 add), the normalize
+    (3 mul, 2 add, sqrt, compare, division, 3 mul), the plate choice (max-dot:
+    a 5-op dot and a compare a plate, less one compare, whose winning dot is
+    the chosen plate's forward dot; the fast globe: 2 compares, 2 divisions,
+    2 mul, 2 abs, 2 compares, then the chosen plate's forward dot), the
+    chosen plate's right and up dots, u and v (compare, 2 divisions, 2 mul,
+    2 add; the sign flip of -ry is free), four range compares, the
+    truncation (2 mul, 2 conversions)."""
+    from blinky_tpu_torch.lensmap.builder import plate_resolver_mode
+
+    n = globe.numplates
+    choose = 6 * n - 1 if plate_resolver_mode(globe) == "maxdot" else 10 + 5
+    return 15 + 11 + choose + 10 + 7 + 4 + 4
+
+
+def posed_phase(dev, frames, frames_dev, kernels):
+    """Phase 6: the posed path.  Returns (the launches of K5 and K6 in the
+    path's run, their rows of the kernels line)."""
+    from blinky_tpu_torch.api import Session
+    from blinky_tpu_torch.bench import autobatch
+    from blinky_tpu_torch.bench.sol import cuda_ms
+    from blinky_tpu_torch.kernels import posed, remap, static_ray
+    from blinky_tpu_torch.lensmap import build_lensmap, calc_scale
+    from blinky_tpu_torch.lensmap.builder import TINT_NONE, rays_to_lensmap_torch
+    from blinky_tpu_torch.palette import MAX_PLATES, rgba_lut
+
+    poses = posed_poses(POSED_B)
+    bases_np = posed.bases_from_pose_track(poses)
+    sess = Session(1920, 1080, device=dev)
+    S, H, W = 1080, 1080, 1920
+    t0 = time.perf_counter()
+    expanded_dev = torch.from_numpy(remap.expand_frames_tinted(frames, sess.palette)).to(dev)
+    lut = torch.from_numpy(rgba_lut(sess.palette).view(np.int32)).to(dev)
+    rgba_dev = lut[frames_dev.long()].view(torch.uint32)
+    phase(6, f"sources on the card (u8 {tuple(frames_dev.shape)}, expanded "
+          f"{tuple(expanded_dev.shape)}, RGBA u32) in {time.perf_counter() - t0:.3f} s")
+    sources = {"u8": frames_dev, "expanded": expanded_dev, "rgba": rgba_dev}
+
+    # ------------------------------------------------ the path, counted
+    for fn in list(kernels.values()) + [posed.gather_posed, static_ray.static_ray_posed]:
+        fn.launches = 0
+    outs, kerns = {}, {}
+    for kind, fr in sources.items():
+        for k in (1, 2):
+            t0 = time.perf_counter()
+            outs[kind, k] = sess.render_posed(fr, poses, render_scale=k)
+            torch.cuda.synchronize()
+            kerns[kind, k] = sess._posed_cache[1]
+            phase(6, f"render_posed {kind} render_scale={k}: {tuple(outs[kind, k].shape)} "
+                  f"{outs[kind, k].dtype} in {time.perf_counter() - t0:.3f} s (with the "
+                  "set-up of a new kernel: ray table and upload)")
+    exact = sess.render_posed(frames_dev[..., :2], poses[:2], exact=True)
+    torch.cuda.synchronize()
+    launches = {"posed_gather": posed.gather_posed.launches,
+                "static_ray_posed": static_ray.static_ray_posed.launches}
+    phase(6, f"launches in the posed path's run: {launches}")
+    for name, n in launches.items():
+        require(n >= 1, f"{name} was not launched by the posed path")
+
+    # ------------------------------------------------ checks
+    def operands(kind, k, lo, hi):
+        kern = kerns[kind, k]
+        src, bases, expanded = posed.prep_posed_inputs(
+            sources[kind][..., lo:hi], bases_np[lo:hi], S, kern.background, dev)
+        return kern, src, bases, expanded
+
+    def plain_chunk(kind, k, lo, hi):
+        kern, src, bases, expanded = operands(kind, k, lo, hi)
+        return static_ray.static_ray_posed_plain(
+            src, kern.ray_table, bases, kern.globe, S, kern.numcells, kern.cell_size,
+            kern.pad_size, expanded, kern.background, k)
+
+    err = 0
+    for (kind, k), out in outs.items():
+        bits = out.view(torch.int32) if out.dtype == torch.uint32 else out
+        for lo in range(0, POSED_B, CHUNK):
+            ref = plain_chunk(kind, k, lo, lo + CHUNK)
+            got = bits[lo:lo + CHUNK]
+            e = int((got.long() - ref.long()).abs().max())
+            require(torch.equal(got, ref), f"render_posed {kind} k={k} poses {lo}.. differ "
+                    f"from static_ray_posed_plain (max {e})")
+            err = max(err, e)
+    phase(6, f"render_posed at 1080p B={POSED_B}: u8, expanded and RGBA at render_scale 1 "
+          "and 2 bit-equal static_ray_posed_plain on the card")
+    static = sess.render(frames_dev[..., :1])[..., 0]
+    ident = float((outs["u8", 1][0] != static).float().mean())
+    phase(6, f"identity pose against the static exact render: {ident:.6f} of the pixels "
+          "differ (float32 uv against float64)")
+    require(ident <= 0.02, f"identity pose differs from the static render at {ident}")
+    scale = kerns["u8", 1].scale
+    for b in range(2):
+        lm = build_lensmap(sess.lens, sess.globe, scale, W, H, S, view_basis=tuple(bases_np[b]))
+        host = remap.host_remap(lm, frames[..., b], sess.palette)
+        require(np.array_equal(exact[b].cpu().numpy(), host),
+                f"render_posed(exact=True) pose {b} differs from host_remap")
+    phase(6, "render_posed(exact=True) of two poses bit-equal host_remap of the exact "
+          "host build at each pose")
+    t0 = time.perf_counter()
+    auto = sess.render_posed(frames_dev, poses, render_scale="auto", target_fps=60.0)
+    torch.cuda.synchronize()
+    t21, t81, t2h, k_hi = sess._auto_scale_probes[1]
+    k_auto = sess._posed_cache[0][-1]  # the kernel's key ends with its scale
+    require(torch.equal(auto, sess.render_posed(frames_dev, poses, render_scale=k_auto)),
+            "render_scale='auto' differs from its explicit scale")
+    phase(6, f"render_scale='auto' at 60 fps, B={POSED_B}: picks k={k_auto} in "
+          f"{time.perf_counter() - t0:.3f} s; probes (B=2, k=1) {t21 * 1e3:.3f} ms, "
+          f"(B=8, k=1) {t81 * 1e3:.3f} ms, (B=2, k={k_hi}) {t2h * 1e3:.3f} ms")
+    del auto, exact, outs
+
+    # K5 alone on the plain version's indices (u8, k=1)
+    def tables(kind, k, lo, hi):
+        kern, src, bases, expanded = operands(kind, k, lo, hi)
+        lm = rays_to_lensmap_torch(kern.globe, kern.ray_table.vx, kern.ray_table.vy,
+                                   kern.ray_table.vz, kern.ray_table.lens_valid, S,
+                                   kern.numcells, kern.cell_size, kern.pad_size,
+                                   view_basis=bases)
+        idx, valid = lm["flat_idx"], lm["valid"]
+        if expanded:
+            idx = idx + torch.where((lm["tint"] != TINT_NONE) & valid,
+                                    MAX_PLATES * S * S, 0).to(torch.int32)
+        return src, idx.contiguous(), valid.contiguous(), kern.background
+
+    parts = [tables("u8", 1, lo, lo + CHUNK) for lo in range(0, POSED_B, CHUNK)]
+    idx = torch.cat([p_[1] for p_ in parts])
+    valid = torch.cat([p_[2] for p_ in parts])
+    src5, _, _ = posed.prep_posed_inputs(frames_dev, bases_np, S, kerns["u8", 1].background,
+                                         dev)
+    bg5 = kerns["u8", 1].background
+    del parts
+    k5 = posed.gather_posed(src5, idx, valid, bg5, 1)
+    k5_ref = posed.gather_posed_plain(src5, idx, valid, bg5, 1)
+    k5_err = int((k5.long() - k5_ref.long()).abs().max())
+    require(torch.equal(k5, k5_ref), f"gather_posed differs from its plain version ({k5_err})")
+    phase(6, f"gather_posed (K5) at 1080p B={POSED_B} on the plain version's indices "
+          "bit-equals gather_posed_plain")
+
+    # ------------------------------------------------ times and bounds
+    def texels(idx, valid):  # distinct source texels the valid pixels read
+        return sum(int(torch.unique(idx[b][valid[b]]).numel()) for b in range(idx.shape[0]))
+
+    def reads(kind, k, batch):  # (distinct texels, valid pixels) over the batch
+        n_tex = n_valid = 0
+        for lo in range(0, batch, CHUNK):
+            _, idx_, valid_, _ = tables(kind, k, lo, min(batch, lo + CHUNK))
+            n_tex += texels(idx_, valid_)
+            n_valid += int(valid_.sum())
+        return n_tex, n_valid
+
+    n5 = idx.numel()
+    k5_bytes = n5 * 5 + texels(idx, valid) + bg5.numel() + k5.numel()
+    k5_ms = cuda_ms(lambda: posed.gather_posed(src5, idx, valid, bg5, 1), ITERS)
+    k5_plain = cuda_ms(lambda: posed.gather_posed_plain(src5, idx, valid, bg5, 1), ITERS)
+    flat = idx.reshape(POSED_B, -1).long()
+    gather_ms = cuda_ms(lambda: torch.gather(src5, 1, flat), ITERS)
+    k5_bound = k5_bytes / HBM_BYTES_PER_S * 1e3
+    phase(6, f"K5 gather_posed u8 1080p B={POSED_B}: kernel {k5_ms:.4f} ms, plain "
+          f"{k5_plain:.4f} ms, torch.gather(src, 1, idx) alone {gather_ms:.4f} ms (context, "
+          f"not the same function); {k5_bytes} bytes, bound {k5_bound:.4f} ms by bytes, "
+          f"{100 * k5_bound / k5_ms:.1f} % of it")
+    del idx, valid, flat, k5, k5_ref
+
+    k6 = {}
+    ops_pp = k6_ops_per_pose_pixel(sess.globe)
+    for batch in (POSED_B, 1):
+        for kind in sources:
+            for k in (1, 2):
+                texel_n, valid_n = reads(kind, k, batch)
+                kern, src, bases, expanded = operands(kind, k, 0, batch)
+                npix = kern.ray_table.vx.numel()
+                el = src.element_size()
+                nbytes = (npix * 13 + batch * 36 + texel_n * el + H * W * el
+                          + batch * H * W * el)
+                f32_ops = ops_pp * npix * batch
+                # the rubix grid test of a valid pixel: 2 divisions, 2 fmod,
+                # 2 compares in float64
+                f64_ops = 6 * valid_n if expanded else 0
+                bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+                ops_ms = (f32_ops / F32_OPS_PER_S + f64_ops / F64_OPS_PER_S) * 1e3
+                args = (src, kern.ray_table, bases, kern.globe, S, kern.numcells,
+                        kern.cell_size, kern.pad_size, expanded, kern.background, k)
+                ms, plain_ms = cuda_ms_pair(lambda: static_ray.static_ray_posed(*args),
+                                            lambda: static_ray.static_ray_posed_plain(*args))
+                # the wrapper's host time a call: where it is near the kernel
+                # time, the events measured the host, not the card
+                enqueue_ms = host_ms(lambda: [static_ray.static_ray_posed(*args)
+                                              for _ in range(ITERS)]) / ITERS
+                torch.cuda.synchronize()
+                bound = max(bytes_ms, ops_ms)
+                k6[batch, kind, k] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                                          bound_by="operations" if ops_ms >= bytes_ms
+                                          else "bytes")
+                phase(6, f"K6 static_ray_posed {kind} k={k} B={batch}: kernel {ms:.4f} ms, "
+                      f"plain {plain_ms:.4f} ms; {nbytes} bytes ({bytes_ms:.4f} ms), "
+                      f"{f32_ops} f32 + {f64_ops} f64 operations ({ops_ms:.4f} ms); bound "
+                      f"{bound:.4f} ms by {k6[batch, kind, k]['bound_by']}, "
+                      f"{100 * bound / ms:.1f} % of it; the wrapper's host time "
+                      f"{enqueue_ms:.4f} ms a call")
+                del args, src
+                torch.cuda.empty_cache()
+
+    for k in (1, 2):
+        t0 = time.perf_counter()
+        static_ray.ray_table_from_lens(sess.lens, scale * k, W // k, H // k)
+        phase(6, f"host ray table {W // k}x{H // k} (float64 lens stage, k={k}): "
+              f"{time.perf_counter() - t0:.3f} s")
+    bg = kerns["u8", 1].background
+    for batch in (POSED_B, 1):
+        tr = cuda_ms(lambda: posed.prep_posed_inputs(frames_dev[..., :batch],
+                                                     bases_np[:batch], S, bg, dev), ITERS)
+        # render_posed's host steps before its launches, each a best of 3;
+        # the zoom solve and the memory query run only for a new kernel key
+        # or a batch above the cap last read, so not in the timed calls below
+        steps = {"pose bases": lambda: posed.bases_from_pose_track(poses[:batch]),
+                 "zoom solve": lambda: calc_scale(sess.zoom, sess.lens, W, H),
+                 "memory query": lambda: autobatch.device_memory_bytes(dev)}
+        host = {name: min(host_ms(fn) for _ in range(3)) for name, fn in steps.items()}
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            sess.render_posed(frames_dev[..., :batch], poses[:batch])
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        phase(6, f"B={batch}: the pose-major transpose (prep_posed_inputs, u8) "
+              f"{tr:.4f} ms; host steps {', '.join(f'{n} {t:.3f} ms' for n, t in host.items())}; "
+              f"render_posed u8 k=1 host wall clock {', '.join(f'{w:.3f}' for w in walls)} ms")
+
+    main6 = k6[POSED_B, "u8", 1]
+    rows = [
+        ("posed_gather", "posed.cu", "blinky_tpu/kernels/posed.py:102", k5_err, k5_ms,
+         k5_plain, k5_bound, "bytes", None, None),
+        ("static_ray_posed", "posed.cu", "blinky_tpu/kernels/static_ray.py:220", err,
+         main6["ms"], main6["plain_ms"], main6["bound_ms"], main6["bound_by"], None, None),
+    ]
+    return launches, rows
 
 
 def source_rows(idx, valid, rows, fill):
@@ -355,6 +629,13 @@ def time_variant(name, kernel, plain, nbytes):
           f"{nbytes} bytes, bound {bound_ms:.4f} ms, {100 * bound_ms / ms:.1f} % of it "
           f"({nbytes / (ms * 1e-3) / 1e9:.1f} GB/s); bit-equal")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms)
+
+
+def host_ms(fn):
+    """Host wall-clock milliseconds of one call of ``fn()``, no synchronise."""
+    t0 = time.perf_counter()
+    fn()
+    return (time.perf_counter() - t0) * 1e3
 
 
 def cuda_ms_pair(kernel, plain):

@@ -13,10 +13,12 @@ import numpy as np
 import pytest
 import torch
 
+from blinky_tpu_torch import globes, lenses
 from blinky_tpu_torch.api import Session
 from blinky_tpu_torch.bench import sol
 from blinky_tpu_torch.io.cubemap import synthetic_cubemap_batch
-from blinky_tpu_torch.kernels import remap
+from blinky_tpu_torch.kernels import posed, remap, static_ray
+from blinky_tpu_torch.lensmap import Zoom, calc_scale
 from blinky_tpu_torch.palette import default_palette, tint_lut
 
 
@@ -258,3 +260,152 @@ def test_session_on_card_equals_host(cuda_device):
                            torch.zeros(3, dtype=torch.int32),
                            torch.zeros(3, dtype=torch.bool),
                            torch.zeros(3, dtype=torch.uint8))
+
+
+# ------------------------------------------------------------- the posed path
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int32])
+@pytest.mark.parametrize("k", [1, 2, 3])
+@pytest.mark.parametrize("B", [1, 5, 300])
+def test_posed_gather_equals_plain(cuda_device, dtype, k, B):
+    """K5 on a ragged 7x9 build grid, indices out of range either side,
+    holes in the mask, a per-pixel background."""
+    rng = np.random.default_rng(B * 10 + k)
+    N, hb, wb = 50, 7, 9
+    int32 = dtype == torch.int32
+    src = _texels(int32, (B, N), rng, cuda_device)
+    bg = _texels(int32, (hb * k, wb * k), rng, cuda_device)
+    idx = rng.integers(-N - 3, 2 * N + 3, (B, hb, wb)).astype(np.int32)
+    valid = rng.random((B, hb, wb)) < 0.8
+    args = [src] + [torch.from_numpy(a).to(cuda_device) for a in (idx, valid)] + [bg]
+    n0 = posed.gather_posed.launches
+    got = posed.gather_posed(*args, k)
+    assert posed.gather_posed.launches == n0 + 1
+    _equal(got, posed.gather_posed_plain(*args, k))
+
+
+def _posed_table(globe_name, hb, wb, device, odd_rays=True):
+    """The panini ray table of a globe on a ragged build grid, with NaN,
+    inf and zero-length rays planted in it."""
+    g = globes.get(globe_name)
+    lens = lenses.get("panini", g)
+    scale = calc_scale(Zoom("fov", 180), lens, wb, hb)
+    t = static_ray.ray_table_from_lens(lens, scale, wb, hb)
+    if odd_rays:
+        vx, vy, vz = (np.array(a) for a in (t.vx, t.vy, t.vz))
+        odd = [(0.0, 0.0, 0.0), (np.nan, 0.3, 1.0), (np.inf, 0.0, 1.0),
+               (0.0, -np.inf, np.inf), (1e-30, 0.0, 0.0), (0.0, 0.0, -1.0)]
+        for i, ray in enumerate(odd):
+            y, x = divmod(i * 7 + 3, wb)
+            vx[y, x], vy[y, x], vz[y, x] = ray
+        t = static_ray.RayTable(wb, hb, vx, vy, vz, np.asarray(t.lens_valid))
+    return g, t.device(device)
+
+
+def _texels(int32, shape, rng, device):
+    """Random u8 texels, or int32 ones (packed RGBA bits)."""
+    if int32:
+        a = rng.integers(-2**31, 2**31, shape, dtype=np.int64).astype(np.int32)
+    else:
+        a = rng.integers(0, 256, shape, dtype=np.uint8)
+    return torch.from_numpy(a).to(device)
+
+
+def _posed_source(kind, B, S, rng, device):
+    planes = 12 if kind == "expanded" else 6
+    return _texels(kind == "int32", (B, planes * S * S), rng, device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("globe_name", ["cube", "cube_corner", "cube_edge", "fast",
+                                        "tetra", "trism"])
+@pytest.mark.parametrize("kind", ["u8", "expanded", "int32"])
+@pytest.mark.parametrize("k", [1, 2, 3])
+def test_static_ray_posed_equals_plain(cuda_device, globe_name, kind, k):
+    """K6 against rays_to_lensmap_torch + gather_posed_plain on the card:
+    every globe and source kind, a ragged 37x23 build grid with NaN, inf
+    and zero rays, a non-default rubix grid, poses over the sphere."""
+    rng = np.random.default_rng(len(globe_name) * 9 + k)
+    hb, wb, S, B = 23, 37, 32, 11
+    g, table = _posed_table(globe_name, hb, wb, cuda_device)
+    poses = np.stack([rng.uniform(-90, 90, B), rng.uniform(0, 360, B),
+                      rng.uniform(-45, 45, B)], 1)
+    poses[0] = 0.0
+    bases = torch.from_numpy(posed.bases_from_pose_track(poses)).float().to(cuda_device)
+    src = _posed_source(kind, B, S, rng, cuda_device)
+    bg = _texels(kind == "int32", (hb * k, wb * k), rng, cuda_device)
+    grid = (7.0, 2.5, 1.5)
+    args = (src, table, bases, g, S, *grid, kind == "expanded", bg, k)
+    n0 = static_ray.static_ray_posed.launches
+    got = static_ray.static_ray_posed(*args)
+    assert static_ray.static_ray_posed.launches == n0 + 1
+    _equal(got, static_ray.static_ray_posed_plain(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 300])
+def test_static_ray_posed_batch_edges(cuda_device, B):
+    """One pose, and a batch that is not a multiple of the kernel's
+    eight-pose groups."""
+    rng = np.random.default_rng(B)
+    hb, wb, S = 24, 32, 24
+    g, table = _posed_table("cube", hb, wb, cuda_device)
+    poses = np.stack([rng.uniform(-90, 90, B), rng.uniform(0, 360, B),
+                      rng.uniform(-45, 45, B)], 1)
+    bases = torch.from_numpy(posed.bases_from_pose_track(poses)).float().to(cuda_device)
+    src = _posed_source("expanded", B, S, rng, cuda_device)
+    bg = torch.full((hb, wb), 7, dtype=torch.uint8, device=cuda_device)
+    args = (src, table, bases, g, S, 10.0, 4.0, 1.0, True, bg, 1)
+    _equal(static_ray.static_ray_posed(*args), static_ray.static_ray_posed_plain(*args))
+
+
+@pytest.mark.cuda
+def test_static_ray_posed_source_past_int32(cuda_device):
+    """B * N >= 2^31: 160 poses of an expanded 1080p source (2.24 GB of
+    u8).  The last pose reads past byte 2^31 and equals the plain version
+    of that pose alone."""
+    B, S = 160, 1080
+    N = 12 * S * S
+    assert B * N >= 2**31 and not posed.flat_gather_safe(B, N)
+    hb, wb = 48, 64
+    g, table = _posed_table("cube", hb, wb, cuda_device, odd_rays=False)
+    gen = torch.Generator(cuda_device).manual_seed(0)
+    src = torch.randint(0, 256, (B, N), dtype=torch.uint8, device=cuda_device,
+                        generator=gen)
+    poses = np.stack([np.linspace(-60, 60, B), np.linspace(0, 350, B), np.zeros(B)], 1)
+    bases = torch.from_numpy(posed.bases_from_pose_track(poses)).float().to(cuda_device)
+    bg = torch.zeros((hb, wb), dtype=torch.uint8, device=cuda_device)
+    got = static_ray.static_ray_posed(src, table, bases, g, S, 10.0, 4.0, 1.0, True, bg, 1)
+    for b in (0, B - 1):
+        ref = static_ray.static_ray_posed_plain(src[b:b + 1].contiguous(), table,
+                                                bases[b:b + 1], g, S, 10.0, 4.0, 1.0,
+                                                True, bg, 1)
+        _equal(got[b:b + 1], ref)
+
+
+@pytest.mark.cuda
+def test_session_render_posed_on_card_equals_cpu(cuda_device):
+    """render_posed end to end at a small size: the card's session (K6,
+    and K5 for exact=True) equals the CPU session's plain versions for
+    u8, expanded and RGBA sources at render_scale 1 and 2."""
+    W, H, S, B = 64, 48, 48, 5
+    frames = synthetic_cubemap_batch(S, B)
+    poses = np.array([(0.0, 0.0, 0.0), (5.0, -12.0, 0.0), (-20.0, 33.0, 10.0),
+                      (89.0, 180.0, 0.0), (0.0, 271.0, -45.0)])
+    card = Session(W, H, platesize=S, device=cuda_device)
+    cpu = Session(W, H, platesize=S, device="cpu")
+    sources = (frames, remap.expand_frames_tinted(frames, card.palette),
+               remap.frames_to_rgba(frames, card.palette))
+    for fr in sources:
+        for k in (1, 2):
+            n6 = static_ray.static_ray_posed.launches
+            got = card.render_posed(fr, poses, render_scale=k)
+            assert static_ray.static_ray_posed.launches == n6 + 1
+            assert got.device.type == "cuda"
+            _equal(got.cpu(), cpu.render_posed(fr, poses, render_scale=k))
+    n5 = posed.gather_posed.launches
+    got = card.render_posed(frames[..., :2], poses[:2], exact=True)
+    assert posed.gather_posed.launches == n5 + 1
+    _equal(got.cpu(), cpu.render_posed(frames[..., :2], poses[:2], exact=True))

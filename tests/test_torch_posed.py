@@ -1,0 +1,704 @@
+"""The port's posed path (blinky_tpu_torch's camera, kernels.posed,
+kernels.static_ray, lensmap.builder.rays_to_lensmap_torch, bench.autobatch
+and Session.render_posed) against blinky_tpu's, on the CPU, where every
+wrapper runs its plain PyTorch version.
+
+Sizes and poses are the JAX tests' (tests/test_static_ray.py): a 64x48
+screen, 48-pixel plates, five poses.  Inputs are made from numpy seeds and
+handed to both packages.  Tolerances:
+
+* 0 (bit for bit) against the JAX package's NumPy float32 path
+  (``rays_to_lensmap(..., np, np.float32)``) and its NumPy and host
+  functions: both round every float32 operation on its own, in one order;
+* ``CPU_FUZZ`` = 0.005 of mismatched pixels against the jitted JAX pipeline
+  on the same host ray table: XLA:CPU contracts and reorders float32
+  arithmetic, which flips boundary texels (the JAX package's own bound
+  for its jitted pipelines, tests/test_static_ray.py:46);
+* 0.02 of mismatched pixels for the port's Session against the JAX
+  Session, whose ray table takes the float32 device route where the
+  port's is the float64 host table (the JAX package's bound for a host
+  table against a device table, tests/test_static_ray.py:138).
+"""
+
+import threading
+import time
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from blinky_tpu import camera as jcamera
+from blinky_tpu import globes as jglobes
+from blinky_tpu import lenses as jlenses
+from blinky_tpu.api import Session as JSession
+from blinky_tpu.bench import autobatch as jautobatch
+from blinky_tpu.kernels import posed as jposed
+from blinky_tpu.kernels import static_ray as jstatic
+from blinky_tpu.lensmap import Zoom as JZoom
+from blinky_tpu.lensmap import build_lensmap as jbuild
+from blinky_tpu.lensmap import calc_scale as jcalc
+from blinky_tpu.lensmap.builder import TINT_NONE
+from blinky_tpu.lensmap.builder import rays_to_lensmap as jrays_to_lensmap
+from blinky_tpu_torch import camera, globes, lenses
+from blinky_tpu_torch.api import Session
+from blinky_tpu_torch.bench import autobatch
+from blinky_tpu_torch.io.cubemap import synthetic_cubemap_batch
+from blinky_tpu_torch.kernels import posed, static_ray
+from blinky_tpu_torch.kernels.remap import expand_frames_tinted, frames_to_rgba
+from blinky_tpu_torch.lensmap import Zoom, build_lensmap, calc_scale
+from blinky_tpu_torch.lensmap.builder import plate_resolver_mode, rays_to_lensmap_torch
+from blinky_tpu_torch.palette import default_palette
+
+W, H, S, B = 64, 48, 48, 5
+POSES = [(0.0, 0.0, 0.0), (5.0, -12.0, 0.0), (-20.0, 33.0, 10.0),
+         (89.0, 180.0, 0.0), (0.0, 271.0, -45.0)]
+CPU_FUZZ = 0.005
+GLOBES = ["cube", "cube_corner", "cube_edge", "fast", "tetra", "trism"]
+SOURCES = ["u8", "expanded", "rgba"]
+FIELDS = ("flat_idx", "valid", "tint", "plate", "px", "py")
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _np(t):
+    """A port output as NumPy, uint32 words for torch.uint32."""
+    if t.dtype == torch.uint32:
+        return t.view(torch.int32).numpy().view(np.uint32)
+    return t.numpy()
+
+
+def _source(kind, frames=None):
+    frames = synthetic_cubemap_batch(S, B) if frames is None else frames
+    if kind == "expanded":
+        return expand_frames_tinted(frames, default_palette())
+    if kind == "rgba":
+        return frames_to_rgba(frames, default_palette())
+    return frames
+
+
+def _mismatch(a, b):
+    return float((np.asarray(a) != np.asarray(b)).mean())
+
+
+def _panini(globe_name="cube", w=W, h=H):
+    """(JAX globe, JAX lens, port globe, port lens, scale) for panini at
+    f_fov 180."""
+    jg, pg = jglobes.get(globe_name), globes.get(globe_name)
+    jl, pl = jlenses.get("panini", jg), lenses.get("panini", pg)
+    scale = jcalc(JZoom("fov", 180), jl, w, h)
+    assert scale == calc_scale(Zoom("fov", 180), pl, w, h)
+    return jg, jl, pg, pl, scale
+
+
+# ------------------------------------------------------------------ camera
+
+
+@pytest.mark.parametrize("angles", POSES + [(33.3, -170.25, 12.5), (-89.9, 0.1, 180.0)])
+def test_view_basis_bit_equal(angles):
+    for a, b in zip(camera.view_basis_from_angles(*angles),
+                    jcamera.view_basis_from_angles(*angles)):
+        np.testing.assert_array_equal(a, b)
+    for a, b in zip(camera.angle_vectors(*np.float64(angles)),
+                    jcamera.angle_vectors(*np.float64(angles))):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
+def test_bases_from_pose_track_bit_equal():
+    rng = np.random.default_rng(4)
+    poses = np.concatenate([POSES, rng.uniform(-180, 180, (20, 3))])
+    got = posed.bases_from_pose_track(poses)
+    assert got.shape == (25, 3, 3) and got.dtype == np.float64
+    np.testing.assert_array_equal(got, jposed.bases_from_pose_track(poses))
+
+
+# --------------------------------------------------------- posed helpers
+
+
+@pytest.mark.parametrize("w,h,k", [(64, 48, 1), (64, 48, 2), (64, 48, 4), (64, 48, 0),
+                                   (64, 48, 5), (60, 36, 3), (64, 48, 8), (66, 48, 3)])
+def test_check_render_scale(w, h, k):
+    """The same verdict and the same message as the JAX package."""
+    try:
+        jposed.check_render_scale(w, h, k)
+        want = None
+    except ValueError as e:
+        want = str(e)
+    if want is None:
+        posed.check_render_scale(w, h, k)
+    else:
+        with pytest.raises(ValueError) as got:
+            posed.check_render_scale(w, h, k)
+        assert str(got.value) == want
+
+
+@pytest.mark.parametrize("batch,n", [(153, 12 * 1080 * 1080), (154, 12 * 1080 * 1080),
+                                     (1, 2**31 - 1), (1, 2**31), (2**16, 2**15)])
+def test_flat_gather_safe(batch, n):
+    assert posed.flat_gather_safe(batch, n) == jposed.flat_gather_safe(batch, n)
+
+
+@pytest.mark.parametrize("k", [1, 2, 3])
+@pytest.mark.parametrize("rgba", [False, True], ids=["u8", "u32"])
+def test_gather_posed_plain_equals_jax(k, rgba):
+    """K5's plain version against the JAX gather tail, with indices out of
+    range either side and holes in the mask."""
+    rng = np.random.default_rng(10 * k + rgba)
+    N, hb, wb = 40, 6, 7
+    dt = np.uint32 if rgba else np.uint8
+    src = rng.integers(0, 2**32 if rgba else 256, (B, N), dtype=np.uint64).astype(dt)
+    bg = rng.integers(0, 2**32 if rgba else 256, (hb * k, wb * k), dtype=np.uint64).astype(dt)
+    idx = rng.integers(-N - 5, 2 * N + 5, (B, hb, wb)).astype(np.int32)
+    valid = rng.random((B, hb, wb)) < 0.7
+    want = np.asarray(jposed.gather_posed(jnp.asarray(src), jnp.asarray(idx),
+                                          jnp.asarray(valid), jnp.asarray(bg), k, True))
+    bits = (lambda a: _t(a.view(np.int32))) if rgba else _t
+    got = posed.gather_posed(bits(src), _t(idx), _t(valid), bits(bg), k)
+    assert got.shape == (B, hb * k, wb * k)
+    np.testing.assert_array_equal(got.numpy().view(dt), want)
+
+
+@pytest.mark.parametrize("kind", SOURCES)
+def test_prep_posed_inputs_equals_jax(kind):
+    """The pose-major source: P < 6 planes pad to 6, the expanded layout
+    stays 12, RGBA rides as int32 bits; bases are cast to float32."""
+    frames = _source(kind)
+    if kind == "u8":
+        frames = frames[:4]
+    bases = jposed.bases_from_pose_track(POSES)
+    rgba = kind == "rgba"
+    jbg = jnp.zeros((H, W), jnp.uint32 if rgba else jnp.uint8)
+    jsrc, jb, jexp = jposed.prep_posed_inputs(frames, bases, S, jnp.float32, jbg)
+    bg = torch.zeros((H, W), dtype=torch.int32 if rgba else torch.uint8)
+    src, b, exp = posed.prep_posed_inputs(frames, bases, S, bg, "cpu")
+    assert exp == jexp
+    np.testing.assert_array_equal(src.numpy().view(np.uint32) if rgba else src.numpy(),
+                                  np.asarray(jsrc))
+    np.testing.assert_array_equal(b.numpy(), np.asarray(jb))
+    assert b.dtype == torch.float32
+
+
+def test_posed_background_dtype_guards():
+    """Both background/frames dtype mismatches raise, as in the JAX
+    package; so do a wrong plate size and a wrong bases shape."""
+    frames = synthetic_cubemap_batch(S, 2)
+    bases = np.tile(np.eye(3)[None], (2, 1, 1))
+    with pytest.raises(ValueError, match="u8 frames"):
+        posed.prep_posed_inputs(frames, bases, S, torch.zeros((H, W), dtype=torch.int32), "cpu")
+    with pytest.raises(ValueError, match="RGBA frames"):
+        posed.prep_posed_inputs(frames_to_rgba(frames, default_palette()), bases, S,
+                                torch.zeros((H, W), dtype=torch.uint8), "cpu")
+    bg = torch.zeros((H, W), dtype=torch.uint8)
+    with pytest.raises(ValueError, match="platesize"):
+        posed.prep_posed_inputs(frames, bases, S + 2, bg, "cpu")
+    with pytest.raises(ValueError, match="bases"):
+        posed.prep_posed_inputs(frames, bases[:1], S, bg, "cpu")
+    _, _, pg, pl, scale = _panini()
+    k = static_ray.StaticRayPosedKernel(pl, pg, W, H, scale, platesize=S,
+                                        background=np.zeros((H, W), np.uint32),
+                                        device="cpu")
+    with pytest.raises(ValueError, match="u8 frames"):
+        k(frames, bases)
+
+
+# ------------------------------------------------- the float32 ray resolve
+
+
+@pytest.mark.parametrize("globe_name", GLOBES)
+@pytest.mark.parametrize("grid", [(10, 4.0, 1.0), (7.0, 3.3, 1.7)], ids=["default", "f32"])
+def test_rays_to_lensmap_torch_equals_numpy_f32(globe_name, grid):
+    """rays_to_lensmap_torch (K6's plain version) against the JAX package's
+    NumPy float32 builder, every field, all five poses in one batched call.
+    The non-default rubix grid is passed to both as float32, as the jitted
+    pipeline carries it."""
+    jg, jl, pg, _, scale = _panini(globe_name)
+    t = jstatic.ray_table_from_lens(jl, scale, W, H, backend="numpy")
+    bases = jposed.bases_from_pose_track(POSES)
+    grid32 = tuple(np.float32(v) for v in grid)
+    got = rays_to_lensmap_torch(pg, _t(t.vx), _t(t.vy), _t(t.vz), _t(t.lens_valid), S,
+                                *(float(v) for v in grid32), view_basis=_t(bases))
+    for b, basis in enumerate(bases):
+        want = jrays_to_lensmap(jg, t.vx, t.vy, t.vz, t.lens_valid, S, *grid32,
+                                np, np.float32, view_basis=tuple(basis))
+        for f in FIELDS:
+            np.testing.assert_array_equal(got[f][b].numpy(), np.asarray(want[f]), err_msg=f)
+        np.testing.assert_array_equal(got["plates_used"][b].numpy(),
+                                      np.asarray(want["plates_used"]))
+
+
+def test_rays_to_lensmap_torch_odd_rays():
+    """NaN, inf and zero-length rays resolve as in the JAX package: a zero
+    ray stays unnormalized, NaN dots keep plate 0, nothing casts a NaN."""
+    jg, jl, pg, _, scale = _panini("fast")
+    t = jstatic.ray_table_from_lens(jl, scale, W, H, backend="numpy")
+    vx, vy, vz = (np.array(a) for a in (t.vx, t.vy, t.vz))
+    odd = [(0.0, 0.0, 0.0), (np.nan, 0.3, 1.0), (np.inf, 0.0, 1.0), (0.0, -np.inf, np.inf),
+           (1e-30, 0.0, 0.0), (0.0, 0.0, -1.0), (0.0, 0.0, 1e-38)]
+    for i, ray in enumerate(odd):
+        vx[i, i], vy[i, i], vz[i, i] = ray
+    bases = jposed.bases_from_pose_track(POSES)
+    for name in ("fast", "cube"):
+        g, p = jglobes.get(name), globes.get(name)
+        got = rays_to_lensmap_torch(p, _t(vx), _t(vy), _t(vz), _t(t.lens_valid), S,
+                                    10.0, 4.0, 1.0, view_basis=_t(bases))
+        for b, basis in enumerate(bases):
+            want = jrays_to_lensmap(g, vx, vy, vz, t.lens_valid, S, 10.0, 4.0, 1.0,
+                                    np, np.float32, view_basis=tuple(basis))
+            for f in FIELDS:
+                np.testing.assert_array_equal(got[f][b].numpy(), np.asarray(want[f]))
+
+
+def test_resolver_modes():
+    """The fast globe takes its resolver's float32 twin; the others the
+    max-dot select; a resolver with no twin (a script globe's) raises."""
+    import dataclasses
+
+    assert [plate_resolver_mode(globes.get(n)) for n in GLOBES] == [
+        "fast" if n == "fast" else "maxdot" for n in GLOBES]
+    lua_like = dataclasses.replace(globes.get("fast"), plate_resolver=lambda *a: 0)
+    with pytest.raises(NotImplementedError, match="twin"):
+        plate_resolver_mode(lua_like)
+    _, _, _, pl, scale = _panini()
+    with pytest.raises(NotImplementedError, match="twin"):
+        static_ray.StaticRayPosedKernel(pl, lua_like, W, H, scale, platesize=S, device="cpu")
+
+
+# -------------------------------------------------------------- ray tables
+
+
+@pytest.mark.parametrize("globe_name", ["cube", "fast", "tetra"])
+def test_ray_table_from_lens_equals_jax(globe_name):
+    jg, jl, pg, pl, scale = _panini(globe_name)
+    want = jstatic.ray_table_from_lens(jl, scale, W, H, backend="numpy")
+    got = static_ray.ray_table_from_lens(pl, scale, W, H)
+    assert (got.width_px, got.height_px, got.source) == (W, H, "lens")
+    for f in ("vx", "vy", "vz", "lens_valid"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
+        assert getattr(got, f).dtype == getattr(want, f).dtype
+    with pytest.raises(NotImplementedError, match="float32 lens stage"):
+        static_ray.ray_table_from_lens(pl, scale, W, H, backend="torch")
+    dev = got.device("cpu")
+    assert dev.vx.dtype == torch.float32 and dev.lens_valid.dtype == torch.bool
+
+
+@pytest.mark.parametrize("globe_name", ["cube", "fast", "tetra"])
+def test_ray_table_from_lensmap_equals_jax(globe_name):
+    jg, jl, pg, pl, scale = _panini(globe_name)
+    want = jstatic.ray_table_from_lensmap(
+        jbuild(jl, jg, scale, W, H, S, backend="numpy").to_numpy(), jg)
+    got = static_ray.ray_table_from_lensmap(build_lensmap(pl, pg, scale, W, H, S), pg)
+    assert got.source == "lensmap"
+    for f in ("vx", "vy", "vz", "lens_valid"):
+        np.testing.assert_array_equal(getattr(got, f), np.asarray(getattr(want, f)))
+
+
+# ------------------------------------------------------ the static-ray kernel
+
+
+def _jax_numpy_f32_screens(kind, k, frames, bg=None):
+    """The JAX package's posed screens through its NumPy float32 index
+    math and its gather tail: per pose ``rays_to_lensmap(..., np,
+    np.float32)`` of the host ray table, the expanded offset, then
+    ``gather_posed``."""
+    jg, jl, _, _, scale = _panini()
+    t = jstatic.ray_table_from_lens(jl, scale * k, W // k, H // k, backend="numpy")
+    bases = jposed.bases_from_pose_track(POSES)
+    rgba = kind == "rgba"
+    jbg = jnp.asarray(np.zeros((H, W), np.uint32 if rgba else np.uint8) if bg is None else bg)
+    src, _, expanded = jposed.prep_posed_inputs(frames, bases, S, jnp.float32, jbg)
+    idx, valid = [], []
+    for basis in bases:
+        lm = jrays_to_lensmap(jg, t.vx, t.vy, t.vz, t.lens_valid, S, 10.0, 4.0, 1.0,
+                              np, np.float32, view_basis=tuple(basis))
+        i = lm["flat_idx"]
+        if expanded:
+            i = i + np.where((lm["tint"] != TINT_NONE) & lm["valid"], 6 * S * S, 0)
+        idx.append(i.astype(np.int32))
+        valid.append(lm["valid"])
+    return np.asarray(jposed.gather_posed(src, jnp.asarray(np.stack(idx)),
+                                          jnp.asarray(np.stack(valid)), jbg, k, True))
+
+
+@pytest.mark.parametrize("kind", SOURCES)
+@pytest.mark.parametrize("k", [1, 2])
+def test_static_ray_kernel_equals_jax_numpy_f32(kind, k):
+    """StaticRayPosedKernel on the CPU (rays_to_lensmap_torch +
+    gather_posed_plain) bit-equals the JAX package's NumPy float32 index
+    math fed to its gather tail."""
+    _, _, pg, pl, scale = _panini()
+    frames = _source(kind)
+    rng = np.random.default_rng(k)
+    bg = rng.integers(0, 256, (H, W), dtype=np.uint8)
+    if kind == "rgba":
+        bg = frames_to_rgba(bg, default_palette())
+    kern = static_ray.StaticRayPosedKernel(pl, pg, W, H, scale, platesize=S,
+                                           background=bg, render_scale=k, device="cpu")
+    got = kern(frames, posed.bases_from_pose_track(POSES))
+    assert got.dtype == (torch.uint32 if kind == "rgba" else torch.uint8)
+    np.testing.assert_array_equal(_np(got), _jax_numpy_f32_screens(kind, k, frames, bg))
+
+
+@pytest.mark.parametrize("kind", SOURCES)
+@pytest.mark.parametrize("k", [1, 2])
+def test_static_ray_kernel_within_cpu_fuzz_of_jitted_jax(kind, k):
+    """Against the JAX package's jitted StaticRayPosedKernel fed the same
+    host ray table: XLA:CPU's contraction flips a few boundary texels."""
+    jg, jl, pg, pl, scale = _panini()
+    frames = _source(kind)
+    bg = np.zeros((H, W), np.uint32 if kind == "rgba" else np.uint8)
+    jt = jstatic.ray_table_from_lens(jl, scale * k, W // k, H // k, backend="numpy")
+    jk = jstatic.StaticRayPosedKernel(jl, jg, W, H, scale, platesize=S, background=bg,
+                                      render_scale=k, ray_table=jt)
+    table = static_ray.RayTable(W // k, H // k, jt.vx, jt.vy, jt.vz, jt.lens_valid)
+    pk = static_ray.StaticRayPosedKernel(pl, pg, W, H, scale, platesize=S, background=bg,
+                                         render_scale=k, ray_table=table, device="cpu")
+    bases = jposed.bases_from_pose_track(POSES)
+    got, want = _np(pk(frames, bases)), np.asarray(jk(frames, bases))
+    n_bad = int((got != want).sum())
+    print(f"{kind} k={k}: {n_bad} of {got.size} pixels differ from the jitted pipeline")
+    assert _mismatch(got, want) <= CPU_FUZZ
+
+
+def test_static_ray_kernel_validates():
+    _, _, pg, pl, scale = _panini()
+    t = static_ray.ray_table_from_lens(pl, scale, W - 2, H)
+    with pytest.raises(ValueError, match="ray table"):
+        static_ray.StaticRayPosedKernel(pl, pg, W, H, scale, platesize=S, ray_table=t,
+                                        device="cpu")
+    with pytest.raises(ValueError, match="render_scale"):
+        static_ray.StaticRayPosedKernel(pl, pg, W, H, scale, platesize=S, render_scale=5,
+                                        device="cpu")
+    kern = static_ray.StaticRayPosedKernel(pl, pg, W, H, scale, platesize=S, device="cpu")
+    src, bases, _ = posed.prep_posed_inputs(_source("u8")[..., :2],
+                                            np.tile(np.eye(3), (2, 1, 1)), S,
+                                            kern.background, "cpu")
+    with pytest.raises(ValueError, match="texels a pose"):
+        static_ray.static_ray_posed(src[:, :-1].contiguous(), kern.ray_table, bases, pg, S,
+                                    10.0, 4.0, 1.0, False, kern.background, 1)
+    with pytest.raises(ValueError, match="bases"):
+        static_ray.static_ray_posed(src, kern.ray_table, bases.double(), pg, S,
+                                    10.0, 4.0, 1.0, False, kern.background, 1)
+    with pytest.raises(ValueError, match="ray table vx"):
+        static_ray.static_ray_posed(src, static_ray.ray_table_from_lens(pl, scale, W, H),
+                                    bases, pg, S, 10.0, 4.0, 1.0, False, kern.background, 1)
+
+
+def test_unported_posed_entry_points_raise():
+    for fn, what in ((jposed.PosedRemapKernel, posed.PosedRemapKernel),
+                     (jposed.posed_remap_sharded, posed.posed_remap_sharded),
+                     (jposed.zoom_sweep_remap, posed.zoom_sweep_remap),
+                     (jstatic.static_ray_posed_sharded, static_ray.static_ray_posed_sharded)):
+        assert fn.__name__ == what.__name__
+        with pytest.raises(NotImplementedError, match="float32 device|multi-GPU|sweep"):
+            what(None, None)
+
+
+# ----------------------------------------------------------------- batching
+
+
+def test_autobatch_models_equal_jax():
+    for args in ((48, 6), (48, 4), (1080, 12), (1080, 6)):
+        for rgba in (False, True):
+            for expanded in (False, True):
+                assert (autobatch.planes_bytes_per_lane(*args, rgba, expanded)
+                        == jautobatch.planes_bytes_per_lane(*args, rgba, expanded))
+        assert autobatch.screen_bytes_per_lane(1920, 1080, True) == \
+            jautobatch.screen_bytes_per_lane(1920, 1080, True)
+    for budget in (10**3, 10**9, 80 * 10**9):
+        assert (autobatch.feasible_batch(7e6, 2e6, budget=budget)
+                == jautobatch.feasible_batch(7e6, 2e6, budget=budget, quantum=1))
+    # K6 writes no index table: twice the planes (the caller's and the
+    # pose-major copy) and the screen
+    assert autobatch.posed_bytes_per_lane(1080, 6, 1920, 1080) == \
+        2 * 6 * 1080 * 1080 + 1920 * 1080
+    assert autobatch.feasible_batch(1, 0, device="cpu") >= 1
+
+
+# ------------------------------------------------------------------ Session
+
+
+def _sessions(**kw):
+    return JSession(W, H, platesize=S, **kw), Session(W, H, platesize=S, device="cpu")
+
+
+@pytest.mark.parametrize("kind,k", [("u8", 1), ("u8", 2), ("expanded", 1), ("rgba", 1),
+                                    ("rgba", 2)])
+def test_session_render_posed_vs_jax_session(kind, k):
+    js, ps = _sessions()
+    frames = _source(kind)
+    want = np.asarray(js.render_posed(frames, np.asarray(POSES), render_scale=k))
+    got = ps.render_posed(frames, np.asarray(POSES), render_scale=k)
+    assert got.shape == want.shape == (B, H, W)
+    assert got.dtype == (torch.uint32 if kind == "rgba" else torch.uint8)
+    print(f"{kind} k={k}: {int((_np(got) != want).sum())} of {want.size} pixels differ")
+    assert _mismatch(_np(got), want) <= 0.02
+
+
+@pytest.mark.parametrize("kind,k", [("u8", 1), ("u8", 2), ("expanded", 1), ("rgba", 2)])
+def test_session_render_posed_exact_equals_jax(kind, k):
+    """exact=True: float64 host builds per pose on both sides, bit for
+    bit; a set background shows where no plate maps."""
+    js, ps = _sessions()
+    bg = np.random.default_rng(3).integers(0, 256, (H, W), dtype=np.uint8)
+    js.set_background(bg)
+    ps.set_background(bg)
+    frames = _source(kind)
+    want = np.asarray(js.render_posed(frames, np.asarray(POSES), render_scale=k, exact=True))
+    got = ps.render_posed(frames, np.asarray(POSES), render_scale=k, exact=True)
+    np.testing.assert_array_equal(_np(got), want)
+
+
+def test_render_posed_identity_near_static_render():
+    """The identity pose resolves uv in float32 where the static render
+    resolves it in float64, so texels whose sample lies on an edge may
+    flip.  At this size many samples lie exactly on edges (the JAX
+    package's own split is 10 % here); the port flips no more of them
+    than the JAX package does."""
+    js, ps = _sessions()
+    frames = _source("u8")[..., :1]
+    ident = np.zeros((1, 3))
+    port = _mismatch(ps.render_posed(frames, ident)[0].numpy(), ps.render(frames)[..., 0].numpy())
+    jax = _mismatch(np.asarray(js.render_posed(frames, ident))[0],
+                    np.asarray(js.render(frames))[..., 0])
+    print(f"identity pose against the static render: port {port}, JAX package {jax}")
+    assert port <= jax
+
+
+def test_render_posed_accepts_bases_and_tensors():
+    _, ps = _sessions()
+    frames = _source("rgba")
+    want = ps.render_posed(frames, np.asarray(POSES))
+    bases = posed.bases_from_pose_track(POSES)
+    frames_t = _t(frames.view(np.int32)).view(torch.uint32)
+    assert torch.equal(ps.render_posed(frames_t, bases), want)
+
+
+def test_render_posed_rubix_rides_the_source():
+    """The f_rubix flag is not consulted: the source's layout decides."""
+    _, ps = _sessions()
+    frames = _source("u8")
+    off = ps.render_posed(frames, np.asarray(POSES))
+    ps.cmd("f_rubix")
+    assert ps.rubix_enabled
+    assert torch.equal(ps.render_posed(frames, np.asarray(POSES)), off)
+    tinted = ps.render_posed(_source("expanded", frames), np.asarray(POSES))
+    assert not torch.equal(tinted, off)
+
+
+def test_render_posed_background_and_palette_invalidate_cache():
+    js, ps = _sessions()
+    frames = _source("u8")
+    first = ps.render_posed(frames, np.asarray(POSES))
+    bg = np.full((H, W), 77, np.uint8)
+    js.set_background(bg)
+    ps.set_background(bg)
+    second = ps.render_posed(frames, np.asarray(POSES))
+    assert not torch.equal(first, second)
+    assert _mismatch(_np(second), np.asarray(js.render_posed(frames, np.asarray(POSES)))) <= 0.02
+    rgba = ps.render_posed(_source("rgba", frames), np.asarray(POSES))
+    pal = default_palette().copy()
+    pal[77] = (1, 2, 3)
+    ps.palette = pal
+    assert not torch.equal(ps.render_posed(frames_to_rgba(frames, pal), np.asarray(POSES)),
+                           rgba)
+
+
+def test_render_posed_empty_batch():
+    js, ps = _sessions()
+    for kind in ("u8", "rgba"):
+        empty = _source(kind)[..., :0]
+        got = ps.render_posed(empty, np.zeros((0, 3)))
+        want = js.render_posed(empty, np.zeros((0, 3)))
+        assert got.shape == want.shape == (0, H, W)
+        assert got.dtype == (torch.uint32 if kind == "rgba" else torch.uint8)
+        assert ps.render_posed(empty, np.zeros((0, 3)), render_scale="auto").shape == (0, H, W)
+    with pytest.raises(ValueError, match="render_scale"):
+        ps.render_posed(_source("u8")[..., :0], np.zeros((0, 3)), render_scale=5)
+
+
+def test_render_posed_batch_mismatch_raises():
+    _, ps = _sessions()
+    two = _source("u8")[..., :2]
+    for frames, poses in ((two, np.zeros((1, 3))), (two, np.zeros((3, 3))),
+                          (two[..., :0], np.zeros((5, 3)))):
+        with pytest.raises(ValueError, match="bases"):
+            ps.render_posed(frames, poses)
+    with pytest.raises(ValueError, match="frame batch"):
+        ps.render_posed(two[..., 0], np.zeros((1, 3)))
+
+
+def test_render_posed_needs_fisheye_and_a_lens():
+    js, ps = _sessions()
+    frames = _source("u8")
+    for s in (js, ps):
+        s.cmd("fisheye 0")
+        with pytest.raises(ValueError, match="fisheye enabled"):
+            s.render_posed(frames, np.asarray(POSES))
+    js, ps = _sessions()
+    for s in (js, ps):
+        s.cmd("f_lens nosuch")
+        with pytest.raises(ValueError, match="valid lens"):
+            s.render_posed(frames, np.asarray(POSES))
+
+
+def test_render_posed_chunks_under_a_tiny_budget(monkeypatch):
+    """A budget that holds two poses splits the batch; the chunks
+    together equal one call.  The budget is read once a key: a session
+    that already planned this batch does not read it again."""
+    _, ps = _sessions()
+    frames = _source("expanded")
+    whole = ps.render_posed(frames, np.asarray(POSES))
+    lane = autobatch.posed_bytes_per_lane(S, 12, W, H)
+    calls, reads = [], []
+    real = static_ray.static_ray_posed
+
+    def counted(src, *a, **kw):
+        calls.append(src.shape[0])
+        return real(src, *a, **kw)
+
+    def budget(device):
+        reads.append(device)
+        return 2 * lane + 1
+
+    monkeypatch.setattr(autobatch, "effective_budget_bytes", budget)
+    monkeypatch.setattr(static_ray, "static_ray_posed", counted)
+    assert torch.equal(ps.render_posed(frames, np.asarray(POSES)), whole)
+    assert calls == [5] and reads == []
+    _, fresh = _sessions()
+    assert torch.equal(fresh.render_posed(frames, np.asarray(POSES)), whole)
+    assert calls == [5, 2, 2, 1] and len(reads) == 1
+
+
+def test_render_posed_auto_render_scale():
+    """render_scale="auto": an unlimited frame time picks native, an
+    impossible one the largest valid k, each bit-equal to the explicit
+    render_scale; the probes are cached."""
+    _, ps = _sessions()
+    frames = _source("u8")[..., :3]
+    poses = np.stack([np.zeros(3), np.linspace(0, 40, 3), np.zeros(3)], 1)
+    auto1 = ps.render_posed(frames, poses, render_scale="auto", target_fps=1e-6)
+    assert torch.equal(auto1, ps.render_posed(frames, poses, render_scale=1))
+    auto8 = ps.render_posed(frames, poses, render_scale="auto", target_fps=1e9)
+    assert torch.equal(auto8, ps.render_posed(frames, poses, render_scale=8))
+    key, probes = ps._auto_scale_probes
+    assert len(probes) == 4 and probes[3] == 8 and all(t > 0 for t in probes[:3])
+    again = ps.render_posed(frames, poses, render_scale="auto", target_fps=1e-6)
+    assert ps._auto_scale_probes[1] is probes
+    assert torch.equal(again, auto1)
+    # the probes' tables landed in the stash for the real kernels
+    assert set(ps._ray_tables[1]) >= {1, 8}
+
+
+def _gate_native_table(monkeypatch, fail=False):
+    """Hold the native-size ray-table build until released (or make it
+    fail); coarser builds pass straight through."""
+    real = static_ray.ray_table_from_lens
+    state = {"release": threading.Event(), "started": [], "calls": []}
+
+    def gated(lens, scale, w, h, *a, **kw):
+        state["calls"].append((w, h))
+        if (w, h) == (W, H):
+            state["started"].append(time.monotonic())
+            if fail:
+                raise RuntimeError("table build exploded")
+            assert state["release"].wait(30), "test deadlock"
+        return real(lens, scale, w, h, *a, **kw)
+
+    monkeypatch.setattr(static_ray, "ray_table_from_lens", gated)
+    return state
+
+
+def _drain(sess):
+    deadline = time.time() + 30
+    while sess.posed_pending and time.time() < deadline:
+        time.sleep(0.01)
+    assert not sess.posed_pending
+
+
+def test_render_posed_nonblocking_preview_then_swap(monkeypatch):
+    """block=False: the first call returns the coarse (k=4) preview while
+    the native table builds on a thread; once it lands the next call
+    serves the native screens, equal to a blocking session's."""
+    gate = _gate_native_table(monkeypatch)
+    _, ps = _sessions()
+    frames = _source("u8")
+    out = ps.render_posed(frames, np.asarray(POSES), block=False)
+    assert out.shape == (B, H, W) and ps.posed_pending
+    n = len(gate["calls"])
+    assert torch.equal(ps.render_posed(frames, np.asarray(POSES), block=False), out)
+    assert len(gate["calls"]) == n  # the preview kernel is reused
+    gate["release"].set()
+    _drain(ps)
+    swapped = ps.render_posed(frames, np.asarray(POSES), block=False)
+    _, ref = _sessions()
+    assert torch.equal(swapped, ref.render_posed(frames, np.asarray(POSES)))
+    assert torch.equal(out, ref.render_posed(frames, np.asarray(POSES), render_scale=4))
+
+
+def test_render_posed_nonblocking_single_async_slot(monkeypatch):
+    """A zoom change while a build is in flight serves previews and starts
+    no second build; the new key's build runs after the stale one."""
+    gate = _gate_native_table(monkeypatch)
+    _, ps = _sessions()
+    frames = _source("u8")
+    ps.render_posed(frames, np.asarray(POSES), block=False)
+    deadline = time.time() + 10
+    while not gate["started"] and time.time() < deadline:
+        time.sleep(0.01)
+    ps.cmd("f_fov 120")
+    assert ps.render_posed(frames, np.asarray(POSES), block=False).shape == (B, H, W)
+    time.sleep(0.2)
+    assert len(gate["started"]) == 1 and ps.posed_pending
+    gate["release"].set()
+    _drain(ps)
+    ps.render_posed(frames, np.asarray(POSES), block=False)  # kicks the new key
+    _drain(ps)
+    swapped = ps.render_posed(frames, np.asarray(POSES), block=False)
+    _, ref = _sessions()
+    ref.cmd("f_fov 120")
+    assert torch.equal(swapped, ref.render_posed(frames, np.asarray(POSES)))
+
+
+def test_render_posed_nonblocking_failed_build_sticks(monkeypatch):
+    """A failed background build re-raises on the next call; after three
+    failures on one key the error re-raises with no new build, and a key
+    change starts over."""
+    gate = _gate_native_table(monkeypatch, fail=True)
+    _, ps = _sessions()
+    frames = _source("u8")
+    poses = np.asarray(POSES)
+    for _ in range(3):
+        assert ps.render_posed(frames, poses, block=False).shape == (B, H, W)
+        _drain(ps)
+        with pytest.raises(RuntimeError, match="exploded"):
+            ps.render_posed(frames, poses, block=False)
+    assert len(gate["started"]) == 3
+    for _ in range(2):
+        with pytest.raises(RuntimeError, match="exploded"):
+            ps.render_posed(frames, poses, block=False)
+    assert len(gate["started"]) == 3
+    ps.cmd("f_fov 90")
+    assert ps.render_posed(frames, poses, block=False).shape == (B, H, W)
+    _drain(ps)
+    assert len(gate["started"]) == 4
+
+
+def test_render_posed_reuses_tables_across_kernels():
+    """The ray-table stash: a second source kind at the same zoom builds
+    no new table; a zoom change starts a new generation."""
+    _, ps = _sessions()
+    frames = _source("u8")
+    ps.render_posed(frames, np.asarray(POSES))
+    gen, tables = ps._ray_tables
+    t1 = tables[1]
+    ps.render_posed(_source("rgba", frames), np.asarray(POSES))
+    assert ps._ray_tables[1][1] is t1
+    ps.cmd("f_fov 120")
+    ps.render_posed(frames, np.asarray(POSES))
+    assert ps._ray_tables[0] != gen
+    # the static lensmap (identity view, this zoom) is recorded as reusable
+    ps.render(frames[..., :1])
+    assert ps._reusable_static_lensmap(ps._lensmap.scale, S, 1) is ps._lensmap
+    assert ps._reusable_static_lensmap(ps._lensmap.scale, S, 2) is None

@@ -151,8 +151,9 @@ def test_unported_surface_raises():
         Session(64, 48, device="cpu", lens_dirs=[REPO])
     with pytest.raises(NotImplementedError):
         Session(64, 48, device="cpu", build_budget_s=0.01)
-    with pytest.raises(TypeError):
-        Session(64, 48)  # the device is always explicit
+    # the card unless the caller asks for the CPU; nothing is allocated
+    # until a render, so this needs no card
+    assert Session(64, 48).device == torch.device("cuda")
 
 
 def test_port_imports_without_jax():
@@ -166,10 +167,17 @@ import blinky_tpu_torch
 from blinky_tpu_torch.api import Session
 from blinky_tpu_torch.bench import sol, throughput
 from blinky_tpu_torch.io.cubemap import synthetic_cubemap_batch
-from blinky_tpu_torch.kernels import _build, remap
+from blinky_tpu_torch.kernels import _build, posed, remap, static_ray
+from blinky_tpu_torch.bench import autobatch
+from blinky_tpu_torch import camera
 s = Session(64, 48, device="cpu")
-out = s.render(synthetic_cubemap_batch(48, 2))
+frames = synthetic_cubemap_batch(48, 2)
+out = s.render(frames)
 assert out.shape == (48, 64, 2)
+out = s.render_posed(frames, np.array([(0.0, 0.0, 0.0), (10.0, 20.0, 5.0)]))
+assert out.shape == (2, 48, 64) and out.device.type == "cpu"
+out = s.render_posed(frames, np.zeros((2, 3)), exact=True, render_scale=2)
+assert out.shape == (2, 48, 64)
 bad = [m for m, mod in sys.modules.items()
        if mod is not None and m.split(".")[0] in ("jax", "jaxlib", "blinky_tpu")]
 assert not bad, bad
