@@ -18,41 +18,99 @@
 // screen.  K6 reads the same texels and writes the same screen, but reads
 // the 13-byte ray a build pixel once for all its poses, and spends 86
 // float32 operations a pose and build pixel on the cube globe (the 3x3
-// rotation, the normalize with its sqrt and division, six forward dots and
+// rotation, the normalize with its sqrt and reciprocal, six forward dots and
 // the first-max select, whose winning dot is the chosen plate's forward dot,
-// the chosen plate's right and up dots, the uv divisions and the truncation;
-// chip_smoke.py counts them): at 1080p and 64 poses that is 11.4 G
-// operations, 0.34 ms at 33.5 T non-fused float32
-// operations a second, against about 0.08 ms for its bytes.  So K6 is bound
-// by operations.
+// the chosen plate's right and up dots, the uv divisions and the
+// truncation; chip_smoke.py counts them): at 1080p and 64 poses that is
+// 11.4 G operations, 0.34 ms at 33.5 T non-fused float32 operations a
+// second, against about 0.08 ms for its bytes.  So K6 is bound by
+// operations.  On the card an IEEE division, reciprocal or square root is a
+// sequence of about ten instructions, not one, so the instructions K6 must issue
+// lie well above the 86 operations: the issue rate of the SMs (128 lanes a
+// clock each), not the float32 rate alone, sets its pace.
 //
-// What the design does about it.  K5 runs a thread per build pixel and pose
-// on a (pixels, poses) grid, so its index, mask and screen accesses
-// coalesce.  In K6 one thread per build-grid pixel loads
-// its ray once and loops over the kPosesPerBlock poses of its block, whose
-// bases sit in shared memory with the globe's plate frames; neighbouring
-// threads take neighbouring x, so the ray loads and the screen stores
-// coalesce, and the gather reads one texel of the pose's own frame (the
-// frame, 7 MB of u8 at S = 1080, and the table fit in the 50 MB L2).  The
-// source offset b * N is 64-bit: it passes 2^31 at 154 poses of an
-// expanded 1080p source.
+// What K6's design does about it.
+//  * No shared-memory operand a pose and pixel.  The globe's plate frames
+//    ride in the launch's parameter space, so the six forward dots take
+//    their constants straight from the constant bank; only the chosen
+//    plate's right, up and distance are read from shared memory, as two
+//    16-byte loads of a 12-float record (the record stride keeps the six
+//    plates on disjoint banks).  A pose's basis is three broadcast 16-byte
+//    loads, shared by the four pixels of a thread.
+//  * A thread takes a run of four neighbouring build pixels of a row and
+//    loads their rays as float4 (the ray table is read once per block of
+//    poses).  It resolves the run for a group of kPoseGroup poses into
+//    registers, then issues all their texel gathers back to back, then
+//    stores: 4 x kPoseGroup loads in flight before the first store.  One
+//    pose a group was fastest: the gathers' latency is a small part of the
+//    time (the previous design lost 0.10 of 1.58 ms to it), and a larger
+//    group costs registers, so fewer warps hide the IEEE sequences'
+//    latency.
+//  * Vector stores: a run's k x k screen block is written as one 4-byte
+//    word a row for u8 at k = 1 (two 4-byte words at k = 2), one 16-byte
+//    word for RGBA at k = 1 (two a row at k = 2).  Build widths that are not
+//    a multiple of four, and every other render scale, take the scalar
+//    kernel of this file (K = 0), one element at a time.
+//  * The background of a thread's pixels is read once per block, into
+//    registers, and only when one of its pixels is invalid; every later
+//    pose of the block reuses it.
+//  * The rubix grid test is a table: lensmap/builder.py::rubix_grid_lines
+//    computes the S flags on the host in double, and K6 reads them from a
+//    bitmask in shared memory, so it does no double arithmetic at all.
+//  * The normalize's 1 / len is __frcp_rn(len): the correctly rounded
+//    reciprocal, the same bits as __fdiv_rn(1.f, len) in fewer instructions.
+//  * Every guard the plain version puts around an IEEE sequence whose
+//    result is dropped anyway is left out, with its select: the uv
+//    divisions divide by a zero forward dot, whose infinite or NaN u or v
+//    fails the range test the guard's pixel fails; u and v are not zeroed
+//    before the cast of an invalid pixel; the range test of px and py is
+//    one unsigned compare each; and a globe's unused plate slots repeat
+//    plate 0, so the max-dot select needs no plate count.  The normalize's
+//    zero-length guard is not of that kind and stays: a ray whose square
+//    underflows keeps its length and may be valid.
+//  * Poses per block, pose group and threads were chosen by measurement
+//    (bench/posed.py, 1080p B=64 u8 k=1 and k=2); the choice and its
+//    runners-up are at the constants below.
+//
+// What is left: 175 SASS instructions a pose-pixel on the main path
+// (bench/posed.py counts them) against the 86 operations of the bound, each
+// IEEE sequence some ten instructions with its range check and slow-path
+// branch; at 128 lane-instructions a clock on 132 SMs that alone is about
+// twice the operation bound (PERF.md, K6's instruction floor).
 //
 // Rounding.  K6 must give the indices of its plain version,
 // rays_to_lensmap_torch (blinky_tpu_torch/lensmap/builder.py), bit for bit.
 // nvcc contracts a*b + c into one fused multiply-add by default, which
 // rounds once where the plain version rounds twice and moves texel
 // boundaries; so every float operation here is an explicit round-to-nearest
-// intrinsic (__fmul_rn, __fadd_rn, __fdiv_rn, __fsqrt_rn), which nvcc never
-// contracts, in the plain version's order.  The rubix grid test
-// (set_lensmap_grid, fisheye.c:1922-1960) divides and takes fmod in double,
-// as the C and the JAX package's x64 test mesh do: a float32 grid moves grid
-// lines by a pixel where px / unit lands near a block edge.  Only the
-// expanded source needs it, because the tint moves the index into the
-// tinted half; the other sources skip it.
+// intrinsic (__fmul_rn, __fadd_rn, __fdiv_rn, __frcp_rn, __fsqrt_rn), which
+// nvcc never contracts, in the plain version's order.  The source offset
+// b * N is 64-bit: it passes 2^31 at 154 poses of an expanded 1080p source.
 
 #include <string.h>
 
 #include "common.cuh"
+
+// The tuning constants, overridable with -D for bench/posed.py's sweep.
+// Chosen at 1080p B=64, u8 (NVIDIA H100 80GB HBM3, 700 W; see PERF.md):
+// 128 threads, at most 128 registers (4 blocks an SM; ptxas uses 56-96),
+// 16 poses a block, one pose a group: 0.8296 / 0.2466 ms at k = 1 / 2.
+// Runners-up in the same run: 64 threads 0.8326 / 0.2501; 32 poses a block
+// 0.8367 / 0.2573, 8 poses 0.8380 / 0.2466; a group of 2 poses 0.8394 /
+// 0.2549; 256 threads 0.8448 / 0.2499; a group of 4 poses 1.0743 /
+// 0.3168.  At most 3 blocks an SM changed nothing (0.8289 / 0.2466).
+#ifndef K6_THREADS
+#define K6_THREADS 128
+#endif
+#ifndef K6_POSES_PER_BLOCK
+#define K6_POSES_PER_BLOCK 16
+#endif
+#ifndef K6_POSE_GROUP
+#define K6_POSE_GROUP 1
+#endif
+#ifndef K6_MIN_BLOCKS
+#define K6_MIN_BLOCKS 4
+#endif
 
 namespace {
 
@@ -60,52 +118,62 @@ using blinky::kThreads;
 
 constexpr int kMaxPlates = 6;
 constexpr int kPlateFloats = 10;  // forward[3], right[3], up[3], dist
-constexpr int kPosesPerBlock = 8;
+constexpr int kRecord = 12;       // shared: right[3], dist, up[3], 0, forward[3], 0
+constexpr int kRun = 4;           // neighbouring build pixels a thread takes
+constexpr int kPosesPerBlock = K6_POSES_PER_BLOCK;
+constexpr int kPoseGroup = K6_POSE_GROUP;
 
-// The globe and the resolve parameters, passed by value.
+// The globe and the resolve parameters, passed by value (parameter space).
 struct Resolve {
-  float plates[kMaxPlates * kPlateFloats];
+  float plates[kMaxPlates * kPlateFloats];  // unused plates repeat plate 0
   int nplates;
-  int resolver;  // 0: strict first max of the forward dots; 1: the fast globe
   float fast_dist, fast_half;
-  double unit, block, pad;  // the rubix grid, in double
   int S, expanded;
 };
 
-__device__ __forceinline__ float dot3(float x, float y, float z, const float* v) {
-  return __fadd_rn(__fadd_rn(__fmul_rn(x, v[0]), __fmul_rn(y, v[1])), __fmul_rn(z, v[2]));
+__device__ __forceinline__ float dot3(float x, float y, float z, float a, float b, float c) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(x, a), __fmul_rn(y, b)), __fmul_rn(z, c));
 }
 
 // One ray and one pose -> the flat source index, or -1 where the pixel is
-// not valid.  `basis` holds the pose's forward, right, up rows; `plates` the
-// globe's frames as Resolve::plates lays them out.
+// not valid.  R: the plate resolver, 0 the strict first max of the forward
+// dots, 1 the fast globe's.  f, rt, up: the pose's forward, right, up rows;
+// recs: the plate records in shared memory; lines: the grid-line bitmask
+// (expanded only).
+template <int R>
 __device__ __forceinline__ int resolve_index(float vx, float vy, float vz, bool lens_valid,
-                                             const float* basis, const float* plates,
-                                             const Resolve& r) {
+                                             float3 f, float3 rt, float3 up,
+                                             const Resolve& r, const float* recs,
+                                             const uint32_t* lines) {
   // ray' = vx * right + vy * up + vz * forward, each component left to right
-  float x = __fadd_rn(__fadd_rn(__fmul_rn(vx, basis[3]), __fmul_rn(vy, basis[6])),
-                      __fmul_rn(vz, basis[0]));
-  float y = __fadd_rn(__fadd_rn(__fmul_rn(vx, basis[4]), __fmul_rn(vy, basis[7])),
-                      __fmul_rn(vz, basis[1]));
-  float z = __fadd_rn(__fadd_rn(__fmul_rn(vx, basis[5]), __fmul_rn(vy, basis[8])),
-                      __fmul_rn(vz, basis[2]));
-  // normalize_c with a float32 sqrt: a zero length leaves the ray as it is,
-  // a NaN length is "truthy" and spreads
+  float x = __fadd_rn(__fadd_rn(__fmul_rn(vx, rt.x), __fmul_rn(vy, up.x)), __fmul_rn(vz, f.x));
+  float y = __fadd_rn(__fadd_rn(__fmul_rn(vx, rt.y), __fmul_rn(vy, up.y)), __fmul_rn(vz, f.y));
+  float z = __fadd_rn(__fadd_rn(__fmul_rn(vx, rt.z), __fmul_rn(vy, up.z)), __fmul_rn(vz, f.z));
+  // normalize_c with a float32 sqrt: a zero length leaves the ray as it is
+  // (a tiny ray whose square underflows stays tiny, and may still be
+  // valid), a NaN length is "truthy" and spreads.  The reciprocal runs
+  // unconditionally and is selected: a guard around it would cost a branch
+  // and a reconvergence a pose-pixel.
   const float len = __fsqrt_rn(__fadd_rn(__fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)),
                                          __fmul_rn(z, z)));
-  const float inv = len != 0.f ? __fdiv_rn(1.f, len) : 1.f;
+  const float rcp = __frcp_rn(len);
+  const float inv = len != 0.f ? rcp : 1.f;
   x = __fmul_rn(x, inv);
   y = __fmul_rn(y, inv);
   z = __fmul_rn(z, inv);
 
-  const int n = r.nplates;
+  const float* P = r.plates;
   int plate, pc;
   float rz;  // the chosen plate's forward dot
-  if (r.resolver == 0) {
-    rz = dot3(x, y, z, plates);
+  if (R == 0) {
+    rz = dot3(x, y, z, P[0], P[1], P[2]);
     pc = 0;
-    for (int k = 1; k < n; ++k) {
-      const float d = dot3(x, y, z, plates + k * kPlateFloats);
+#pragma unroll
+    for (int k = 1; k < kMaxPlates; ++k) {
+      // a globe's unused plates repeat plate 0, whose dot never beats the
+      // maximum so far, so every plate is tested with no count and no branch
+      const float d = dot3(x, y, z, P[k * kPlateFloats], P[k * kPlateFloats + 1],
+                           P[k * kPlateFloats + 2]);
       if (d > rz) {  // strict: the first maximum wins, NaN keeps plate 0
         rz = d;
         pc = k;
@@ -117,53 +185,70 @@ __device__ __forceinline__ int resolve_index(float vx, float vy, float vz, bool 
     // and nothing behind the camera
     const bool zero = z == 0.f;
     const float den = zero ? 1.f : z;
-    const float u = __fmul_rn(zero ? 0.f : __fdiv_rn(x, den), r.fast_dist);
-    const float v = __fmul_rn(zero ? 0.f : __fdiv_rn(y, den), r.fast_dist);
+    const float qx = __fdiv_rn(x, den), qy = __fdiv_rn(y, den);
+    const float u = __fmul_rn(zero ? 0.f : qx, r.fast_dist);
+    const float v = __fmul_rn(zero ? 0.f : qy, r.fast_dist);
     const bool small = fabsf(u) < r.fast_half && fabsf(v) < r.fast_half;
     plate = z <= 0.f ? -1 : (small ? 0 : 1);
-    pc = plate < 0 ? 0 : (plate > n - 1 ? n - 1 : plate);
-    rz = dot3(x, y, z, plates + pc * kPlateFloats);
+    pc = plate < 0 ? 0 : (plate > r.nplates - 1 ? r.nplates - 1 : plate);
+    const float4 fw = *(const float4*)(recs + pc * kRecord + 8);
+    rz = dot3(x, y, z, fw.x, fw.y, fw.z);
   }
 
   // the chosen plate's frame dots (ray_to_plate_uv, fisheye.c:2052-2058)
-  const float* p = plates + pc * kPlateFloats;
-  const float rx = dot3(x, y, z, p + 3);
-  const float ry = dot3(x, y, z, p + 6);
-  const float dist = p[9];
-  const bool zero = rz == 0.f;
-  const float den = zero ? 1.f : rz;
-  float u = __fadd_rn(__fmul_rn(zero ? 0.f : __fdiv_rn(rx, den), dist), 0.5f);
-  float v = __fadd_rn(__fmul_rn(zero ? 0.f : __fdiv_rn(-ry, den), dist), 0.5f);
-  const bool uv_valid = !zero && u >= 0.f && u <= 1.f && v >= 0.f && v <= 1.f;
-  if (!uv_valid) {  // zeroed before the cast, so nothing casts a NaN
-    u = 0.f;
-    v = 0.f;
-  }
+  const float4 a = *(const float4*)(recs + pc * kRecord);      // right, dist
+  const float4 b = *(const float4*)(recs + pc * kRecord + 4);  // up
+  const float rx = dot3(x, y, z, a.x, a.y, a.z);
+  const float ry = dot3(x, y, z, b.x, b.y, b.z);
+  // The plain version divides by 1 where rz == 0 and then calls the pixel
+  // invalid.  Dividing by the zero itself gives an infinite or NaN u or v,
+  // which fails the range test below: the same pixels are valid, with the
+  // same u and v, and no select is spent on the guard.
+  const float u = __fadd_rn(__fmul_rn(__fdiv_rn(rx, rz), a.w), 0.5f);
+  const float v = __fadd_rn(__fmul_rn(__fdiv_rn(-ry, rz), a.w), 0.5f);
+  const bool uv_valid = u >= 0.f && u <= 1.f && v >= 0.f && v <= 1.f;
+  // truncation, fisheye.c:1988; an invalid u or v may cast to anything (the
+  // card's conversion of NaN or inf is defined), as its pixel is dropped
   const int S = r.S;
-  const int px = (int)__fmul_rn(u, (float)S);  // truncation, fisheye.c:1988
+  const int px = (int)__fmul_rn(u, (float)S);
   const int py = (int)__fmul_rn(v, (float)S);
-  const bool valid = lens_valid && plate >= 0 && uv_valid && px >= 0 && px < S &&
-                     py >= 0 && py < S;
+  const bool valid = lens_valid && plate >= 0 && uv_valid && (unsigned)px < (unsigned)S &&
+                     (unsigned)py < (unsigned)S;
   if (!valid) return -1;
   int idx = pc * S * S + py * S + px;
-  if (r.expanded) {
-    const bool ongrid = fmod(__ddiv_rn((double)px, r.unit), r.block) < r.pad ||
-                        fmod(__ddiv_rn((double)py, r.unit), r.block) < r.pad;
-    if (!ongrid) idx += kMaxPlates * S * S;  // the tinted half
+  if (r.expanded) {  // set_lensmap_grid, fisheye.c:1922-1960, as a table
+    const uint32_t on = (lines[px >> 5] >> (px & 31)) | (lines[py >> 5] >> (py & 31));
+    if (!(on & 1u)) idx += kMaxPlates * S * S;  // the tinted half
   }
   return idx;
 }
 
-// Writes a build pixel's k x k block of one pose's screen.
-template <typename T>
-__device__ __forceinline__ void write_block(T* __restrict__ out, const T* __restrict__ bg,
-                                            long long b, int y, int x, int k, int H, int W,
-                                            bool valid, T texel) {
-  T* o = out + ((long long)b * H + (long long)y * k) * W + (long long)x * k;
-  const T* g = bg + (long long)y * k * W + (long long)x * k;
-  for (int dy = 0; dy < k; ++dy)
-    for (int dx = 0; dx < k; ++dx)
-      o[(long long)dy * W + dx] = valid ? texel : g[(long long)dy * W + dx];
+// Four elements of a screen row: one 4-byte word of u8, one 16-byte word of
+// RGBA.
+template <typename T> struct Quad;
+template <> struct Quad<uint8_t> {
+  using V = uint32_t;
+  __device__ static void put(V& q, int e, uint32_t x) { q |= (x & 0xffu) << (8 * e); }
+  __device__ static V select(V t, V m, V g) { return (t & m) | (g & ~m); }
+  __device__ static V ones(int e) { return 0xffu << (8 * e); }
+};
+template <> struct Quad<uint32_t> {
+  using V = uint4;
+  __device__ static void put(V& q, int e, uint32_t x) {
+    if (e == 0) q.x = x; else if (e == 1) q.y = x; else if (e == 2) q.z = x; else q.w = x;
+  }
+  __device__ static V select(V t, V m, V g) {
+    return make_uint4((t.x & m.x) | (g.x & ~m.x), (t.y & m.y) | (g.y & ~m.y),
+                      (t.z & m.z) | (g.z & ~m.z), (t.w & m.w) | (g.w & ~m.w));
+  }
+  __device__ static V ones(int e) {
+    return make_uint4(e == 0 ? ~0u : 0u, e == 1 ? ~0u : 0u, e == 2 ? ~0u : 0u,
+                      e == 3 ? ~0u : 0u);
+  }
+};
+template <typename V> __device__ __forceinline__ V zero_quad() { return V{}; }
+__device__ __forceinline__ uint4 operator|(uint4 a, uint4 b) {
+  return make_uint4(a.x | b.x, a.y | b.y, a.z | b.z, a.w | b.w);
 }
 
 // grid: x over build pixels (fewer than 2^31), y over poses; neighbouring
@@ -178,6 +263,7 @@ __global__ void __launch_bounds__(kThreads) posed_gather_kernel(
   const int p = blockIdx.x * kThreads + threadIdx.x;
   if (p >= npix) return;
   const int y = p / wb, x = p - y * wb;
+  const int H = hb * k, W = wb * k;
   for (int b = blockIdx.y; b < B; b += gridDim.y) {
     const long long q = (long long)b * npix + p;
     const bool v = valid[q] != 0;
@@ -186,41 +272,215 @@ __global__ void __launch_bounds__(kThreads) posed_gather_kernel(
       const long long i = idx[q];
       texel = src[(long long)b * N + (i < 0 ? 0 : (i >= N ? N - 1 : i))];
     }
-    write_block(out, bg, b, y, x, k, hb * k, wb * k, v, texel);
+    T* o = out + ((long long)b * H + (long long)y * k) * W + (long long)x * k;
+    const T* g = bg + (long long)y * k * W + (long long)x * k;
+    for (int dy = 0; dy < k; ++dy)
+      for (int dx = 0; dx < k; ++dx)
+        o[(long long)dy * W + dx] = v ? texel : g[(long long)dy * W + dx];
   }
 }
 
-// grid: x over build pixels, y over groups of kPosesPerBlock poses
-template <typename T>
-__global__ void __launch_bounds__(kThreads) static_ray_posed_kernel(
+// K6.  grid: x over runs of kRun build pixels (row by row, a row's last run
+// may be short), y over blocks of kPosesPerBlock poses.  K: the render
+// scale of the vector kernels (1 or 2; the build width a multiple of kRun
+// and every pointer 16-byte aligned), or 0 for the scalar kernel, which
+// takes any width and render scale k.  R: the plate resolver.
+template <typename T, int K, int R>
+__global__ void __launch_bounds__(K6_THREADS, K6_MIN_BLOCKS) static_ray_posed_kernel(
     const float* __restrict__ vx, const float* __restrict__ vy,
     const float* __restrict__ vz, const uint8_t* __restrict__ lens_valid, int hb, int wb,
-    const float* __restrict__ bases, int B, const Resolve r, const T* __restrict__ src,
-    long long N, const T* __restrict__ bg, int k, T* __restrict__ out) {
-  __shared__ float s_plates[kMaxPlates * kPlateFloats];
-  __shared__ float s_bases[kPosesPerBlock * 9];
-  if (threadIdx.x == 0) {
+    const float* __restrict__ bases, int B, const Resolve r,
+    const uint32_t* __restrict__ grid_lines, const T* __restrict__ src, long long N,
+    const T* __restrict__ bg, int k, T* __restrict__ out) {
+  using Q = Quad<T>;
+  using V = typename Q::V;
+  __shared__ __align__(16) float s_recs[kMaxPlates * kRecord];
+  __shared__ __align__(16) float s_bases[kPosesPerBlock * kRecord];
+  extern __shared__ uint32_t s_lines[];  // (S + 31) / 32 words when expanded
+  const int tid = threadIdx.x;
+  if (tid == 0) {
 #pragma unroll
-    for (int i = 0; i < kMaxPlates * kPlateFloats; ++i) s_plates[i] = r.plates[i];
+    for (int p = 0; p < kMaxPlates; ++p) {
+      const float* f = r.plates + p * kPlateFloats;
+      float* d = s_recs + p * kRecord;
+      const float rec[kRecord] = {f[3], f[4], f[5], f[9], f[6], f[7], f[8], 0.f,
+                                  f[0], f[1], f[2], 0.f};
+#pragma unroll
+      for (int i = 0; i < kRecord; ++i) d[i] = rec[i];
+    }
   }
   const int b0 = blockIdx.y * kPosesPerBlock;
   const int nb = min(kPosesPerBlock, B - b0);
-  for (int i = threadIdx.x; i < nb * 9; i += kThreads) s_bases[i] = bases[(long long)b0 * 9 + i];
+  // a pose's record: forward, right, up, then three zeros
+  for (int i = tid; i < nb * kRecord; i += K6_THREADS) {
+    const int j = i / kRecord, c = i - j * kRecord;
+    s_bases[i] = c < 9 ? bases[(long long)(b0 + j) * 9 + c] : 0.f;
+  }
+  if (r.expanded)
+    for (int i = tid; i < (r.S + 31) / 32; i += K6_THREADS) s_lines[i] = grid_lines[i];
   __syncthreads();
 
-  const long long p = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (p >= (long long)hb * wb) return;
-  const float rx = vx[p], ry = vy[p], rz = vz[p];
-  const bool lv = lens_valid[p] != 0;
-  const int y = (int)(p / wb), x = (int)(p - (long long)y * wb);
-  for (int j = 0; j < nb; ++j) {
-    const long long b = b0 + j;
-    const int i = resolve_index(rx, ry, rz, lv, s_bases + j * 9, s_plates, r);
-    T texel = T(0);
-    if (i >= 0) texel = src[b * N + (i >= N ? N - 1 : i)];
-    write_block(out, bg, b, y, x, k, hb * k, wb * k, i >= 0, texel);
+  const int runs = (wb + kRun - 1) / kRun;  // runs a row
+  const long long q = (long long)blockIdx.x * K6_THREADS + tid;
+  if (q >= (long long)hb * runs) return;
+  const int y = (int)(q / runs);
+  const int x0 = (int)(q - (long long)y * runs) * kRun;
+  const int m = min(kRun, wb - x0);  // pixels in this run (kRun for K > 0)
+  const long long p0 = (long long)y * wb + x0;
+  float rx[kRun], ry[kRun], rz[kRun];
+  bool lv[kRun];
+  if (K > 0) {
+    const float4 a = *(const float4*)(vx + p0), b = *(const float4*)(vy + p0),
+                 c = *(const float4*)(vz + p0);
+    const uint32_t l = *(const uint32_t*)(lens_valid + p0);
+    rx[0] = a.x, rx[1] = a.y, rx[2] = a.z, rx[3] = a.w;
+    ry[0] = b.x, ry[1] = b.y, ry[2] = b.z, ry[3] = b.w;
+    rz[0] = c.x, rz[1] = c.y, rz[2] = c.z, rz[3] = c.w;
+#pragma unroll
+    for (int i = 0; i < kRun; ++i) lv[i] = (l >> (8 * i)) & 0xffu;
+  } else {
+#pragma unroll
+    for (int i = 0; i < kRun; ++i) {
+      const bool in = i < m;
+      rx[i] = in ? vx[p0 + i] : 0.f;
+      ry[i] = in ? vy[p0 + i] : 0.f;
+      rz[i] = in ? vz[p0 + i] : 0.f;
+      lv[i] = in && lens_valid[p0 + i];
+    }
+  }
+
+  const int kk = K > 0 ? K : k;
+  const long long H = (long long)hb * kk, W = (long long)wb * kk;
+  V bgq[K > 0 ? K * K : 1];  // the run's background, row dy, quad c at [dy * K + c]
+  bool have_bg = false;
+  for (int j0 = 0; j0 < nb; j0 += kPoseGroup) {
+    // resolve the group's poses, then issue every gather, then store
+    int idx[kPoseGroup][kRun];
+#pragma unroll
+    for (int g = 0; g < kPoseGroup; ++g) {
+      const int j = j0 + g;
+      if (j >= nb) {  // a short group (uniform across the block): nothing to resolve
+#pragma unroll
+        for (int i = 0; i < kRun; ++i) idx[g][i] = -1;
+        continue;
+      }
+      const float4 e0 = *(const float4*)(s_bases + j * kRecord);
+      const float4 e1 = *(const float4*)(s_bases + j * kRecord + 4);
+      const float4 e2 = *(const float4*)(s_bases + j * kRecord + 8);
+      const float3 f = make_float3(e0.x, e0.y, e0.z), rt = make_float3(e0.w, e1.x, e1.y),
+                   up = make_float3(e1.z, e1.w, e2.x);
+#pragma unroll
+      for (int i = 0; i < kRun; ++i)
+        idx[g][i] = resolve_index<R>(rx[i], ry[i], rz[i], lv[i], f, rt, up, r, s_recs, s_lines);
+    }
+    T val[kPoseGroup][kRun];
+#pragma unroll
+    for (int g = 0; g < kPoseGroup; ++g) {
+      const long long base = (long long)(b0 + min(j0 + g, nb - 1)) * N;
+#pragma unroll
+      for (int i = 0; i < kRun; ++i) {
+        const int t = idx[g][i];
+        val[g][i] = t >= 0 ? src[base + (t >= N ? N - 1 : t)] : T(0);
+      }
+    }
+    if (K > 0) {
+      if (!have_bg) {
+        bool hole = false;
+#pragma unroll
+        for (int g = 0; g < kPoseGroup; ++g)
+#pragma unroll
+          for (int i = 0; i < kRun; ++i) hole |= j0 + g < nb && idx[g][i] < 0;
+        if (hole) {  // the first invalid pixel of the run: read its background
+#pragma unroll
+          for (int dy = 0; dy < (K > 0 ? K : 1); ++dy)
+#pragma unroll
+            for (int c = 0; c < (K > 0 ? K : 1); ++c)
+              bgq[dy * K + c] =
+                  *(const V*)(bg + ((long long)y * K + dy) * W + (long long)x0 * K + 4 * c);
+          have_bg = true;
+        }
+      }
+#pragma unroll
+      for (int g = 0; g < kPoseGroup; ++g) {
+        if (j0 + g >= nb) break;
+        const long long b = b0 + j0 + g;
+#pragma unroll
+        for (int c = 0; c < (K > 0 ? K : 1); ++c) {
+          V t = zero_quad<V>(), mk = zero_quad<V>();
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = (4 * c + e) / (K > 0 ? K : 1);  // the run's pixel of element e
+            Q::put(t, e, (uint32_t)val[g][i]);
+            if (idx[g][i] >= 0) mk = mk | Q::ones(e);
+          }
+#pragma unroll
+          for (int dy = 0; dy < (K > 0 ? K : 1); ++dy)
+            *(V*)(out + (b * H + (long long)y * K + dy) * W + (long long)x0 * K + 4 * c) =
+                Q::select(t, mk, have_bg ? bgq[dy * K + c] : zero_quad<V>());
+        }
+      }
+    } else {
+      for (int g = 0; g < kPoseGroup; ++g) {
+        if (j0 + g >= nb) break;
+        const long long b = b0 + j0 + g;
+#pragma unroll
+        for (int i = 0; i < kRun; ++i) {
+          if (i >= m) break;
+          const long long x = (long long)(x0 + i) * kk;
+          for (int dy = 0; dy < kk; ++dy) {
+            const long long row = (long long)y * kk + dy;
+            T* o = out + (b * H + row) * W + x;
+            const T* gb = bg + row * W + x;
+            for (int dx = 0; dx < kk; ++dx) o[dx] = idx[g][i] >= 0 ? val[g][i] : gb[dx];
+          }
+        }
+      }
+    }
   }
 }
+
+template <typename T, int K, int R>
+int launch_static_ray_posed(dim3 grid, size_t smem, cudaStream_t s, const float* vx,
+                            const float* vy, const float* vz, const uint8_t* lens_valid,
+                            int hb, int wb, const float* bases, int batch, const Resolve& r,
+                            const uint32_t* grid_lines, const void* src, long long N,
+                            const void* bg, int k, void* out) {
+  static_ray_posed_kernel<T, K, R><<<grid, K6_THREADS, smem, s>>>(
+      vx, vy, vz, lens_valid, hb, wb, bases, batch, r, grid_lines, (const T*)src, N,
+      (const T*)bg, k, (T*)out);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int R>
+int dispatch_static_ray_posed(bool vec, int k, dim3 grid, size_t smem, cudaStream_t s,
+                              const float* vx, const float* vy, const float* vz,
+                              const uint8_t* lv, int hb, int wb, const float* bases,
+                              int batch, const Resolve& r, const uint32_t* lines,
+                              const void* src, long long N, const void* bg, void* out) {
+  if (vec && k == 1)
+    return launch_static_ray_posed<T, 1, R>(grid, smem, s, vx, vy, vz, lv, hb, wb, bases,
+                                            batch, r, lines, src, N, bg, k, out);
+  if (vec && k == 2)
+    return launch_static_ray_posed<T, 2, R>(grid, smem, s, vx, vy, vz, lv, hb, wb, bases,
+                                            batch, r, lines, src, N, bg, k, out);
+  return launch_static_ray_posed<T, 0, R>(grid, smem, s, vx, vy, vz, lv, hb, wb, bases,
+                                          batch, r, lines, src, N, bg, k, out);
+}
+
+template <typename T>
+int dispatch_resolver(int resolver, bool vec, int k, dim3 grid, size_t smem, cudaStream_t s,
+                      const float* vx, const float* vy, const float* vz, const uint8_t* lv,
+                      int hb, int wb, const float* bases, int batch, const Resolve& r,
+                      const uint32_t* lines, const void* src, long long N, const void* bg,
+                      void* out) {
+  if (resolver == 0)
+    return dispatch_static_ray_posed<T, 0>(vec, k, grid, smem, s, vx, vy, vz, lv, hb, wb,
+                                           bases, batch, r, lines, src, N, bg, out);
+  return dispatch_static_ray_posed<T, 1>(vec, k, grid, smem, s, vx, vy, vz, lv, hb, wb,
+                                         bases, batch, r, lines, src, N, bg, out);
+}
+
+bool aligned16(const void* p) { return (uintptr_t)p % 16 == 0; }
 
 }  // namespace
 
@@ -254,45 +514,47 @@ extern "C" int blinky_posed_gather(const void* src, long long N, int elem_bytes,
 // bases [batch, 3, 3] f32 (forward, right, up rows); plates: a HOST pointer
 // to 6 x 10 floats (forward, right, up, dist of each plate), copied into the
 // launch; resolver 0 = max-dot, 1 = the fast globe with fast_dist and
-// fast_half; unit, block, pad: the rubix grid in double (read only when
-// expanded); S the plate size; src [batch, N] pose-major texels of
-// elem_bytes; bg [hb * k, wb * k]; out [batch, hb * k, wb * k].
+// fast_half; grid_lines: the rubix grid-line bitmask on the device, bit px
+// of word px / 32 for px < S (lensmap/builder.py::rubix_grid_lines; read only
+// when expanded, else may be null); S the plate size; src [batch, N]
+// pose-major texels of elem_bytes; bg [hb * k, wb * k]; out
+// [batch, hb * k, wb * k].
 extern "C" int blinky_static_ray_posed(const float* vx, const float* vy, const float* vz,
                                        const uint8_t* lens_valid, int hb, int wb,
                                        const float* bases, int batch, const float* plates,
                                        int nplates, int resolver, float fast_dist,
-                                       float fast_half, double unit, double block,
-                                       double pad, int S, int expanded, const void* src,
-                                       long long N, int elem_bytes, const void* bg, int k,
-                                       void* out, void* stream) {
-  if (k < 1 || N < 1 || nplates < 1 || nplates > kMaxPlates || batch < 1)
+                                       float fast_half, const uint32_t* grid_lines, int S,
+                                       int expanded, const void* src, long long N,
+                                       int elem_bytes, const void* bg, int k, void* out,
+                                       void* stream) {
+  if (k < 1 || N < 1 || nplates < 1 || nplates > kMaxPlates || resolver < 0 ||
+      resolver > 1 || batch < 1 || hb < 1 || wb < 1 || S < 1 ||
+      (expanded && grid_lines == nullptr))
     return (int)cudaErrorInvalidValue;
   Resolve r;
   memcpy(r.plates, plates, sizeof(r.plates));
   r.nplates = nplates;
-  r.resolver = resolver;
   r.fast_dist = fast_dist;
   r.fast_half = fast_half;
-  r.unit = unit;
-  r.block = block;
-  r.pad = pad;
   r.S = S;
   r.expanded = expanded;
-  const long long npix = (long long)hb * wb;
-  const dim3 grid((unsigned)((npix + kThreads - 1) / kThreads),
+  const long long runs = (long long)hb * ((wb + kRun - 1) / kRun);
+  const dim3 grid((unsigned)((runs + K6_THREADS - 1) / K6_THREADS),
                   (unsigned)((batch + kPosesPerBlock - 1) / kPosesPerBlock));
-  if (grid.x < 1 || grid.y > 65535) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (elem_bytes == 1) {
-    static_ray_posed_kernel<uint8_t><<<grid, kThreads, 0, s>>>(
-        vx, vy, vz, lens_valid, hb, wb, bases, batch, r, (const uint8_t*)src, N,
-        (const uint8_t*)bg, k, (uint8_t*)out);
-  } else if (elem_bytes == 4) {
-    static_ray_posed_kernel<uint32_t><<<grid, kThreads, 0, s>>>(
-        vx, vy, vz, lens_valid, hb, wb, bases, batch, r, (const uint32_t*)src, N,
-        (const uint32_t*)bg, k, (uint32_t*)out);
-  } else {
+  if ((runs + K6_THREADS - 1) / K6_THREADS > 0x7fffffffLL || grid.y > 65535)
     return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  const size_t smem = expanded ? (size_t)((S + 31) / 32) * 4 : 0;
+  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+  // the vector kernels: whole runs, and every row, run and pointer aligned
+  const bool vec = wb % kRun == 0 && aligned16(vx) && aligned16(vy) && aligned16(vz) &&
+                   aligned16(lens_valid) && aligned16(bg) && aligned16(out);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (elem_bytes == 1)
+    return dispatch_resolver<uint8_t>(resolver, vec, k, grid, smem, s, vx, vy, vz, lens_valid,
+                                      hb, wb, bases, batch, r, grid_lines, src, N, bg, out);
+  if (elem_bytes == 4)
+    return dispatch_resolver<uint32_t>(resolver, vec, k, grid, smem, s, vx, vy, vz,
+                                       lens_valid, hb, wb, bases, batch, r, grid_lines, src,
+                                       N, bg, out);
+  return (int)cudaErrorInvalidValue;
 }

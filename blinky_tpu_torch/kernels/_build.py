@@ -33,7 +33,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
 _vp, _i, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_f, _d = ctypes.c_float, ctypes.c_double
+_f = ctypes.c_float
 # every entry point returns cudaGetLastError() after its launch
 _SIGNATURES = {
     # src, rows, elem_bytes, batch, idx, valid, bg, tint_rgb, tint_mask,
@@ -51,11 +51,12 @@ _SIGNATURES = {
     # src, N, elem_bytes, batch, idx, valid, bg, k, hb, wb, out, stream
     "blinky_posed_gather": [_vp, _ll, _i, _i, _vp, _vp, _vp, _i, _i, _i, _vp, _vp],
     # vx, vy, vz, lens_valid, hb, wb, bases, batch, plates (host), nplates,
-    # resolver, fast_dist, fast_half, unit, block, pad, S, expanded, src, N,
+    # resolver, fast_dist, fast_half, grid_lines, S, expanded, src, N,
     # elem_bytes, bg, k, out, stream
     "blinky_static_ray_posed": [_vp, _vp, _vp, _vp, _i, _i, _vp, _i, _vp, _i, _i,
-                                _f, _f, _d, _d, _d, _i, _i, _vp, _ll, _i, _vp, _i,
-                                _vp, _vp],
+                                _f, _f, _vp, _i, _i, _vp, _ll, _i, _vp, _i, _vp, _vp],
+    # in, ld, T, batch, elem_bytes, n_out, out, stream
+    "blinky_posed_layout": [_vp, _ll, _ll, _i, _i, _ll, _vp, _vp],
 }
 
 _lock = threading.Lock()

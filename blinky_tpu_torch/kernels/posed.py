@@ -6,7 +6,10 @@ frame of a batch at its own view rotation::
     frames [P, S, S, B] + bases [B, 3, 3]  ->  screens [B, H, W]
 
 :func:`prep_posed_inputs` lays the frames out pose-major, ``[B, P*S*S]``, so
-that pose ``b`` gathers from its own frame.  :func:`gather_posed` is the
+that pose ``b`` gathers from its own frame: through K7, the hand-written
+CUDA kernel ``blinky_posed_layout`` (``csrc/layout.cu``), on a card, and
+through its plain version, :func:`posed_layout_plain`, on the CPU.
+:func:`gather_posed` is the
 posed pipelines' gather tail (D): per-pose index tables -> screens, with
 the nearest upsample by the render scale and the background select.  It
 launches K5, the hand-written CUDA kernel ``blinky_posed_gather``
@@ -64,8 +67,9 @@ def prep_posed_inputs(frames, bases, platesize, background, device):
     6, or the expanded 12); ``bases`` [B, 3, 3] (forward, right, up rows),
     cast to float32 as the JAX code does; ``background`` the kernel's [H, W]
     tensor, u8 or int32 (packed RGBA bits).  Returns ``(src [B, N], bases
-    [B, 3, 3] f32, expanded)``: ``src`` pose-major, u8 or int32 bits, one
-    copy of the frames.
+    [B, 3, 3] f32, expanded)``: ``src`` pose-major, u8 or int32 bits, laid
+    out by :func:`posed_layout` (K7 on a card).  For one pose of 6 or 12
+    contiguous planes ``src`` is a view of the frames: no copy, no launch.
     """
     frames, is_rgba = frames_tensor(frames)
     P, S, _, B = frames.shape
@@ -86,10 +90,65 @@ def prep_posed_inputs(frames, bases, platesize, background, device):
         raise ValueError("u8 frames need a u8 (palette-index) "
                          "background, got uint32")
     planes = P if expanded else MAX_PLATES
+    frames = frames.to(device)
+    if B == 1 and P == planes and frames.is_contiguous():
+        # one pose of a whole, contiguous frame set: the pose-major array is
+        # the frames themselves, so no copy is made
+        return frames.reshape(1, -1), bases.contiguous(), expanded
+    return posed_layout(frames, planes), bases.contiguous(), expanded
+
+
+def posed_layout_plain(frames, planes):
+    """K7's plain version: ``frames`` [P, S, S, B] -> pose-major
+    [B, planes*S*S], planes P..planes-1 zero (the counterpart of
+    ``jnp.transpose`` in ``blinky_tpu.kernels.posed.prep_posed_inputs``)."""
+    P, S, _, B = frames.shape
     alloc = torch.empty if planes == P else torch.zeros
-    src = alloc((B, planes, S, S), dtype=frames.dtype, device=device)
-    src[:, :P].copy_(frames.to(device).permute(3, 0, 1, 2))
-    return src.reshape(B, -1), bases.contiguous(), expanded
+    src = alloc((B, planes, S, S), dtype=frames.dtype, device=frames.device)
+    src[:, :P].copy_(frames.permute(3, 0, 1, 2))
+    return src.reshape(B, -1)
+
+
+def posed_layout(frames, planes):
+    """K7, the pose-major layout: ``frames`` [P, S, S, B] u8 or int32 bits
+    -> [B, planes*S*S], planes P..planes-1 zero-filled.
+
+    Launches ``blinky_posed_layout`` (``csrc/layout.cu``) for a tensor on a
+    card and runs :func:`posed_layout_plain` for one on the CPU.  On a card
+    the frames' texels must be evenly strided with the batch innermost and
+    unit-strided, as a contiguous array or a batch slice of one
+    (``frames[..., lo:hi]``) is; any other layout raises.
+    """
+    name = "posed_layout"
+    P, S, _, B = frames.shape
+    if frames.dtype not in (torch.uint8, torch.int32) or planes < P:
+        raise ValueError(f"{name}: u8 or int32 frames of at most {planes} planes, got "
+                         f"{frames.dtype} {tuple(frames.shape)}")
+    if not _build.on_card(name, frames.device):
+        return posed_layout_plain(frames, planes)
+    T = P * S * S
+    try:
+        rows = frames.view(T, B)  # texel t's poses at t * ld + [0, B)
+    except RuntimeError:
+        rows = None
+    if rows is None or (B > 1 and rows.stride(1) != 1):
+        raise ValueError(f"{name}: frames of strides {frames.stride()} are not evenly "
+                         "strided texels with a unit-strided batch; pass a contiguous "
+                         "array or a batch slice of one")
+    ld = max(rows.stride(0), B)  # a single texel's stride is free
+    out = torch.empty((B, planes * S * S), dtype=frames.dtype, device=frames.device)
+    if out.numel():
+        lib = _build.library()
+        with torch.cuda.device(frames.device):
+            rc = lib.blinky_posed_layout(rows.data_ptr(), ld, T, B, frames.element_size(),
+                                         planes * S * S, out.data_ptr(),
+                                         _build.stream(frames.device))
+        _build.check(rc, name)
+        posed_layout.launches += 1
+    return out
+
+
+posed_layout.launches = 0
 
 
 def _upsample(t, k):

@@ -30,6 +30,7 @@ screens may differ from the JAX package's at a few boundary texels.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -41,7 +42,7 @@ from blinky_tpu_torch.kernels.posed import (
 )
 from blinky_tpu_torch.lensmap.builder import (
     TINT_NONE, LensMap, lens_ray_grid, plate_dists_f32, plate_resolver_mode,
-    rays_to_lensmap_torch, rubix_grid_consts,
+    rays_to_lensmap_torch, rubix_grid_lines,
 )
 from blinky_tpu_torch.palette import MAX_PLATES
 
@@ -179,13 +180,26 @@ _RESOLVERS = {"maxdot": 0, "fast": 1}
 
 
 def _plate_consts(globe) -> np.ndarray:
+    """The globe's plates as K6 takes them; the slots past ``numplates``
+    repeat plate 0, whose forward dot never beats the maximum so far, so
+    K6's max-dot select needs no plate count."""
     out = np.zeros((MAX_PLATES, _PLATE_FLOATS), np.float32)
     n = globe.numplates
     out[:n, 0:3] = np.asarray(globe.forward, np.float32)
     out[:n, 3:6] = np.asarray(globe.right, np.float32)
     out[:n, 6:9] = np.asarray(globe.up, np.float32)
     out[:n, 9] = plate_dists_f32(globe)
+    out[n:] = out[0]
     return out.reshape(-1)
+
+
+@functools.lru_cache(maxsize=16)
+def _grid_line_words(platesize, numcells, cell_size, pad_size, device):
+    """:func:`rubix_grid_lines` as K6 reads it: an int32 tensor on *device*,
+    bit ``px % 32`` of word ``px // 32``; made and uploaded once a grid."""
+    lines = rubix_grid_lines(platesize, numcells, cell_size, pad_size)
+    bits = np.packbits(np.pad(lines, (0, -platesize % 32)), bitorder="little")
+    return torch.from_numpy(bits.view("<i4").copy()).to(device)
 
 
 def _check_table(kernel, table, device):
@@ -254,14 +268,15 @@ def static_ray_posed(src, table, bases, globe, platesize, numcells,
     if out.numel():
         plates = _plate_consts(globe)
         fast_dist, fast_half = (float(np.float32(c)) for c in fast_resolver_consts())
-        unit, block, pad = rubix_grid_consts(S, numcells, cell_size, pad_size)
+        lines = (_grid_line_words(S, float(numcells), float(cell_size), float(pad_size), dev)
+                 if expanded else None)
         lib = _build.library()
         with torch.cuda.device(dev):
             rc = lib.blinky_static_ray_posed(
                 table.vx.data_ptr(), table.vy.data_ptr(), table.vz.data_ptr(),
                 table.lens_valid.data_ptr(), hb, wb, bases.data_ptr(), B,
                 plates.ctypes.data, globe.numplates, _RESOLVERS[mode],
-                fast_dist, fast_half, unit, block, pad, S, int(expanded),
+                fast_dist, fast_half, _build.ptr(lines), S, int(expanded),
                 src.data_ptr(), N, src.element_size(), background.data_ptr(),
                 int(k), out.data_ptr(), _build.stream(dev))
         _build.check(rc, name)

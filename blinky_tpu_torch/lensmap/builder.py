@@ -270,6 +270,17 @@ def rubix_grid_consts(platesize, numcells, cell_size, pad_size):
     return float(unit), float(block), float(ps)
 
 
+def rubix_grid_lines(platesize, numcells, cell_size, pad_size) -> np.ndarray:
+    """[S] bool: whether plate coordinate ``px`` (or ``py``) lies on a rubix
+    grid line.  The grid test depends on one integer coordinate at a time,
+    so this table, computed in double with :func:`rubix_grid_consts`' values
+    as :func:`rays_to_lensmap_torch` computes it per pixel, gives its bits:
+    a texel is on the grid where ``lines[px] | lines[py]``."""
+    unit, block, pad = rubix_grid_consts(platesize, numcells, cell_size, pad_size)
+    with np.errstate(all="ignore"):  # f_rubixgrid 0 0 0: fmod(0, 0) is NaN
+        return np.fmod(np.arange(platesize, dtype=np.float64) / unit, block) < pad
+
+
 def rays_to_lensmap_torch(globe, vx, vy, vz, lens_valid, platesize,
                           numcells, cell_size, pad_size, view_basis=None):
     """:func:`rays_to_lensmap` in float32 on torch tensors of any device:

@@ -30,18 +30,24 @@ kernel against its plain PyTorch version.  Phases:
 6. the posed path: with every launch counter at 0, ``Session.render_posed``
    renders 64 seeded poses of the 1080p batch (K6) for the u8, the expanded
    12-plane rubix and the RGBA u32 source at render_scale 1 and 2, and two
-   poses with ``exact=True`` (K5); the counters are read.  Each screen is
+   poses with ``exact=True`` (K5), each call laying its frames out
+   pose-major through K7; the counters are read.  Each screen is
    held bit-equal to ``static_ray_posed_plain`` on the card (8 poses at a
    time), the exact screens to ``host_remap`` of the exact host build at each
    pose, the identity pose near the static render; ``render_scale="auto"``
    at 60 fps; K5 alone on the plain version's indices.  Then K6 on every
    variant and K5 are timed at B=64 and B=1 beside their plain versions,
-   with their bytes, float32 operations and bound and the wrapper's host
-   time a call, and the ray-table build, the pose-major transpose, the host
-   steps of a call and ``render_posed``'s wall clock.
+   with their bytes, float32 operations and bound, K6's device time from
+   ``torch.profiler``'s kernel records and the wrapper's host time a call;
+   the ray-table build; K7 on every source at B=64 and B=1, bit-equal to
+   ``permute().contiguous()`` and timed beside it and its byte bound, and
+   the one-pose view that launches nothing; and ``render_posed``'s wall
+   clock at B=64 and B=1, split into the pose bases, K7, K6 and the rest,
+   with the device's idle share, from profiler runs of the call given the
+   poses and given their bases.
 
 The line before the card's name and power limit lists every kernel with its
-launches in its path's run (phase 2 for K1-K4, phase 6 for K5 and K6), its
+launches in its path's run (phase 2 for K1-K4, phase 6 for K5-K7), its
 time, its plain version's and its library call's time where one PyTorch call
 computes the same function, and its bound.
 
@@ -65,10 +71,9 @@ ITERS = 10
 # an H100 SXM's published device-memory rate at 700 W
 HBM_BYTES_PER_S = 3.35e12
 # its float32 operations a second outside the tensor cores, one a lane and
-# clock (67 TFLOP/s counts a fused multiply-add as two), and its float64
-# ones (34 TFLOP/s, the same way); NVIDIA's H100 SXM data sheet
+# clock (67 TFLOP/s counts a fused multiply-add as two); NVIDIA's H100 SXM
+# data sheet
 F32_OPS_PER_S = 33.5e12
-F64_OPS_PER_S = 17e12
 
 
 def require(cond, what):
@@ -357,21 +362,10 @@ POSED_B = 64
 CHUNK = 8
 
 
-def posed_poses(n, seed=6):
-    """n seeded (pitch, yaw, roll) poses: yaw over 0-360, pitch over +-60,
-    roll over +-30, with the identity first and (89, 180, 0) second."""
-    rng = np.random.default_rng(seed)
-    poses = np.stack([rng.uniform(-60, 60, n), rng.uniform(0, 360, n),
-                      rng.uniform(-30, 30, n)], axis=1)
-    poses[0] = (0.0, 0.0, 0.0)
-    poses[1] = (89.0, 180.0, 0.0)
-    return poses
-
-
 def k6_ops_per_pose_pixel(globe):
     """Float32 operations K6 does for one pose and build pixel, as
     csrc/posed.cu does them: the rotation (9 mul, 6 add), the normalize
-    (3 mul, 2 add, sqrt, compare, division, 3 mul), the plate choice (max-dot:
+    (3 mul, 2 add, sqrt, compare, reciprocal, 3 mul), the plate choice (max-dot:
     a 5-op dot and a compare a plate, less one compare, whose winning dot is
     the chosen plate's forward dot; the fast globe: 2 compares, 2 divisions,
     2 mul, 2 abs, 2 compares, then the chosen plate's forward dot), the
@@ -386,10 +380,11 @@ def k6_ops_per_pose_pixel(globe):
 
 
 def posed_phase(dev, frames, frames_dev, kernels):
-    """Phase 6: the posed path.  Returns (the launches of K5 and K6 in the
-    path's run, their rows of the kernels line)."""
+    """Phase 6: the posed path.  Returns (the launches of K5, K6 and K7 in
+    the path's run, their rows of the kernels line)."""
     from blinky_tpu_torch.api import Session
     from blinky_tpu_torch.bench import autobatch
+    from blinky_tpu_torch.bench.posed import posed_poses
     from blinky_tpu_torch.bench.sol import cuda_ms
     from blinky_tpu_torch.kernels import posed, remap, static_ray
     from blinky_tpu_torch.lensmap import build_lensmap, calc_scale
@@ -409,7 +404,8 @@ def posed_phase(dev, frames, frames_dev, kernels):
     sources = {"u8": frames_dev, "expanded": expanded_dev, "rgba": rgba_dev}
 
     # ------------------------------------------------ the path, counted
-    for fn in list(kernels.values()) + [posed.gather_posed, static_ray.static_ray_posed]:
+    path_kernels = [posed.gather_posed, static_ray.static_ray_posed, posed.posed_layout]
+    for fn in list(kernels.values()) + path_kernels:
         fn.launches = 0
     outs, kerns = {}, {}
     for kind, fr in sources.items():
@@ -424,7 +420,8 @@ def posed_phase(dev, frames, frames_dev, kernels):
     exact = sess.render_posed(frames_dev[..., :2], poses[:2], exact=True)
     torch.cuda.synchronize()
     launches = {"posed_gather": posed.gather_posed.launches,
-                "static_ray_posed": static_ray.static_ray_posed.launches}
+                "static_ray_posed": static_ray.static_ray_posed.launches,
+                "posed_layout": posed.posed_layout.launches}
     phase(6, f"launches in the posed path's run: {launches}")
     for name, n in launches.items():
         require(n >= 1, f"{name} was not launched by the posed path")
@@ -510,13 +507,9 @@ def posed_phase(dev, frames, frames_dev, kernels):
     def texels(idx, valid):  # distinct source texels the valid pixels read
         return sum(int(torch.unique(idx[b][valid[b]]).numel()) for b in range(idx.shape[0]))
 
-    def reads(kind, k, batch):  # (distinct texels, valid pixels) over the batch
-        n_tex = n_valid = 0
-        for lo in range(0, batch, CHUNK):
-            _, idx_, valid_, _ = tables(kind, k, lo, min(batch, lo + CHUNK))
-            n_tex += texels(idx_, valid_)
-            n_valid += int(valid_.sum())
-        return n_tex, n_valid
+    def reads(kind, k, batch):  # distinct texels over the batch
+        return sum(texels(*tables(kind, k, lo, min(batch, lo + CHUNK))[1:3])
+                   for lo in range(0, batch, CHUNK))
 
     n5 = idx.numel()
     k5_bytes = n5 * 5 + texels(idx, valid) + bg5.numel() + k5.numel()
@@ -536,22 +529,27 @@ def posed_phase(dev, frames, frames_dev, kernels):
     for batch in (POSED_B, 1):
         for kind in sources:
             for k in (1, 2):
-                texel_n, valid_n = reads(kind, k, batch)
+                texel_n = reads(kind, k, batch)
                 kern, src, bases, expanded = operands(kind, k, 0, batch)
                 npix = kern.ray_table.vx.numel()
                 el = src.element_size()
                 nbytes = (npix * 13 + batch * 36 + texel_n * el + H * W * el
                           + batch * H * W * el)
+                # the expanded source's rubix grid test needs no float64
+                # operation a pixel: it is two lookups in a table of S flags
+                # (lensmap/builder.py::rubix_grid_lines), counted like the
+                # index arithmetic, not at all
                 f32_ops = ops_pp * npix * batch
-                # the rubix grid test of a valid pixel: 2 divisions, 2 fmod,
-                # 2 compares in float64
-                f64_ops = 6 * valid_n if expanded else 0
                 bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-                ops_ms = (f32_ops / F32_OPS_PER_S + f64_ops / F64_OPS_PER_S) * 1e3
+                ops_ms = f32_ops / F32_OPS_PER_S * 1e3
                 args = (src, kern.ray_table, bases, kern.globe, S, kern.numcells,
                         kern.cell_size, kern.pad_size, expanded, kern.background, k)
                 ms, plain_ms = cuda_ms_pair(lambda: static_ray.static_ray_posed(*args),
                                             lambda: static_ray.static_ray_posed_plain(*args))
+                # the kernel's own device time, from its CUPTI record
+                _, dev_ms, _ = profiled(lambda: static_ray.static_ray_posed(*args), ITERS,
+                                        sync=False)
+                k6_dev = sum(t for n_, t in dev_ms.items() if "static_ray_posed" in n_)
                 # the wrapper's host time a call: where it is near the kernel
                 # time, the events measured the host, not the card
                 enqueue_ms = host_ms(lambda: [static_ray.static_ray_posed(*args)
@@ -561,12 +559,13 @@ def posed_phase(dev, frames, frames_dev, kernels):
                 k6[batch, kind, k] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
                                           bound_by="operations" if ops_ms >= bytes_ms
                                           else "bytes")
-                phase(6, f"K6 static_ray_posed {kind} k={k} B={batch}: kernel {ms:.4f} ms, "
+                phase(6, f"K6 static_ray_posed {kind} k={k} B={batch}: kernel {ms:.4f} ms by "
+                      f"the events, {k6_dev:.4f} ms by the profiler's kernel record, "
                       f"plain {plain_ms:.4f} ms; {nbytes} bytes ({bytes_ms:.4f} ms), "
-                      f"{f32_ops} f32 + {f64_ops} f64 operations ({ops_ms:.4f} ms); bound "
+                      f"{f32_ops} f32 operations ({ops_ms:.4f} ms); bound "
                       f"{bound:.4f} ms by {k6[batch, kind, k]['bound_by']}, "
-                      f"{100 * bound / ms:.1f} % of it; the wrapper's host time "
-                      f"{enqueue_ms:.4f} ms a call")
+                      f"{100 * bound / ms:.1f} % of it ({100 * bound / k6_dev:.1f} % by the "
+                      f"kernel record); the wrapper's host time {enqueue_ms:.4f} ms a call")
                 del args, src
                 torch.cuda.empty_cache()
 
@@ -575,33 +574,86 @@ def posed_phase(dev, frames, frames_dev, kernels):
         static_ray.ray_table_from_lens(sess.lens, scale * k, W // k, H // k)
         phase(6, f"host ray table {W // k}x{H // k} (float64 lens stage, k={k}): "
               f"{time.perf_counter() - t0:.3f} s")
-    bg = kerns["u8", 1].background
-    for batch in (POSED_B, 1):
-        tr = cuda_ms(lambda: posed.prep_posed_inputs(frames_dev[..., :batch],
-                                                     bases_np[:batch], S, bg, dev), ITERS)
-        # render_posed's host steps before its launches, each a best of 3;
+    # K7, the pose-major layout, on each source: against its plain version
+    # and the library call permute().contiguous(), with its byte bound (the
+    # poses' texels read once, the pose-major array written once)
+    layout = {}
+    for kind, fr in sources.items():
+        bits = fr.view(torch.int32) if fr.dtype == torch.uint32 else fr
+        planes = bits.shape[0]
+        for batch in (POSED_B, 1):
+            x = bits[..., :batch]  # at B=1 a slice of the batch: K7's scalar path
+            run = lambda x=x, planes=planes: posed.posed_layout(x, planes)  # noqa: E731
+            lib = lambda x=x: x.permute(3, 0, 1, 2).contiguous()  # noqa: E731
+            require(torch.equal(run(), lib().reshape(batch, -1)),
+                    f"posed_layout {kind} B={batch} differs from permute().contiguous()")
+            require(torch.equal(run(), posed.posed_layout_plain(x, planes)),
+                    f"posed_layout {kind} B={batch} differs from its plain version")
+            ms, lib_ms = cuda_ms_pair(run, lib)
+            plain_ms = cuda_ms(lambda x=x, planes=planes: posed.posed_layout_plain(x, planes),
+                               ITERS)
+            _, dev_ms, _ = profiled(run, ITERS, sync=False)
+            k7_dev = sum(t for n_, t in dev_ms.items() if "posed_layout" in n_)
+            nbytes = 2 * x.numel() * x.element_size()
+            bound = nbytes / HBM_BYTES_PER_S * 1e3
+            layout[kind, batch] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                       bound_ms=bound)
+            phase(6, f"K7 posed_layout {kind} B={batch}: kernel {ms:.4f} ms ({k7_dev:.4f} ms "
+                  f"by the kernel record), plain {plain_ms:.4f} ms, permute().contiguous() "
+                  f"{lib_ms:.4f} ms; {nbytes} bytes, bound {bound:.4f} ms, "
+                  f"{100 * bound / ms:.1f} % of it ({nbytes / (ms * 1e-3) / 1e9:.1f} GB/s); "
+                  "bit-equal to both")
+        one = fr[..., :1].contiguous()  # the drag-look: one whole frame set
+        n7 = posed.posed_layout.launches
+        bg1 = kerns[kind, 1].background
+        view_ms = min(host_ms(lambda: posed.prep_posed_inputs(one, bases_np[:1], S, bg1, dev))
+                      for _ in range(3))
+        src1, _, _ = posed.prep_posed_inputs(one, bases_np[:1], S, bg1, dev)
+        require(posed.posed_layout.launches == n7 and src1.data_ptr() == one.data_ptr(),
+                f"prep_posed_inputs of one contiguous {kind} pose copied its frames")
+        phase(6, f"prep_posed_inputs {kind} B=1, contiguous: a view of the frames, no "
+              f"launch, {view_ms:.3f} ms of host time")
+
+    # render_posed u8 k=1, frames on the card: the pose bases, K7, K6 and the
+    # rest of the host wall clock, with the device's idle share, from
+    # profiler runs of ITERS calls (each synchronised) given the poses, and
+    # given their bases (the difference is the pose bases' host time)
+    one_u8 = frames_dev[..., :1].contiguous()
+    for batch, fr in ((POSED_B, frames_dev), (1, one_u8)):
         # the zoom solve and the memory query run only for a new kernel key
-        # or a batch above the cap last read, so not in the timed calls below
-        steps = {"pose bases": lambda: posed.bases_from_pose_track(poses[:batch]),
-                 "zoom solve": lambda: calc_scale(sess.zoom, sess.lens, W, H),
+        # or a batch above the cap last read, so not in the timed calls
+        steps = {"zoom solve": lambda: calc_scale(sess.zoom, sess.lens, W, H),
                  "memory query": lambda: autobatch.device_memory_bytes(dev)}
         host = {name: min(host_ms(fn) for _ in range(3)) for name, fn in steps.items()}
         walls = []
         for _ in range(3):
             t0 = time.perf_counter()
-            sess.render_posed(frames_dev[..., :batch], poses[:batch])
+            sess.render_posed(fr, poses[:batch])
             torch.cuda.synchronize()
             walls.append((time.perf_counter() - t0) * 1e3)
-        phase(6, f"B={batch}: the pose-major transpose (prep_posed_inputs, u8) "
-              f"{tr:.4f} ms; host steps {', '.join(f'{n} {t:.3f} ms' for n, t in host.items())}; "
-              f"render_posed u8 k=1 host wall clock {', '.join(f'{w:.3f}' for w in walls)} ms")
+        wall, dev_ms, busy = profiled(lambda: sess.render_posed(fr, poses[:batch]), ITERS)
+        wall_b, _, _ = profiled(lambda: sess.render_posed(fr, bases_np[:batch]), ITERS)
+        k7 = sum(t for n_, t in dev_ms.items() if "posed_layout" in n_)
+        k6_ = sum(t for n_, t in dev_ms.items() if "static_ray_posed" in n_)
+        phase(6, f"render_posed u8 k=1 B={batch}, frames on the card: host wall clock "
+              f"{', '.join(f'{w:.3f}' for w in walls)} ms; under the profiler {wall:.3f} ms "
+              f"a call = pose bases {wall - wall_b:.3f} (the call given its bases: "
+              f"{wall_b:.3f} ms) + K7 {k7:.4f} + K6 {k6_:.4f} + the rest "
+              f"{wall_b - k7 - k6_:.3f} ms; device busy {busy:.4f} ms, idle "
+              f"{100 * (1 - busy / wall):.1f} % of the call; device work by record: "
+              + ", ".join(f"{n_[:40]} {t:.4f} ms" for n_, t in dev_ms.items())
+              + f"; once a key: {', '.join(f'{n} {t:.3f} ms' for n, t in host.items())}")
 
     main6 = k6[POSED_B, "u8", 1]
+    k7main = layout["u8", POSED_B]
     rows = [
         ("posed_gather", "posed.cu", "blinky_tpu/kernels/posed.py:102", k5_err, k5_ms,
          k5_plain, k5_bound, "bytes", None, None),
         ("static_ray_posed", "posed.cu", "blinky_tpu/kernels/static_ray.py:220", err,
          main6["ms"], main6["plain_ms"], main6["bound_ms"], main6["bound_by"], None, None),
+        ("posed_layout", "layout.cu", "blinky_tpu/kernels/posed.py:91", 0, k7main["ms"],
+         k7main["plain_ms"], k7main["bound_ms"], "bytes", k7main["library_ms"],
+         "x.permute(3, 0, 1, 2).contiguous()"),
     ]
     return launches, rows
 
@@ -629,6 +681,31 @@ def time_variant(name, kernel, plain, nbytes):
           f"{nbytes} bytes, bound {bound_ms:.4f} ms, {100 * bound_ms / ms:.1f} % of it "
           f"({nbytes / (ms * 1e-3) / 1e9:.1f} GB/s); bit-equal")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms)
+
+
+def profiled(fn, iters, sync=True):
+    """Runs ``fn()`` *iters* times under ``torch.profiler`` after a warm-up
+    call, synchronising after each call when *sync*.  Returns (host wall ms a
+    call, {device record name: ms a call} from the CUPTI records of kernels,
+    copies and fills, their sum: the device's busy ms a call)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+            if sync:
+                torch.cuda.synchronize()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / iters
+    dev_ms = {}
+    for e in prof.events():
+        if e.device_type.name == "CUDA":
+            dev_ms[e.name] = dev_ms.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / iters
+    require(dev_ms, "torch.profiler recorded no device work")
+    return wall, dev_ms, sum(dev_ms.values())
 
 
 def host_ms(fn):

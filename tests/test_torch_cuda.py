@@ -295,8 +295,12 @@ def _posed_table(globe_name, hb, wb, device, odd_rays=True):
     t = static_ray.ray_table_from_lens(lens, scale, wb, hb)
     if odd_rays:
         vx, vy, vz = (np.array(a) for a in (t.vx, t.vy, t.vz))
+        # zero, NaN and inf rays; lengths whose square underflows, is
+        # denormal or nears the float32 maximum; denormal components
         odd = [(0.0, 0.0, 0.0), (np.nan, 0.3, 1.0), (np.inf, 0.0, 1.0),
-               (0.0, -np.inf, np.inf), (1e-30, 0.0, 0.0), (0.0, 0.0, -1.0)]
+               (0.0, -np.inf, np.inf), (1e-30, 0.0, 0.0), (0.0, 0.0, -1.0),
+               (1e-20, 0.0, 1e-20), (3e-39, -1e-21, 2e-45), (1e19, -1e19, 1e19),
+               (-4e-39, 0.0, 1e-38)]
         for i, ray in enumerate(odd):
             y, x = divmod(i * 7 + 3, wb)
             vx[y, x], vy[y, x], vz[y, x] = ray
@@ -345,10 +349,53 @@ def test_static_ray_posed_equals_plain(cuda_device, globe_name, kind, k):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B", [1, 300])
+@pytest.mark.parametrize("globe_name", ["cube", "cube_corner", "cube_edge", "fast",
+                                        "tetra", "trism"])
+@pytest.mark.parametrize("kind", ["u8", "expanded", "int32"])
+@pytest.mark.parametrize("k", [1, 2, 3])
+def test_static_ray_posed_vector_equals_plain(cuda_device, globe_name, kind, k):
+    """K6's vector kernels (a build width that is a multiple of the four
+    pixels a thread takes; k = 3 takes the scalar kernel) against the plain
+    version: every globe and source kind, the odd rays, 11 poses (not a
+    multiple of a block's poses or of a pose group)."""
+    rng = np.random.default_rng(len(globe_name) * 7 + k)
+    hb, wb, S, B = 24, 40, 32, 11
+    g, table = _posed_table(globe_name, hb, wb, cuda_device)
+    poses = np.stack([rng.uniform(-90, 90, B), rng.uniform(0, 360, B),
+                      rng.uniform(-45, 45, B)], 1)
+    bases = torch.from_numpy(posed.bases_from_pose_track(poses)).float().to(cuda_device)
+    src = _posed_source(kind, B, S, rng, cuda_device)
+    bg = _texels(kind == "int32", (hb * k, wb * k), rng, cuda_device)
+    args = (src, table, bases, g, S, 7.0, 2.5, 1.5, kind == "expanded", bg, k)
+    n0 = static_ray.static_ray_posed.launches
+    got = static_ray.static_ray_posed(*args)
+    assert static_ray.static_ray_posed.launches == n0 + 1
+    _equal(got, static_ray.static_ray_posed_plain(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid", [(10.0, 4.0, 1.0), (7.0, 4.0, 1.0), (0.0, 0.0, 0.0)],
+                         ids=["default", "exact-edges", "no-grid"])
+def test_static_ray_posed_grid_lines_1080(cuda_device, grid):
+    """The expanded source's grid test, read from the host's line table,
+    at 1080p plates: the default grid, one whose unit is a whole 30 pixels
+    (px / unit lands on block edges exactly), and f_rubixgrid 0 0 0."""
+    rng = np.random.default_rng(5)
+    hb, wb, S, B = 48, 64, 1080, 3
+    g, table = _posed_table("cube", hb, wb, cuda_device, odd_rays=False)
+    poses = np.stack([rng.uniform(-60, 60, B), rng.uniform(0, 360, B), np.zeros(B)], 1)
+    bases = torch.from_numpy(posed.bases_from_pose_track(poses)).float().to(cuda_device)
+    src = _posed_source("expanded", B, S, rng, cuda_device)
+    bg = torch.zeros((hb, wb), dtype=torch.uint8, device=cuda_device)
+    args = (src, table, bases, g, S, *grid, True, bg, 1)
+    _equal(static_ray.static_ray_posed(*args), static_ray.static_ray_posed_plain(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 17, 300])
 def test_static_ray_posed_batch_edges(cuda_device, B):
-    """One pose, and a batch that is not a multiple of the kernel's
-    eight-pose groups."""
+    """One pose, and batches that are not a multiple of a block's poses
+    (17 also leaves a short pose group)."""
     rng = np.random.default_rng(B)
     hb, wb, S = 24, 32, 24
     g, table = _posed_table("cube", hb, wb, cuda_device)
@@ -401,11 +448,101 @@ def test_session_render_posed_on_card_equals_cpu(cuda_device):
     for fr in sources:
         for k in (1, 2):
             n6 = static_ray.static_ray_posed.launches
+            n7 = posed.posed_layout.launches
             got = card.render_posed(fr, poses, render_scale=k)
             assert static_ray.static_ray_posed.launches == n6 + 1
+            assert posed.posed_layout.launches == n7 + 1
             assert got.device.type == "cuda"
             _equal(got.cpu(), cpu.render_posed(fr, poses, render_scale=k))
     n5 = posed.gather_posed.launches
     got = card.render_posed(frames[..., :2], poses[:2], exact=True)
     assert posed.gather_posed.launches == n5 + 1
     _equal(got.cpu(), cpu.render_posed(frames[..., :2], poses[:2], exact=True))
+
+
+# ------------------------------------------------------ K7, the posed layout
+
+
+def _frames(dtype, P, S, B, rng, device):
+    int32 = dtype == torch.int32
+    return _texels(int32, (P, S, S, B), rng, device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int32], ids=["u8", "int32"])
+@pytest.mark.parametrize("P", [1, 3, 6, 12])
+@pytest.mark.parametrize("B", [1, 3, 16, 63, 64, 65, 200])
+@pytest.mark.parametrize("S", [5, 64])
+def test_posed_layout_equals_plain(cuda_device, dtype, P, B, S):
+    """K7 bit-equal to its plain version and to permute().contiguous():
+    u8 and int32, P < 6 padded with zero planes, every batch edge of the
+    vector path (B a multiple of 16 u8 or 4 RGBA words) and the scalar one."""
+    rng = np.random.default_rng(P * 1000 + B * 10 + S)
+    frames = _frames(dtype, P, S, B, rng, cuda_device)
+    planes = 12 if P == 12 else 6
+    n0 = posed.posed_layout.launches
+    got = posed.posed_layout(frames, planes)
+    assert posed.posed_layout.launches == n0 + 1
+    _equal(got, posed.posed_layout_plain(frames, planes))
+    _equal(got[:, :P * S * S], frames.permute(3, 0, 1, 2).reshape(B, -1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int32], ids=["u8", "int32"])
+@pytest.mark.parametrize("P,B", [(6, 64), (12, 1), (3, 65), (6, 63)])
+def test_posed_layout_1080(cuda_device, dtype, P, B):
+    """K7 at 1080p plates: the main path's shape, the expanded source at
+    one pose, zero planes with a ragged batch, a ragged batch."""
+    S = 1080
+    gen = torch.Generator(cuda_device).manual_seed(P + B)
+    frames = torch.randint(0, 256, (P, S, S, B), dtype=torch.uint8, device=cuda_device,
+                           generator=gen)
+    if dtype == torch.int32:
+        frames = frames.int() * 16843009  # every byte of the word set
+    planes = 12 if P == 12 else 6
+    _equal(posed.posed_layout(frames, planes), posed.posed_layout_plain(frames, planes))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int32], ids=["u8", "int32"])
+@pytest.mark.parametrize("lo,hi", [(1, 65), (16, 32), (3, 4), (0, 64)])
+def test_posed_layout_batch_slices(cuda_device, dtype, lo, hi):
+    """A batch slice of a wider array: a row stride above B, an unaligned
+    pointer (lo not a multiple of 16 bytes) and one pose of many."""
+    rng = np.random.default_rng(lo * 100 + hi)
+    frames = _frames(dtype, 6, 24, 80, rng, cuda_device)[..., lo:hi]
+    got = posed.posed_layout(frames, 6)
+    _equal(got, posed.posed_layout_plain(frames, 6))
+    rgba = dtype == torch.int32  # RGBA frames enter the Session's path as uint32
+    src, _, _ = posed.prep_posed_inputs(
+        frames.view(torch.uint32) if rgba else frames, np.tile(np.eye(3), (hi - lo, 1, 1)),
+        24, torch.zeros((8, 8), dtype=dtype, device=cuda_device), cuda_device)
+    _equal(src, got)
+
+
+@pytest.mark.cuda
+def test_posed_layout_rejects_uneven_strides(cuda_device):
+    """Texels that are not evenly strided raise; nothing falls back."""
+    frames = torch.zeros((6, 24, 24, 8), dtype=torch.uint8, device=cuda_device)
+    with pytest.raises(ValueError, match="evenly"):
+        posed.posed_layout(frames.transpose(1, 2), 6)
+    with pytest.raises(ValueError, match="evenly"):
+        posed.posed_layout(frames.transpose(0, 3).transpose(0, 3)[:, ::2], 6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", [6, 12])
+def test_prep_posed_inputs_one_pose_is_a_view(cuda_device, P):
+    """One pose of 6 or 12 contiguous planes: the pose-major array is the
+    frames themselves, with no launch; 3 planes still pad through K7."""
+    frames = torch.arange(P * 24 * 24, device=cuda_device).to(torch.uint8).reshape(
+        P, 24, 24, 1)
+    bg = torch.zeros((8, 8), dtype=torch.uint8, device=cuda_device)
+    n0 = posed.posed_layout.launches
+    src, _, _ = posed.prep_posed_inputs(frames, np.eye(3)[None], 24, bg, cuda_device)
+    assert posed.posed_layout.launches == n0
+    assert src.data_ptr() == frames.data_ptr()
+    _equal(src, posed.posed_layout_plain(frames, P))
+    src3, _, _ = posed.prep_posed_inputs(frames[:3], np.eye(3)[None], 24, bg, cuda_device)
+    assert posed.posed_layout.launches == n0 + 1
+    _equal(src3, posed.posed_layout_plain(frames[:3], 6))

@@ -40,6 +40,7 @@ from blinky_tpu.lensmap import build_lensmap as jbuild
 from blinky_tpu.lensmap import calc_scale as jcalc
 from blinky_tpu.lensmap.builder import TINT_NONE
 from blinky_tpu.lensmap.builder import rays_to_lensmap as jrays_to_lensmap
+from blinky_tpu.lensmap.builder import rubix_grid_mask as jrubix_grid_mask
 from blinky_tpu_torch import camera, globes, lenses
 from blinky_tpu_torch.api import Session
 from blinky_tpu_torch.bench import autobatch
@@ -47,7 +48,9 @@ from blinky_tpu_torch.io.cubemap import synthetic_cubemap_batch
 from blinky_tpu_torch.kernels import posed, static_ray
 from blinky_tpu_torch.kernels.remap import expand_frames_tinted, frames_to_rgba
 from blinky_tpu_torch.lensmap import Zoom, build_lensmap, calc_scale
-from blinky_tpu_torch.lensmap.builder import plate_resolver_mode, rays_to_lensmap_torch
+from blinky_tpu_torch.lensmap.builder import (
+    plate_resolver_mode, rays_to_lensmap_torch, rubix_grid_consts, rubix_grid_lines,
+)
 from blinky_tpu_torch.palette import default_palette
 
 W, H, S, B = 64, 48, 48, 5
@@ -178,6 +181,58 @@ def test_prep_posed_inputs_equals_jax(kind):
                                   np.asarray(jsrc))
     np.testing.assert_array_equal(b.numpy(), np.asarray(jb))
     assert b.dtype == torch.float32
+
+
+@pytest.mark.parametrize("kind", ["u8", "expanded", "rgba"])
+def test_prep_posed_inputs_one_pose_is_a_view(kind):
+    """One pose of 6 or 12 contiguous planes: the pose-major array is the
+    frames themselves (shared storage), equal to the copy path; 4 planes at
+    one pose still pad with zero planes."""
+    frames = torch.from_numpy(_source(kind)[..., 2:3].copy())
+    if kind == "rgba":
+        frames = frames.view(torch.uint32)
+    bg = torch.zeros((H, W), dtype=torch.int32 if kind == "rgba" else torch.uint8)
+    basis = jposed.bases_from_pose_track(POSES[2:3])
+    src, _, expanded = posed.prep_posed_inputs(frames, basis, S, bg, "cpu")
+    bits = frames.view(torch.int32) if kind == "rgba" else frames
+    assert src.untyped_storage().data_ptr() == frames.untyped_storage().data_ptr()
+    assert torch.equal(src, posed.posed_layout_plain(bits, 12 if expanded else 6))
+    if kind == "u8":
+        src4, _, _ = posed.prep_posed_inputs(frames[:4], basis, S, bg, "cpu")
+        assert src4.untyped_storage().data_ptr() != frames.untyped_storage().data_ptr()
+        assert torch.equal(src4[:, :4 * S * S], frames[:4].reshape(1, -1))
+        assert not src4[:, 4 * S * S:].any()
+
+
+# the Session's default grid, two others, one whose unit is a whole 30
+# pixels at S = 1080 and 2160 (px / unit lands on block edges exactly), and
+# f_rubixgrid 0 0 0 (an infinite unit: no grid lines)
+GRIDS = [(10, 4.0, 1.0), (7.0, 3.3, 1.7), (3, 2.5, 0.5), (7, 4.0, 1.0), (0, 0.0, 0.0)]
+
+
+@pytest.mark.parametrize("platesize", [64, 1080, 2160])
+@pytest.mark.parametrize("grid", GRIDS, ids=["default", "f32", "coarse", "exact-edges",
+                                             "no-grid"])
+def test_rubix_grid_lines_equal_fmod_test(platesize, grid):
+    """K6's grid-line table against the plain version's float64 fmod test
+    and the JAX package's rubix_grid_mask (NumPy, x64), at every (px, py),
+    both fed the float32-rounded grid parameters rubix_grid_consts uses."""
+    lines = rubix_grid_lines(platesize, *grid)
+    assert lines.shape == (platesize,) and lines.dtype == bool
+    unit, block, pad = rubix_grid_consts(platesize, *grid)
+    px = torch.arange(platesize)
+    plain = torch.fmod(px.to(torch.float64) / torch.tensor(unit, dtype=torch.float64),
+                       block) < pad
+    np.testing.assert_array_equal(lines, plain.numpy())
+    grid32 = tuple(np.float32(v) for v in grid)
+    py, pxx = np.meshgrid(np.arange(platesize), np.arange(platesize), indexing="ij")
+    want = jrubix_grid_mask(pxx, py, platesize, *grid32, np)
+    np.testing.assert_array_equal(lines[pxx] | lines[py], want)
+    if grid == (7, 4.0, 1.0) and platesize > 64:
+        u = 30 * platesize // 1080  # px = u is the first texel past the first line
+        assert unit == u and lines[u - 1] and not lines[u]
+    if grid == (0, 0.0, 0.0):
+        assert not lines.any()
 
 
 def test_posed_background_dtype_guards():
