@@ -1,10 +1,12 @@
-"""Session: the console-semantics API surface, static views only.
+"""Session: the console-semantics API surface.
 
 The port of :class:`blinky_tpu.api.Session` for the static remap and the
 posed playback: the ``F_Init`` defaults (``engine/NQ/fisheye.c:668-672``),
-the console tokenizer, the lens/globe/zoom/rubix commands, the
-change-driven lensmap rebuild of ``F_RenderView`` (``fisheye.c:698-811``) on
-the exact float64 host builder, the remap of frame batches on a device
+the console tokenizer, the lens/globe/zoom/rubix commands and
+``setviewangles``, the change-driven lensmap rebuild of ``F_RenderView``
+(``fisheye.c:698-811``) on the exact float64 host builder or, for a rotated
+view or on request (``backend="torch"``), on the float32 device builder,
+the remap of frame batches on a device
 through :class:`blinky_tpu_torch.kernels.remap.RemapKernel`, and
 :meth:`Session.render_posed`, every frame at its own view rotation through
 :class:`blinky_tpu_torch.kernels.static_ray.StaticRayPosedKernel`::
@@ -16,7 +18,7 @@ through :class:`blinky_tpu_torch.kernels.remap.RemapKernel`, and
 The device defaults to ``"cuda"``; nothing probes and nothing falls back,
 so on a machine without a card a render with the default raises.  What
 ``blinky_tpu``'s Session has beyond this raises ``NotImplementedError``
-naming it: the ``fisheye 0`` plain view, pose tracking, time-sliced builds,
+naming it: the ``fisheye 0`` plain view, time-sliced builds,
 script directories, key bindings, config files, ``f_saveglobe`` and
 ``f_dumppal``, and the equirect, anti-aliased and sharded renders.
 ``Unknown command`` is kept for names neither package knows.
@@ -51,12 +53,12 @@ Welcome to the FISHEYE ADDON!
 # blinky_tpu's console commands that the port does not have yet
 _UNPORTED_COMMANDS = frozenset({
     "fov", "f_saveglobe", "f_dumppal", "f_shortcutkeys", "stuffcmds",
-    "setviewangles", "bind", "unbind", "unbindall", "exec",
+    "bind", "unbind", "unbindall", "exec",
 })
 
 # blinky_tpu's other Session entry points that the port does not have yet
 _UNPORTED_METHODS = frozenset({
-    "press_key", "build_progress", "warm_device_builder", "render_sharded",
+    "press_key", "build_progress", "render_sharded",
     "render_aa", "render_equirect",
     "config_str", "write_config", "exec_config", "complete_lens",
     "complete_globe",
@@ -290,6 +292,13 @@ class Session:
     lensmap rebuilt lazily on change, and the kernels that render frame
     batches on *device* (``torch.device`` or its name, ``"cuda"`` unless
     the caller asks for another).
+
+    *backend* picks the lensmap builder.  ``"auto"`` (the default): static
+    builds (no view rotation) use the exact float64 host builder, so
+    :attr:`lensmap` bit-equals the reference, while a pose-tracked view
+    (``setviewangles``) switches to the float32 builder on the device,
+    whose rebuilds cost milliseconds.  ``"numpy"`` / ``"torch"`` force one
+    path.
     """
 
     def __init__(
@@ -300,6 +309,7 @@ class Session:
         palette: Optional[np.ndarray] = None,
         *,
         device="cuda",
+        backend: str = "auto",
         echo: bool = False,
         defaults: bool = True,
         lens_dirs=(),
@@ -314,7 +324,11 @@ class Session:
             raise NotImplementedError(
                 "time-sliced lensmap builds (build_budget_s) are not ported "
                 "to blinky_tpu_torch yet")
+        if backend not in ("auto", "numpy", "torch"):
+            raise ValueError(f"unknown lensmap backend {backend!r}: "
+                             "expected 'auto', 'numpy' or 'torch'")
         self.device = torch.device(device)
+        self.backend = backend
         self.width_px = int(width)
         self.height_px = int(height)
         self.platesize = int(platesize) if platesize else min(width, height)
@@ -324,6 +338,7 @@ class Session:
         self.console: list = []
 
         self.fisheye_enabled = False
+        self.view_angles = None  # (pitch, yaw, roll) deg, None = identity
         self.aliases: dict = {}  # name -> command string (common/cmd.c:373)
         self._alias_depth = 0  # bounds self-referential alias expansion
         self.lens_name = ""
@@ -340,7 +355,8 @@ class Session:
 
         self._changed = True
         self._lensmap = None
-        self._lensmap_meta = None  # (lens, globe)
+        self._lensmap_np = None  # the table as NumPy arrays, made on request
+        self._lensmap_meta = None  # (lens, globe, view_is_identity)
         self._background = None
         self._background_gen = 0
         self._posed_cache = None  # (key, StaticRayPosedKernel)
@@ -363,6 +379,7 @@ class Session:
             "f_rubix": self._cmd_rubix,
             "f_rubixgrid": self._cmd_rubixgrid,
             "impulse": lambda argv: None,  # game-sim command: no-op here
+            "setviewangles": self._cmd_setviewangles,
             "alias": self._cmd_alias,
             "echo": self._cmd_echo,
             # Cmd_Wait_f defers the rest of the buffer to the next frame
@@ -439,6 +456,34 @@ class Session:
         # fisheye_enabled = Q_atoi(Cmd_Argv(1)) — "will return 0 if not
         # valid" (cmd_fisheye, fisheye.c:975); "2abc" is truthy there
         self.fisheye_enabled = bool(_atoi(argv[1]))
+
+    def _cmd_setviewangles(self, argv):
+        """Rotate the view within recorded plates: ``setviewangles <pitch>
+        <yaw> <roll>`` (degrees).  The reference gets viewangles from game
+        input and re-renders the plates (``F_RenderView``,
+        ``fisheye.c:750``); with recorded cubemaps the rotation composes
+        into the lensmap instead.  ``setviewangles`` with no args resets."""
+        if len(argv) < 4:
+            self.view_angles = None
+        else:
+            self.view_angles = (_atof(argv[1]), _atof(argv[2]), _atof(argv[3]))
+        self._changed = True
+
+    def _resolved_backend(self) -> str:
+        """See the backend policy in the class's note."""
+        if self.backend == "auto":
+            # every ported lens and globe runs on tensors (scalar-only
+            # script lenses and resolvers are not ported), so a rotated view
+            # always takes the device builder
+            return "torch" if self.view_angles is not None else "numpy"
+        return self.backend
+
+    def _view_basis(self):
+        if self.view_angles is None:
+            return None
+        from blinky_tpu_torch.camera import view_basis_from_angles
+
+        return view_basis_from_angles(*self.view_angles)
 
     def _cmd_help(self, argv):
         self._print(HELP_TEXT)
@@ -558,8 +603,12 @@ class Session:
         """Change-driven lensmap rebuild (``F_RenderView``,
         ``fisheye.c:730-746``): reload the lens (its metadata may depend on
         the globe), re-solve the zoom, rebuild the gather table on the
-        exact float64 host builder."""
+        builder the backend policy picks, with the view rotation composed
+        in.  A float32 build leaves its tables on the session's device,
+        where the remap kernel takes them without a trip through the
+        host."""
         self._lensmap = None
+        self._lensmap_np = None
         self._lensmap_meta = None
         self._kernel = None
         if not (self.lens_valid and self.globe_valid):
@@ -587,19 +636,55 @@ class Session:
             numcells=self.rubix_numcells,
             cell_size=self.rubix_cell_size,
             pad_size=self.rubix_pad_size,
-            backend="numpy",
+            backend=self._resolved_backend(),
+            view_basis=self._view_basis(),
+            device=self.device,
         )
-        # what the table was built from, recorded now rather than inferred
-        # later; the view is always the identity (setviewangles is not
-        # ported), so it is not recorded
-        self._lensmap_meta = (self.lens, self.globe)
+        # what the table was built FROM, recorded now rather than inferred
+        # later: consumers that need an identity-view table at a known scale
+        # check this, not the session's mutable state (a pending
+        # setviewangles must not hide a reusable earlier build)
+        self._lensmap_meta = (self.lens, self.globe, self._view_basis() is None)
         self._changed = False
+
+    def warm_device_builder(self) -> bool:
+        """Run the float32 device builder for the active lens and globe at
+        this session's shapes now (the kernels' build and the device's first
+        allocations), so the first interactive pose change does not stall on
+        them.  Returns True if a device builder is now warm (an
+        inverse-mapped lens; forward lenses have no device builder)."""
+        if not (self.lens_valid and self.globe_valid):
+            return False
+        self.lens_valid = self._load_lens()
+        if not (self.lens_valid and self.lens.map_type == "inverse"):
+            return False
+        try:
+            scale = calc_scale(self.zoom, self.lens, self.width_px, self.height_px)
+        except ZoomError:
+            scale = 1.0  # any scale: the builder takes it as a value
+        build_lensmap(
+            self.lens, self.globe, scale, self.width_px, self.height_px,
+            self.platesize, numcells=self.rubix_numcells,
+            cell_size=self.rubix_cell_size, pad_size=self.rubix_pad_size,
+            backend="torch", view_basis=self._view_basis(), device=self.device,
+        )
+        return True
 
     @property
     def lensmap(self):
+        """The current lensmap with NumPy arrays (a float32 build's tables
+        are copied from the device once a build)."""
         if self._changed or self._lensmap is None:
             self._rebuild()
-        return self._lensmap
+        return self._lensmap_numpy()
+
+    def _lensmap_numpy(self):
+        lm = self._lensmap
+        if lm is None or not isinstance(lm.flat_idx, torch.Tensor):
+            return lm
+        if self._lensmap_np is None:
+            self._lensmap_np = lm.to_numpy()
+        return self._lensmap_np
 
     @property
     def palette(self) -> np.ndarray:
@@ -679,8 +764,13 @@ class Session:
         frames = np.asarray(frames)
         if frames.ndim != 3:
             raise ValueError("render_host takes one [P, S, S] frame")
-        self._prepare(frames)
-        lm = self._lensmap
+        # host-side only: even a setviewangles rebuild takes the host builder
+        saved_backend, self.backend = self.backend, "numpy"
+        try:
+            self._prepare(frames)
+        finally:
+            self.backend = saved_backend
+        lm = self._lensmap_numpy()
         if lm is None:
             return self._background_np()
         rubix = self.rubix_enabled if rubix is None else rubix
@@ -899,13 +989,13 @@ class Session:
 
     def _reusable_static_lensmap(self, scale, platesize, render_scale):
         """The session's built static lensmap when it can seed a ray table:
-        built from this lens and globe with the identity view
+        built from this lens and globe with no view rotation composed in
         (``_lensmap_meta``), at this size, plate size and zoom scale, for a
         full-resolution posed grid."""
         lm, meta = self._lensmap, self._lensmap_meta
         if lm is None or meta is None or render_scale != 1:
             return None
-        if not (meta[0] is self.lens and meta[1] is self.globe):
+        if not (meta[0] is self.lens and meta[1] is self.globe and meta[2]):
             return None
         if (lm.width_px, lm.height_px, lm.platesize) != (
                 self.width_px, self.height_px, platesize):

@@ -86,3 +86,21 @@ def posed_bytes_per_lane(planesize, nplanes, width, height, rgba=False,
     none, so the render scale does not enter the count."""
     planes = planes_bytes_per_lane(planesize, nplanes, rgba, expanded)
     return 2 * planes + screen_bytes_per_lane(width, height, rgba)
+
+
+# float32 planes the lens stage may hold live at once for one zoom step: the
+# grid, the rays and the temporaries of the widest ported lens.  Read on an
+# NVIDIA H100 80GB HBM3 at 1920x1080 by chip_smoke.py's phase 7
+# (bench/builder.py::lens_stage_peak_planes, torch.cuda.max_memory_allocated
+# around the lens stage): winkeltripel 32.57 planes a pixel, panini 7.00.
+# 40 leaves a fifth above the widest for the allocator's rounding; phase 7
+# fails if a reading passes it.
+SWEEP_LENS_PLANES = 40
+
+
+def sweep_bytes_per_lane(width, height, rgba=False) -> int:
+    """What the fused zoom sweep keeps per zoom step: the lens stage's live
+    float32 planes (:data:`SWEEP_LENS_PLANES`), the step's 13-byte-a-pixel
+    ray table and its screen."""
+    return width * height * (4 * SWEEP_LENS_PLANES + 13) + screen_bytes_per_lane(
+        width, height, rgba)

@@ -32,6 +32,12 @@
 //    a multiple of 16 bytes takes the scalar path of the same file: the
 //    same tiles with one element a thread and a 32-bit shared word an
 //    element.
+//  * Frames whose texels are not evenly strided (a transpose of the two
+//    plate axes, say) take the strided path, blinky_posed_layout_strided:
+//    the scalar tiles again, each element read at its own four strides,
+//    with the tile's read order following whichever of the pose and the
+//    texel column is unit-strided.  jnp.transpose takes any array, and so
+//    does K7.
 
 #include "common.cuh"
 
@@ -145,6 +151,44 @@ __global__ void __launch_bounds__(kThreads) posed_layout_scalar(
   }
 }
 
+// The strided path: the scalar path's tiles over frames [P, S, S, B] with any
+// four element strides sp, sy, sx, sb.  pose_fast: read the tile with the pose
+// running fastest (a unit-strided batch), else with the texel running fastest
+// (a unit-strided column).
+template <typename Elem>
+__global__ void __launch_bounds__(kThreads) posed_layout_strided(
+    const Elem* __restrict__ in, long long sp, long long sy, long long sx, long long sb,
+    int S, long long T, int B, int tt, int tb, int pose_fast, long long n_out,
+    Elem* __restrict__ out) {
+  __shared__ uint32_t tile[2 * kScalarElems];  // tt * (tb + 1) words at most
+  const long long t0 = (long long)blockIdx.x * tt;
+  const int b0 = blockIdx.y * tb;
+  const int n = tt * tb;
+  for (int i = threadIdx.x; i < n; i += kThreads) {
+    int r, c;
+    if (pose_fast) {
+      r = i / tb, c = i - r * tb;
+    } else {
+      c = i / tt, r = i - c * tt;
+    }
+    const long long t = t0 + r;
+    uint32_t v = 0u;
+    if (t < T && b0 + c < B) {
+      const long long pl = t / ((long long)S * S), rem = t - pl * S * S;
+      const long long y = rem / S, x = rem - y * S;
+      v = (uint32_t)in[pl * sp + y * sy + x * sx + (long long)(b0 + c) * sb];
+    }
+    tile[r * (tb + 1) + c] = v;
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < n; i += kThreads) {
+    const int c = i / tt, r = i - c * tt;
+    const long long t = t0 + r;
+    if (t < n_out && b0 + c < B)
+      out[(long long)(b0 + c) * n_out + t] = (Elem)tile[r * (tb + 1) + c];
+  }
+}
+
 }  // namespace
 
 // in: T texels of elem_bytes (1 or 4), texel t's `batch` poses at in + t * ld
@@ -183,5 +227,35 @@ extern "C" int blinky_posed_layout(const void* in, long long ld, long long T, in
       posed_layout_scalar<uint32_t><<<grid, kThreads, 0, s>>>(
           (const uint32_t*)in, ld, T, batch, tt, tb, n_out, (uint32_t*)out);
   }
+  return (int)cudaGetLastError();
+}
+
+// in: frames [P, S, S, batch] of elem_bytes (1 or 4) with the element strides
+// sp, sy, sx, sb (any layout, none negative); out: [batch, n_out], texels
+// P * S * S .. n_out - 1 zero.  Launches on `stream` and returns
+// cudaGetLastError() after the launch.
+extern "C" int blinky_posed_layout_strided(const void* in, long long sp, long long sy,
+                                           long long sx, long long sb, int P, int S, int batch,
+                                           int elem_bytes, long long n_out, void* out,
+                                           void* stream) {
+  const long long T = (long long)P * S * S;
+  if (batch < 1 || P < 0 || S < 1 || n_out < T || sp < 0 || sy < 0 || sx < 0 || sb < 0 ||
+      (elem_bytes != 1 && elem_bytes != 4))
+    return (int)cudaErrorInvalidValue;
+  if (n_out == 0) return (int)cudaSuccess;
+  const int tb = batch < 32 ? batch : 32;
+  const int tt = kScalarElems / tb;
+  const dim3 grid((unsigned)((n_out + tt - 1) / tt), (unsigned)((batch + tb - 1) / tb));
+  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
+  const int pose_fast = sb <= sx;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (elem_bytes == 1)
+    posed_layout_strided<uint8_t><<<grid, kThreads, 0, s>>>(
+        (const uint8_t*)in, sp, sy, sx, sb, S, T, batch, tt, tb, pose_fast, n_out,
+        (uint8_t*)out);
+  else
+    posed_layout_strided<uint32_t><<<grid, kThreads, 0, s>>>(
+        (const uint32_t*)in, sp, sy, sx, sb, S, T, batch, tt, tb, pose_fast, n_out,
+        (uint32_t*)out);
   return (int)cudaGetLastError();
 }

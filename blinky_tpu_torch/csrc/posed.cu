@@ -1,5 +1,6 @@
-// K5 and K6: the posed path's gather tail and its fused rotate-resolve-gather,
-// written for Hopper (sm_90a).
+// K5, K6 and K9: the posed path's gather tail, its fused
+// rotate-resolve-gather, and the fused zoom sweep, written for Hopper
+// (sm_90a).
 //
 // K5, blinky_posed_gather, replaces blinky_tpu/kernels/posed.py:102
 // gather_posed (D), the posed pipelines' gather tail:
@@ -11,9 +12,22 @@
 // _compiled_static_ray_pipeline (E): per pose, rays_to_lensmap
 // (blinky_tpu/lensmap/builder.py:165) of the rotated ray table, the expanded
 // source's tinted-half offset, then D.  The per-pose index table (5 bytes a
-// build pixel and pose, 663 MB at 1080p and 64 poses) is never written.
+// build pixel and pose, 663 MB at 1080p and 64 poses) is never written.  It
+// also serves blinky_tpu/kernels/posed.py:136 _compiled_posed_pipeline (G1):
+// the lens stage does not depend on the pose, so the fused vmapped builder is
+// K6 on a ray table from the float32 lens stage.
 //
-// What bounds them on the card.  K5 moves bytes and does no arithmetic: a
+// K9, blinky_sweep_remap, replaces blinky_tpu/kernels/posed.py:294
+// _compiled_sweep_pipeline (G2): per zoom step, rays_to_lensmap of the step's
+// own ray table with NO rotation, the tinted-half offset, the clipped gather
+// from the ONE shared source, the background select.  It is K6's loop with a
+// ray table a step, a source stride of zero and the rotation compiled out.
+// What bounds it: bytes, the 13-byte ray a step and pixel (0.65 GB for 24
+// steps at 1080p) against 71 float32 operations a step and pixel.  A thread
+// takes four neighbouring pixels of one step (float4 ray loads, one 4-byte or
+// 16-byte store), or one pixel where the screen or a pointer is off 16 bytes.
+//
+// What bounds K5 and K6 on the card.  K5 moves bytes and does no arithmetic: a
 // 4-byte index and a mask per build pixel and pose, one source texel, the
 // screen.  K6 reads the same texels and writes the same screen, but reads
 // the 13-byte ray a build pixel once for all its poses, and spends 86
@@ -54,20 +68,9 @@
 //  * The background of a thread's pixels is read once per block, into
 //    registers, and only when one of its pixels is invalid; every later
 //    pose of the block reuses it.
-//  * The rubix grid test is a table: lensmap/builder.py::rubix_grid_lines
-//    computes the S flags on the host in double, and K6 reads them from a
-//    bitmask in shared memory, so it does no double arithmetic at all.
-//  * The normalize's 1 / len is __frcp_rn(len): the correctly rounded
-//    reciprocal, the same bits as __fdiv_rn(1.f, len) in fewer instructions.
-//  * Every guard the plain version puts around an IEEE sequence whose
-//    result is dropped anyway is left out, with its select: the uv
-//    divisions divide by a zero forward dot, whose infinite or NaN u or v
-//    fails the range test the guard's pixel fails; u and v are not zeroed
-//    before the cast of an invalid pixel; the range test of px and py is
-//    one unsigned compare each; and a globe's unused plate slots repeat
-//    plate 0, so the max-dot select needs no plate count.  The normalize's
-//    zero-length guard is not of that kind and stays: a ray whose square
-//    underflows keeps its length and may be valid.
+//  * The resolve itself (resolve.cuh, shared with K8 and K9): the rubix grid
+//    test as a table, the reciprocal for the normalize, and no guard whose
+//    pixel is invalid either way.
 //  * Poses per block, pose group and threads were chosen by measurement
 //    (bench/posed.py, 1080p B=64 u8 k=1 and k=2); the choice and its
 //    runners-up are at the constants below.
@@ -78,18 +81,14 @@
 // branch; at 128 lane-instructions a clock on 132 SMs that alone is about
 // twice the operation bound (PERF.md, K6's instruction floor).
 //
-// Rounding.  K6 must give the indices of its plain version,
-// rays_to_lensmap_torch (blinky_tpu_torch/lensmap/builder.py), bit for bit.
-// nvcc contracts a*b + c into one fused multiply-add by default, which
-// rounds once where the plain version rounds twice and moves texel
-// boundaries; so every float operation here is an explicit round-to-nearest
-// intrinsic (__fmul_rn, __fadd_rn, __fdiv_rn, __frcp_rn, __fsqrt_rn), which
-// nvcc never contracts, in the plain version's order.  The source offset
-// b * N is 64-bit: it passes 2^31 at 154 poses of an expanded 1080p source.
+// Rounding.  K6 and K9 must give the indices of their plain version,
+// rays_to_lensmap_torch (blinky_tpu_torch/lensmap/builder.py), bit for bit;
+// resolve.cuh says how.  The source offset b * N is 64-bit: it passes 2^31
+// at 154 poses of an expanded 1080p source.
 
 #include <string.h>
 
-#include "common.cuh"
+#include "resolve.cuh"
 
 // The tuning constants, overridable with -D for bench/posed.py's sweep.
 // Chosen at 1080p B=64, u8 (NVIDIA H100 80GB HBM3, 700 W; see PERF.md):
@@ -116,112 +115,14 @@ namespace {
 
 using blinky::kThreads;
 
-constexpr int kMaxPlates = 6;
-constexpr int kPlateFloats = 10;  // forward[3], right[3], up[3], dist
-constexpr int kRecord = 12;       // shared: right[3], dist, up[3], 0, forward[3], 0
+using blinky::kMaxPlates;
+using blinky::kRecord;
+using blinky::Resolve;
+using blinky::resolve_index;
+
 constexpr int kRun = 4;           // neighbouring build pixels a thread takes
 constexpr int kPosesPerBlock = K6_POSES_PER_BLOCK;
 constexpr int kPoseGroup = K6_POSE_GROUP;
-
-// The globe and the resolve parameters, passed by value (parameter space).
-struct Resolve {
-  float plates[kMaxPlates * kPlateFloats];  // unused plates repeat plate 0
-  int nplates;
-  float fast_dist, fast_half;
-  int S, expanded;
-};
-
-__device__ __forceinline__ float dot3(float x, float y, float z, float a, float b, float c) {
-  return __fadd_rn(__fadd_rn(__fmul_rn(x, a), __fmul_rn(y, b)), __fmul_rn(z, c));
-}
-
-// One ray and one pose -> the flat source index, or -1 where the pixel is
-// not valid.  R: the plate resolver, 0 the strict first max of the forward
-// dots, 1 the fast globe's.  f, rt, up: the pose's forward, right, up rows;
-// recs: the plate records in shared memory; lines: the grid-line bitmask
-// (expanded only).
-template <int R>
-__device__ __forceinline__ int resolve_index(float vx, float vy, float vz, bool lens_valid,
-                                             float3 f, float3 rt, float3 up,
-                                             const Resolve& r, const float* recs,
-                                             const uint32_t* lines) {
-  // ray' = vx * right + vy * up + vz * forward, each component left to right
-  float x = __fadd_rn(__fadd_rn(__fmul_rn(vx, rt.x), __fmul_rn(vy, up.x)), __fmul_rn(vz, f.x));
-  float y = __fadd_rn(__fadd_rn(__fmul_rn(vx, rt.y), __fmul_rn(vy, up.y)), __fmul_rn(vz, f.y));
-  float z = __fadd_rn(__fadd_rn(__fmul_rn(vx, rt.z), __fmul_rn(vy, up.z)), __fmul_rn(vz, f.z));
-  // normalize_c with a float32 sqrt: a zero length leaves the ray as it is
-  // (a tiny ray whose square underflows stays tiny, and may still be
-  // valid), a NaN length is "truthy" and spreads.  The reciprocal runs
-  // unconditionally and is selected: a guard around it would cost a branch
-  // and a reconvergence a pose-pixel.
-  const float len = __fsqrt_rn(__fadd_rn(__fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)),
-                                         __fmul_rn(z, z)));
-  const float rcp = __frcp_rn(len);
-  const float inv = len != 0.f ? rcp : 1.f;
-  x = __fmul_rn(x, inv);
-  y = __fmul_rn(y, inv);
-  z = __fmul_rn(z, inv);
-
-  const float* P = r.plates;
-  int plate, pc;
-  float rz;  // the chosen plate's forward dot
-  if (R == 0) {
-    rz = dot3(x, y, z, P[0], P[1], P[2]);
-    pc = 0;
-#pragma unroll
-    for (int k = 1; k < kMaxPlates; ++k) {
-      // a globe's unused plates repeat plate 0, whose dot never beats the
-      // maximum so far, so every plate is tested with no count and no branch
-      const float d = dot3(x, y, z, P[k * kPlateFloats], P[k * kPlateFloats + 1],
-                           P[k * kPlateFloats + 2]);
-      if (d > rz) {  // strict: the first maximum wins, NaN keeps plate 0
-        rz = d;
-        pc = k;
-      }
-    }
-    plate = pc;
-  } else {
-    // globes/fast.lua:10-27: the sharp plate's window, else the wide plate,
-    // and nothing behind the camera
-    const bool zero = z == 0.f;
-    const float den = zero ? 1.f : z;
-    const float qx = __fdiv_rn(x, den), qy = __fdiv_rn(y, den);
-    const float u = __fmul_rn(zero ? 0.f : qx, r.fast_dist);
-    const float v = __fmul_rn(zero ? 0.f : qy, r.fast_dist);
-    const bool small = fabsf(u) < r.fast_half && fabsf(v) < r.fast_half;
-    plate = z <= 0.f ? -1 : (small ? 0 : 1);
-    pc = plate < 0 ? 0 : (plate > r.nplates - 1 ? r.nplates - 1 : plate);
-    const float4 fw = *(const float4*)(recs + pc * kRecord + 8);
-    rz = dot3(x, y, z, fw.x, fw.y, fw.z);
-  }
-
-  // the chosen plate's frame dots (ray_to_plate_uv, fisheye.c:2052-2058)
-  const float4 a = *(const float4*)(recs + pc * kRecord);      // right, dist
-  const float4 b = *(const float4*)(recs + pc * kRecord + 4);  // up
-  const float rx = dot3(x, y, z, a.x, a.y, a.z);
-  const float ry = dot3(x, y, z, b.x, b.y, b.z);
-  // The plain version divides by 1 where rz == 0 and then calls the pixel
-  // invalid.  Dividing by the zero itself gives an infinite or NaN u or v,
-  // which fails the range test below: the same pixels are valid, with the
-  // same u and v, and no select is spent on the guard.
-  const float u = __fadd_rn(__fmul_rn(__fdiv_rn(rx, rz), a.w), 0.5f);
-  const float v = __fadd_rn(__fmul_rn(__fdiv_rn(-ry, rz), a.w), 0.5f);
-  const bool uv_valid = u >= 0.f && u <= 1.f && v >= 0.f && v <= 1.f;
-  // truncation, fisheye.c:1988; an invalid u or v may cast to anything (the
-  // card's conversion of NaN or inf is defined), as its pixel is dropped
-  const int S = r.S;
-  const int px = (int)__fmul_rn(u, (float)S);
-  const int py = (int)__fmul_rn(v, (float)S);
-  const bool valid = lens_valid && plate >= 0 && uv_valid && (unsigned)px < (unsigned)S &&
-                     (unsigned)py < (unsigned)S;
-  if (!valid) return -1;
-  int idx = pc * S * S + py * S + px;
-  if (r.expanded) {  // set_lensmap_grid, fisheye.c:1922-1960, as a table
-    const uint32_t on = (lines[px >> 5] >> (px & 31)) | (lines[py >> 5] >> (py & 31));
-    if (!(on & 1u)) idx += kMaxPlates * S * S;  // the tinted half
-  }
-  return idx;
-}
 
 // Four elements of a screen row: one 4-byte word of u8, one 16-byte word of
 // RGBA.
@@ -298,17 +199,7 @@ __global__ void __launch_bounds__(K6_THREADS, K6_MIN_BLOCKS) static_ray_posed_ke
   __shared__ __align__(16) float s_bases[kPosesPerBlock * kRecord];
   extern __shared__ uint32_t s_lines[];  // (S + 31) / 32 words when expanded
   const int tid = threadIdx.x;
-  if (tid == 0) {
-#pragma unroll
-    for (int p = 0; p < kMaxPlates; ++p) {
-      const float* f = r.plates + p * kPlateFloats;
-      float* d = s_recs + p * kRecord;
-      const float rec[kRecord] = {f[3], f[4], f[5], f[9], f[6], f[7], f[8], 0.f,
-                                  f[0], f[1], f[2], 0.f};
-#pragma unroll
-      for (int i = 0; i < kRecord; ++i) d[i] = rec[i];
-    }
-  }
+  if (tid == 0) blinky::fill_plate_records(r, s_recs);
   const int b0 = blockIdx.y * kPosesPerBlock;
   const int nb = min(kPosesPerBlock, B - b0);
   // a pose's record: forward, right, up, then three zeros
@@ -371,7 +262,7 @@ __global__ void __launch_bounds__(K6_THREADS, K6_MIN_BLOCKS) static_ray_posed_ke
                    up = make_float3(e1.z, e1.w, e2.x);
 #pragma unroll
       for (int i = 0; i < kRun; ++i)
-        idx[g][i] = resolve_index<R>(rx[i], ry[i], rz[i], lv[i], f, rt, up, r, s_recs, s_lines);
+        idx[g][i] = resolve_index<R, true>(rx[i], ry[i], rz[i], lv[i], f, rt, up, r, s_recs, s_lines);
     }
     T val[kPoseGroup][kRun];
 #pragma unroll
@@ -437,6 +328,90 @@ __global__ void __launch_bounds__(K6_THREADS, K6_MIN_BLOCKS) static_ray_posed_ke
       }
     }
   }
+}
+
+// K9.  grid: x over runs of kRun pixels of the flat screen (VEC: npix a
+// multiple of kRun and every pointer 16-byte aligned) or over single pixels,
+// y over zoom steps.  Step n resolves its own rays, vx + n * npix, with no
+// rotation, and gathers from the one source.  R: the plate resolver.
+template <typename T, int R, bool VEC>
+__global__ void __launch_bounds__(kThreads) sweep_remap_kernel(
+    const float* __restrict__ vx, const float* __restrict__ vy,
+    const float* __restrict__ vz, const uint8_t* __restrict__ lens_valid, long long npix,
+    int steps, const Resolve r, const uint32_t* __restrict__ grid_lines,
+    const T* __restrict__ src, long long N, const T* __restrict__ bg, T* __restrict__ out) {
+  using Q = Quad<T>;
+  using V = typename Q::V;
+  __shared__ __align__(16) float s_recs[kMaxPlates * kRecord];
+  extern __shared__ uint32_t s_lines[];  // (S + 31) / 32 words when expanded
+  const int tid = threadIdx.x;
+  if (tid == 0) blinky::fill_plate_records(r, s_recs);
+  if (r.expanded)
+    for (int i = tid; i < (r.S + 31) / 32; i += kThreads) s_lines[i] = grid_lines[i];
+  __syncthreads();
+  constexpr int M = VEC ? kRun : 1;
+  const long long p0 = ((long long)blockIdx.x * kThreads + tid) * M;
+  if (p0 >= npix) return;
+  const float3 none = make_float3(0.f, 0.f, 0.f);  // no rotation: never read
+  for (int n = blockIdx.y; n < steps; n += gridDim.y) {
+    const long long q0 = (long long)n * npix + p0;
+    float rx[M], ry[M], rz[M];
+    bool lv[M];
+    if constexpr (VEC) {
+      const float4 a = *(const float4*)(vx + q0), b = *(const float4*)(vy + q0),
+                   c = *(const float4*)(vz + q0);
+      const uint32_t l = *(const uint32_t*)(lens_valid + q0);
+      rx[0] = a.x, rx[1] = a.y, rx[2] = a.z, rx[3] = a.w;
+      ry[0] = b.x, ry[1] = b.y, ry[2] = b.z, ry[3] = b.w;
+      rz[0] = c.x, rz[1] = c.y, rz[2] = c.z, rz[3] = c.w;
+#pragma unroll
+      for (int i = 0; i < M; ++i) lv[i] = (l >> (8 * i)) & 0xffu;
+    } else {
+      rx[0] = vx[q0], ry[0] = vy[q0], rz[0] = vz[q0];
+      lv[0] = lens_valid[q0] != 0;
+    }
+    int idx[M];
+#pragma unroll
+    for (int i = 0; i < M; ++i)
+      idx[i] = resolve_index<R, false>(rx[i], ry[i], rz[i], lv[i], none, none, none, r,
+                                       s_recs, s_lines);
+    T val[M];
+#pragma unroll
+    for (int i = 0; i < M; ++i) val[i] = idx[i] >= 0 ? src[idx[i] >= N ? N - 1 : idx[i]] : T(0);
+    if constexpr (VEC) {
+      V t = zero_quad<V>(), mk = zero_quad<V>();
+      bool hole = false;
+#pragma unroll
+      for (int i = 0; i < M; ++i) {
+        Q::put(t, i, (uint32_t)val[i]);
+        if (idx[i] >= 0) mk = mk | Q::ones(i);
+        hole |= idx[i] < 0;
+      }
+      const V g = hole ? *(const V*)(bg + p0) : zero_quad<V>();
+      *(V*)(out + q0) = Q::select(t, mk, g);
+    } else {
+      out[q0] = idx[0] >= 0 ? val[0] : bg[p0];
+    }
+  }
+}
+
+template <typename T, int R>
+int launch_sweep_remap(bool vec, cudaStream_t s, const float* vx, const float* vy,
+                       const float* vz, const uint8_t* lv, long long npix, int steps,
+                       const Resolve& r, const uint32_t* lines, const void* src, long long N,
+                       const void* bg, void* out) {
+  const size_t smem = r.expanded ? (size_t)((r.S + 31) / 32) * 4 : 0;
+  const long long items = vec ? npix / kRun : npix;
+  const long long bx = (items + kThreads - 1) / kThreads;
+  if (smem > 48 * 1024 || bx > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)bx, (unsigned)(steps < 65535 ? steps : 65535));
+  if (vec)
+    sweep_remap_kernel<T, R, true><<<grid, kThreads, smem, s>>>(
+        vx, vy, vz, lv, npix, steps, r, lines, (const T*)src, N, (const T*)bg, (T*)out);
+  else
+    sweep_remap_kernel<T, R, false><<<grid, kThreads, smem, s>>>(
+        vx, vy, vz, lv, npix, steps, r, lines, (const T*)src, N, (const T*)bg, (T*)out);
+  return (int)cudaGetLastError();
 }
 
 template <typename T, int K, int R>
@@ -527,17 +502,10 @@ extern "C" int blinky_static_ray_posed(const float* vx, const float* vy, const f
                                        int expanded, const void* src, long long N,
                                        int elem_bytes, const void* bg, int k, void* out,
                                        void* stream) {
-  if (k < 1 || N < 1 || nplates < 1 || nplates > kMaxPlates || resolver < 0 ||
-      resolver > 1 || batch < 1 || hb < 1 || wb < 1 || S < 1 ||
-      (expanded && grid_lines == nullptr))
-    return (int)cudaErrorInvalidValue;
   Resolve r;
-  memcpy(r.plates, plates, sizeof(r.plates));
-  r.nplates = nplates;
-  r.fast_dist = fast_dist;
-  r.fast_half = fast_half;
-  r.S = S;
-  r.expanded = expanded;
+  if (k < 1 || N < 1 || batch < 1 || hb < 1 || wb < 1 || (expanded && grid_lines == nullptr) ||
+      !blinky::make_resolve(r, plates, nplates, resolver, fast_dist, fast_half, S, expanded))
+    return (int)cudaErrorInvalidValue;
   const long long runs = (long long)hb * ((wb + kRun - 1) / kRun);
   const dim3 grid((unsigned)((runs + K6_THREADS - 1) / K6_THREADS),
                   (unsigned)((batch + kPosesPerBlock - 1) / kPosesPerBlock));
@@ -556,5 +524,38 @@ extern "C" int blinky_static_ray_posed(const float* vx, const float* vy, const f
     return dispatch_resolver<uint32_t>(resolver, vec, k, grid, smem, s, vx, vy, vz,
                                        lens_valid, hb, wb, bases, batch, r, grid_lines, src,
                                        N, bg, out);
+  return (int)cudaErrorInvalidValue;
+}
+
+// vx, vy, vz [steps, npix] f32 and lens_valid [steps, npix] bool: a ray table
+// a zoom step; src [N] texels of elem_bytes, the one frame every step gathers
+// from; bg and a step of out [npix].  plates, resolver, fast_dist, fast_half,
+// grid_lines, S, expanded as for blinky_static_ray_posed.  No rotation.
+extern "C" int blinky_sweep_remap(const float* vx, const float* vy, const float* vz,
+                                  const uint8_t* lens_valid, long long npix, int steps,
+                                  const float* plates, int nplates, int resolver,
+                                  float fast_dist, float fast_half,
+                                  const uint32_t* grid_lines, int S, int expanded,
+                                  const void* src, long long N, int elem_bytes,
+                                  const void* bg, void* out, void* stream) {
+  Resolve r;
+  if (N < 1 || steps < 1 || npix < 1 || (expanded && grid_lines == nullptr) ||
+      !blinky::make_resolve(r, plates, nplates, resolver, fast_dist, fast_half, S, expanded))
+    return (int)cudaErrorInvalidValue;
+  const bool vec = npix % kRun == 0 && aligned16(vx) && aligned16(vy) && aligned16(vz) &&
+                   aligned16(lens_valid) && aligned16(bg) && aligned16(out);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (elem_bytes == 1)
+    return resolver == 0
+               ? launch_sweep_remap<uint8_t, 0>(vec, s, vx, vy, vz, lens_valid, npix, steps, r,
+                                                grid_lines, src, N, bg, out)
+               : launch_sweep_remap<uint8_t, 1>(vec, s, vx, vy, vz, lens_valid, npix, steps, r,
+                                                grid_lines, src, N, bg, out);
+  if (elem_bytes == 4)
+    return resolver == 0
+               ? launch_sweep_remap<uint32_t, 0>(vec, s, vx, vy, vz, lens_valid, npix, steps,
+                                                 r, grid_lines, src, N, bg, out)
+               : launch_sweep_remap<uint32_t, 1>(vec, s, vx, vy, vz, lens_valid, npix, steps,
+                                                 r, grid_lines, src, N, bg, out);
   return (int)cudaErrorInvalidValue;
 }

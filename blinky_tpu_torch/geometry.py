@@ -2,9 +2,10 @@
 
 Transcribes the pure coordinate converters of the reference
 (``engine/NQ/fisheye.c:1184-1214`` and ``fisheye.c:2023-2066``) as
-vectorized array functions, as in :mod:`blinky_tpu.geometry`.  Rays are
-passed as component triples ``(x, y, z)`` so the same code broadcasts over
-pixel grids.
+vectorized, dtype-generic array functions, as in :mod:`blinky_tpu.geometry`.
+Rays are passed as component triples ``(x, y, z)`` so the same code
+broadcasts over pixel grids, on NumPy float64 for the exact host builder and
+on torch tensors for the float32 device builder.
 
 Coordinate system (camera frame; reference header comment ``fisheye.c:48-60``):
 ``+X`` right, ``+Y`` up, ``+Z`` forward.  Latitude is degrees-up toward +Y,
@@ -14,6 +15,7 @@ longitude degrees-right toward +X.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from blinky_tpu_torch import xmath as m
 
@@ -33,6 +35,11 @@ def ray_to_latlon(x, y, z):
     the sum of squares under the sqrt evaluates in float32 (``vec_t``
     arithmetic) before the double ``sqrt``/``atan2``.
     """
+    if m.xp(x, y, z) is torch:
+        # the float32 builder: the inputs are float32 already
+        lon = m.atan2(x, z)
+        lat = m.atan2(y, m.sqrt(x * x + z * z))
+        return lat, lon
     x32 = np.asarray(x, dtype=np.float32)
     y32 = np.asarray(y, dtype=np.float32)
     z32 = np.asarray(z, dtype=np.float32)
@@ -40,6 +47,17 @@ def ray_to_latlon(x, y, z):
     lon = m.atan2(x32.astype(np.float64), z32.astype(np.float64))
     lat = m.atan2(y32.astype(np.float64), m.sqrt(sumsq))
     return lat, lon
+
+
+def normalize(x, y, z):
+    """Normalize a ray, leaving zero-length rays untouched.
+
+    Mirrors ``VectorNormalize`` (``engine/common/mathlib.c:413-429``): the
+    zero-length branch returns the vector unchanged.
+    """
+    length = m.sqrt(x * x + y * y + z * z)
+    inv = m.where(length != 0, 1.0 / m.where(length != 0, length, 1.0), 1.0)
+    return x * inv, y * inv, z * inv
 
 
 def plate_frames(forward, up):
@@ -69,6 +87,8 @@ def latlon_to_ray_f32(lat, lon):
     passes through a ``vec3_t`` (float32) before reaching Lua.  Returns the
     float32-truncated components as float64 values."""
     x, y, z = latlon_to_ray(lat, lon)
+    if m.xp(lat, lon) is torch:
+        return tuple(c.to(torch.float32).to(c.dtype) for c in (x, y, z))
     return (
         np.float64(np.float32(x)),
         np.float64(np.float32(y)),
@@ -86,7 +106,16 @@ def normalize_c(x, y, z, xp, f32, f64):
     components: float32 sum of squares, ``sqrt`` computed in double and
     truncated back to float32 (C calls the double ``sqrt`` on a float),
     float32 reciprocal, float32 multiplies.  Zero length leaves the vector
-    unchanged (NaN lengths proceed — NaN is truthy in ``if (length)``)."""
+    unchanged (NaN lengths proceed — NaN is truthy in ``if (length)``).
+    On tensors *xp* is ``torch`` and *f32*, *f64* are torch dtypes."""
+    if xp is torch:
+        x, y, z = x.to(f32), y.to(f32), z.to(f32)
+        sumsq = x * x + y * y + z * z  # f32, left-to-right
+        length = torch.sqrt(sumsq.to(f64)).to(f32)
+        nonzero = length != 0
+        one = torch.ones_like(length)
+        inv = torch.where(nonzero, one / torch.where(nonzero, length, one), one)
+        return x * inv, y * inv, z * inv
     x = x.astype(f32)
     y = y.astype(f32)
     z = z.astype(f32)
@@ -114,7 +143,14 @@ def plate_uv_to_ray_c(u, v, forward32, right32, up32, dist32, xp, f32, f64):
     """``plate_uv_to_ray`` (``fisheye.c:1198-1214``) with the C types:
     u/v computed in double, then truncated to float32 at each ``VectorMA``
     call (``mathlib.c:349-355`` is a float function), then the float32
-    ``VectorNormalize``."""
+    ``VectorNormalize``.  On tensors *xp* is ``torch``, *f32* and *f64* are
+    torch dtypes and the plate vectors are tensors."""
+    if xp is torch:
+        u32 = torch.as_tensor(u - 0.5).to(f32)
+        v32 = (-(torch.as_tensor(v) - 0.5)).to(f32)
+        rx, ry, rz = (dist32 * forward32[..., i] + u32 * right32[..., i]
+                      + v32 * up32[..., i] for i in range(3))
+        return normalize_c(rx, ry, rz, xp, f32, f64)
     u32 = xp.asarray(u - 0.5).astype(f32)
     v32 = xp.asarray(-(xp.asarray(v) - 0.5)).astype(f32)
     rx = dist32 * forward32[..., 0]

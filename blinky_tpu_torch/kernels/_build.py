@@ -31,6 +31,8 @@ LIBRARY = BUILD_DIR / "libblinky_torch_kernels.so"
 # plain C interface; -Xptxas=-v reports registers, shared memory and spills
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+# the sources compile side by side, as many at once as the host has cores
+NVCC_PARALLEL = ["--threads", "0"]
 
 _vp, _i, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _f = ctypes.c_float
@@ -57,6 +59,18 @@ _SIGNATURES = {
                                 _f, _f, _vp, _i, _i, _vp, _ll, _i, _vp, _i, _vp, _vp],
     # in, ld, T, batch, elem_bytes, n_out, out, stream
     "blinky_posed_layout": [_vp, _ll, _ll, _i, _i, _ll, _vp, _vp],
+    # in, sp, sy, sx, sb, P, S, batch, elem_bytes, n_out, out, stream
+    "blinky_posed_layout_strided": [_vp, _ll, _ll, _ll, _ll, _i, _i, _i, _i, _ll, _vp, _vp],
+    # vx, vy, vz, lens_valid, npix, basis (host), plates (host), nplates,
+    # resolver, fast_dist, fast_half, grid_lines, S, plate, px, py, valid,
+    # tint, flat_idx, used, stream
+    "blinky_lensmap_resolve": [_vp, _vp, _vp, _vp, _ll, _vp, _vp, _i, _i, _f, _f, _vp, _i,
+                               _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp],
+    # vx, vy, vz, lens_valid, npix, steps, plates (host), nplates, resolver,
+    # fast_dist, fast_half, grid_lines, S, expanded, src, N, elem_bytes, bg,
+    # out, stream
+    "blinky_sweep_remap": [_vp, _vp, _vp, _vp, _ll, _i, _vp, _i, _i, _f, _f, _vp, _i, _i,
+                           _vp, _ll, _i, _vp, _vp, _vp],
 }
 
 _lock = threading.Lock()
@@ -96,7 +110,7 @@ def _build() -> None:
         if not _stale():
             return
         tmp = LIBRARY.with_name(f"{LIBRARY.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
+        cmd = [_nvcc(), *NVCC_FLAGS, *NVCC_PARALLEL, "-o", str(tmp), *map(str, sources())]
         t0 = time.perf_counter()
         proc = subprocess.run(cmd, capture_output=True, text=True)
         seconds = time.perf_counter() - t0

@@ -16,7 +16,13 @@ launches K5, the hand-written CUDA kernel ``blinky_posed_gather``
 (``csrc/posed.cu``), for tensors on a card, and runs its plain version,
 :func:`gather_posed_plain`, for tensors on the CPU.  The static-ray
 pipeline (:mod:`blinky_tpu_torch.kernels.static_ray`) fuses the same tail
-behind its per-pose index math in K6.
+behind its per-pose index math in K6.  :class:`PosedRemapKernel`, the JAX
+package's fused vmapped builder, is the float32 lens stage followed by K6:
+the lens stage does not depend on the pose.  :func:`zoom_sweep_remap`
+renders a whole zoom ramp of one frame: the float32 lens stage over the
+ramp's scales, then K9, the hand-written CUDA kernel ``blinky_sweep_remap``
+(``csrc/posed.cu``), on a card, or its plain version,
+:func:`sweep_remap_plain`, on the CPU.
 
 Sources follow :mod:`blinky_tpu_torch.kernels.remap`: plain u8 plates, the
 expanded [12, ...] (raw||tinted) layout, or packed RGBA, carried as int32
@@ -68,8 +74,10 @@ def prep_posed_inputs(frames, bases, platesize, background, device):
     cast to float32 as the JAX code does; ``background`` the kernel's [H, W]
     tensor, u8 or int32 (packed RGBA bits).  Returns ``(src [B, N], bases
     [B, 3, 3] f32, expanded)``: ``src`` pose-major, u8 or int32 bits, laid
-    out by :func:`posed_layout` (K7 on a card).  For one pose of 6 or 12
-    contiguous planes ``src`` is a view of the frames: no copy, no launch.
+    out by :func:`posed_layout` (K7 on a card).  Frames that already are
+    pose-major (one pose of 6 or 12 contiguous planes, or a ``[B, P, S, S]``
+    tensor permuted to ``[P, S, S, B]``) are used in place: ``src`` is a view
+    of them, with no copy and no launch.  Any other layout is laid out by K7.
     """
     frames, is_rgba = frames_tensor(frames)
     P, S, _, B = frames.shape
@@ -91,10 +99,11 @@ def prep_posed_inputs(frames, bases, platesize, background, device):
                          "background, got uint32")
     planes = P if expanded else MAX_PLATES
     frames = frames.to(device)
-    if B == 1 and P == planes and frames.is_contiguous():
-        # one pose of a whole, contiguous frame set: the pose-major array is
-        # the frames themselves, so no copy is made
-        return frames.reshape(1, -1), bases.contiguous(), expanded
+    pose_major = frames.permute(3, 0, 1, 2)
+    if P == planes and pose_major.is_contiguous():
+        # a whole frame set that already lies pose after pose: the
+        # pose-major array is the frames themselves, so no copy is made
+        return pose_major.reshape(B, -1), bases.contiguous(), expanded
     return posed_layout(frames, planes), bases.contiguous(), expanded
 
 
@@ -113,11 +122,14 @@ def posed_layout(frames, planes):
     """K7, the pose-major layout: ``frames`` [P, S, S, B] u8 or int32 bits
     -> [B, planes*S*S], planes P..planes-1 zero-filled.
 
-    Launches ``blinky_posed_layout`` (``csrc/layout.cu``) for a tensor on a
-    card and runs :func:`posed_layout_plain` for one on the CPU.  On a card
-    the frames' texels must be evenly strided with the batch innermost and
-    unit-strided, as a contiguous array or a batch slice of one
-    (``frames[..., lo:hi]``) is; any other layout raises.
+    Launches K7 (``csrc/layout.cu``) for a tensor on a card and runs
+    :func:`posed_layout_plain` for one on the CPU.  On a card, frames whose
+    texels are evenly strided with the batch innermost and unit-strided, as
+    a contiguous array or a batch slice of one (``frames[..., lo:hi]``) is,
+    take ``blinky_posed_layout``, the tiled transpose; any other dense or
+    strided layout (a transpose of the plate axes, say) takes
+    ``blinky_posed_layout_strided``, which reads each element at its own
+    four strides.
     """
     name = "posed_layout"
     P, S, _, B = frames.shape
@@ -131,18 +143,23 @@ def posed_layout(frames, planes):
         rows = frames.view(T, B)  # texel t's poses at t * ld + [0, B)
     except RuntimeError:
         rows = None
-    if rows is None or (B > 1 and rows.stride(1) != 1):
-        raise ValueError(f"{name}: frames of strides {frames.stride()} are not evenly "
-                         "strided texels with a unit-strided batch; pass a contiguous "
-                         "array or a batch slice of one")
-    ld = max(rows.stride(0), B)  # a single texel's stride is free
+    if rows is not None and B > 1 and rows.stride(1) != 1:
+        rows = None
+    if rows is None and any(st < 0 for st in frames.stride()):
+        raise ValueError(f"{name}: frames of strides {frames.stride()}: negative strides")
     out = torch.empty((B, planes * S * S), dtype=frames.dtype, device=frames.device)
     if out.numel():
         lib = _build.library()
         with torch.cuda.device(frames.device):
-            rc = lib.blinky_posed_layout(rows.data_ptr(), ld, T, B, frames.element_size(),
-                                         planes * S * S, out.data_ptr(),
-                                         _build.stream(frames.device))
+            if rows is None:
+                rc = lib.blinky_posed_layout_strided(
+                    frames.data_ptr(), *frames.stride(), P, S, B, frames.element_size(),
+                    planes * S * S, out.data_ptr(), _build.stream(frames.device))
+            else:
+                ld = max(rows.stride(0), B)  # a single texel's stride is free
+                rc = lib.blinky_posed_layout(
+                    rows.data_ptr(), ld, T, B, frames.element_size(), planes * S * S,
+                    out.data_ptr(), _build.stream(frames.device))
         _build.check(rc, name)
         posed_layout.launches += 1
     return out
@@ -234,16 +251,62 @@ def bases_from_pose_track(poses) -> np.ndarray:
 
 
 class PosedRemapKernel:
-    """``blinky_tpu.kernels.posed.PosedRemapKernel`` (the fused vmapped
-    float32 builder + gather) is not ported: it waits for the float32
-    device builder.  :class:`blinky_tpu_torch.kernels.static_ray.
-    StaticRayPosedKernel` serves the posed path."""
+    """Per-frame-pose playback kernel for one (lens, globe, screen shape):
+    the port of ``blinky_tpu.kernels.posed.PosedRemapKernel``, the fused
+    vmapped float32 builder and gather.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "PosedRemapKernel waits for the float32 device lensmap builder, "
-            "which is not ported to blinky_tpu_torch yet; use "
-            "StaticRayPosedKernel")
+    Usage::
+
+        k = PosedRemapKernel(lens, globe, W, H, scale, device="cuda")
+        out = k(frames, bases)   # [P, S, S, B] + [B, 3, 3] -> [B, H, W]
+
+    ``bases[b]`` rows are (forward, right, up).  ``frames`` may be the plain
+    [<=6, S, S, B] u8 source, the expanded [12, S, S, B] layout, or either
+    as packed RGBA u32.
+
+    The JAX pipeline evaluates the lens once per pose under ``vmap``, but
+    the lens stage does not depend on the pose.  So the port runs the
+    float32 lens stage once, at ``scale * render_scale`` on the
+    ``W/k x H/k`` build grid on *device*, and every call is K7 and K6: this
+    is :class:`blinky_tpu_torch.kernels.static_ray.StaticRayPosedKernel` on
+    a ray table from the float32 lens stage, which gives the same values,
+    and no per-pose table is written.  Its attributes (``lens``, ``globe``,
+    ``width_px``, ``render_scale``, ``background``, ``ray_table``, ...) are
+    that kernel's.
+    """
+
+    def __init__(self, lens, globe, width_px, height_px, scale,
+                 platesize=None, numcells=10, cell_size=4.0, pad_size=1.0,
+                 background=None, dtype=None, render_scale=1, *, device="cuda"):
+        from blinky_tpu_torch.kernels.static_ray import (
+            StaticRayPosedKernel, ray_table_from_lens,
+        )
+
+        if getattr(lens, "map_type", "inverse") != "inverse":
+            raise ValueError(
+                "PosedRemapKernel fuses the vmapped INVERSE builder; "
+                f"lens '{getattr(lens, 'name', lens)}' is forward-only — "
+                "Session.render_posed falls back to per-pose exact host "
+                "builds for these")
+        if dtype not in (None, torch.float32):
+            raise ValueError(f"PosedRemapKernel builds in float32, not {dtype}")
+        self.dtype = torch.float32
+        k = int(render_scale)
+        check_render_scale(int(width_px), int(height_px), k)
+        table = ray_table_from_lens(lens, float(scale) * k, int(width_px) // k,
+                                    int(height_px) // k, backend="torch", device=device)
+        self._static = StaticRayPosedKernel(
+            lens, globe, width_px, height_px, scale, platesize, numcells, cell_size,
+            pad_size, background, render_scale, ray_table=table, device=device)
+
+    def __getattr__(self, name):
+        # only reached when normal lookup fails: the static-ray kernel's
+        if name == "_static":
+            raise AttributeError(name)
+        return getattr(self._static, name)
+
+    def __call__(self, frames, bases):
+        return self._static(frames, bases)
 
 
 def posed_remap_sharded(*args, **kwargs):
@@ -253,8 +316,145 @@ def posed_remap_sharded(*args, **kwargs):
         "ported to blinky_tpu_torch yet")
 
 
-def zoom_sweep_remap(*args, **kwargs):
-    """Not ported: the fused zoom sweep waits for its own slice."""
-    raise NotImplementedError(
-        "zoom_sweep_remap (the fused zoom sweep) is not ported to "
-        "blinky_tpu_torch yet")
+def sweep_remap_plain(src, vx, vy, vz, lens_valid, globe, platesize, numcells,
+                      cell_size, pad_size, expanded, background):
+    """K9's plain version: per zoom step,
+    :func:`blinky_tpu_torch.lensmap.builder.rays_to_lensmap_torch` of the
+    step's rays with NO rotation, the expanded source's tinted-half offset,
+    the clipped gather from the one source and the background select
+    (``one_scale`` of ``blinky_tpu.kernels.posed._compiled_sweep_pipeline``)
+    -> [N, H, W]."""
+    from blinky_tpu_torch.lensmap.builder import TINT_NONE, rays_to_lensmap_torch
+
+    S = platesize
+    N = src.shape[0]
+    outs = []
+    for n in range(vx.shape[0]):
+        lm = rays_to_lensmap_torch(globe, vx[n], vy[n], vz[n], lens_valid[n], S,
+                                   numcells, cell_size, pad_size)
+        idx, valid = lm["flat_idx"], lm["valid"]
+        if expanded:
+            idx = idx + torch.where((lm["tint"] != TINT_NONE) & valid,
+                                    MAX_PLATES * S * S, 0).to(torch.int32)
+        g = torch.gather(src, 0, idx.reshape(-1).long().clamp(0, N - 1))
+        outs.append(torch.where(valid, g.reshape(idx.shape), background))
+    return torch.stack(outs)
+
+
+def sweep_remap(src, vx, vy, vz, lens_valid, globe, platesize, numcells,
+                cell_size, pad_size, expanded, background):
+    """K9, the fused zoom sweep's resolve and gather: a ray table a zoom
+    step -> a screen a step, all from ONE source frame, with no rotation.
+
+    ``src`` [N] u8 or int32 (packed RGBA bits), N = 6·S² or 12·S² when
+    *expanded*; ``vx, vy, vz`` contiguous f32 and ``lens_valid`` contiguous
+    bool, [steps, H, W]; ``background`` [H, W] of src's dtype.  Returns
+    [steps, H, W] (see :func:`sweep_remap_plain`).
+    """
+    from blinky_tpu_torch.lensmap.builder import grid_line_words, resolver_args
+
+    name = "sweep_remap"
+    dev = src.device
+    S = int(platesize)
+    want = (2 if expanded else 1) * MAX_PLATES * S * S
+    if (src.dtype not in (torch.uint8, torch.int32) or src.dim() != 1
+            or not src.is_contiguous() or src.numel() != want):
+        raise ValueError(f"{name}: src must be a contiguous [{want}] u8 or int32 tensor "
+                         f"(platesize {S}{', expanded' if expanded else ''}), got "
+                         f"{src.dtype} {tuple(src.shape)}")
+    shape = tuple(vx.shape)
+    for what, t, dtype, shp in (("vx", vx, torch.float32, shape), ("vy", vy, torch.float32, shape),
+                                ("vz", vz, torch.float32, shape),
+                                ("lens_valid", lens_valid, torch.bool, shape),
+                                ("background", background, src.dtype, shape[1:])):
+        if (t.dtype != dtype or tuple(t.shape) != shp or len(shape) != 3
+                or not t.is_contiguous() or t.device != dev):
+            raise ValueError(
+                f"{name}: {what} must be a contiguous {dtype} tensor of shape {shp} "
+                f"([steps, H, W] rays) on {dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    globe_args = resolver_args(globe)  # a globe without a twin raises here
+    if not _build.on_card(name, dev):
+        return sweep_remap_plain(src, vx, vy, vz, lens_valid, globe, S, numcells,
+                                 cell_size, pad_size, expanded, background)
+    out = torch.empty(shape, dtype=src.dtype, device=dev)
+    if out.numel():
+        plates, nplates, resolver, fast_dist, fast_half = globe_args
+        lines = (grid_line_words(S, float(numcells), float(cell_size), float(pad_size), dev)
+                 if expanded else None)
+        lib = _build.library()
+        with torch.cuda.device(dev):
+            rc = lib.blinky_sweep_remap(
+                vx.data_ptr(), vy.data_ptr(), vz.data_ptr(), lens_valid.data_ptr(),
+                shape[1] * shape[2], shape[0], plates.ctypes.data, nplates, resolver,
+                fast_dist, fast_half, _build.ptr(lines), S, int(expanded), src.data_ptr(),
+                src.numel(), src.element_size(), background.data_ptr(), out.data_ptr(),
+                _build.stream(dev))
+        _build.check(rc, name)
+        sweep_remap.launches += 1
+    return out
+
+
+sweep_remap.launches = 0
+
+
+def zoom_sweep_remap(lens, globe, scales, frame, width_px, height_px,
+                     numcells=10, cell_size=4.0, pad_size=1.0,
+                     background=None, dtype=None, *, device="cuda"):
+    """Render a whole zoom ramp of ONE frame in one fused pass: the port of
+    ``blinky_tpu.kernels.posed.zoom_sweep_remap``.
+
+    ``scales``: [N] lens-plane scales (one per sweep step, from
+    :func:`blinky_tpu_torch.lensmap.calc_scale`); ``frame``: one [P, S, S]
+    u8/u32 source (plain or the expanded raw||tinted rubix layout), a NumPy
+    array or a tensor.  Returns an [N, H, W] tensor on *device*
+    (``torch.uint32`` for RGBA).
+
+    The float32 lens stage runs over the whole scale axis at once, as the
+    JAX package vmaps it, then :func:`sweep_remap` (K9 on a card) resolves
+    and gathers every step; no rotation is applied, so the result equals a
+    per-step loop of ``Session(backend="torch")`` bit for bit.  A ramp
+    whose ray tables would not fit the device's memory budget runs in
+    chunks of steps.
+    """
+    from blinky_tpu_torch.bench.autobatch import feasible_batch, sweep_bytes_per_lane
+    from blinky_tpu_torch.kernels.static_ray import background_tensor
+    from blinky_tpu_torch.lensmap.builder import lens_rays_torch, plate_resolver_mode
+
+    if getattr(lens, "map_type", "inverse") != "inverse":
+        raise ValueError(
+            "zoom_sweep_remap vmaps the INVERSE builder over the scale "
+            f"axis; lens '{getattr(lens, 'name', lens)}' is forward-only — "
+            "sweep it per step through Session.cmd/render (cli sweep does)")
+    if dtype not in (None, torch.float32):
+        raise ValueError(f"zoom_sweep_remap builds in float32, not {dtype}")
+    plate_resolver_mode(globe)  # a globe without a twin raises here
+    dev = torch.device(device)
+    frame, is_rgba = frames_tensor(frame)
+    P, S, _ = frame.shape
+    expanded = P == 2 * MAX_PLATES
+    if not expanded and P > MAX_PLATES:
+        raise ValueError(f"{P} source planes: expected <= {MAX_PLATES} "
+                         f"or {2 * MAX_PLATES}")
+    width_px, height_px = int(width_px), int(height_px)
+    bg = background_tensor(background, height_px, width_px, dev)
+    if is_rgba and bg.dtype != torch.int32:
+        raise ValueError("RGBA frames need an RGBA (uint32) background")
+    if not is_rgba and bg.dtype == torch.int32:
+        raise ValueError("u8 frames need a u8 (palette-index) background, "
+                         "got uint32")
+    frame = frame.to(dev)
+    if not expanded and P != MAX_PLATES:
+        frame = torch.cat([frame, frame.new_zeros((MAX_PLATES - P, S, S))])
+    src = frame.contiguous().reshape(-1)
+    scales = torch.as_tensor(np.asarray(scales, np.float64), dtype=torch.float32, device=dev)
+    chunk = feasible_batch(sweep_bytes_per_lane(width_px, height_px, is_rgba), 0, device=dev)
+    outs = []
+    for lo in range(0, scales.numel(), chunk):
+        rays = lens_rays_torch(lens, scales[lo:lo + chunk], width_px, height_px, dev)
+        outs.append(sweep_remap(src, *rays, globe, S, float(numcells), float(cell_size),
+                                float(pad_size), expanded, bg))
+        del rays
+    if not outs:  # no steps: nothing to build or gather
+        outs = [torch.empty((0, height_px, width_px), dtype=src.dtype, device=dev)]
+    out = outs[0] if len(outs) == 1 else torch.cat(outs)
+    return out.view(torch.uint32) if is_rgba else out

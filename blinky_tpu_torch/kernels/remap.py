@@ -452,27 +452,21 @@ class RemapKernel:
     """
 
     def __init__(self, lensmap, palette=None, background=None, *, device="cuda"):
-        from blinky_tpu_torch import palette as pal
-
         self.device = torch.device(device)
         self.lensmap = lensmap
         self.height_px = lensmap.height_px
         self.width_px = lensmap.width_px
         self.platesize = lensmap.platesize
-        t = lensmap.to_torch(self.device)
+        t = lensmap.to_torch(self.device)  # a table built there stays there
         self.flat_idx = t["flat_idx"].reshape(-1)
         self.valid = t["valid"].reshape(-1)
         self.tint = t["tint"].reshape(-1)
         self._flat_idx_rubix = None
         self._tint_rgb_mask = None
         self.palette = None if palette is None else np.asarray(palette)
-        if palette is not None:
-            self.tint_lut = torch.from_numpy(pal.tint_lut(self.palette)).to(self.device)
-            self.rgb_lut = torch.from_numpy(
-                np.ascontiguousarray(self.palette, dtype=np.uint8)).to(self.device)
-        else:
-            self.tint_lut = None
-            self.rgb_lut = None
+        self._tint_lut = None
+        self.rgb_lut = None if palette is None else torch.from_numpy(
+            np.ascontiguousarray(self.palette, dtype=np.uint8)).to(self.device)
         if background is None:
             background = np.zeros((self.height_px, self.width_px), np.uint8)
         background = np.asarray(background)
@@ -493,20 +487,42 @@ class RemapKernel:
             self._background_rgba = None
 
     @property
+    def tint_lut(self):
+        """The [7, 256] rubix tint LUT on the device, or None without a
+        palette; made at first use (its nearest-colour search takes about a
+        millisecond on the host, which a plain render after each lensmap
+        rebuild need not pay)."""
+        from blinky_tpu_torch import palette as pal
+
+        if self._tint_lut is None and self.palette is not None:
+            self._tint_lut = torch.from_numpy(pal.tint_lut(self.palette)).to(self.device)
+        return self._tint_lut
+
+    @property
     def flat_idx_rubix(self):
+        """:func:`expanded_flat_idx` of the lensmap, from the operands on
+        the device (a table built there never visits the host)."""
+        from blinky_tpu_torch.lensmap.builder import TINT_NONE
+
         if self._flat_idx_rubix is None:
-            self._flat_idx_rubix = torch.from_numpy(
-                expanded_flat_idx(self.lensmap).reshape(-1)).to(self.device)
+            S = self.platesize
+            off = torch.where((self.tint != TINT_NONE) & self.valid, MAX_PLATES * S * S, 0)
+            self._flat_idx_rubix = (self.flat_idx + off).to(torch.int32)
         return self._flat_idx_rubix
 
     @property
     def tint_rgb_mask(self):
         """(tint_rgb [H*W] int32 bits, tint_mask [H*W] bool) for the
-        post-gather true-color tint."""
+        post-gather true-color tint (:func:`_tint_rgb_mask_np` from the
+        operands on the device)."""
+        from blinky_tpu_torch.lensmap.builder import TINT_NONE
+        from blinky_tpu_torch.palette import PLATE_TINTS
+
         if self._tint_rgb_mask is None:
-            tr, tm = _tint_rgb_mask_np(self.lensmap)
-            self._tint_rgb_mask = (_rgba_bits(tr.reshape(-1), self.device),
-                                   torch.from_numpy(tm.reshape(-1)).to(self.device))
+            lut = _rgba_bits(pack_rgba(np.concatenate(
+                [PLATE_TINTS.astype(np.uint8), np.zeros((1, 3), np.uint8)])), self.device)
+            self._tint_rgb_mask = (lut[self.tint.long()],
+                                   (self.tint != TINT_NONE) & self.valid)
         return self._tint_rgb_mask
 
     @property

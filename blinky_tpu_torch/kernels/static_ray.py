@@ -7,10 +7,10 @@ while the lensmap depends only on (lens, globe, zoom, size)
 (``fisheye.c:2346-2397``).  So:
 
 1. Once per (lens, zoom scale, size), build a per-pixel **ray table**: the
-   pre-rotation camera-frame rays of the inverse build, here always on the
-   host in float64 and truncated to float32
-   (:func:`ray_table_from_lens`), or texel-center rays rebuilt from a
-   lensmap (:func:`ray_table_from_lensmap`).
+   pre-rotation camera-frame rays of the inverse build, from the float32
+   lens stage on the device or from the float64 one on the host, truncated
+   to float32 (:func:`ray_table_from_lens`), or texel-center rays rebuilt
+   from a lensmap (:func:`ray_table_from_lensmap`).
 2. Per pose, rotate the rays, resolve each to a plate and a texel
    (:func:`blinky_tpu_torch.lensmap.builder.rays_to_lensmap_torch`, in
    float32) and gather one texel per pixel from that pose's own frame.
@@ -21,16 +21,15 @@ gather fused, so the per-pose index table is never written.
 :func:`static_ray_posed` launches it for tensors on a card and runs its
 plain version, :func:`static_ray_posed_plain`, for tensors on the CPU.
 
-The JAX package evaluates a jittable lens in float32 on the device for its
-table; the port's table takes the JAX code's ``backend="numpy"`` route
-until the float32 lens stage is ported with the device builder, so its
-screens may differ from the JAX package's at a few boundary texels.
+As in the JAX package, :func:`build_ray_table` evaluates a traceable
+inverse lens in float32 on the device, which keeps the table bit-aligned
+with the fused posed pipeline
+(:class:`blinky_tpu_torch.kernels.posed.PosedRemapKernel`).
 """
 
 from __future__ import annotations
 
 import dataclasses
-import functools
 
 import numpy as np
 import torch
@@ -41,8 +40,8 @@ from blinky_tpu_torch.kernels.posed import (
     prep_posed_inputs,
 )
 from blinky_tpu_torch.lensmap.builder import (
-    TINT_NONE, LensMap, lens_ray_grid, plate_dists_f32, plate_resolver_mode,
-    rays_to_lensmap_torch, rubix_grid_lines,
+    TINT_NONE, LensMap, grid_line_words, lens_ray_grid, lens_rays_torch,
+    plate_resolver_mode, rays_to_lensmap_torch, resolver_args,
 )
 from blinky_tpu_torch.palette import MAX_PLATES
 
@@ -86,16 +85,17 @@ class RayTable:
 
 
 def ray_table_from_lens(lens, scale, width_px, height_px,
-                        backend="numpy") -> RayTable:
+                        backend="numpy", device="cuda") -> RayTable:
     """Ray table for an inverse-capable lens: run the lens stage once.
 
-    ``backend="numpy"`` (the only one ported) evaluates the lens math in
-    float64 on the host and truncates the rays to float32 at the table
-    boundary, as the JAX code's ``backend="numpy"`` branch does; the
-    per-pose rotation then runs in float32.  The JAX package's default
-    for a jittable lens evaluates the lens in float32 on the device; that
-    stage comes with the float32 device builder, and until then
-    ``backend="torch"`` raises ``NotImplementedError``.
+    ``backend="torch"`` evaluates ``lens.inverse`` in float32 on *device*
+    (:func:`blinky_tpu_torch.lensmap.builder.lens_rays_torch`), and the
+    table's planes are those tensors: the counterpart of the JAX package's
+    jitted lens stage, bit-aligned with the fused posed pipeline.
+    ``backend="numpy"`` (scalar-only lenses, or parity checks) evaluates the
+    lens math in float64 on the host and truncates the rays to float32 at
+    the table boundary; the per-pose rotation then runs in float32 either
+    way.
     """
     if getattr(lens, "map_type", "inverse") != "inverse":
         raise ValueError(
@@ -103,9 +103,10 @@ def ray_table_from_lens(lens, scale, width_px, height_px,
             "build its table from a forward-rasterized lensmap "
             "(ray_table_from_lensmap)")
     if backend == "torch":
-        raise NotImplementedError(
-            "ray_table_from_lens(backend='torch'), the float32 lens stage, "
-            "waits for the float32 device builder, which is not ported yet")
+        vx, vy, vz, lens_valid = lens_rays_torch(
+            lens, scale, int(width_px), int(height_px), torch.device(device))
+        return RayTable(int(width_px), int(height_px), vx, vy, vz, lens_valid,
+                        source="lens")
     if backend != "numpy":
         raise ValueError(f"unknown ray-table backend {backend!r}")
     with np.errstate(all="ignore"):
@@ -155,15 +156,21 @@ def ray_table_from_lensmap(lm: LensMap, globe) -> RayTable:
 
 
 def build_ray_table(lens, globe, scale, width_px, height_px,
-                    platesize=None, lensmap=None) -> RayTable:
-    """Route a lens to its ray-table source: an inverse lens to the host
-    float64 lens stage; a forward-only lens to the texel centers of
-    *lensmap* when its size and zoom scale match (the forward rasterizer
-    that would build one is not ported yet)."""
+                    platesize=None, lensmap=None, device="cuda") -> RayTable:
+    """Route a lens to its ray-table source:
+
+    * an inverse lens -> the float32 lens stage on *device* (bit-aligned
+      with the fused posed pipeline; every ported lens and globe runs on
+      tensors: scalar-only script lenses and resolvers are not ported);
+    * a forward-only lens -> the texel centers of *lensmap* when its size
+      and zoom scale match (the forward rasterizer that would build one is
+      not ported yet).
+    """
     if platesize is None:
         platesize = min(width_px, height_px)
     if getattr(lens, "map_type", "inverse") == "inverse":
-        return ray_table_from_lens(lens, scale, width_px, height_px)
+        return ray_table_from_lens(lens, scale, width_px, height_px,
+                                   backend="torch", device=device)
     if lensmap is None or lensmap.width_px != width_px \
             or lensmap.height_px != height_px \
             or lensmap.platesize != platesize \
@@ -171,35 +178,9 @@ def build_ray_table(lens, globe, scale, width_px, height_px,
         raise NotImplementedError(
             f"lens '{lens.name}' is forward-mapped; the forward rasterizer "
             "is not ported yet")
+    if isinstance(lensmap.plate, torch.Tensor):
+        lensmap = lensmap.to_numpy()
     return ray_table_from_lensmap(lensmap, globe)
-
-
-# the plate constants K6 takes by value: per plate forward, right, up, dist
-_PLATE_FLOATS = 10
-_RESOLVERS = {"maxdot": 0, "fast": 1}
-
-
-def _plate_consts(globe) -> np.ndarray:
-    """The globe's plates as K6 takes them; the slots past ``numplates``
-    repeat plate 0, whose forward dot never beats the maximum so far, so
-    K6's max-dot select needs no plate count."""
-    out = np.zeros((MAX_PLATES, _PLATE_FLOATS), np.float32)
-    n = globe.numplates
-    out[:n, 0:3] = np.asarray(globe.forward, np.float32)
-    out[:n, 3:6] = np.asarray(globe.right, np.float32)
-    out[:n, 6:9] = np.asarray(globe.up, np.float32)
-    out[:n, 9] = plate_dists_f32(globe)
-    out[n:] = out[0]
-    return out.reshape(-1)
-
-
-@functools.lru_cache(maxsize=16)
-def _grid_line_words(platesize, numcells, cell_size, pad_size, device):
-    """:func:`rubix_grid_lines` as K6 reads it: an int32 tensor on *device*,
-    bit ``px % 32`` of word ``px // 32``; made and uploaded once a grid."""
-    lines = rubix_grid_lines(platesize, numcells, cell_size, pad_size)
-    bits = np.packbits(np.pad(lines, (0, -platesize % 32)), bitorder="little")
-    return torch.from_numpy(bits.view("<i4").copy()).to(device)
 
 
 def _check_table(kernel, table, device):
@@ -257,26 +238,22 @@ def static_ray_posed(src, table, bases, globe, platesize, numcells,
             or not bases.is_contiguous() or bases.device != dev):
         raise ValueError(f"{name}: bases must be a contiguous float32 [B={B}, 3, 3] "
                          f"tensor on {dev}, got {bases.dtype} {tuple(bases.shape)}")
-    mode = plate_resolver_mode(globe)
+    globe_args = resolver_args(globe)  # a globe without a twin raises here
     if not _build.on_card(name, dev):
         return static_ray_posed_plain(src, table, bases, globe, S, numcells,
                                       cell_size, pad_size, expanded, background, k)
-    from blinky_tpu_torch.globes.builtin import fast_resolver_consts
-
     hb, wb = table.height_px, table.width_px
     out = torch.empty((B, hb * k, wb * k), dtype=src.dtype, device=dev)
     if out.numel():
-        plates = _plate_consts(globe)
-        fast_dist, fast_half = (float(np.float32(c)) for c in fast_resolver_consts())
-        lines = (_grid_line_words(S, float(numcells), float(cell_size), float(pad_size), dev)
+        plates, nplates, resolver, fast_dist, fast_half = globe_args
+        lines = (grid_line_words(S, float(numcells), float(cell_size), float(pad_size), dev)
                  if expanded else None)
         lib = _build.library()
         with torch.cuda.device(dev):
             rc = lib.blinky_static_ray_posed(
                 table.vx.data_ptr(), table.vy.data_ptr(), table.vz.data_ptr(),
                 table.lens_valid.data_ptr(), hb, wb, bases.data_ptr(), B,
-                plates.ctypes.data, globe.numplates, _RESOLVERS[mode],
-                fast_dist, fast_half, _build.ptr(lines), S, int(expanded),
+                plates.ctypes.data, nplates, resolver, fast_dist, fast_half, _build.ptr(lines), S, int(expanded),
                 src.data_ptr(), N, src.element_size(), background.data_ptr(),
                 int(k), out.data_ptr(), _build.stream(dev))
         _build.check(rc, name)
@@ -341,7 +318,8 @@ class StaticRayPosedKernel:
             # the table is built at the BUILD grid size with the k-scaled
             # zoom (the every-k-th-ray identity, kernels/posed.py)
             ray_table = build_ray_table(lens, globe, self.scale * k, W, H,
-                                        self.platesize, lensmap=lensmap)
+                                        self.platesize, lensmap=lensmap,
+                                        device=self.device)
         if (ray_table.width_px, ray_table.height_px) != (W, H):
             raise ValueError(
                 f"ray table is {ray_table.width_px}x{ray_table.height_px}, "

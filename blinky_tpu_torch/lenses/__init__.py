@@ -9,8 +9,11 @@ contract is :mod:`blinky_tpu.lenses`'s:
 * ``lens_width`` / ``lens_height``, ``max_fov`` / ``max_vfov``, ``map``
   and ``onload`` metadata, with the reference's map-type resolution.
 
-Each lens lives in its own module defining ``make(ctx) -> dict``.  The
-port brings lenses over one at a time: :data:`BUILTIN_LENSES` lists the
+Each lens lives in its own module defining ``make(ctx) -> dict``; its
+mapping functions are dtype-generic array functions (see
+:mod:`blinky_tpu_torch.xmath`), evaluated in float64 on NumPy by the exact
+host builder and in float32 on tensors by the device builder.  The
+port brings lenses over in groups: :data:`BUILTIN_LENSES` lists the
 ported ones, and :func:`get` of a lens that :mod:`blinky_tpu` has but the
 port does not yet raises ``NotImplementedError``.
 """
@@ -23,16 +26,19 @@ from types import SimpleNamespace
 from typing import Callable, Optional
 
 # the ported built-ins, each a module of this package
-BUILTIN_LENSES = ["panini"]
+BUILTIN_LENSES = [
+    "cube", "cubestereo", "cylinder", "eckert4", "equirect", "fahey",
+    "fisheye1", "fisheye2", "gallstereo", "gumby", "hammer", "mercator",
+    "miller", "mollweide", "panini", "rectilinear", "stereographic",
+    "vandergrinten", "winkeltripel",
+]
 
-# blinky_tpu's built-in lenses that are still to be ported
+# blinky_tpu's built-in lenses that are still to be ported: quincuncial and
+# debug (they reach the array namespace directly), and the ten forward-only
+# lenses, which wait for the forward rasterizer
 UNPORTED_LENSES = [
-    "cube", "cubestereo", "cylinder", "debug", "eckert1", "eckert4",
-    "eckert5", "equirect", "fahey", "fisheye1", "fisheye2", "gallstereo",
-    "gins8", "gumby", "hammer", "kavrayskiy7", "larrivee", "mercator",
-    "miller", "mollweide", "polyconic", "quincuncial", "rectilinear",
-    "sinusoidal", "stereographic", "vandergrinten", "wagner6", "winkel1",
-    "winkel2", "winkeltripel",
+    "debug", "eckert1", "eckert5", "gins8", "kavrayskiy7", "larrivee",
+    "polyconic", "quincuncial", "sinusoidal", "wagner6", "winkel1", "winkel2",
 ]
 
 
@@ -89,12 +95,24 @@ def make_context(globe) -> SimpleNamespace:
     ``ray_to_latlon`` and a vectorized ``plate_to_ray(i, u, v)`` bound to
     the current globe."""
     import numpy as np
+    import torch
 
     from blinky_tpu_torch import geometry
+    from blinky_tpu_torch import xmath as m
 
     def plate_to_ray(i, u, v):
         # CtoLUA_plate_to_ray (fisheye.c:1521-1538): goes through the
         # float32 plate_uv_to_ray, Lua receives the f32-valued components
+        if m.xp(i, u, v) is torch:
+            ref = next(t for t in (u, v, i) if isinstance(t, torch.Tensor))
+            idx = torch.as_tensor(i, device=ref.device).long()
+            fwd, rgt, up, dist = (
+                torch.as_tensor(np.asarray(a, np.float32), device=ref.device)[idx]
+                for a in (globe.forward, globe.right, globe.up, globe.dist))
+            # the sqrt precision follows the input dtype, as in the builder
+            f64 = torch.float64 if ref.dtype == torch.float64 else torch.float32
+            return geometry.plate_uv_to_ray_c(u, v, fwd, rgt, up, dist, torch,
+                                              torch.float32, f64)
         fwd = np.asarray(globe.forward)[i]
         rgt = np.asarray(globe.right)[i]
         up = np.asarray(globe.up)[i]

@@ -1,0 +1,29 @@
+"""Mercator projection: y = log tan(pi/4 + lat/2).
+
+Reference: ``game/lua-scripts/lenses/mercator.lua``.
+"""
+
+from blinky_tpu_torch import xmath as m
+from blinky_tpu_torch.geometry import latlon_to_ray, ray_to_latlon
+
+
+def make(ctx):
+    def lens_inverse(x, y):
+        valid = ~(m.abs(x) > m.pi)
+        lon = x
+        lat = m.atan(m.sinh(y))
+        vx, vy, vz = latlon_to_ray(lat, lon)
+        return vx, vy, vz, valid
+
+    def lens_forward(x, y, z):
+        lat, lon = ray_to_latlon(x, y, z)
+        return lon, m.log(m.tan(m.pi * 0.25 + lat * 0.5)), True
+
+    return dict(
+        lens_inverse=lens_inverse,
+        lens_forward=lens_forward,
+        max_fov=360,
+        max_vfov=180,
+        lens_width=2 * m.pi,
+        onload="f_cover",
+    )

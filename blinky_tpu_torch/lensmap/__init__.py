@@ -8,4 +8,6 @@ size) and consumed by the remap kernels every frame.
 """
 
 from blinky_tpu_torch.lensmap.zoom import Zoom, ZoomError, calc_scale  # noqa: F401
-from blinky_tpu_torch.lensmap.builder import LensMap, build_lensmap  # noqa: F401
+from blinky_tpu_torch.lensmap.builder import (  # noqa: F401
+    LensMap, build_lensmap, device_builder_warm,
+)

@@ -1,20 +1,29 @@
-"""Lensmap builder: the exact float64 host path, and the float32 ray
-resolve on torch.
+"""Lensmap builders: the exact float64 host path and the float32 device
+path.
 
 Reference: ``create_lensmap`` (``engine/NQ/fisheye.c:2367-2397``) and the
-inverse scan ``resume_lensmap_inverse`` (``fisheye.c:2084-2124``).  This is
-:mod:`blinky_tpu.lensmap.builder`'s NumPy float64 branch (glibc libm via
-:mod:`blinky_tpu_torch.xmath`), which the static ``Session`` path always
-takes; it bit-equals the JAX package's ``build_lensmap(backend="numpy")``.
-:func:`rays_to_lensmap_torch` is the float32 second half of the JAX
-package's device builder, on tensors: the posed path's per-pose resolve.
-The float32 lens stage (the rest of the device builder) and the
-forward-lens rasterizer are not ported yet.
+inverse scan ``resume_lensmap_inverse`` (``fisheye.c:2084-2124``).
+
+* ``build_lensmap(backend="numpy")`` is :mod:`blinky_tpu.lensmap.builder`'s
+  NumPy float64 branch (glibc libm via :mod:`blinky_tpu_torch.xmath`); it
+  bit-equals the JAX package's ``build_lensmap(backend="numpy")``.
+* ``build_lensmap(backend="torch")`` is the counterpart of its jitted
+  float32 builder: the lens stage (:func:`lens_ray_grid`, the generic lens
+  code as eager tensor operations on the device) and then the resolve,
+  :func:`lensmap_resolve`: K8, the hand-written CUDA kernel
+  ``blinky_lensmap_resolve`` (``csrc/lensmap.cu``), for tensors on a card, and
+  its plain version :func:`rays_to_lensmap_torch` for tensors on the CPU.
+  A rebuild costs milliseconds there, which is what a pose-tracked view and
+  a zoom sweep need; its tables differ from the exact ones at a few boundary
+  texels.
+
+The forward-lens rasterizer is not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Optional
 
@@ -23,6 +32,7 @@ import torch
 
 from blinky_tpu_torch import geometry
 from blinky_tpu_torch import xmath as m
+from blinky_tpu_torch.kernels import _build
 from blinky_tpu_torch.globes import Globe
 from blinky_tpu_torch.lenses import LensDef
 from blinky_tpu_torch.palette import MAX_PLATES
@@ -36,8 +46,9 @@ _FIELDS = ("plate", "px", "py", "valid", "tint", "flat_idx", "plates_used")
 
 @dataclasses.dataclass
 class LensMap:
-    """The built gather table (NumPy arrays, [H, W] in screen row-major
-    order).
+    """The built gather table ([H, W] arrays in screen row-major order:
+    NumPy arrays from the host builder, tensors on the build's device from
+    the float32 builder).
 
     ``flat_idx`` indexes the flattened ``[MAX_PLATES, S, S]`` globe store:
     ``plate * S*S + py * S + px`` (the reference's per-pixel pointers,
@@ -58,14 +69,27 @@ class LensMap:
     plates_used: np.ndarray  # bool [MAX_PLATES] — the reference's display flags
 
     def to_torch(self, device) -> dict:
-        """The table's arrays as tensors on *device*, keyed by field."""
-        return {f: torch.from_numpy(np.ascontiguousarray(getattr(self, f))).to(device)
-                for f in _FIELDS}
+        """The table's arrays as tensors on *device*, keyed by field (a
+        tensor already there is handed out as it is)."""
+        return {f: _as_tensor(getattr(self, f)).to(device) for f in _FIELDS}
+
+    def to_numpy(self) -> "LensMap":
+        """The same table with NumPy arrays (a copy to the host for a table
+        built on a card)."""
+        return dataclasses.replace(self, **{
+            f: (a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a))
+            for f in _FIELDS for a in [getattr(self, f)]})
 
     @property
     def tint_c(self):
         """The tint plane in the reference's encoding (255 = no tint)."""
+        if isinstance(self.tint, torch.Tensor):
+            return torch.where(self.tint == TINT_NONE, 255, self.tint).to(torch.uint8)
         return np.where(self.tint == TINT_NONE, np.uint8(255), self.tint.astype(np.uint8))
+
+
+def _as_tensor(a):
+    return a if isinstance(a, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(a))
 
 
 def rubix_grid_mask(px, py, platesize, numcells, cell_size, pad_size):
@@ -89,31 +113,69 @@ def rubix_grid_mask(px, py, platesize, numcells, cell_size, pad_size):
             np.fmod(uy, block_size) < pad_size)
 
 
-def lens_ray_grid(lens, scale, width_px, height_px):
+def lens_ray_grid(lens, scale, width_px, height_px, xp=np, dtype=np.float64,
+                  device=None, row_range=None):
     """The pose-invariant half of the inverse build: pixel grid ->
     pre-rotation camera-frame ray (``resume_lensmap_inverse``,
     ``fisheye.c:2084-2124``): screen -> lens plane (note the C integer
     division ``width_px/2``), then ``lens_inverse`` -> unnormalized
-    camera-frame ray + validity.
+    camera-frame ray + validity.  This is the only stage that touches lens
+    math: the ray grid depends only on (lens, zoom scale, size).
+
+    *xp*, *dtype*: the array namespace and the build dtype, ``np`` and
+    float64 for the exact host build, ``torch`` and ``torch.float32`` on
+    *device* for the float32 builder.  There *scale* becomes a 0-d tensor of
+    the build dtype on the device (a NumPy scalar times a tensor would
+    dispatch to NumPy); a 1-d *scale* of N zoom steps gives [N, H, W] grids,
+    the zoom sweep's.  ``row_range=(r0, r1)`` computes only screen rows
+    ``r0..r1``.
 
     Returns ``(vx, vy, vz, lens_valid)`` with ``lens_valid`` broadcast to
-    the grid shape.
+    the grid shape (ray components keep whatever broadcast shape the lens
+    emitted).
     """
     half_w = width_px // 2  # C int division, fisheye.c:2105
     half_h = height_px // 2  # fisheye.c:2100
-    scale = np.asarray(scale, dtype=np.float64)
+    r0, r1 = (0, height_px) if row_range is None else row_range
+    shape = (r1 - r0, width_px)
+    if xp is torch:
+        scale = torch.as_tensor(scale, dtype=dtype, device=device)
+        lx = torch.arange(width_px, dtype=torch.int32, device=device)
+        ly = torch.arange(r0, r1, dtype=torch.int32, device=device)
+        shape = tuple(scale.shape) + shape  # [N] zoom steps -> [N, H, W]
+        x = ((lx - half_w).to(dtype) * scale[..., None])[..., None, :]
+        y = (-(ly - half_h).to(dtype) * scale[..., None])[..., :, None]
+        X = torch.broadcast_to(x, shape)
+        Y = torch.broadcast_to(y, shape)
+        vx, vy, vz, lens_valid = lens.inverse(X, Y)
+        lens_valid = torch.broadcast_to(
+            torch.as_tensor(lens_valid, device=X.device), shape)
+        return vx, vy, vz, lens_valid
+    scale = np.asarray(scale, dtype=dtype)
 
     lx = np.arange(width_px, dtype=np.int32)
-    ly = np.arange(height_px, dtype=np.int32)
-    x = ((lx - half_w).astype(np.float64) * scale)[None, :]
-    y = (-(ly - half_h).astype(np.float64) * scale)[:, None]
-    shape = (height_px, width_px)
+    ly = np.arange(r0, r1, dtype=np.int32)
+    x = ((lx - half_w).astype(dtype) * scale)[None, :]
+    y = (-(ly - half_h).astype(dtype) * scale)[:, None]
     X = np.broadcast_to(x, shape)
     Y = np.broadcast_to(y, shape)
 
     vx, vy, vz, lens_valid = lens.inverse(X, Y)
     lens_valid = np.broadcast_to(np.asarray(lens_valid), shape)
     return vx, vy, vz, lens_valid
+
+
+def lens_rays_torch(lens, scale, width_px, height_px, device, dtype=torch.float32):
+    """The float32 lens stage as the kernels take it: :func:`lens_ray_grid`
+    on *device*, each ray plane broadcast to the grid, cast to float32 and
+    made contiguous, with the bool mask.  [H, W], or [N, H, W] for a 1-d
+    *scale*."""
+    vx, vy, vz, lens_valid = lens_ray_grid(lens, scale, width_px, height_px, torch,
+                                           dtype, device)
+    shape = lens_valid.shape
+    planes = tuple(torch.broadcast_to(torch.as_tensor(v, device=lens_valid.device), shape)
+                   .to(torch.float32).contiguous() for v in (vx, vy, vz))
+    return (*planes, lens_valid.to(torch.bool).contiguous())
 
 
 def rays_to_lensmap(globe, vx, vy, vz, lens_valid, platesize,
@@ -394,6 +456,113 @@ def rays_to_lensmap_torch(globe, vx, vy, vz, lens_valid, platesize,
     )
 
 
+# the plate constants the resolve kernels take by value: per plate forward,
+# right, up, dist
+PLATE_FLOATS = 10
+RESOLVERS = {"maxdot": 0, "fast": 1}
+
+
+def plate_consts(globe) -> np.ndarray:
+    """The globe's plates as the resolve kernels take them; the slots past
+    ``numplates`` repeat plate 0, whose forward dot never beats the maximum
+    so far, so the max-dot select needs no plate count."""
+    out = np.zeros((MAX_PLATES, PLATE_FLOATS), np.float32)
+    n = globe.numplates
+    out[:n, 0:3] = np.asarray(globe.forward, np.float32)
+    out[:n, 3:6] = np.asarray(globe.right, np.float32)
+    out[:n, 6:9] = np.asarray(globe.up, np.float32)
+    out[:n, 9] = plate_dists_f32(globe)
+    out[n:] = out[0]
+    return out.reshape(-1)
+
+
+@functools.lru_cache(maxsize=16)
+def grid_line_words(platesize, numcells, cell_size, pad_size, device):
+    """:func:`rubix_grid_lines` as the resolve kernels read it: an int32
+    tensor on *device*, bit ``px % 32`` of word ``px // 32``; made and
+    uploaded once a grid."""
+    lines = rubix_grid_lines(platesize, numcells, cell_size, pad_size)
+    bits = np.packbits(np.pad(lines, (0, -platesize % 32)), bitorder="little")
+    return torch.from_numpy(bits.view("<i4").copy()).to(device)
+
+
+def resolver_args(globe):
+    """(plates, numplates, resolver, fast_dist, fast_half): the globe as the
+    resolve kernels' C interface takes it; ``plates`` is a host array whose
+    pointer the caller keeps alive over the launch."""
+    from blinky_tpu_torch.globes.builtin import fast_resolver_consts
+
+    fast_dist, fast_half = (float(np.float32(c)) for c in fast_resolver_consts())
+    return (plate_consts(globe), globe.numplates,
+            RESOLVERS[plate_resolver_mode(globe)], fast_dist, fast_half)
+
+
+def basis_f32(view_basis) -> np.ndarray:
+    """A (forward, right, up) basis, a [3, 3] array, tensor or triple of
+    3-vectors, as a host float32 [3, 3] array."""
+    if isinstance(view_basis, torch.Tensor):
+        b = view_basis.detach().to("cpu", torch.float32).numpy()
+    else:
+        b = np.asarray([np.asarray(v, np.float64) for v in view_basis]).astype(np.float32)
+    if b.shape != (3, 3):
+        raise ValueError(f"view_basis must be (forward, right, up) 3-vectors, got {b.shape}")
+    return np.ascontiguousarray(b)
+
+
+def lensmap_resolve(globe, vx, vy, vz, lens_valid, platesize, numcells,
+                    cell_size, pad_size, view_basis):
+    """K8, the float32 builder's resolve: the lens stage's rays, rotated by
+    *view_basis*, -> the lensmap's tables, as :func:`rays_to_lensmap_torch`
+    gives them, bit for bit.
+
+    ``vx, vy, vz`` contiguous f32 and ``lens_valid`` contiguous bool, all
+    [H, W] on one device; ``view_basis`` (forward, right, up), always
+    applied: a build without a view passes the identity, as the JAX
+    builder does.  Launches ``blinky_lensmap_resolve`` (``csrc/lensmap.cu``)
+    for tensors on a card and runs the plain version for tensors on the CPU.
+    """
+    name = "lensmap_resolve"
+    dev = vx.device
+    shape = tuple(vx.shape)
+    for what, t, dtype in (("vx", vx, torch.float32), ("vy", vy, torch.float32),
+                           ("vz", vz, torch.float32), ("lens_valid", lens_valid, torch.bool)):
+        if (t.dtype != dtype or tuple(t.shape) != shape or len(shape) != 2
+                or not t.is_contiguous() or t.device != dev):
+            raise ValueError(
+                f"{name}: {what} must be a contiguous {dtype} [H, W] tensor on {dev}, "
+                f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+    S = int(platesize)
+    basis = basis_f32(view_basis)
+    globe_args = resolver_args(globe)  # a globe without a twin raises here
+    if not _build.on_card(name, dev):
+        return rays_to_lensmap_torch(globe, vx, vy, vz, lens_valid, S, numcells,
+                                     cell_size, pad_size,
+                                     view_basis=torch.from_numpy(basis))
+    out = {f: torch.empty(shape, dtype=dt, device=dev) for f, dt in (
+        ("plate", torch.int32), ("px", torch.int32), ("py", torch.int32),
+        ("valid", torch.bool), ("tint", torch.uint8), ("flat_idx", torch.int32))}
+    used = torch.zeros(MAX_PLATES, dtype=torch.int32, device=dev)
+    if vx.numel():
+        plates, nplates, resolver, fast_dist, fast_half = globe_args
+        lines = grid_line_words(S, float(numcells), float(cell_size), float(pad_size), dev)
+        lib = _build.library()
+        with torch.cuda.device(dev):
+            rc = lib.blinky_lensmap_resolve(
+                vx.data_ptr(), vy.data_ptr(), vz.data_ptr(), lens_valid.data_ptr(),
+                vx.numel(), basis.ctypes.data, plates.ctypes.data, nplates, resolver,
+                fast_dist, fast_half, lines.data_ptr(), S, out["plate"].data_ptr(),
+                out["px"].data_ptr(), out["py"].data_ptr(), out["valid"].data_ptr(),
+                out["tint"].data_ptr(), out["flat_idx"].data_ptr(), used.data_ptr(),
+                _build.stream(dev))
+        _build.check(rc, name)
+        lensmap_resolve.launches += 1
+    out["plates_used"] = used != 0
+    return out
+
+
+lensmap_resolve.launches = 0
+
+
 def inverse_grid(lens, globe, scale, width_px, height_px, platesize,
                  numcells, cell_size, pad_size, view_basis=None):
     """The full inverse-path lensmap computation over the pixel grid:
@@ -408,6 +577,30 @@ def inverse_grid(lens, globe, scale, width_px, height_px, platesize,
             numcells, cell_size, pad_size, view_basis=view_basis)
 
 
+# the (lens, globe, shape, device) keys whose float32 builder has run in this
+# process (bounded: the oldest key goes first)
+_WARM_BUILDERS: dict = {}
+
+IDENTITY_BASIS = ((0.0, 0.0, 1.0), (1.0, 0.0, 0.0), (0.0, 1.0, 0.0))
+
+
+def _warm_key(lens, globe, width_px, height_px, platesize, device):
+    return (lens, globe, int(width_px), int(height_px), int(platesize),
+            str(torch.device(device)))
+
+
+def device_builder_warm(lens, globe, width_px, height_px, platesize=None,
+                        device="cuda") -> bool:
+    """True once the float32 builder for this (lens, globe, shape) has run
+    on *device* in this process: the kernels are built and loaded and the
+    device's allocator holds the build's blocks, so a rebuild costs
+    milliseconds.  (The JAX package answers the same question about its
+    jit's first compile.)"""
+    if platesize is None:
+        platesize = min(width_px, height_px)
+    return _warm_key(lens, globe, width_px, height_px, platesize, device) in _WARM_BUILDERS
+
+
 def build_lensmap(
     lens: LensDef,
     globe: Globe,
@@ -420,19 +613,23 @@ def build_lensmap(
     pad_size: float = 1.0,
     backend: str = "numpy",
     view_basis=None,
+    device="cuda",
 ) -> LensMap:
-    """Build the lensmap of an inverse-mapped *lens* on the exact float64
-    host path (``backend="numpy"``).
+    """Build the lensmap of an inverse-mapped *lens*.
+
+    ``backend``: ``"numpy"`` (the default), the exact float64 host path,
+    NumPy arrays; or ``"torch"``, the float32 builder on *device* (``"cuda"``
+    unless the caller asks for another): the lens stage as tensor
+    operations, then :func:`lensmap_resolve` (K8 on a card).  Its tables are
+    tensors on the device; :meth:`LensMap.to_numpy` copies them out.
 
     ``platesize`` defaults to ``min(width_px, height_px)``
     (``fisheye.c:707``).  ``view_basis``: optional (forward, right, up)
-    camera basis rotating the view within recorded plates.
+    camera basis rotating the view within recorded plates; the float32
+    builder rotates by the identity when there is none, as the JAX builder
+    does.
     """
-    if backend == "torch":
-        raise NotImplementedError(
-            "build_lensmap(backend='torch'), the float32 device builder, "
-            "is not ported yet")
-    if backend != "numpy":
+    if backend not in ("numpy", "torch"):
         raise ValueError(f"unknown lensmap backend {backend!r}")
     if lens.map_type == "forward":
         raise NotImplementedError(
@@ -440,12 +637,22 @@ def build_lensmap(
             "is not ported yet")
     if platesize is None:
         platesize = min(width_px, height_px)
-    out = inverse_grid(
-        lens, globe, np.float64(scale), width_px, height_px, platesize,
-        numcells, cell_size, pad_size,
-        view_basis=None if view_basis is None else tuple(
-            np.asarray(v, dtype=np.float64) for v in view_basis),
-    )
+    if backend == "numpy":
+        out = inverse_grid(
+            lens, globe, np.float64(scale), width_px, height_px, platesize,
+            numcells, cell_size, pad_size,
+            view_basis=None if view_basis is None else tuple(
+                np.asarray(v, dtype=np.float64) for v in view_basis),
+        )
+    else:
+        rays = lens_rays_torch(lens, scale, width_px, height_px, torch.device(device))
+        out = lensmap_resolve(
+            globe, *rays, platesize, numcells, cell_size, pad_size,
+            IDENTITY_BASIS if view_basis is None else view_basis)
+        key = _warm_key(lens, globe, width_px, height_px, platesize, device)
+        _WARM_BUILDERS[key] = True
+        while len(_WARM_BUILDERS) > 64:
+            _WARM_BUILDERS.pop(next(iter(_WARM_BUILDERS)))
     return LensMap(
         width_px=width_px,
         height_px=height_px,

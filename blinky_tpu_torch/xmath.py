@@ -1,23 +1,44 @@
-"""Math shim for lens/globe formulas: the NumPy float64 backend.
+"""Dual-backend math shim: one source of truth for lens/globe formulas.
 
 The reference evaluates lens math in Lua doubles through libm
 (``engine/NQ/fisheye.c:1222-1265`` preloads ``cos``/``sin``/``tan``/... as
 Lua globals).  Every projection formula is written once against this
-module, as in :mod:`blinky_tpu.xmath`.  The port has only the exact
-float64 host backend so far: :func:`xp` always returns NumPy, and the
-float64 transcendentals route through glibc libm, bit-identical to the
-JAX package's host builder.  A torch float32 backend for a device
-builder is later work.
+module, as in :mod:`blinky_tpu.xmath`, and runs under two backends:
+
+* **NumPy float64**: the exact host builder.  The float64 transcendentals
+  route through glibc libm, bit-identical to the JAX package's host
+  builder.
+* **torch**: the float32 device builder (:mod:`blinky_tpu_torch.lensmap`),
+  eager tensor operations on whatever device the tensors lie on.
+
+Dispatch rule: if any argument is a tensor, use ``torch``; otherwise
+``np``.  Python scalars follow NumPy (load-time metadata math, mirroring
+the Lua scripts' top-level code).  A Python scalar that meets a tensor
+takes the tensor's dtype, as a weakly typed scalar does under jax.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+
+def _is_torch(a) -> bool:
+    return isinstance(a, torch.Tensor)
 
 
 def xp(*args):
-    """The array namespace governing *args*: always NumPy in the port."""
-    return np
+    """Return the array namespace (``np`` or ``torch``) governing *args*."""
+    return torch if any(_is_torch(a) for a in args) else np
+
+
+def _tensors(*args):
+    """*args* with every non-tensor made a 0-d tensor of the dtype and
+    device of the first tensor among them (torch's binary functions, unlike
+    its operators, take no Python scalars)."""
+    ref = next(a for a in args if _is_torch(a))
+    return tuple(a if _is_torch(a) else torch.as_tensor(a, dtype=ref.dtype, device=ref.device)
+                 for a in args)
 
 
 # The reference's lens math is Lua 5.2 doubles, and Lua's math.* are raw
@@ -31,6 +52,7 @@ _LIBM_UNARY = {
     "sqrt": 12,
 }
 _LIBM_BINARY = {"arctan2": 0, "fmod": 1, "power": 2, "hypot": 3}
+_TORCH_NAMES = {"power": "pow"}  # torch has every other name, NumPy's aliases too
 _native = None
 
 
@@ -57,6 +79,8 @@ def _unary(name):
     op = _LIBM_UNARY.get(name)
 
     def f(x):
+        if _is_torch(x):
+            return getattr(torch, name)(x)
         if op is not None:
             arr = np.asarray(x)
             if _wants_libm(arr):
@@ -73,6 +97,8 @@ def _binary(name):
     op = _LIBM_BINARY.get(name)
 
     def f(a, b):
+        if _is_torch(a) or _is_torch(b):
+            return getattr(torch, _TORCH_NAMES.get(name, name))(*_tensors(a, b))
         if op is not None:
             aa, bb = np.asarray(a), np.asarray(b)
             if _wants_libm(aa, bb):
@@ -119,7 +145,13 @@ tau = 2.0 * float(np.pi)
 
 
 def where(c, a, b):
-    return np.where(c, a, b)
+    if xp(c, a, b) is np:
+        return np.where(c, a, b)
+    if not _is_torch(c):
+        c = torch.as_tensor(c, device=next(t for t in (a, b) if _is_torch(t)).device)
+    # two Python scalars under a tensor condition give torch's default
+    # dtype, float32: the build dtype, never float64
+    return torch.where(c, a, b)
 
 
 def modf(x):
@@ -128,6 +160,12 @@ def modf(x):
     NumPy's modf returns (frac, int) — swapped to Lua's (int, frac) order
     since the lens scripts (``lenses/cube.lua:14-16``) destructure that way.
     """
+    if _is_torch(x):
+        intg = torch.trunc(x)
+        # C's modf: x - trunc(x) is exact, an infinite x has a zero fraction,
+        # and the fraction carries the sign of x even where it is zero
+        frac = torch.where(torch.isinf(x), torch.zeros_like(x), x - intg)
+        return intg, torch.copysign(frac, x)
     frac, intg = np.modf(x)
     return intg, frac
 
@@ -137,7 +175,7 @@ def safe_div(a, b, fill=0.0):
     Lua relies on IEEE inf/nan propagation being discarded by a later
     ``where``/nil check."""
     zero = b == 0
-    return np.where(zero, fill, a / np.where(zero, 1.0, b))
+    return where(zero, fill, a / where(zero, 1.0, b))
 
 
 def repeat_until(body, state, max_iter):
@@ -158,11 +196,14 @@ def repeat_until(body, state, max_iter):
             its closure still works: the compacted call raises a shape
             error and the loop restarts densely.
         state: tuple of arrays (broadcast to a common shape internally).
-        max_iter: iteration cap (the loop exits early once all elements
-            have exited).
+        max_iter: iteration cap (NumPy exits early once all elements have
+            exited; on tensors a masked dense loop runs, see
+            :func:`_repeat_until_torch`).
     Returns:
         The final state tuple.
     """
+    if xp(*state) is torch:
+        return _repeat_until_torch(body, state, max_iter)
     # Active-set evaluation: each round runs the body only on the elements
     # that have not exited.  Bit-exact vs the dense masked loop: bodies are
     # elementwise, so every element sees the identical op sequence until
@@ -200,6 +241,24 @@ def repeat_until(body, state, max_iter):
         return st
 
 
+def _repeat_until_torch(body, state, max_iter):
+    """:func:`repeat_until` on tensors: the masked dense loop of *max_iter*
+    rounds, the counterpart of the JAX package's ``fori_loop``.  Every round
+    evaluates the body on all elements and keeps the old value of those that
+    have exited, so a frozen element is never updated and the result equals
+    the per-element scalar loop.  No round asks the device whether any
+    element is still active: the question would wait for the device."""
+    state = torch.broadcast_tensors(*_tensors(*state))
+    active = torch.ones(state[0].shape, dtype=torch.bool, device=state[0].device)
+    for _ in range(max_iter):
+        new_state, ex = body(state)
+        state = tuple(torch.where(active, n, o) for n, o in zip(new_state, state))
+        active = active & ~ex
+    return state
+
+
 def asarray_like(value, ref):
-    """Make *value* an array of the dtype of *ref*."""
+    """Make *value* an array of the backend and dtype of *ref*."""
+    if _is_torch(ref):
+        return torch.as_tensor(value, dtype=ref.dtype, device=ref.device)
     return np.asarray(value, dtype=getattr(ref, "dtype", None))

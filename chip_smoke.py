@@ -3,9 +3,11 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from ``blinky_tpu_torch/csrc`` and drives
-the port's two main paths at 1920x1080 (panini + cube, ``f_fov 180``):
-``Session.render`` and ``Session.render_posed``; then checks and times every
-kernel against its plain PyTorch version.  Phases:
+the port's main paths at 1920x1080 (panini + cube, ``f_fov 180``):
+``Session.render``, ``Session.render_posed`` and the float32 device builder's
+(``Session(backend="torch")``, ``setviewangles``, ``PosedRemapKernel``,
+``zoom_sweep_remap``); then checks and times every kernel against its plain
+PyTorch version.  Phases:
 
 1. set-up: the card's name and power limit, the kernel build;
 2. main path: with every launch counter at 0, the Session renders a
@@ -44,10 +46,29 @@ kernel against its plain PyTorch version.  Phases:
    the one-pose view that launches nothing; and ``render_posed``'s wall
    clock at B=64 and B=1, split into the pose bases, K7, K6 and the rest,
    with the device's idle share, from profiler runs of the call given the
-   poses and given their bases.
+   poses and given their bases;
+7. the float32 device builder: with every launch counter at 0, a
+   ``Session(backend="torch")`` renders the 64-frame batch (the lens stage,
+   K8, K1), a default Session renders it after ``setviewangles 10 30 0``,
+   ``PosedRemapKernel`` renders the 64 poses for the u8 and the expanded
+   source at render scales 1 and 2 (the lens stage, K7, K6), and
+   ``zoom_sweep_remap`` renders the 24-step ``f_fov`` 100-330 ramp of one
+   frame, u8 and expanded (the lens stage, K9); the counters are read.  K8 is
+   held bit-equal to ``rays_to_lensmap_torch`` on the same rays (the cube and
+   the fast globe, the identity and two rotated bases), the build to the
+   exact host build within the float32 boundary tolerance, the renders to
+   their plain versions and ``host_remap``, the fused posed screens to
+   ``static_ray_posed_plain`` and ``StaticRayPosedKernel``, K9 to its plain
+   version step by step and to the per-step loop of
+   ``Session(backend="torch")``.  Then the warm rebuild is timed, split into
+   the lens stage and K8, beside the exact host build and the first call; a
+   rebuild to the first frame; K9 beside its bound and the sweep beside its
+   loop; the builds of mollweide, winkeltripel and fisheye1; and the lens
+   stage's peak of live memory beside what the sweep's chunking allows.
 
 The line before the card's name and power limit lists every kernel with its
-launches in its path's run (phase 2 for K1-K4, phase 6 for K5-K7), its
+launches in its path's run (phase 2 for K1-K4, phase 6 for K5-K7, phase 7
+for K8 and K9), its
 time, its plain version's and its library call's time where one PyTorch call
 computes the same function, and its bound.
 
@@ -329,6 +350,9 @@ def main():
 
     posed_launches, posed_rows = posed_phase(dev, frames, frames_dev, kernels)
     launches.update(posed_launches)
+    builder_launches, builder_rows = builder_phase(dev, frames, frames_dev, kernels, lm,
+                                                   lensmap_s)
+    launches.update(builder_launches)
 
     k1, k2 = main_ms["remap_gather"], main_ms["remap_lut"]
     rows = [
@@ -343,7 +367,7 @@ def main():
         ("stream_read", "sol.cu", "blinky_tpu/bench/sol.py:222",
          sr["max_abs_err"], sr["ms"], sr["plain_ms"],
          (sr["bytes"] + 4) / HBM_BYTES_PER_S * 1e3, "bytes", sr["library_ms"], sr["library"]),
-    ] + posed_rows
+    ] + posed_rows + builder_rows
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"blinky_tpu_torch/csrc/{src_file}",
          "replaces": replaces, "launches": launches[name], "max_abs_err": e,
@@ -363,20 +387,12 @@ CHUNK = 8
 
 
 def k6_ops_per_pose_pixel(globe):
-    """Float32 operations K6 does for one pose and build pixel, as
-    csrc/posed.cu does them: the rotation (9 mul, 6 add), the normalize
-    (3 mul, 2 add, sqrt, compare, reciprocal, 3 mul), the plate choice (max-dot:
-    a 5-op dot and a compare a plate, less one compare, whose winning dot is
-    the chosen plate's forward dot; the fast globe: 2 compares, 2 divisions,
-    2 mul, 2 abs, 2 compares, then the chosen plate's forward dot), the
-    chosen plate's right and up dots, u and v (compare, 2 divisions, 2 mul,
-    2 add; the sign flip of -ry is free), four range compares, the
-    truncation (2 mul, 2 conversions)."""
-    from blinky_tpu_torch.lensmap.builder import plate_resolver_mode
+    """Float32 operations K6 does for one pose and build pixel: the shared
+    resolve's (bench/builder.py::resolve_ops_per_pixel counts them as
+    csrc/resolve.cuh does them), the rotation included."""
+    from blinky_tpu_torch.bench.builder import resolve_ops_per_pixel
 
-    n = globe.numplates
-    choose = 6 * n - 1 if plate_resolver_mode(globe) == "maxdot" else 10 + 5
-    return 15 + 11 + choose + 10 + 7 + 4 + 4
+    return resolve_ops_per_pixel(globe, rotate=True)
 
 
 def posed_phase(dev, frames, frames_dev, kernels):
@@ -654,6 +670,365 @@ def posed_phase(dev, frames, frames_dev, kernels):
         ("posed_layout", "layout.cu", "blinky_tpu/kernels/posed.py:91", 0, k7main["ms"],
          k7main["plain_ms"], k7main["bound_ms"], "bytes", k7main["library_ms"],
          "x.permute(3, 0, 1, 2).contiguous()"),
+    ]
+    return launches, rows
+
+
+SWEEP_STEPS = 24
+F32_SHARE = 0.15  # tests/test_lensmap_parity.py's bound for float32 noise at 64x48
+VIEWS = {"identity": None, "setviewangles 10 30 0": (10.0, 30.0, 0.0),
+         "(-75, 200, 33)": (-75.0, 200.0, 33.0)}
+
+
+def builder_phase(dev, frames, frames_dev, kernels, exact_lm, exact_s):
+    """Phase 7: the float32 device builder's paths.  Returns (the launches of
+    K8 and K9 in the paths' run, their rows of the kernels line)."""
+    from blinky_tpu_torch import globes, lenses
+    from blinky_tpu_torch.api import Session
+    from blinky_tpu_torch.bench import autobatch
+    from blinky_tpu_torch.bench import builder as bb
+    from blinky_tpu_torch.bench.posed import posed_poses
+    from blinky_tpu_torch.bench.sol import cuda_ms
+    from blinky_tpu_torch.camera import view_basis_from_angles
+    from blinky_tpu_torch.kernels import posed, remap, static_ray
+    from blinky_tpu_torch.lensmap import Zoom, build_lensmap, calc_scale
+    from blinky_tpu_torch.lensmap import builder
+
+    S, H, W = 1080, 1080, 1920
+    npix = H * W
+    poses = posed_poses(POSED_B)
+    bases_np = posed.bases_from_pose_track(poses)
+    probe = Session(W, H, device="cpu")  # state only: lens, globe, palette
+    lens, globe, pal = probe.lens, probe.globe, probe.palette
+    scale = calc_scale(probe.zoom, lens, W, H)
+    expanded_dev = torch.from_numpy(remap.expand_frames_tinted(frames, pal)).to(dev)
+    frame, frame_x = frames[..., 0], remap.expand_frames_tinted(frames[..., 0], pal)
+    fovs = bb.sweep_fovs(steps=SWEEP_STEPS)
+    scales = bb.sweep_scales(lens, W, H, fovs)
+
+    # ------------------------------------------------ the paths, counted
+    path_kernels = [builder.lensmap_resolve, posed.sweep_remap, posed.gather_posed,
+                    static_ray.static_ray_posed, posed.posed_layout]
+    for fn in list(kernels.values()) + path_kernels:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    first = build_lensmap(lens, globe, scale, W, H, S, backend="torch", device=dev)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    sess = Session(W, H, device=dev, backend="torch")        # a
+    out_a = sess.render(frames_dev)
+    lm_a = sess._lensmap
+    auto = Session(W, H, device=dev)                         # b
+    auto.cmd("setviewangles 10 30 0")
+    out_b = auto.render(frames_dev)
+    lm_b = auto._lensmap
+    require(auto._resolved_backend() == "torch" and sess._resolved_backend() == "torch",
+            "the Session did not take the float32 device builder")
+    fused, outs_c = {}, {}                                   # c
+    for kind, fr in (("u8", frames_dev), ("expanded", expanded_dev)):
+        for k in (1, 2):
+            fused[kind, k] = posed.PosedRemapKernel(lens, globe, W, H, scale, platesize=S,
+                                                    render_scale=k, device=dev)
+            outs_c[kind, k] = fused[kind, k](fr, bases_np)
+    outs_d = {kind: posed.zoom_sweep_remap(lens, globe, scales, fr, W, H, device=dev)  # d
+              for kind, fr in (("u8", frame), ("expanded", frame_x))}
+    torch.cuda.synchronize()
+    counts = {fn.__name__: fn.launches for fn in list(kernels.values()) + path_kernels}
+    launches = {"lensmap_resolve": builder.lensmap_resolve.launches,
+                "sweep_remap": posed.sweep_remap.launches}
+    phase(7, f"launches in the device-builder paths' run (a: Session(backend='torch') render, "
+          f"b: setviewangles 10 30 0 under 'auto', c: PosedRemapKernel u8 and expanded at "
+          f"k = 1, 2, d: zoom_sweep_remap of {SWEEP_STEPS} steps, u8 and expanded): {counts}; "
+          f"the first build_lensmap(backend='torch') of the process {first_s * 1e3:.3f} ms")
+    for name, n in launches.items():
+        require(n >= 1, f"{name} was not launched by the device-builder paths")
+    for name in ("remap_gather", "static_ray_posed", "posed_layout"):
+        require(counts[name] >= 1, f"{name} was not launched by the device-builder paths")
+
+    # ------------------------------------------------ K8 against its plain version
+    def tables_equal(got, want, what):
+        err = 0
+        for f in ("plate", "px", "py", "valid", "tint", "flat_idx", "plates_used"):
+            e = int((got[f].long() - want[f].long()).abs().max())
+            require(got[f].dtype == want[f].dtype and torch.equal(got[f], want[f]),
+                    f"lensmap_resolve {what}: {f} differs from rays_to_lensmap_torch (max {e})")
+            err = max(err, e)
+        return err
+
+    k8_err = 0
+    rays = {}
+    for gname in ("cube", "fast"):
+        g = globes.get(gname)
+        rays[gname] = builder.lens_rays_torch(lenses.get("panini", g), scale, W, H, dev)
+        for vname, angles in VIEWS.items():
+            vb = builder.IDENTITY_BASIS if angles is None else view_basis_from_angles(*angles)
+            got = builder.lensmap_resolve(g, *rays[gname], S, 10, 4.0, 1.0, vb)
+            want = builder.rays_to_lensmap_torch(
+                g, *rays[gname], S, 10, 4.0, 1.0,
+                view_basis=torch.from_numpy(builder.basis_f32(vb)).to(dev))
+            k8_err = max(k8_err, tables_equal(got, want, f"{gname}, {vname}"))
+            del got, want
+    phase(7, "lensmap_resolve (K8) at 1080p on the cube and the fast globe, the identity and "
+          "two rotated bases: every table bit-equal to rays_to_lensmap_torch on the same rays")
+    for f in ("plate", "px", "py", "valid", "tint", "flat_idx", "plates_used"):
+        require(torch.equal(getattr(first, f), getattr(lm_a, f)),
+                f"two float32 builds of one lensmap differ in {f}")
+
+    # the float32 build against the exact host build of phase 2
+    f32 = lm_a.to_numpy()
+    share = float((f32.flat_idx != exact_lm.flat_idx).mean())
+    same = f32.valid & exact_lm.valid & (f32.plate == exact_lm.plate)
+    off = max(int(np.abs(getattr(f32, f) - getattr(exact_lm, f))[same].max(initial=0))
+              for f in ("px", "py"))
+    phase(7, f"float32 device build against the exact host build: flat_idx differs on "
+          f"{share:.6f} of the pixels ({int((f32.flat_idx != exact_lm.flat_idx).sum())} of "
+          f"{npix}); valid differs on {int((f32.valid != exact_lm.valid).sum())}; where both "
+          f"are valid on one plate px and py differ by at most {off} texel; plates_used "
+          f"{f32.plates_used.astype(int).tolist()} against "
+          f"{exact_lm.plates_used.astype(int).tolist()}")
+    require(share <= F32_SHARE and off <= 1,
+            f"the float32 build is not within the boundary tolerance of the exact one "
+            f"({share}, {off})")
+
+    # ------------------------------------------------ a and b: the renders
+    src = frames_dev.reshape(-1, B_MAIN)
+    for name, out, sess_, lm in (("Session(backend='torch').render", out_a, sess, lm_a),
+                                 ("render after setviewangles 10 30 0", out_b, auto, lm_b)):
+        flat = lambda t: t.reshape(-1)  # noqa: E731
+        bg = torch.zeros(npix, dtype=torch.uint8, device=dev)
+        plain = remap.remap_gather_plain(src, flat(lm.flat_idx), flat(lm.valid), bg,
+                                         fill=True).reshape(out.shape)
+        require(torch.equal(out, plain), f"{name} differs from the plain version")
+        host = remap.host_remap(sess_.lensmap, frames[..., 0], sess_.palette)
+        require(np.array_equal(out[..., 0].cpu().numpy(), host),
+                f"{name}: frame 0 differs from host_remap of the same table")
+        del plain
+    moved = float((lm_a.flat_idx != lm_b.flat_idx).float().mean())
+    require(moved > 0.5, f"setviewangles 10 30 0 moved only {moved} of the lensmap")
+    phase(7, "Session(backend='torch').render and the render after setviewangles 10 30 0 "
+          f"(B={B_MAIN}) bit-equal the plain version on the card and host_remap of the same "
+          f"table for frame 0; the rotation moved {moved:.4f} of the lensmap's indices")
+
+    # ------------------------------------------------ c: the fused posed pipeline
+    for (kind, k), out in outs_c.items():
+        kern = fused[kind, k]
+        fr = frames_dev if kind == "u8" else expanded_dev
+        for lo in range(0, POSED_B, CHUNK):
+            src_c, b32, exp = posed.prep_posed_inputs(fr[..., lo:lo + CHUNK],
+                                                      bases_np[lo:lo + CHUNK], S,
+                                                      kern.background, dev)
+            ref = static_ray.static_ray_posed_plain(src_c, kern.ray_table, b32, globe, S, 10.0,
+                                                    4.0, 1.0, exp, kern.background, k)
+            e = int((out[lo:lo + CHUNK].long() - ref.long()).abs().max())
+            require(torch.equal(out[lo:lo + CHUNK], ref),
+                    f"PosedRemapKernel {kind} k={k} poses {lo}.. differ from the plain "
+                    f"version (max {e})")
+    static_k = static_ray.StaticRayPosedKernel(lens, globe, W, H, scale, platesize=S,
+                                               device=dev)
+    require(torch.equal(static_k(frames_dev, bases_np), outs_c["u8", 1]),
+            "PosedRemapKernel differs from StaticRayPosedKernel on the same poses")
+    del outs_c
+    t_fused = cuda_ms(lambda: fused["u8", 1](frames_dev, bases_np), ITERS)
+    t_static = cuda_ms(lambda: static_k(frames_dev, bases_np), ITERS)
+    t_fused2 = cuda_ms(lambda: fused["u8", 1](frames_dev, bases_np), ITERS)
+    table_ms = {k: cuda_ms(lambda k=k: static_ray.ray_table_from_lens(
+        lens, scale * k, W // k, H // k, backend="torch", device=dev), ITERS) for k in (1, 2)}
+    phase(7, f"PosedRemapKernel at 1080p B={POSED_B}, u8 and expanded, k = 1 and 2: bit-equal "
+          f"to static_ray_posed_plain on the card and to StaticRayPosedKernel; a call (K7 + "
+          f"K6, frames on the card) {t_fused:.4f} / {t_fused2:.4f} ms against "
+          f"StaticRayPosedKernel's {t_static:.4f} ms; its float32 lens stage, once a kernel: "
+          f"{table_ms[1]:.4f} ms at k=1, {table_ms[2]:.4f} ms at k=2")
+
+    # ------------------------------------------------ d: the fused zoom sweep
+    k9, k9_err = {}, 0
+    ops_step = bb.resolve_ops_per_pixel(globe, rotate=False)
+    step_rays = builder.lens_rays_torch(lens, torch.tensor(scales, dtype=torch.float64), W, H,
+                                        dev)
+    zero_bg = torch.zeros((H, W), dtype=torch.uint8, device=dev)
+    loop_sess = Session(W, H, device=dev, backend="torch")
+    for kind, fr in (("u8", frame), ("expanded", frame_x)):
+        fr_dev = torch.from_numpy(np.ascontiguousarray(fr)).to(dev)
+        src_d = fr_dev.reshape(-1)
+        args = (src_d, *step_rays, globe, S, 10.0, 4.0, 1.0, kind == "expanded", zero_bg)
+        got = posed.sweep_remap(*args)
+        require(torch.equal(got, outs_d[kind]), f"zoom_sweep_remap {kind} differs from "
+                "sweep_remap on the same rays")
+        seen = torch.zeros(src_d.numel(), dtype=torch.bool, device=dev)
+        holes = False
+        for n in range(SWEEP_STEPS):
+            ref = posed.sweep_remap_plain(src_d, *(r[n:n + 1] for r in step_rays), globe, S,
+                                          10.0, 4.0, 1.0, kind == "expanded", zero_bg)
+            e = int((got[n:n + 1].long() - ref.long()).abs().max())
+            require(torch.equal(got[n:n + 1], ref),
+                    f"sweep_remap {kind} step {n} differs from its plain version (max {e})")
+            k9_err = max(k9_err, e)
+            lm = builder.rays_to_lensmap_torch(globe, *(r[n] for r in step_rays), S, 10.0,
+                                               4.0, 1.0)
+            idx = lm["flat_idx"].long()
+            if kind == "expanded":
+                idx = idx + torch.where((lm["tint"] != builder.TINT_NONE) & lm["valid"],
+                                        6 * S * S, 0)
+            seen[idx[lm["valid"]]] = True
+            holes |= not bool(lm["valid"].all())
+        texels = int(seen.sum())
+
+        def loop(fr_dev=fr_dev, kind=kind):
+            shots = []
+            for fov in fovs:
+                loop_sess.cmd(f"f_fov {fov}")
+                shots.append(loop_sess.render(fr_dev, rubix=kind == "expanded"))
+            return torch.stack(shots)
+
+        require(torch.equal(loop(), got), f"zoom_sweep_remap {kind} differs from the per-step "
+                "loop of Session(backend='torch')")
+        ms, plain_ms = cuda_ms_pair(
+            lambda: posed.sweep_remap(*args),
+            lambda: posed.sweep_remap_plain(*args))
+        lens_ms = cuda_ms(lambda: builder.lens_rays_torch(
+            lens, torch.tensor(scales, dtype=torch.float64), W, H, dev), 3)
+        walls = {"fused": [], "loop": []}
+        for _ in range(3):
+            for name, fn in (("fused", lambda: posed.zoom_sweep_remap(
+                    lens, globe, scales, fr_dev, W, H, device=dev)), ("loop", loop)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                walls[name].append((time.perf_counter() - t0) * 1e3)
+        # each step's rays read and its screen written once, the source's
+        # distinct texels once, the background once if any pixel shows it
+        el = src_d.element_size()
+        nbytes = (SWEEP_STEPS * npix * (bb.RESOLVE_BYTES_IN + el) + texels * el
+                  + (npix * el if holes else 0))
+        f32_ops = ops_step * npix * SWEEP_STEPS
+        bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, f32_ops / F32_OPS_PER_S * 1e3
+        bound = max(bytes_ms, ops_ms)
+        k9[kind] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                        bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+        phase(7, f"K9 sweep_remap {kind}, {SWEEP_STEPS} steps (f_fov {fovs[0]}..{fovs[-1]}) at "
+              f"1080p: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; {nbytes} bytes "
+              f"({bytes_ms:.4f} ms: the rays, {texels} distinct texels, the screens"
+              f"{', the background' if holes else '; every pixel valid, so no background'}), "
+              f"{f32_ops} f32 operations "
+              f"({ops_ms:.4f} ms); bound {bound:.4f} ms by {k9[kind]['bound_by']}, "
+              f"{100 * bound / ms:.1f} % of it; bit-equal to its plain version step by step "
+              f"and to the per-step loop; the lens stage over the ramp {lens_ms:.4f} ms; "
+              f"zoom_sweep_remap end to end {', '.join(f'{w:.3f}' for w in walls['fused'])} ms "
+              f"of wall clock against the per-step loop's "
+              f"{', '.join(f'{w:.3f}' for w in walls['loop'])} ms")
+        del got, args
+    del step_rays, outs_d
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------ the rebuild, timed
+    t0 = time.perf_counter()
+    build_lensmap(lens, globe, scale, W, H, S)
+    exact_now = time.perf_counter() - t0
+    r = bb.rebuild_ms(lens, globe, scale, W, H, S, dev, iters=ITERS)
+    rv = bb.rebuild_ms(lens, globe, scale, W, H, S, dev,
+                       view_basis=view_basis_from_angles(10.0, 30.0, 0.0), iters=ITERS)
+    # K8's own device time, from its CUPTI record: the events around the
+    # wrapper read its host time (eight allocations and a compare beside the
+    # launch), which is longer than the kernel
+    rays_c = rays["cube"]
+    _, dev_ms, _ = profiled(lambda: builder.lensmap_resolve(
+        globe, *rays_c, S, 10, 4.0, 1.0, builder.IDENTITY_BASIS), ITERS, sync=False)
+    k8_dev = sum(t for n_, t in dev_ms.items() if "lensmap_resolve" in n_)
+    require(k8_dev > 0, "torch.profiler recorded no lensmap_resolve kernel")
+    k8_bytes = npix * (bb.RESOLVE_BYTES_IN + bb.RESOLVE_BYTES_OUT) + 4 * ((S + 31) // 32) + 24
+    k8_ops = bb.resolve_ops_per_pixel(globe) * npix
+    k8_bytes_ms, k8_ops_ms = k8_bytes / HBM_BYTES_PER_S * 1e3, k8_ops / F32_OPS_PER_S * 1e3
+    k8_bound = max(k8_bytes_ms, k8_ops_ms)
+    k8_by = "bytes" if k8_bytes_ms >= k8_ops_ms else "operations"
+    phase(7, f"warm float32 rebuild at 1080p (panini + cube): lens stage {r['lens_ms']:.4f} ms "
+          f"+ K8 {r['resolve_ms']:.4f} ms (rotated view: {rv['lens_ms']:.4f} + "
+          f"{rv['resolve_ms']:.4f} ms); build_lensmap(backend='torch') "
+          f"{r['build_wall_ms']:.3f} ms of wall clock (rotated {rv['build_wall_ms']:.3f} ms); "
+          f"the exact host build of this run {exact_now:.3f} s (phase 2: {exact_s:.3f} s), "
+          f"{exact_now * 1e3 / r['build_wall_ms']:.0f}x; the first call {first_s * 1e3:.3f} ms")
+    phase(7, f"K8 lensmap_resolve at 1080p: kernel {k8_dev:.4f} ms by the profiler's kernel "
+          f"record, {r['resolve_ms']:.4f} ms a call by the events (the wrapper's host time), "
+          f"plain {r['plain_ms']:.4f} ms; {k8_bytes} bytes "
+          f"({k8_bytes_ms:.4f} ms), {k8_ops} f32 operations "
+          f"({k8_ops_ms:.4f} ms); bound {k8_bound:.4f} ms by {k8_by}, "
+          f"{100 * k8_bound / k8_dev:.1f} % of it by the kernel record "
+          f"({100 * k8_bound / r['resolve_ms']:.1f} % by the events)")
+
+    # a rebuild to the first frame, the tables left on the card; and what the
+    # trip through the host that this saves would cost
+    one = frames_dev[..., 0].contiguous()
+    walls = []
+    for fov in (170, 160, 150, 140):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sess.cmd(f"f_fov {fov}")
+        sess.render(one)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    lm_np = sess._lensmap.to_numpy()
+    down = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    remap.RemapKernel(lm_np, sess.palette, device=dev)
+    torch.cuda.synchronize()
+    up = (time.perf_counter() - t0) * 1e3
+    sess.cmd("f_fov 180")
+    phase(7, "Session(backend='torch'): one f_fov and the render of one frame, the tables "
+          f"left on the card: {', '.join(f'{w:.3f}' for w in walls)} ms of wall clock; the "
+          f"tables' copy to the host {down:.3f} ms and a RemapKernel's upload of them "
+          f"{up:.3f} ms (the trip that a device-built LensMap does not take)")
+    walls = []
+    for cmd in ("setviewangles 10 30 0", "setviewangles 11 31 0", "setviewangles 12 32 0"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        auto.cmd(cmd)
+        auto.render(frames_dev)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    phase(7, f"setviewangles and a render of the B={B_MAIN} batch on the card: "
+          f"{', '.join(f'{w:.3f}' for w in walls)} ms of wall clock")
+
+    # ------------------------------------------------ three more lenses
+    for name in ("mollweide", "winkeltripel", "fisheye1"):
+        ln = lenses.get(name, globe)
+        zoom = (ln.onload or "f_fov 180").split()
+        sc = calc_scale(Zoom(zoom[0][2:], *map(int, zoom[1:])), ln, W, H)
+        rays_l = builder.lens_rays_torch(ln, sc, W, H, dev)
+        got = builder.lensmap_resolve(globe, *rays_l, S, 10, 4.0, 1.0, builder.IDENTITY_BASIS)
+        want = builder.rays_to_lensmap_torch(
+            globe, *rays_l, S, 10, 4.0, 1.0,
+            view_basis=torch.from_numpy(builder.basis_f32(builder.IDENTITY_BASIS)).to(dev))
+        k8_err = max(k8_err, tables_equal(got, want, name))
+        valid = float(got["valid"].float().mean())
+        del got, want
+        rl = bb.rebuild_ms(ln, globe, sc, W, H, S, dev, iters=3)
+        t0 = time.perf_counter()
+        build_lensmap(ln, globe, sc, W, H, S)
+        phase(7, f"{name} ({' '.join(zoom)}): lens stage {rl['lens_ms']:.4f} ms + K8 "
+              f"{rl['resolve_ms']:.4f} ms, build_lensmap(backend='torch') "
+              f"{rl['build_wall_ms']:.3f} ms of wall clock against the exact host build's "
+              f"{time.perf_counter() - t0:.3f} s; K8 bit-equal on its rays; "
+              f"{valid:.4f} of the pixels valid")
+    # the lens stage's peak of live memory, in float32 planes a pixel: what
+    # bench/autobatch.py's SWEEP_LENS_PLANES must cover for a zoom step
+    for name in ("panini", "winkeltripel"):
+        ln = lenses.get(name, globe)
+        planes = bb.lens_stage_peak_planes(ln, scale, W, H, dev)
+        require(planes <= autobatch.SWEEP_LENS_PLANES,
+                f"{name}'s lens stage holds {planes:.1f} float32 planes a pixel, more than "
+                f"the sweep's chunking allows for ({autobatch.SWEEP_LENS_PLANES})")
+        phase(7, f"{name}'s lens stage at 1080p holds at most {planes:.2f} float32 planes a "
+              f"pixel live (torch.cuda.max_memory_allocated, its rays included); the sweep's "
+              f"chunking allows {autobatch.SWEEP_LENS_PLANES}")
+
+    rows = [
+        # K8's time is its kernel record's: the events read the wrapper
+        ("lensmap_resolve", "lensmap.cu", "blinky_tpu/lensmap/builder.py:165", k8_err,
+         k8_dev, r["plain_ms"], k8_bound, k8_by, None, None),
+        ("sweep_remap", "posed.cu", "blinky_tpu/kernels/posed.py:294", k9_err,
+         k9["u8"]["ms"], k9["u8"]["plain_ms"], k9["u8"]["bound_ms"], k9["u8"]["bound_by"],
+         None, None),
     ]
     return launches, rows
 

@@ -18,7 +18,8 @@ from blinky_tpu_torch.api import Session
 from blinky_tpu_torch.bench import sol
 from blinky_tpu_torch.io.cubemap import synthetic_cubemap_batch
 from blinky_tpu_torch.kernels import posed, remap, static_ray
-from blinky_tpu_torch.lensmap import Zoom, calc_scale
+from blinky_tpu_torch.lensmap import Zoom, build_lensmap, calc_scale
+from blinky_tpu_torch.lensmap import builder
 from blinky_tpu_torch.palette import default_palette, tint_lut
 
 
@@ -432,32 +433,64 @@ def test_static_ray_posed_source_past_int32(cuda_device):
         _equal(got[b:b + 1], ref)
 
 
+def _host_tables(monkeypatch):
+    """Both sessions take the float64 host ray table: the float32 lens
+    stage's transcendentals differ between the card and the CPU in their
+    last bits, which is held by a tolerance elsewhere, while this file's
+    session comparisons are bit for bit."""
+    def host_table(lens, globe, scale, w, h, platesize=None, lensmap=None, device=None):
+        return static_ray.ray_table_from_lens(lens, scale, w, h, backend="numpy")
+
+    monkeypatch.setattr(static_ray, "build_ray_table", host_table)
+
+
+# screen W, H, platesize and the render scales valid for it: a ragged build
+# width (62, and 100 / 2 = 50, are no multiple of the four pixels a thread of
+# K6 takes), k = 2 build grids, a plate smaller than the screen
+POSED_SIZES = {"64x48": (64, 48, 48, (1, 2)), "62x46": (62, 46, 32, (1,)),
+               "72x40": (72, 40, 40, (1, 2)), "100x60": (100, 60, 24, (1, 2))}
+
+
 @pytest.mark.cuda
-def test_session_render_posed_on_card_equals_cpu(cuda_device):
-    """render_posed end to end at a small size: the card's session (K6,
-    and K5 for exact=True) equals the CPU session's plain versions for
-    u8, expanded and RGBA sources at render_scale 1 and 2."""
-    W, H, S, B = 64, 48, 48, 5
-    frames = synthetic_cubemap_batch(S, B)
-    poses = np.array([(0.0, 0.0, 0.0), (5.0, -12.0, 0.0), (-20.0, 33.0, 10.0),
-                      (89.0, 180.0, 0.0), (0.0, 271.0, -45.0)])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("kind", ["u8", "expanded", "rgba"])
+@pytest.mark.parametrize("size", list(POSED_SIZES))
+def test_session_render_posed_on_card_equals_cpu(cuda_device, monkeypatch, size, kind, seed):
+    """render_posed end to end at small sizes: the card's session (K7, K6,
+    and K5 for exact=True) equals the CPU session's plain versions, for
+    u8, expanded and RGBA sources, ragged and k = 2 build grids, and seeded
+    pose sets that hold the identity, a pole and a half turn."""
+    _host_tables(monkeypatch)
+    W, H, S, scales = POSED_SIZES[size]
+    rng = np.random.default_rng(seed * 31 + len(size))
+    B = int(rng.integers(3, 20))
+    frames = rng.integers(0, 256, (6, S, S, B), dtype=np.uint8)
+    poses = np.stack([rng.uniform(-90, 90, B), rng.uniform(-360, 360, B),
+                      rng.uniform(-180, 180, B)], 1)
+    poses[0] = (0.0, 0.0, 0.0)
+    poses[1] = (89.0, 180.0, 0.0)
+    poses[2] = (-90.0, 0.0, 0.0)
     card = Session(W, H, platesize=S, device=cuda_device)
     cpu = Session(W, H, platesize=S, device="cpu")
-    sources = (frames, remap.expand_frames_tinted(frames, card.palette),
-               remap.frames_to_rgba(frames, card.palette))
-    for fr in sources:
-        for k in (1, 2):
-            n6 = static_ray.static_ray_posed.launches
-            n7 = posed.posed_layout.launches
-            got = card.render_posed(fr, poses, render_scale=k)
-            assert static_ray.static_ray_posed.launches == n6 + 1
-            assert posed.posed_layout.launches == n7 + 1
-            assert got.device.type == "cuda"
-            _equal(got.cpu(), cpu.render_posed(fr, poses, render_scale=k))
+    if seed == 1:
+        bg = rng.integers(0, 256, (H, W), dtype=np.uint8)
+        for sess in (card, cpu):
+            sess.cmd("f_fov 150; f_rubixgrid 7 2.5 1.5")
+            sess.set_background(bg)
+    fr = {"u8": frames, "expanded": remap.expand_frames_tinted(frames, card.palette),
+          "rgba": remap.frames_to_rgba(frames, card.palette)}[kind]
+    for k in scales:
+        n6 = static_ray.static_ray_posed.launches
+        n7 = posed.posed_layout.launches
+        got = card.render_posed(fr, poses, render_scale=k)
+        assert static_ray.static_ray_posed.launches == n6 + 1
+        assert posed.posed_layout.launches == n7 + 1
+        assert got.device.type == "cuda"
+        _equal(got.cpu(), cpu.render_posed(fr, poses, render_scale=k))
     n5 = posed.gather_posed.launches
-    got = card.render_posed(frames[..., :2], poses[:2], exact=True)
+    got = card.render_posed(fr[..., :2], poses[:2], exact=True)
     assert posed.gather_posed.launches == n5 + 1
-    _equal(got.cpu(), cpu.render_posed(frames[..., :2], poses[:2], exact=True))
+    _equal(got.cpu(), cpu.render_posed(fr[..., :2], poses[:2], exact=True))
 
 
 # ------------------------------------------------------ K7, the posed layout
@@ -520,14 +553,75 @@ def test_posed_layout_batch_slices(cuda_device, dtype, lo, hi):
     _equal(src, got)
 
 
+def _strided(frames, layout):
+    """The same frames [P, S, S, B] in another memory layout: the plate
+    axes swapped in memory, or stored pose-major ([B, P, S, S] permuted)."""
+    if layout == "transpose12":
+        return frames.transpose(1, 2).contiguous().transpose(1, 2)
+    return frames.permute(3, 0, 1, 2).contiguous().permute(1, 2, 3, 0)
+
+
 @pytest.mark.cuda
-def test_posed_layout_rejects_uneven_strides(cuda_device):
-    """Texels that are not evenly strided raise; nothing falls back."""
-    frames = torch.zeros((6, 24, 24, 8), dtype=torch.uint8, device=cuda_device)
-    with pytest.raises(ValueError, match="evenly"):
-        posed.posed_layout(frames.transpose(1, 2), 6)
-    with pytest.raises(ValueError, match="evenly"):
-        posed.posed_layout(frames.transpose(0, 3).transpose(0, 3)[:, ::2], 6)
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int32], ids=["u8", "int32"])
+@pytest.mark.parametrize("P,B", [(6, 8), (3, 5), (12, 33), (6, 1)])
+def test_posed_layout_takes_uneven_strides(cuda_device, dtype, P, B):
+    """Texels that are not evenly strided go through K7's strided path and
+    equal the plain version: the plate axes swapped in memory, every other
+    column of a wider array, and a pose-major array with too few planes."""
+    rng = np.random.default_rng(P * 100 + B)
+    S = 24
+    frames = _frames(dtype, P, S, B, rng, cuda_device)
+    planes = 12 if P == 12 else 6
+    wide = _frames(dtype, P, S, 2 * S, rng, cuda_device)[:, :, :, :B]
+    for fr in (_strided(frames, "transpose12"), _strided(frames, "pose_major"),
+               _frames(dtype, P, S * 2, B, rng, cuda_device)[:, ::2, ::2], wide.transpose(1, 2)):
+        n0 = posed.posed_layout.launches
+        got = posed.posed_layout(fr, planes)
+        assert posed.posed_layout.launches == n0 + 1
+        _equal(got, posed.posed_layout_plain(fr, planes))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["u8", "expanded", "rgba"])
+@pytest.mark.parametrize("layout", ["transpose12", "pose_major"])
+def test_posed_entry_points_take_strided_frames(cuda_device, monkeypatch, kind, layout):
+    """Frames whose plate axes are swapped in memory, and frames stored
+    pose-major, render through render_posed, render_posed(exact=True) and
+    StaticRayPosedKernel.__call__ on the card, equal to the CPU session on
+    the same strided frames.  The pose-major tensor is used in place: K7 is
+    not launched for it."""
+    _host_tables(monkeypatch)
+    W, H, S, B = 64, 48, 48, 5
+    frames = synthetic_cubemap_batch(S, B)
+    poses = np.array([(0.0, 0.0, 0.0), (5.0, -12.0, 0.0), (-20.0, 33.0, 10.0),
+                      (89.0, 180.0, 0.0), (0.0, 271.0, -45.0)])
+    card = Session(W, H, platesize=S, device=cuda_device)
+    cpu = Session(W, H, platesize=S, device="cpu")
+    fr = {"u8": frames, "expanded": remap.expand_frames_tinted(frames, card.palette),
+          "rgba": remap.frames_to_rgba(frames, card.palette)}[kind]
+    rgba = kind == "rgba"
+    t = torch.from_numpy(fr.view(np.int32) if rgba else fr)
+
+    def laid_out(device):
+        x = _strided(t.to(device), layout)
+        assert not x.is_contiguous()
+        return x.view(torch.uint32) if rgba else x
+
+    on_card, on_cpu = laid_out(cuda_device), laid_out("cpu")
+    n7 = posed.posed_layout.launches
+    want = cpu.render_posed(on_cpu, poses)
+    _equal(card.render_posed(on_card, poses).cpu(), want)
+    _equal(want, cpu.render_posed(fr, poses))  # the layout changes nothing
+    assert posed.posed_layout.launches == n7 + (0 if layout == "pose_major" else 1)
+    _equal(card.render_posed(on_card[..., :2], poses[:2], exact=True).cpu(),
+           cpu.render_posed(on_cpu[..., :2], poses[:2], exact=True))
+    scale = calc_scale(card.zoom, card.lens, W, H)
+    bg = np.zeros((H, W), np.uint32 if rgba else np.uint8)
+    kerns = [static_ray.StaticRayPosedKernel(card.lens, card.globe, W, H, scale, platesize=S,
+                                             background=bg, device=d)
+             for d in (cuda_device, "cpu")]
+    bases = posed.bases_from_pose_track(poses)
+    _equal(kerns[0](on_card, bases).cpu(), kerns[1](on_cpu, bases))
 
 
 @pytest.mark.cuda
@@ -546,3 +640,257 @@ def test_prep_posed_inputs_one_pose_is_a_view(cuda_device, P):
     src3, _, _ = posed.prep_posed_inputs(frames[:3], np.eye(3)[None], 24, bg, cuda_device)
     assert posed.posed_layout.launches == n0 + 1
     _equal(src3, posed.posed_layout_plain(frames[:3], 6))
+
+
+# ------------------------------------------- K8, the float32 builder's resolve
+
+FIELDS = ("plate", "px", "py", "valid", "tint", "flat_idx", "plates_used")
+BASES = {"identity": (0.0, 0.0, 0.0), "yawed": (10.0, 30.0, 0.0), "rolled": (-75.0, 200.0, 33.0)}
+
+
+def _tables_equal(got, want):
+    for f in FIELDS:
+        assert got[f].dtype == want[f].dtype and got[f].shape == want[f].shape, f
+        assert torch.equal(got[f], want[f]), f
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("globe_name", ["cube", "cube_corner", "cube_edge", "fast",
+                                        "tetra", "trism"])
+@pytest.mark.parametrize("basis", list(BASES))
+@pytest.mark.parametrize("grid", [(10.0, 4.0, 1.0), (7.0, 2.5, 1.5), (0.0, 0.0, 0.0)],
+                         ids=["default", "odd-grid", "no-grid"])
+def test_lensmap_resolve_equals_plain(cuda_device, globe_name, basis, grid):
+    """K8 against rays_to_lensmap_torch on the same rays on the card, every
+    table bit for bit: every globe, a ragged 37x23 grid with NaN, inf, zero
+    and denormal rays, three view bases, three rubix grids."""
+    from blinky_tpu_torch.camera import view_basis_from_angles
+
+    hb, wb, S = 23, 37, 32
+    g, t = _posed_table(globe_name, hb, wb, cuda_device)
+    vb = view_basis_from_angles(*BASES[basis])
+    n0 = builder.lensmap_resolve.launches
+    got = builder.lensmap_resolve(g, t.vx, t.vy, t.vz, t.lens_valid, S, *grid, vb)
+    torch.cuda.synchronize()
+    assert builder.lensmap_resolve.launches == n0 + 1
+    want = builder.rays_to_lensmap_torch(
+        g, t.vx, t.vy, t.vz, t.lens_valid, S, *grid,
+        view_basis=torch.from_numpy(np.asarray(vb, np.float64)).to(cuda_device))
+    _tables_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", lenses.BUILTIN_LENSES)
+@pytest.mark.parametrize("size", [(64, 48, 48), (61, 37, 40), (32, 24, 1080)],
+                         ids=["64x48", "61x37", "S1080"])
+def test_build_lensmap_torch_on_card(cuda_device, name, size):
+    """build_lensmap(backend="torch") on the card for every ported lens:
+    its tables equal the plain version's on the lens stage's own rays (the
+    NaN and inf the lenses leave to IEEE among them), and lie within the
+    boundary tolerance of the CPU's float32 build (the card's float32
+    transcendentals differ from the CPU's in their last bits)."""
+    W, H, S = size
+    g = globes.get("cube")
+    lens = lenses.get(name, g)
+    zoom = (lens.onload or "f_fov 180").split()
+    scale = calc_scale(Zoom(zoom[0][2:], *map(int, zoom[1:])), lens, W, H)
+    vb = np.eye(3)[[2, 0, 1]]  # the identity: forward z, right x, up y
+    n0 = builder.lensmap_resolve.launches
+    lm = build_lensmap(lens, g, scale, W, H, S, backend="torch", device=cuda_device)
+    assert builder.lensmap_resolve.launches == n0 + 1
+    assert lm.flat_idx.device.type == "cuda"
+    rays = builder.lens_rays_torch(lens, scale, W, H, cuda_device)
+    want = builder.rays_to_lensmap_torch(g, *rays, S, 10, 4.0, 1.0,
+                                         view_basis=torch.from_numpy(vb).to(cuda_device))
+    _tables_equal({f: getattr(lm, f) for f in FIELDS}, want)
+    cpu = build_lensmap(lens, g, scale, W, H, S, backend="torch", device="cpu")
+    drift = float((lm.to_numpy().flat_idx != cpu.to_numpy().flat_idx).mean())
+    assert drift <= 0.15, drift  # tests/test_lensmap_parity.py's share for float32 noise
+
+
+@pytest.mark.cuda
+def test_lensmap_resolve_1080(cuda_device):
+    """K8 at the main path's size, panini + cube and the fast globe, the
+    identity and a rotated basis."""
+    from blinky_tpu_torch.camera import view_basis_from_angles
+
+    for globe_name in ("cube", "fast"):
+        g = globes.get(globe_name)
+        lens = lenses.get("panini", g)
+        scale = calc_scale(Zoom("fov", 180), lens, 1920, 1080)
+        rays = builder.lens_rays_torch(lens, scale, 1920, 1080, cuda_device)
+        for angles in BASES.values():
+            vb = view_basis_from_angles(*angles)
+            got = builder.lensmap_resolve(g, *rays, 1080, 10, 4.0, 1.0, vb)
+            want = builder.rays_to_lensmap_torch(
+                g, *rays, 1080, 10, 4.0, 1.0,
+                view_basis=torch.from_numpy(np.asarray(vb, np.float64)).to(cuda_device))
+            _tables_equal(got, want)
+
+
+def _odd_ray_planes(device):
+    """[1, 4, 8] ray planes whose components are infinite, NaN, zero or
+    denormal, beside ordinary ones."""
+    odd = [(np.inf, 0.0, 1.0), (0.0, np.inf, 1.0), (0.2, 0.1, np.inf), (-np.inf, 0.0, 1.0),
+           (np.nan, 0.3, 1.0), (0.0, 0.0, 0.0), (1e-30, 0.0, 0.0), (3e-39, -1e-21, 2e-45),
+           (0.1, 0.2, 1.0), (0.0, 0.0, 1.0), (1e19, -1e19, 1e19), (0.0, 0.0, -1.0)]
+    rays = np.array((odd * 3)[:32], np.float32).T.reshape(3, 1, 4, 8)
+    vx, vy, vz = (torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in rays)
+    return vx, vy, vz, torch.ones((1, 4, 8), dtype=torch.bool, device=device)
+
+
+@pytest.mark.cuda
+def test_rotation_by_identity_is_not_no_rotation(cuda_device):
+    """K8 always rotates and K9 never does.  For a ray with an infinite
+    component the identity rotation makes the other components NaN
+    (inf * 0) where no rotation leaves them; each kernel equals its plain
+    version on such rays bit for bit.  The normalize turns the infinite
+    component itself into NaN either way (inf * (1 / inf)), so both call
+    these pixels invalid, and the finite rays resolve alike."""
+    g = globes.get("cube")
+    S = 16
+    vx, vy, vz, lv = _odd_ray_planes(cuda_device)
+    ident = torch.from_numpy(np.eye(3)[[2, 0, 1]]).to(cuda_device)
+    k8 = builder.lensmap_resolve(g, vx[0], vy[0], vz[0], lv[0], S, 10, 4.0, 1.0, ident)
+    _tables_equal(k8, builder.rays_to_lensmap_torch(g, vx[0], vy[0], vz[0], lv[0], S, 10, 4.0,
+                                                     1.0, view_basis=ident))
+    plain = builder.rays_to_lensmap_torch(g, vx[0], vy[0], vz[0], lv[0], S, 10, 4.0, 1.0)
+    _tables_equal(k8, plain)
+    assert bool(plain["valid"].any()) and not bool(plain["valid"][0, :5].any())
+    src = torch.arange(6 * S * S, device=cuda_device).to(torch.uint8)
+    bg = torch.full((4, 8), 255, dtype=torch.uint8, device=cuda_device)
+    k9 = posed.sweep_remap(src, vx, vy, vz, lv, g, S, 10.0, 4.0, 1.0, False, bg)
+    _equal(k9, posed.sweep_remap_plain(src, vx, vy, vz, lv, g, S, 10.0, 4.0, 1.0, False, bg))
+    want = torch.where(plain["valid"], src[plain["flat_idx"].long()], bg)
+    _equal(k9[0], want)
+
+
+# ------------------------------------------------------- K9, the fused sweep
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("globe_name", ["cube", "cube_corner", "cube_edge", "fast",
+                                        "tetra", "trism"])
+@pytest.mark.parametrize("kind", ["u8", "expanded", "int32"])
+@pytest.mark.parametrize("size", [(23, 37), (24, 40)], ids=["ragged", "vector"])
+def test_sweep_remap_equals_plain(cuda_device, globe_name, kind, size):
+    """K9 against its plain version on the card: every globe and source
+    kind, a ragged screen (the scalar kernel) and one whose pixels are a
+    multiple of four (the vector kernel), five zoom steps each with NaN,
+    inf and zero rays, a non-default rubix grid, holes in the lens mask."""
+    hb, wb = size
+    rng = np.random.default_rng(len(globe_name) * 5 + hb)
+    S, steps = 32, 5
+    tables = []
+    for n in range(steps):
+        g, t = _posed_table(globe_name, hb, wb, cuda_device)
+        f = 0.6 + 0.35 * n
+        tables.append((t.vx * f, t.vy * f, t.vz, t.lens_valid
+                       & (torch.rand((hb, wb), device=cuda_device) > 0.1)))
+    vx, vy, vz, lv = (torch.stack(p).contiguous() for p in zip(*tables))
+    src = _posed_source(kind, 1, S, rng, cuda_device)[0]
+    bg = _texels(kind == "int32", (hb, wb), rng, cuda_device)
+    for grid in ((7.0, 2.5, 1.5), (0.0, 0.0, 0.0)):
+        args = (src, vx, vy, vz, lv, g, S, *grid, kind == "expanded", bg)
+        n0 = posed.sweep_remap.launches
+        got = posed.sweep_remap(*args)
+        torch.cuda.synchronize()
+        assert posed.sweep_remap.launches == n0 + 1
+        _equal(got, posed.sweep_remap_plain(*args))
+    # a view that starts off a 16-byte boundary takes the scalar kernel
+    off = torch.empty(vx.numel() + 1, device=cuda_device)[1:].reshape(vx.shape).copy_(vx)
+    _equal(posed.sweep_remap(src, off, vy, vz, lv, g, S, 10.0, 4.0, 1.0, kind == "expanded", bg),
+           posed.sweep_remap_plain(src, off, vy, vz, lv, g, S, 10.0, 4.0, 1.0,
+                                   kind == "expanded", bg))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["panini", "fisheye1", "winkeltripel", "cube"])
+@pytest.mark.parametrize("kind", ["u8", "expanded", "rgba"])
+def test_zoom_sweep_remap_equals_per_step_loop(cuda_device, name, kind):
+    """The fused sweep on the card equals a per-step loop of
+    Session(backend="torch") on the card bit for bit: the lens stage is
+    elementwise, and the identity rotation of the Session's build changes
+    no pixel (test_rotation_by_identity_is_not_no_rotation)."""
+    W, H, S = 64, 48, 48
+    sess = Session(W, H, platesize=S, device=cuda_device, backend="torch")
+    sess.cmd(f"f_lens {name}")
+    frame = synthetic_cubemap_batch(S, 1)[..., 0]
+    fr = {"u8": frame, "expanded": remap.expand_frames_tinted(frame, sess.palette),
+          "rgba": remap.frames_to_rgba(frame, sess.palette)}[kind]
+    bg = np.random.default_rng(2).integers(0, 256, (H, W), dtype=np.uint8)
+    sess.set_background(bg)
+    fovs = [60, 100, 140, 179] if sess.lens.max_fov <= 180 else [100, 180, 250, 330]
+    scales, loop = [], []
+    for fov in fovs:
+        sess.cmd(f"f_fov {fov}")
+        loop.append(sess.render(fr, rubix=kind == "expanded"))
+        scales.append(sess.lensmap.scale)
+    n9 = posed.sweep_remap.launches
+    got = posed.zoom_sweep_remap(
+        sess.lens, sess.globe, scales, fr, W, H,
+        background=remap.frames_to_rgba(bg, sess.palette) if kind == "rgba" else bg,
+        device=cuda_device)
+    assert posed.sweep_remap.launches == n9 + 1
+    want = torch.stack(loop)
+    assert got.dtype == want.dtype
+    bits = (lambda x: x.view(torch.int32) if x.dtype == torch.uint32 else x)
+    _equal(bits(got), bits(want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["u8", "expanded", "rgba"])
+@pytest.mark.parametrize("k", [1, 2])
+def test_posed_remap_kernel_on_card(cuda_device, kind, k):
+    """PosedRemapKernel on the card (the float32 lens stage, K7, K6)
+    bit-equals its plain version on the card on the same ray table."""
+    W, H, S, B = 64, 48, 48, 7
+    g = globes.get("cube")
+    lens = lenses.get("panini", g)
+    scale = calc_scale(Zoom("fov", 180), lens, W, H)
+    frames = synthetic_cubemap_batch(S, B)
+    pal = default_palette()
+    fr = {"u8": frames, "expanded": remap.expand_frames_tinted(frames, pal),
+          "rgba": remap.frames_to_rgba(frames, pal)}[kind]
+    rng = np.random.default_rng(k)
+    poses = np.stack([rng.uniform(-90, 90, B), rng.uniform(0, 360, B),
+                      rng.uniform(-45, 45, B)], 1)
+    bases = posed.bases_from_pose_track(poses)
+    bg = np.zeros((H, W), np.uint32 if kind == "rgba" else np.uint8)
+    kern = posed.PosedRemapKernel(lens, g, W, H, scale, platesize=S, background=bg,
+                                  render_scale=k, device=cuda_device)
+    n6 = static_ray.static_ray_posed.launches
+    got = kern(fr, bases)
+    assert static_ray.static_ray_posed.launches == n6 + 1
+    src, b32, expanded = posed.prep_posed_inputs(fr, bases, S, kern.background, cuda_device)
+    want = static_ray.static_ray_posed_plain(src, kern.ray_table, b32, g, S, 10.0, 4.0, 1.0,
+                                             expanded, kern.background, k)
+    _equal(got.view(torch.int32) if kind == "rgba" else got, want)
+
+
+@pytest.mark.cuda
+def test_session_backend_torch_on_card(cuda_device):
+    """Session(backend="torch") and setviewangles under "auto" on the card:
+    the lensmap is built there through K8 and feeds K1 without a trip
+    through the host; the screens equal host_remap of the same table."""
+    frames = synthetic_cubemap_batch(48, 3)
+    for backend, cmds in (("torch", []), ("auto", ["setviewangles 10 30 0"])):
+        sess = Session(64, 48, device=cuda_device, backend=backend)
+        for c in cmds:
+            sess.cmd(c)
+        n8, n1 = builder.lensmap_resolve.launches, remap.remap_gather.launches
+        out = sess.render(frames)
+        assert builder.lensmap_resolve.launches == n8 + 1
+        assert remap.remap_gather.launches == n1 + 1
+        assert sess._lensmap.flat_idx.device.type == "cuda"
+        lm = sess.lensmap
+        assert isinstance(lm.flat_idx, np.ndarray)
+        for b in range(3):
+            np.testing.assert_array_equal(out[..., b].cpu().numpy(),
+                                          remap.host_remap(lm, frames[..., b], sess.palette))
+        sess.cmd("f_rubix")
+        rub = sess.render(frames)
+        np.testing.assert_array_equal(
+            rub[..., 1].cpu().numpy(),
+            remap.host_remap(lm, frames[..., 1], sess.palette, rubix=True))
+        assert sess.warm_device_builder()

@@ -15,9 +15,10 @@ handed to both packages.  Tolerances:
   arithmetic, which flips boundary texels (the JAX package's own bound
   for its jitted pipelines, tests/test_static_ray.py:46);
 * 0.02 of mismatched pixels for the port's Session against the JAX
-  Session, whose ray table takes the float32 device route where the
-  port's is the float64 host table (the JAX package's bound for a host
-  table against a device table, tests/test_static_ray.py:138).
+  Session: both tables take the float32 lens stage, torch's on one side and
+  XLA:CPU's on the other, whose transcendentals differ in their last bits
+  (the JAX package's bound for a host table against a device table,
+  tests/test_static_ray.py:138).
 """
 
 import threading
@@ -327,13 +328,25 @@ def test_resolver_modes():
 def test_ray_table_from_lens_equals_jax(globe_name):
     jg, jl, pg, pl, scale = _panini(globe_name)
     want = jstatic.ray_table_from_lens(jl, scale, W, H, backend="numpy")
-    got = static_ray.ray_table_from_lens(pl, scale, W, H)
+    got = static_ray.ray_table_from_lens(pl, scale, W, H, backend="numpy")
+    assert isinstance(static_ray.ray_table_from_lens(pl, scale, W, H).vx, np.ndarray)
     assert (got.width_px, got.height_px, got.source) == (W, H, "lens")
     for f in ("vx", "vy", "vz", "lens_valid"):
         np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
         assert getattr(got, f).dtype == getattr(want, f).dtype
-    with pytest.raises(NotImplementedError, match="float32 lens stage"):
-        static_ray.ray_table_from_lens(pl, scale, W, H, backend="torch")
+    # the float32 lens stage: tensors on the device asked for, within a few
+    # float32 ulps of the JAX package's jitted lens stage (the two evaluate
+    # atan2, sin and cos with different last bits); the mask is equal
+    f32 = static_ray.ray_table_from_lens(pl, scale, W, H, backend="torch", device="cpu")
+    jf32 = jstatic.ray_table_from_lens(jl, scale, W, H, dtype=jnp.float32, backend="jax")
+    for f in ("vx", "vy", "vz"):
+        assert getattr(f32, f).dtype == torch.float32 and getattr(f32, f).is_contiguous()
+        np.testing.assert_allclose(getattr(f32, f).numpy(), np.asarray(getattr(jf32, f)),
+                                   rtol=0, atol=4e-6)
+    np.testing.assert_array_equal(f32.lens_valid.numpy(), np.asarray(jf32.lens_valid))
+    assert static_ray.build_ray_table(pl, pg, scale, W, H, device="cpu").vx.dtype == torch.float32
+    with pytest.raises(ValueError, match="backend"):
+        static_ray.ray_table_from_lens(pl, scale, W, H, backend="jax")
     dev = got.device("cpu")
     assert dev.vx.dtype == torch.float32 and dev.lens_valid.dtype == torch.bool
 
@@ -388,8 +401,12 @@ def test_static_ray_kernel_equals_jax_numpy_f32(kind, k):
     bg = rng.integers(0, 256, (H, W), dtype=np.uint8)
     if kind == "rgba":
         bg = frames_to_rgba(bg, default_palette())
+    # the host float64 table on both sides (the kernel's own default is the
+    # float32 lens stage, held by a tolerance in test_posed_remap_kernel_*)
+    table = static_ray.ray_table_from_lens(pl, scale * k, W // k, H // k, backend="numpy")
     kern = static_ray.StaticRayPosedKernel(pl, pg, W, H, scale, platesize=S,
-                                           background=bg, render_scale=k, device="cpu")
+                                           background=bg, render_scale=k,
+                                           ray_table=table, device="cpu")
     got = kern(frames, posed.bases_from_pose_track(POSES))
     assert got.dtype == (torch.uint32 if kind == "rgba" else torch.uint8)
     np.testing.assert_array_equal(_np(got), _jax_numpy_f32_screens(kind, k, frames, bg))
@@ -441,13 +458,228 @@ def test_static_ray_kernel_validates():
 
 
 def test_unported_posed_entry_points_raise():
-    for fn, what in ((jposed.PosedRemapKernel, posed.PosedRemapKernel),
-                     (jposed.posed_remap_sharded, posed.posed_remap_sharded),
-                     (jposed.zoom_sweep_remap, posed.zoom_sweep_remap),
+    for fn, what in ((jposed.posed_remap_sharded, posed.posed_remap_sharded),
                      (jstatic.static_ray_posed_sharded, static_ray.static_ray_posed_sharded)):
         assert fn.__name__ == what.__name__
-        with pytest.raises(NotImplementedError, match="float32 device|multi-GPU|sweep"):
+        with pytest.raises(NotImplementedError, match="multi-GPU"):
             what(None, None)
+
+
+# ---------------------------------------- the fused posed pipeline and sweep
+
+
+@pytest.mark.parametrize("kind", SOURCES)
+@pytest.mark.parametrize("k", [1, 2])
+def test_posed_remap_kernel_within_cpu_fuzz_of_jax(kind, k):
+    """PosedRemapKernel (the float32 lens stage, then the static-ray
+    resolve and gather) against the JAX package's jitted fused pipeline.
+    The resolve alone is within CPU_FUZZ of XLA:CPU's on the same rays
+    (test_static_ray_kernel_within_cpu_fuzz_of_jitted_jax); here the rays
+    come from two lens stages, torch's and XLA:CPU's, whose atan2, sin and
+    cos differ in their last bits, so the bound is the JAX package's own for
+    two differently evaluated ray tables, 0.02 of the pixels
+    (tests/test_static_ray.py:138).  Measured: 0.0025-0.0061."""
+    jg, jl, pg, pl, scale = _panini()
+    frames = _source(kind)
+    rng = np.random.default_rng(k + 10)
+    bg = rng.integers(0, 256, (H, W), dtype=np.uint8)
+    if kind == "rgba":
+        bg = frames_to_rgba(bg, default_palette())
+    jk = jposed.PosedRemapKernel(jl, jg, W, H, scale, platesize=S, background=bg,
+                                 dtype=jnp.float32, render_scale=k)
+    pk = posed.PosedRemapKernel(pl, pg, W, H, scale, platesize=S, background=bg,
+                                render_scale=k, device="cpu")
+    for f in ("width_px", "height_px", "render_scale", "platesize", "scale", "numcells",
+              "cell_size", "pad_size"):
+        assert getattr(pk, f) == getattr(jk, f), f
+    bases = jposed.bases_from_pose_track(POSES)
+    got, want = _np(pk(frames, bases)), np.asarray(jk(frames, bases))
+    assert got.dtype == want.dtype and got.shape == want.shape == (B, H, W)
+    print(f"{kind} k={k}: {int((got != want).sum())} of {got.size} pixels differ")
+    assert _mismatch(got, want) <= 0.02
+    # the same values as the static-ray kernel on a float32 lens-stage table
+    sk = static_ray.StaticRayPosedKernel(pl, pg, W, H, scale, platesize=S, background=bg,
+                                         render_scale=k, device="cpu")
+    np.testing.assert_array_equal(got, _np(sk(frames, bases)))
+
+
+def test_posed_remap_kernel_constructor_errors():
+    """The constructor's checks, as tests/test_posed.py holds them for the
+    JAX kernel: a bad render scale, an odd build grid, a background of the
+    wrong size, a u8/u32 mismatch between frames and background, a bases
+    array of the wrong batch, a platesize mismatch, a forward-only lens."""
+    jg, jl, pg, pl, scale = _panini()
+    for kw, match in ((dict(render_scale=5), "not divisible"),
+                      (dict(render_scale=0), ">= 1"),
+                      (dict(background=np.zeros((10, 10), np.uint8)), "background must be")):
+        with pytest.raises(ValueError, match=match):
+            jposed.PosedRemapKernel(jl, jg, W, H, scale, **kw)
+        with pytest.raises(ValueError, match=match):
+            posed.PosedRemapKernel(pl, pg, W, H, scale, device="cpu", **kw)
+    with pytest.raises(ValueError, match="odd"):
+        jposed.PosedRemapKernel(jl, jg, 60, 40, scale, render_scale=4)
+    with pytest.raises(ValueError, match="odd"):
+        posed.PosedRemapKernel(pl, pg, 60, 40, scale, render_scale=4, device="cpu")
+    frames = _source("u8")
+    bases = jposed.bases_from_pose_track(POSES)
+    pk = posed.PosedRemapKernel(pl, pg, W, H, scale, platesize=S, device="cpu")
+    jk = jposed.PosedRemapKernel(jl, jg, W, H, scale, platesize=S)
+    for k_ in (jk, pk):
+        with pytest.raises(ValueError, match="bases must be"):
+            k_(frames, bases[:3])
+        with pytest.raises(ValueError, match="platesize"):
+            k_(frames[:, :40, :40], bases)
+        with pytest.raises(ValueError, match="RGBA frames need"):
+            k_(_source("rgba"), bases)
+    flat = posed.PosedRemapKernel(pl, pg, W, H, scale, platesize=S, device="cpu",
+                                  background=np.zeros(H * W, np.uint8))  # a flat one reshapes
+    assert tuple(flat(frames, bases).shape) == (B, H, W)
+    rgba_bg = np.zeros((H, W), np.uint32)
+    with pytest.raises(ValueError, match="u8 frames need"):
+        posed.PosedRemapKernel(pl, pg, W, H, scale, platesize=S, background=rgba_bg,
+                               device="cpu")(frames, bases)
+    import dataclasses
+    fwd = dataclasses.replace(pl, map_type="forward")
+    with pytest.raises(ValueError, match="forward-only"):
+        posed.PosedRemapKernel(fwd, pg, W, H, scale, device="cpu")
+    with pytest.raises(ValueError, match="float32"):
+        posed.PosedRemapKernel(pl, pg, W, H, scale, dtype=torch.float64, device="cpu")
+    with pytest.raises((RuntimeError, AssertionError), match="(?i)cuda"):
+        posed.PosedRemapKernel(pl, pg, W, H, scale)  # the card, and none here
+
+
+SWEEP_FOVS = [100, 150, 200, 250, 330]
+# The fused sweep against the JAX package's: every step is one float32 build
+# against another, which differ by one texel where a ray falls on a texel or
+# plate boundary (px or py off by one; the widest steps amplify the rays
+# most).  Measured at this size: at most 0.0283 of a step's pixels, 0.018 of
+# the ramp's.  The bounds are about twice that; a wrong plate of six or a
+# dropped tinted-half offset moves a sixth or more of a step.
+SWEEP_STEP_FUZZ = 0.06
+SWEEP_FUZZ = 0.04
+
+
+def _sweep_loop(sess, frame, rubix):
+    """One f_fov and one render a zoom step: (scales, screens)."""
+    scales, screens = [], []
+    for fov in SWEEP_FOVS:
+        sess.cmd(f"f_fov {fov}")
+        screens.append(_np(sess.render(frame, rubix=rubix)))
+        scales.append(sess.lensmap.scale)
+    return scales, np.stack(screens)
+
+
+@pytest.mark.parametrize("kind", SOURCES)
+@pytest.mark.parametrize("globe_name", ["cube", "fast"])
+def test_zoom_sweep_remap_equals_per_step_loop(kind, globe_name):
+    """The fused sweep equals the port's own per-step loop
+    (Session(backend="torch"): one f_fov and one render a step) bit for
+    bit, as tests/test_cli_pipeline.py holds the JAX sweep to its loop.
+    Against the JAX package's fused sweep each step is within
+    SWEEP_STEP_FUZZ of its pixels and the ramp within SWEEP_FUZZ."""
+    frame = _source(kind)[..., 0]
+    rng = np.random.default_rng(4)
+    bg = rng.integers(0, 256, (H, W), dtype=np.uint8)
+    sess = Session(W, H, platesize=S, device="cpu", backend="torch")
+    sess.cmd(f"f_globe {globe_name}")
+    sess.set_background(bg)
+    scales, want = _sweep_loop(sess, frame, rubix=kind == "expanded")
+    bg_ = frames_to_rgba(bg, default_palette()) if kind == "rgba" else bg
+    got = posed.zoom_sweep_remap(sess.lens, sess.globe, scales, frame, W, H,
+                                 background=bg_, device="cpu")
+    assert got.dtype == (torch.uint32 if kind == "rgba" else torch.uint8)
+    np.testing.assert_array_equal(_np(got), want)
+    jg = jglobes.get(globe_name)
+    jwant = np.asarray(jposed.zoom_sweep_remap(
+        jlenses.get("panini", jg), jg, scales, frame, W, H, background=bg_,
+        dtype=jnp.float32))
+    steps = [_mismatch(_np(got)[n], jwant[n]) for n in range(len(SWEEP_FOVS))]
+    print(f"{kind} {globe_name}: of each step's pixels "
+          f"{', '.join(f'{x:.4f}' for x in steps)} differ from the JAX sweep")
+    assert max(steps) <= SWEEP_STEP_FUZZ, steps
+    assert _mismatch(_np(got), jwant) <= SWEEP_FUZZ
+
+
+@pytest.mark.parametrize("name", ["fisheye1", "winkeltripel", "cube", "mollweide"])
+def test_zoom_sweep_remap_other_lenses_and_grids(name):
+    """Lenses with holes, a solver loop and a cell layout through the fused
+    sweep, with a non-default rubix grid, equal their per-step loop; three
+    source planes pad to six."""
+    frame = _source("expanded")[..., 1]
+    sess = Session(W, H, platesize=S, device="cpu", backend="torch")
+    sess.cmd(f"f_lens {name}; f_rubixgrid 7 2.5 1.5")
+    scales, want = _sweep_loop(sess, frame, rubix=True)
+    got = posed.zoom_sweep_remap(sess.lens, sess.globe, scales, frame, W, H,
+                                 numcells=7, cell_size=2.5, pad_size=1.5, device="cpu")
+    np.testing.assert_array_equal(_np(got), want)
+    three = _source("u8")[:3, ..., 0]
+    scales, want = _sweep_loop(sess, three, rubix=False)
+    got = posed.zoom_sweep_remap(sess.lens, sess.globe, scales, three, W, H, device="cpu")
+    np.testing.assert_array_equal(_np(got), want)
+
+
+def test_zoom_sweep_remap_errors():
+    """The checks of blinky_tpu.kernels.posed.zoom_sweep_remap (:340-362):
+    a forward-only lens, RGBA frames on a u8 background and the reverse; and
+    the port's own: more than six planes that are not twelve, a float64
+    build, the card as the default device."""
+    import dataclasses
+    jg, jl, pg, pl, scale = _panini()
+    frame = _source("u8")[..., 0]
+    rgba = _source("rgba")[..., 0]
+    with pytest.raises(ValueError, match="forward-only"):
+        posed.zoom_sweep_remap(dataclasses.replace(pl, map_type="forward"), pg, [scale],
+                               frame, W, H, device="cpu")
+    for fn, lens, globe, kw in ((jposed.zoom_sweep_remap, jl, jg, {}),
+                                (posed.zoom_sweep_remap, pl, pg, dict(device="cpu"))):
+        with pytest.raises(ValueError, match="RGBA frames need"):
+            fn(lens, globe, [scale], rgba, W, H, **kw)
+        with pytest.raises(ValueError, match="u8 frames need"):
+            fn(lens, globe, [scale], frame, W, H,
+               background=np.zeros((H, W), np.uint32), **kw)
+    with pytest.raises(ValueError, match="source planes"):
+        posed.zoom_sweep_remap(pl, pg, [scale], np.zeros((7, S, S), np.uint8), W, H,
+                               device="cpu")
+    with pytest.raises(ValueError, match="float32"):
+        posed.zoom_sweep_remap(pl, pg, [scale], frame, W, H, dtype=torch.float64,
+                               device="cpu")
+    with pytest.raises(ValueError, match="must be"):
+        posed.zoom_sweep_remap(pl, pg, [scale], frame, W, H,
+                               background=np.zeros((3, 3), np.uint8), device="cpu")
+    empty = posed.zoom_sweep_remap(pl, pg, [], frame, W, H, device="cpu")
+    assert tuple(empty.shape) == (0, H, W)
+    with pytest.raises((RuntimeError, AssertionError), match="(?i)cuda"):
+        posed.zoom_sweep_remap(pl, pg, [scale], frame, W, H)  # the card, and none here
+
+
+@pytest.mark.parametrize("layout", ["transpose12", "pose_major"])
+@pytest.mark.parametrize("kind", SOURCES)
+def test_render_posed_takes_strided_frames(kind, layout):
+    """Frames whose plate axes are swapped in memory, and frames stored pose
+    after pose ([B, P, S, S] permuted to [P, S, S, B]), render like the
+    contiguous array, bit for bit, and within the Session bound of
+    blinky_tpu on the same values; the pose-major tensor is used in place."""
+    js, ps = _sessions()
+    fr = _source(kind)
+    t = torch.from_numpy(fr.view(np.int32) if kind == "rgba" else fr)
+    if layout == "transpose12":
+        x = t.transpose(1, 2).contiguous().transpose(1, 2)
+    else:
+        x = t.permute(3, 0, 1, 2).contiguous().permute(1, 2, 3, 0)
+    assert not x.is_contiguous() and torch.equal(x, t)
+    bg = torch.zeros((H, W), dtype=x.dtype)
+    if kind == "rgba":
+        x = x.view(torch.uint32)
+    if layout == "pose_major":
+        src, _, _ = posed.prep_posed_inputs(x, np.tile(np.eye(3), (B, 1, 1)), S, bg, "cpu")
+        assert src.untyped_storage().data_ptr() == x.untyped_storage().data_ptr()
+    poses = np.asarray(POSES)
+    got = ps.render_posed(x, poses)
+    np.testing.assert_array_equal(_np(got), _np(ps.render_posed(fr, poses)))
+    assert _mismatch(_np(got), np.asarray(js.render_posed(fr, poses))) <= 0.02
+    np.testing.assert_array_equal(
+        _np(ps.render_posed(x[..., :2], poses[:2], exact=True)),
+        np.asarray(js.render_posed(fr[..., :2], poses[:2], exact=True)))
 
 
 # ----------------------------------------------------------------- batching

@@ -1,7 +1,10 @@
 """The port's Session (blinky_tpu_torch.api) against blinky_tpu's, with
 tests/test_session.py as the model: the same command script into both
 Sessions gives bit-equal screens and the same console output (tolerance 0:
-the screens are integers).  What the port does not have yet raises."""
+the screens are integers).  The float32 device builder behind a rotated
+view is held to the JAX Session's by the builder's boundary tolerance (0.15
+of the pixels at 64x48, tests/test_lensmap_parity.py:96).  What the port does
+not have yet raises."""
 
 import subprocess
 import sys
@@ -142,8 +145,8 @@ def test_unported_surface_raises():
     with pytest.raises(AttributeError):
         p.no_such_attribute
     # a lens blinky_tpu has but the port lacks is not "not a valid lens"
-    with pytest.raises(NotImplementedError, match="hammer"):
-        p.cmd("f_lens hammer")
+    with pytest.raises(NotImplementedError, match="quincuncial"):
+        p.cmd("f_lens quincuncial")
     p.cmd("fisheye 0")
     with pytest.raises(NotImplementedError, match="fisheye 0"):
         p.render(_frames(1))
@@ -187,3 +190,154 @@ print("ok")
                        text=True, timeout=120)
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip() == "ok"
+
+
+# ------------------------------------- the backend policy and setviewangles
+
+
+def _flat_idx_share(p, j):
+    return float((np.asarray(p.lensmap.flat_idx) != np.asarray(j.lensmap.flat_idx)).mean())
+
+
+def test_backend_policy():
+    """``backend="auto"``: a static view builds on the exact host builder, a
+    rotated one (setviewangles) on the float32 builder on the device;
+    "numpy" and "torch" force one path (blinky_tpu/api.py:316-322, with
+    "torch" where the JAX Session says "jax")."""
+    j = JSession(64, 48, backend="auto")
+    p = Session(64, 48, device="cpu")
+    assert p.backend == "auto" and p.view_angles is None
+    assert (p._resolved_backend(), j._resolved_backend()) == ("numpy", "numpy")
+    assert p._view_basis() is None
+    assert isinstance(p.lensmap.flat_idx, np.ndarray)
+    for s in (j, p):
+        s.cmd("setviewangles 10 30 5")
+    assert p.view_angles == j.view_angles == (10.0, 30.0, 5.0)
+    assert (p._resolved_backend(), j._resolved_backend()) == ("torch", "jax")
+    for a, b in zip(p._view_basis(), j._view_basis()):
+        np.testing.assert_array_equal(a, b)
+    lm = p.lensmap
+    assert isinstance(lm.flat_idx, np.ndarray)  # Session.lensmap hands out NumPy
+    assert isinstance(p._lensmap.flat_idx, torch.Tensor)  # the build stays on the device
+    assert p.lensmap is lm  # copied out once a build
+    # the float32 builds of the two packages, within the builder's tolerance
+    assert _flat_idx_share(p, j) <= 0.15
+    assert p._lensmap_meta[2] is False and j._lensmap_meta[2] is False
+    for s in (j, p):
+        s.cmd("setviewangles")
+    assert p.view_angles is None and p._resolved_backend() == "numpy"
+    np.testing.assert_array_equal(p.lensmap.flat_idx, np.asarray(j.lensmap.flat_idx))
+    assert p._lensmap_meta[2] is True
+    forced = Session(64, 48, device="cpu", backend="torch")
+    assert forced._resolved_backend() == "torch"
+    assert isinstance(forced.lensmap.flat_idx, np.ndarray)
+    assert isinstance(forced._lensmap.flat_idx, torch.Tensor)
+    host = Session(64, 48, device="cpu", backend="numpy")
+    host.cmd("setviewangles 10 30 5")
+    assert host._resolved_backend() == "numpy"
+    jhost = JSession(64, 48, backend="numpy")
+    jhost.cmd("setviewangles 10 30 5")
+    np.testing.assert_array_equal(host.lensmap.flat_idx, np.asarray(jhost.lensmap.flat_idx))
+    with pytest.raises(ValueError, match="backend"):
+        Session(64, 48, device="cpu", backend="jax")
+
+
+@pytest.mark.parametrize("script", [["setviewangles 10 30 0"],
+                                    ["f_globe tetra", "setviewangles -20 200 15", "f_rubix"],
+                                    ["setviewangles 5 5 5", "setviewangles"],
+                                    ["setviewangles 1 2"]],
+                         ids=["yawed", "tetra-rubix", "reset", "too-few-args"])
+def test_setviewangles_renders(script):
+    """setviewangles with and without arguments: the same script in both
+    Sessions under the exact host builder gives bit-equal screens; under
+    "auto" the rotated view takes each package's float32 builder, whose
+    screens agree but for the boundary texels the builders differ at."""
+    jn, pn = _pair(script)  # backend="numpy" on the JAX side, forced below
+    pn.backend = "numpy"
+    pn._changed = True
+    frames = _frames(3, seed=4)
+    _same(pn.render(frames), jn.render(frames))
+    _same(pn.render_host(frames[..., 0]), jn.render_host(frames[..., 0]))
+    assert pn.console == jn.console and pn.view_angles == jn.view_angles
+    ja = JSession(64, 48, backend="auto")
+    pa = Session(64, 48, device="cpu")
+    for line in script:
+        ja.cmd(line)
+        pa.cmd(line)
+    got, want = pa.render(frames).numpy(), np.asarray(ja.render(frames))
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert float((got != want).mean()) <= 0.15
+    if pa.view_angles is None:
+        np.testing.assert_array_equal(got, want)
+    # rubix and decode ride the device-built table like the host-built one
+    _same(pa.render(frames, rubix=True)[..., 1],
+          torch.from_numpy(np.asarray(pa.render_host(frames[..., 1], rubix=True)))
+          if pa.view_angles is None else pa.render(frames[..., 1], rubix=True))
+
+
+def test_device_built_lensmap_feeds_every_source_kind():
+    """A float32 build's tables stay tensors; the remap takes them for every
+    source kind and equals host_remap of the same table copied out."""
+    from blinky_tpu_torch.kernels.remap import (
+        expand_frames_tinted_rgba, host_remap,
+    )
+
+    p = Session(64, 48, device="cpu", backend="torch")
+    p.cmd("f_globe fast; setviewangles 3 -40 10")
+    bg = np.random.default_rng(5).integers(0, 256, (48, 64), dtype=np.uint8)
+    p.set_background(bg)
+    frames = _frames(2, seed=6)
+    lm = p.lensmap
+    rgba = frames_to_rgba(frames, p.palette)
+    cases = [(frames, {}), (frames, dict(rubix=True)), (frames, dict(decode_rgb=True)),
+             (expand_frames_tinted(frames, p.palette), dict(rubix=True)),
+             (rgba, {}), (rgba, dict(rubix=True)),
+             (expand_frames_tinted_rgba(rgba), dict(rubix=True))]
+    for fr, kw in cases:
+        out = p.render(fr, **kw)
+        got = out.view(torch.int32).numpy().view(np.uint32) if out.dtype == torch.uint32 \
+            else out.numpy()
+        for b in range(2):
+            want = host_remap(lm, fr[..., b], p.palette, bg, **kw)
+            np.testing.assert_array_equal(got[:, :, b] if got.ndim == 3 or kw.get("decode_rgb")
+                                          else got[..., b], want)
+    # render_host forces the host builder, even for a rotated view
+    exact = Session(64, 48, device="cpu", backend="numpy")
+    exact.cmd("f_globe fast; setviewangles 3 -40 10")
+    exact.set_background(bg)
+    fresh = Session(64, 48, device="cpu", backend="torch")
+    fresh.cmd("f_globe fast; setviewangles 3 -40 10")
+    fresh.set_background(bg)
+    _same(fresh.render_host(frames[..., 0]), exact.render_host(frames[..., 0]))
+    assert fresh.backend == "torch"
+
+
+def test_warm_device_builder():
+    from blinky_tpu_torch.lensmap import device_builder_warm
+
+    j = JSession(64, 48, backend="auto")
+    p = Session(60, 44, device="cpu")
+    assert not device_builder_warm(p.lens, p.globe, 60, 44, p.platesize, device="cpu")
+    assert p.warm_device_builder() is True and j.warm_device_builder() is True
+    assert device_builder_warm(p.lens, p.globe, 60, 44, p.platesize, device="cpu")
+    assert p._lensmap is None or isinstance(p._lensmap.flat_idx, np.ndarray)  # not installed
+    p.cmd("f_fov 400")  # over max_fov: any scale warms the builder
+    assert p.warm_device_builder() is True
+    for s in (j, p):
+        s.cmd("f_lens nosuch")
+    assert p.warm_device_builder() is False and j.warm_device_builder() is False
+    empty = Session(64, 48, device="cpu", defaults=False)
+    assert empty.warm_device_builder() is False
+
+
+def test_posed_table_reuse_needs_an_identity_view_build():
+    """_lensmap_meta's third field: a static lensmap with a view rotation
+    composed in is no seed for a posed ray table (blinky_tpu/api.py:1415)."""
+    p = Session(64, 48, device="cpu")
+    p.lensmap
+    scale = p.lensmap.scale
+    assert p._reusable_static_lensmap(scale, p.platesize, 1) is p._lensmap
+    p.cmd("setviewangles 10 0 0")
+    assert p._reusable_static_lensmap(scale, p.platesize, 1) is p._lensmap  # built before
+    p.lensmap
+    assert p._reusable_static_lensmap(scale, p.platesize, 1) is None
