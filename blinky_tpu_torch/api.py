@@ -19,13 +19,17 @@ The device defaults to ``"cuda"``; nothing probes and nothing falls back,
 so on a machine without a card a render with the default raises.  What
 ``blinky_tpu``'s Session has beyond this raises ``NotImplementedError``
 naming it: the ``fisheye 0`` plain view, time-sliced builds,
-script directories, key bindings, config files, ``f_saveglobe`` and
-``f_dumppal``, and the equirect, anti-aliased and sharded renders.
+script directories, key bindings, ``f_saveglobe`` and ``f_dumppal``, and
+the sharded render.  The 360-video path (:meth:`Session.render_equirect`)
+and the supersampled render (:meth:`Session.render_aa`) run on the device
+through :mod:`blinky_tpu_torch.kernels.ingest` and
+:func:`blinky_tpu_torch.kernels.remap.downsample_rgba`.
 ``Unknown command`` is kept for names neither package knows.
 """
 
 from __future__ import annotations
 
+from pathlib import Path
 from typing import Optional
 
 import numpy as np
@@ -58,14 +62,14 @@ _UNPORTED_COMMANDS = frozenset({
 
 # blinky_tpu's other Session entry points that the port does not have yet
 _UNPORTED_METHODS = frozenset({
-    "press_key", "build_progress", "render_sharded",
-    "render_aa", "render_equirect",
-    "config_str", "write_config", "exec_config", "complete_lens",
+    "press_key", "build_progress", "render_sharded", "complete_lens",
     "complete_globe",
 })
 
 
 _SINGLE_CHARS = "{})(':"  # common/common.c:1063 — NQ splits these alone
+
+_DECODE_CHUNK = 1 << 26  # u8 pixels a palette decode on the device takes at once
 
 
 def _c_is_space(ch: str) -> bool:
@@ -333,6 +337,10 @@ class Session:
         self.height_px = int(height)
         self.platesize = int(platesize) if platesize else min(width, height)
         self._kernel = None
+        self._palette_gen = 0
+        self._aa_cache = None  # {state: hi-res Session}, at most 4
+        self._equirect_cache = None  # (key, EquirectIngest)
+        self._equirect_fused = None  # {key: (composed chain, its RemapKernel)}
         self.palette = palette if palette is not None else palette_mod.default_palette()
         self.echo = echo
         self.console: list = []
@@ -694,8 +702,12 @@ class Session:
     def palette(self, pal) -> None:
         # the remap kernel bakes the palette's LUTs in at construction
         self._palette = np.asarray(pal, dtype=np.uint8)
+        # a generation counter, not id(): a freed array's id can be reused
+        self._palette_gen += 1
         self._kernel = None
         self._posed_cache = None  # its RGBA background decodes the palette
+        self._aa_cache = None  # hi-res sessions bake the palette in
+        self._rgba_lut = None  # the palette's RGBA LUT on the device
 
     def set_background(self, background) -> None:
         """Set the underlay shown where the lensmap is unmapped (the
@@ -776,6 +788,222 @@ class Session:
         rubix = self.rubix_enabled if rubix is None else rubix
         return host_remap(lm, frames, self.palette, self._background,
                           rubix=rubix, decode_rgb=decode_rgb)
+
+    # ------------------------------------------------------ true colour
+    def _rgba_screen(self, screen):
+        """A render's output as packed RGBA: a u8 screen (the background of
+        an invalid lens) is decoded through the session palette on the
+        device, a ``torch.uint32`` one passes."""
+        if screen.dtype == torch.uint32:
+            return screen
+        if self._rgba_lut is None or self._rgba_lut.device != screen.device:
+            lut = palette_mod.rgba_lut(self.palette).view(np.int32)
+            self._rgba_lut = torch.from_numpy(lut).to(screen.device)
+        # in pieces, so the int32 copy of the indices stays small beside the
+        # output (a whole batch of plates would double it)
+        flat = screen.reshape(-1)
+        out = torch.empty(flat.shape, dtype=torch.int32, device=screen.device)
+        for lo in range(0, flat.numel(), _DECODE_CHUNK):
+            torch.index_select(self._rgba_lut, 0, flat[lo:lo + _DECODE_CHUNK].int(),
+                               out=out[lo:lo + _DECODE_CHUNK])
+        return out.view(screen.shape).view(torch.uint32)
+
+    def render_aa(self, frames, factor: int = 2, rubix: Optional[bool] = None):
+        """Supersampled (anti-aliased) true-color rendering.
+
+        Renders through a lensmap built at ``factor`` times the session size
+        and box-averages back down on the device
+        (:func:`blinky_tpu_torch.kernels.remap.downsample_rgba`, K11): an
+        extension: the reference's software renderer is aliased by nature
+        (one palette index per pixel), but true-color output can resolve
+        the lens distortions' edge aliasing properly.
+
+        ``frames``: u8 palette plates (decoded via the session palette),
+        packed-RGBA u32 plates, or either one's expanded raw||tinted
+        layout for rubix; a NumPy array or a tensor (one on the session's
+        device is decoded and rendered there).  Returns a [H, W(, B)]
+        ``torch.uint32`` tensor on the session's device.
+
+        The hi-res session mirrors this session's state (config replay +
+        view angles); its lensmap build is cached per (state, factor), at
+        most four at a time.
+        """
+        from blinky_tpu_torch.kernels.remap import downsample_rgba
+
+        factor = int(factor)
+        if factor < 1:
+            raise ValueError("factor must be >= 1")
+        if not hasattr(frames, "ndim"):
+            frames = np.asarray(frames)
+        if not _is_rgba(frames):
+            if isinstance(frames, torch.Tensor):
+                frames = self._rgba_screen(frames.to(torch.uint8))
+            else:
+                frames = frames_to_rgba(frames, self.palette)
+        rubix = self.rubix_enabled if rubix is None else bool(rubix)
+        if rubix and frames.shape[0] != 2 * palette_mod.MAX_PLATES:
+            raise ValueError(
+                "rubix AA needs the expanded raw||tinted layout "
+                "(expand_frames_tinted[_rgba])")
+
+        S = int(frames.shape[1])  # the frames' actual plate size (render
+        # syncs self.platesize from it lazily; key on S so differing
+        # sources get their own hi-res session instead of thrashing one)
+        state = (self.config_str(), self.view_angles, self.width_px,
+                 self.height_px, S, self._palette_gen, self._background_gen,
+                 factor)
+        if self._aa_cache is None:
+            self._aa_cache = {}
+        cache = self._aa_cache
+        hi_sess = cache.get(state)
+        if hi_sess is None:
+            hi_sess = Session(self.width_px * factor, self.height_px * factor,
+                              platesize=S, palette=self.palette,
+                              device=self.device, backend=self.backend)
+            for line in self.config_str().splitlines():
+                hi_sess.cmd(line)
+            if self.view_angles is not None:
+                hi_sess.cmd("setviewangles %s %s %s" % self.view_angles)
+            if self._background is not None:
+                # Nearest-neighbor upscale: each source background pixel
+                # covers a factor x factor block, so the box downsample
+                # hands it back unchanged where the lens leaves gaps.
+                hi_sess.set_background(np.repeat(
+                    np.repeat(self._background, factor, 0), factor, 1))
+            while len(cache) >= 4:  # hi-res sessions hold big tables
+                cache.pop(next(iter(cache)))
+            cache[state] = hi_sess
+        hi = self._rgba_screen(hi_sess.render(frames, rubix=rubix))
+        return downsample_rgba(hi, factor) if factor > 1 else hi
+
+    def render_equirect(self, panos, bilinear: bool = True,
+                        mode: str = "compact"):
+        """Warp equirectangular panoramas end-to-end on the device.
+
+        ``panos``: [H, W, B] packed-RGBA uint32 (batch-innermost), one
+        [H, W] u32 pano, or one [H, W, 3] u8 RGB pano; a NumPy array, or a
+        ``torch.uint32`` tensor, which is used where it lies (one on the
+        session's device never visits the host).  Resamples to the current
+        globe's plates at the session platesize and remaps through the
+        current lens.  Returns a [H_out, W_out, B] ``torch.uint32`` tensor on
+        the session's device ([H_out, W_out] for a single pano), as
+        :meth:`render` does; ``blinky_tpu``'s method returns a NumPy array.
+
+        ``mode`` picks the pipeline formulation; all three are bit-equal:
+
+        * ``"compact"`` (default): texel-compacted two-stage: resample
+          ONLY the sorted unique texels the lensmap references (K10), then
+          the compacted remap (K1)
+          (:class:`~blinky_tpu_torch.kernels.ingest.CompactEquirectChain`).
+        * ``"fused"``: the ingest's K-tap tables composed THROUGH the
+          lensmap: ONE gather+blend (K10), no faces intermediate
+          (:class:`~blinky_tpu_torch.kernels.ingest.EquirectScreenKernel`).
+        * ``"faces"``: full two-stage via the materialized
+          ``[P, S, S, B]`` faces (K10, then :meth:`render`'s K1), which
+          feeds SEVERAL lenses from one ingest.
+
+        compact/fused step aside to "faces" when the lens or zoom is
+        invalid (the background shows).  ``fisheye 0`` raises where
+        :meth:`render` raises.
+        """
+        from blinky_tpu_torch.kernels.ingest import (
+            CompactEquirectChain, EquirectIngest, EquirectScreenKernel,
+        )
+        from blinky_tpu_torch.kernels.remap import pack_rgba
+
+        if mode not in ("compact", "fused", "faces"):
+            raise ValueError(f"mode must be compact|fused|faces, got {mode!r}")
+
+        squeeze = False
+        if (not isinstance(panos, torch.Tensor) and getattr(panos, "ndim", 0) == 3
+                and panos.shape[2] == 3 and np.asarray(panos).dtype == np.uint8):
+            panos = pack_rgba(np.asarray(panos))
+        if getattr(panos, "ndim", 0) == 2:
+            panos = (panos if isinstance(panos, torch.Tensor)
+                     else np.asarray(panos, np.uint32))[..., None]
+            squeeze = True
+        key = (tuple(panos.shape[:2]), self.platesize, self.globe,
+               bool(bilinear))
+        if self._equirect_cache is None or self._equirect_cache[0] != key:
+            kern = EquirectIngest(panos.shape[0], panos.shape[1],
+                                  self.platesize, globe=self.globe,
+                                  bilinear=bilinear, device=self.device)
+            self._equirect_cache = (key, kern)
+        ingest = self._equirect_cache[1]
+
+        if mode != "faces" and self.fisheye_enabled:
+            # the rebuild sequence render() runs before gathering
+            if self._changed or self._lensmap is None:
+                self._rebuild()
+            if self._lensmap is not None and self._kernel is None:
+                self._kernel = RemapKernel(self._lensmap, self.palette,
+                                           self._background, device=self.device)
+            if (self._kernel is not None
+                    and self._lensmap.platesize == self.platesize):
+                fkey = (key, bool(bilinear), mode)
+                # a small dict, not a single slot: alternating compact/fused
+                # (mode comparisons, a faces caller in between) keeps BOTH
+                # composed chains warm instead of re-running compact_texels
+                # and the table composition per switch.  Validity includes
+                # the RemapKernel IDENTITY (held strongly, so `is` cannot
+                # alias a freed object): any lens/zoom/background/palette
+                # change makes a new kernel, and stale-kernel entries are
+                # dropped so dead generations can't pin device tables
+                if self._equirect_fused is None:
+                    self._equirect_fused = {}
+                fcache = self._equirect_fused
+                ent = fcache.get(fkey)
+                if ent is None or ent[1] is not self._kernel:
+                    for k in [k for k, v in fcache.items()
+                              if v[1] is not self._kernel]:
+                        fcache.pop(k)
+                    while len(fcache) >= 4:  # composed tables live on the
+                        # device: bound the live generation too
+                        fcache.pop(next(iter(fcache)))
+                    cls = (CompactEquirectChain if mode == "compact"
+                           else EquirectScreenKernel)
+                    ent = (cls(ingest, self._kernel), self._kernel)
+                    fcache[fkey] = ent
+                out = ent[0](panos, rubix=self.rubix_enabled)
+                return out[..., 0] if squeeze else out
+
+        faces = ingest(panos)  # [P, S, S, B] u32 on the device
+        # rubix on the u32 faces: the remap kernel tints AFTER the gather,
+        # so the face batch is not expanded on the device.  An invalid lens
+        # returns the u8 palette background: decode it so the u32 contract
+        # holds
+        out = self._rgba_screen(self.render(faces))
+        return out[..., 0] if squeeze else out
+
+    # ------------------------------------------------------------- config
+    def config_str(self) -> str:
+        """``Host_WriteConfiguration`` (``NQ/host.c:272-291``) for the state
+        this Session holds: the aliases (an extension: the reference loses
+        them on restart), then the fisheye state block (``F_WriteConfig``,
+        ``fisheye.c:683-696``).  ``blinky_tpu``'s version leads with the key
+        binds (``unbindall``, ``bind``) and writes the ``fov`` cvar; those
+        commands are not ported yet, so their lines are left out here, and a
+        config file written by ``blinky_tpu`` raises at them on replay."""
+        lines = [f'alias "{n}" "{v}"' for n, v in self.aliases.items()]
+        lines += [
+            f"fisheye {int(self.fisheye_enabled)}",
+            f'f_lens "{self.lens_name}"',
+            f'f_globe "{self.globe_name}"',
+            f"f_rubixgrid {self.rubix_numcells} {self.rubix_cell_size:f} {self.rubix_pad_size:f}",
+        ]
+        zc = self.zoom.command()
+        if zc:
+            lines.append(zc)
+        return "\n".join(lines) + "\n"
+
+    def write_config(self, path) -> None:
+        Path(path).write_text(self.config_str())
+
+    def exec_config(self, path) -> None:
+        for line in Path(path).read_text().splitlines():
+            line = line.strip()
+            if line and not line.startswith("//"):
+                self.cmd(line)
 
     # ---------------------------------------------------------------- posed
     def render_posed(self, frames, poses, render_scale=1,

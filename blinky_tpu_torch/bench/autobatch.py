@@ -1,9 +1,10 @@
-"""Memory-aware batch sizing for the posed path: how many poses one call
-may take before the Session splits the batch.
+"""Memory-aware batch sizing: how many poses one posed call may take before
+the Session splits the batch, and how many panos one equirect call fits.
 
 The port of the part of :mod:`blinky_tpu.bench.autobatch` that
 ``Session.render_posed`` needs: :func:`feasible_batch` and the per-lane
-byte models.  Each pipeline states its per-lane (per-pose) byte cost, and
+byte models; and the equirect chain's own model
+(:func:`equirect_bytes_per_lane`, :func:`equirect_feasible_batch`).  Each pipeline states its per-lane (per-pose) byte cost, and
 the planner returns the largest batch that fits the device budget.
 
 What replaces the JAX module's TPU constants:
@@ -104,3 +105,45 @@ def sweep_bytes_per_lane(width, height, rgba=False) -> int:
     ray table and its screen."""
     return width * height * (4 * SWEEP_LENS_PLANES + 13) + screen_bytes_per_lane(
         width, height, rgba)
+
+
+def equirect_bytes_per_lane(pano_h, pano_w, platesize, width, height,
+                            mode="compact", texels=None) -> int:
+    """What one pano lane keeps on the device through
+    ``Session.render_equirect``: the pano, the faces between the two stages
+    (all ``MAX_PLATES`` plates for ``"faces"``, the ``[R]`` texels the
+    lensmap reads for ``"compact"`` -- *texels*, or every texel when it is
+    not known yet -- and none for ``"fused"``) and the screen, all packed
+    RGBA."""
+    full = MAX_PLATES * platesize * platesize
+    faces = {"faces": full, "compact": full if texels is None else int(texels),
+             "fused": 0}[mode]
+    return 4 * (pano_h * pano_w + faces + width * height)
+
+
+def equirect_table_bytes(platesize, width, height, mode="compact", bilinear=True,
+                         texels=None) -> int:
+    """K10's static operands, which every lane shares: 8 bytes a tap and
+    output (index and weight; 4 for nearest, which has no weights) and the
+    4-byte plate mask of an ingest, over every face texel (``"faces"``), the
+    compacted texels plus the 4-byte compacted remap index a pixel
+    (``"compact"``), or the screen's pixels (``"fused"``, no mask)."""
+    per_tap = 8 * 4 if bilinear else 4
+    full = MAX_PLATES * platesize * platesize
+    if mode == "fused":
+        return per_tap * width * height
+    n = full if (mode == "faces" or texels is None) else int(texels)
+    return (per_tap + 4) * n + (4 * width * height if mode == "compact" else 0)
+
+
+def equirect_feasible_batch(pano_h, pano_w, platesize, width, height,
+                            mode="compact", bilinear=True, texels=None, *,
+                            device="cuda", budget=None) -> int:
+    """The largest pano batch ``Session.render_equirect`` fits in *mode*:
+    the budget (by default :func:`effective_budget_bytes` of *device*) less
+    the tables, over a lane's bytes."""
+    budget = effective_budget_bytes(device) if budget is None else int(budget)
+    tables = equirect_table_bytes(platesize, width, height, mode, bilinear, texels)
+    return feasible_batch(
+        equirect_bytes_per_lane(pano_h, pano_w, platesize, width, height, mode, texels),
+        0, budget=max(budget - tables, 0))

@@ -13,11 +13,15 @@ Pallas probes, as hand-written CUDA kernels (``csrc/sol.cu``).
   yardstick.  It is a plain product (``torch._int_mm``, ``torch.matmul``),
   as the JAX package leaves it to XLA, not one of the port's kernels.
 
+* :func:`stream_copy`, :func:`row_gather`, :func:`element_gather`: the other
+  XLA probes, the card's read+write rate and its row and element gather
+  rates -- the yardsticks K1, K5 and K10 are judged against.  Plain torch
+  calls too (``x + s``, ``index_select``, ``take``), for the same reason.
+
 Each wrapper runs its plain PyTorch version for CPU tensors and launches its
 kernel for CUDA tensors.  :func:`run_sol` times the probes at the JAX
-package's full-size shapes (``sol.py:305-310``) with CUDA events; it needs a
-card.  The other XLA probes (``stream_copy``, ``row_gather``,
-``element_gather``) are not ported yet.
+package's full-size shapes (``sol.py:299-310``) with CUDA events; it needs a
+card.
 """
 
 from __future__ import annotations
@@ -226,10 +230,67 @@ def mxu_matmul(device="cuda", m: int = 384, k: int = 2048, n: int = 1024,
                 ms=ms, tmacs=float(m) * k * n / (ms * 1e-3) / 1e12)
 
 
+# ------------------------------------------------- copy and gather rates
+
+
+def stream_copy(device="cuda", nbytes: int = 1 << 30, iters: int = 8) -> dict:
+    """The card's streaming rate: read and write *nbytes* a call
+    (``blinky_tpu/bench/sol.py:55``; 1 GiB at ``:299``), as ``x + 1`` on a
+    ``[n, 1024]`` u8 array.  ``gbps`` counts both directions."""
+    n = max(nbytes // 1024, 8)
+    x = torch.zeros((n, 1024), dtype=torch.uint8, device=torch.device(device))
+    ms = cuda_ms(lambda: x + 1, iters)
+    return dict(probe="stream_copy", bytes=n * 1024, iters=iters, ms=ms,
+                gbps=2.0 * n * 1024 / (ms * 1e-3) / 1e9)
+
+
+def gather_probe_indices(n_idx: int, rows: int, device="cuda"):
+    """The scattered indices of the JAX gather probes
+    (``blinky_tpu/bench/sol.py:79``): ``arange(n) * 7919 % rows`` in int32,
+    where the product wraps and ``%`` is a floor modulo."""
+    return torch.arange(n_idx, dtype=torch.int32, device=torch.device(device)) * 7919 % rows
+
+
+def _gather_probe(name, src_shape, n_idx, iters, row: bool, device) -> dict:
+    """Shared body of the row and element gather probes
+    (``blinky_tpu/bench/sol.py:75``)."""
+    R = src_shape[0]
+    src = torch.zeros(src_shape, dtype=torch.uint8, device=torch.device(device))
+    idx = gather_probe_indices(n_idx, R, device)
+    if row:
+        ms = cuda_ms(lambda: src.index_select(0, idx), iters)
+    else:
+        idx = idx.long()  # torch.take wants int64 indices; made outside the timing
+        ms = cuda_ms(lambda: torch.take(src, idx), iters)
+    row_bytes = int(np.prod(src_shape[1:])) if row else 1
+    return dict(probe=name, rows=R, n_idx=n_idx, row_bytes=row_bytes, iters=iters,
+                ms=ms, ns_per_index=ms * 1e6 / n_idx,
+                gbps=n_idx * row_bytes * 2 / (ms * 1e-3) / 1e9)
+
+
+def row_gather(device="cuda", n_rows: int = 6 * 1080 * 1080, row_bytes: int = 1024,
+               n_idx: int = 1920 * 1080, iters: int = 4) -> dict:
+    """The remap's primitive as one library call: *n_idx* scattered rows of
+    *row_bytes* (the batch lanes) out of *n_rows*, ``src.index_select(0,
+    idx)`` (``blinky_tpu/bench/sol.py:103``; full size at ``:300-303``)."""
+    return _gather_probe("row_gather", (n_rows, row_bytes), n_idx, iters, True, device)
+
+
+def element_gather(device="cuda", n_elems: int = 1 << 24, n_idx: int = 1 << 23,
+                   iters: int = 4) -> dict:
+    """Independent u8 element gathers, ``torch.take(src, idx)``: the
+    per-frame-pose floor, with nothing to amortise an index over
+    (``blinky_tpu/bench/sol.py:111``; full size at ``:304``)."""
+    return _gather_probe("element_gather", (n_elems,), n_idx, iters, False, device)
+
+
 def run_sol(device="cuda") -> list:
-    """The ported probes at their full-size shapes, on a card: K3 with the
-    JAX probe's source values and with every u8 value, K4, and the int8 and
-    bf16 matrix-product rates."""
-    return [onehot_probe(device), onehot_probe(device, src_hi=256),
+    """The probes at their full-size shapes, on a card: the copy rate, the
+    row gather at 1024 and 128 lanes and the element gather (plain torch
+    calls), K3 with the JAX probe's source values and with every u8 value,
+    K4, and the int8 and bf16 matrix-product rates."""
+    return [stream_copy(device), row_gather(device, row_bytes=1024),
+            row_gather(device, row_bytes=128), element_gather(device),
+            onehot_probe(device), onehot_probe(device, src_hi=256),
             stream_read_probe(device), mxu_matmul(device, dtype="int8"),
             mxu_matmul(device, dtype="bf16")]

@@ -1,4 +1,5 @@
-// Helpers shared by the kernels (remap_gather.cu, remap_lut.cu, sol.cu).
+// Helpers shared by the kernels (remap_gather.cu, remap_lut.cu, sol.cu,
+// ingest.cu, resample.cu).
 #pragma once
 
 #include <cuda_runtime.h>

@@ -23,38 +23,13 @@
 // in registers, so a tinted render moves no more bytes than a plain one.
 
 #include "common.cuh"
+#include "tint.cuh"
 
 namespace {
 
 using blinky::kThreads;
-
-// apply_tint_rgba on one tinted texel: per channel c + ((42 * (t - c)) >> 8)
-// in signed int, where >> is an arithmetic (floor) shift as jnp's on int32,
-// clipped to 0..255; alpha is forced to 0xFF.
-__device__ __forceinline__ uint32_t tint_texel(uint32_t g, uint32_t t) {
-  uint32_t res = 0xFFu << 24;
-#pragma unroll
-  for (int shift = 0; shift < 24; shift += 8) {
-    int c = (int)((g >> shift) & 0xFFu);
-    int tc = (int)((t >> shift) & 0xFFu);
-    int c2 = c + ((42 * (tc - c)) >> 8);
-    c2 = c2 < 0 ? 0 : (c2 > 255 ? 255 : c2);
-    res |= (uint32_t)c2 << shift;
-  }
-  return res;
-}
-
-__device__ __forceinline__ void splat(uint4& v, uint32_t w) { v = make_uint4(w, w, w, w); }
-__device__ __forceinline__ void splat(uint32_t& v, uint32_t w) { v = w; }
-__device__ __forceinline__ void splat(uint8_t& v, uint32_t w) { v = (uint8_t)w; }
-
-__device__ __forceinline__ void tint(uint4& v, uint32_t t) {
-  v.x = tint_texel(v.x, t);
-  v.y = tint_texel(v.y, t);
-  v.z = tint_texel(v.z, t);
-  v.w = tint_texel(v.w, t);
-}
-__device__ __forceinline__ void tint(uint32_t& v, uint32_t t) { v = tint_texel(v, t); }
+using blinky::splat;
+using blinky::tint;  // tint.cuh: the tint's one copy, shared with K10 and K12
 
 // Vec: what one thread moves at a time (uint4 = 16 bytes, or one texel).
 // ELEM: the texel's size in bytes (1 = u8 palette index, 4 = packed RGBA).

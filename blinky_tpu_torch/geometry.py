@@ -60,6 +60,28 @@ def normalize(x, y, z):
     return x * inv, y * inv, z * inv
 
 
+def plate_uv_to_ray(u, v, p_forward, p_right, p_up, p_dist):
+    """Plate texture uv -> unit ray.
+
+    Reference ``fisheye.c:1198-1214``: recenters uv, flips v, combines the
+    **stored** plate dist with the frame vectors, then normalizes.
+
+    Args:
+        u, v: [...] in [0, 1].
+        p_forward, p_right, p_up: [..., 3] plate frames (broadcast or
+            pre-gathered).
+        p_dist: [...] plate plane distances.
+    Returns:
+        (x, y, z) unit ray components.
+    """
+    uu = u - 0.5
+    vv = -(v - 0.5)
+    x = p_dist * p_forward[..., 0] + uu * p_right[..., 0] + vv * p_up[..., 0]
+    y = p_dist * p_forward[..., 1] + uu * p_right[..., 1] + vv * p_up[..., 1]
+    z = p_dist * p_forward[..., 2] + uu * p_right[..., 2] + vv * p_up[..., 2]
+    return normalize(x, y, z)
+
+
 def plate_frames(forward, up):
     """Re-orthogonalize plate bases exactly as the globe loader does.
 

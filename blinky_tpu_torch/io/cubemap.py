@@ -118,3 +118,47 @@ def to_batch_layout(frames_bpss: np.ndarray) -> np.ndarray:
         if out is not None:
             return out
     return np.ascontiguousarray(np.moveaxis(frames_bpss, 0, -1))
+
+
+def equirect_to_cubemap(pano, globe=None, platesize: int = 512,
+                        bilinear: bool = True) -> np.ndarray:
+    """Resample an equirectangular panorama into globe plates: the
+    ingestion path for real 360° content (most 360 video is equirect,
+    not cube faces).
+
+    For every plate texel the pinhole ray (``plate_uv_to_ray``,
+    ``fisheye.c:1198-1214``) is converted to lat/lon
+    (``ray_to_latlon``, ``fisheye.c:1192``: lon 0 = forward +Z, +lon =
+    right, +lat = up) and sampled from the panorama with the standard
+    equirect convention (column = (lon+π)/2π · W wrapping, row =
+    (π/2−lat)/π · H clamped).
+
+    Args:
+        pano: [H, W, 3] u8 RGB (→ packed-RGBA uint32 plates) or [H, W]
+            u8 palette indices (→ u8 plates, nearest-neighbor only).
+        globe: target plate layout (default: the cube globe).
+        platesize: output plate resolution S.
+        bilinear: RGB sources interpolate; palette sources always use
+            nearest (indices don't blend).
+
+    Returns [MAX_PLATES, S, S] uint32 (RGB input) or uint8 (palette
+    input); plates beyond the globe's count stay zero.
+
+    This is the single-pano host wrapper over
+    :class:`blinky_tpu_torch.kernels.ingest.EquirectIngest`, all NumPy: the
+    geometry lives in one static index/weight table shared with the batched
+    device path (reuse the kernel object directly for video batches).
+    """
+    from blinky_tpu_torch.kernels.ingest import EquirectIngest
+    from blinky_tpu_torch.kernels.remap import pack_rgba
+
+    pano = np.asarray(pano, dtype=np.uint8)
+    is_rgb = pano.ndim == 3
+    if is_rgb and pano.shape[2] != 3:
+        raise ValueError("equirect pano must be [H, W, 3] RGB or [H, W]")
+    H, W = pano.shape[:2]
+    kern = EquirectIngest(H, W, platesize, globe=globe,
+                          bilinear=bool(is_rgb and bilinear))
+    if is_rgb:
+        return kern.host(pack_rgba(pano))
+    return kern.host_nearest_u8(pano)

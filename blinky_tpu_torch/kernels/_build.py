@@ -71,6 +71,14 @@ _SIGNATURES = {
     # out, stream
     "blinky_sweep_remap": [_vp, _vp, _vp, _vp, _ll, _i, _vp, _i, _i, _f, _f, _vp, _i, _i,
                            _vp, _ll, _i, _vp, _vp, _vp],
+    # src, rows, batch, idx, w, taps, n, plate_mask, valid, bg, tint_rgb,
+    # tint_mask, out, stream
+    "blinky_equirect_gather": [_vp, _ll, _i, _vp, _vp, _i, _ll, _vp, _vp, _vp, _vp, _vp,
+                               _vp, _vp],
+    # in, k, H, W, batch, out, stream
+    "blinky_downsample_rgba": [_vp, _i, _ll, _ll, _i, _vp, _vp],
+    # in, planes, per_plane, tints (host), out, stream
+    "blinky_tint_expand_rgba": [_vp, _i, _ll, _vp, _vp, _vp],
 }
 
 _lock = threading.Lock()

@@ -6,7 +6,7 @@ rows, each screen pixel's lensmap index selects one row of B contiguous
 texels.  The source kinds, the out-of-range rules and the background rules
 are the JAX package's, bit for bit.
 
-Two hand-written CUDA kernels do the device work (``csrc/``):
+Two hand-written CUDA kernels do the remap's device work (``csrc/``):
 
 * K1, :func:`remap_gather` (``remap_gather.cu``): the row gather plus the
   background select, with the true-color rubix tint fused after the gather.
@@ -16,9 +16,18 @@ Two hand-written CUDA kernels do the device work (``csrc/``):
   LUT and/or the palette -> RGB decode, both tables in shared memory.  It
   replaces ``remap_impl`` and the decode after an expanded gather.
 
+Two more serve the true-colour pipeline (``csrc/resample.cu``):
+
+* K11, :func:`downsample_rgba`: the box resolve of supersampled rendering
+  (``Session.render_aa``).  It replaces ``_downsample_rgba``.
+* K12, :func:`tint_expand_rgba`: the rubix source expansion of packed-RGBA
+  frames that are on the device, behind :func:`expand_frames_tinted_rgba`.
+  It replaces that function's ``jnp`` branch.
+
 Each wrapper checks its operands, then runs its plain PyTorch version
-(:func:`remap_gather_plain`, :func:`remap_lut_plain`) for tensors on the
-CPU, or launches its kernel for tensors on a CUDA device.  There is no other
+(:func:`remap_gather_plain`, :func:`remap_lut_plain`,
+:func:`downsample_rgba_plain`, :func:`tint_expand_rgba_plain`) for tensors
+on the CPU, or launches its kernel for tensors on a CUDA device.  There is no other
 path: a kernel that fails to build or launch raises.
 
 Packed RGBA (``r | g<<8 | b<<16 | a<<24``) travels as ``torch.int32`` bits,
@@ -208,6 +217,138 @@ def remap_lut(src, idx, valid, tint, bg, tint_lut=None, rgb_lut=None, *,
 remap_lut.launches = 0
 
 
+# ------------------------------------------------- true-colour resample (K11)
+
+_ALPHA = -(1 << 24)  # 0xFF000000 as int32 bits
+# k*k channel values <= 255 sum exactly in float32, in any order, while the
+# sum stays under 2^24
+MAX_DOWNSAMPLE_FACTOR = 256
+
+
+def downsample_rgba_plain(hi, factor: int):
+    """K11's plain version: ``_downsample_rgba`` on int32 bits.  Per channel
+    the k x k sum (integers, exact), converted to float32, divided by a
+    float32 *tensor* k*k (a true divide, as ``jnp.mean``'s; PyTorch's CUDA
+    division by a Python scalar would multiply by its reciprocal), + 0.5,
+    clipped, truncated; alpha 0xFF."""
+    k = int(factor)
+    H, W = hi.shape[0] // k, hi.shape[1] // k
+    rest = tuple(hi.shape[2:])
+    count = torch.tensor(float(k * k), dtype=torch.float32, device=hi.device)
+    out = None
+    for shift in (0, 8, 16):
+        c = ((hi >> shift) & 0xFF).reshape((H, k, W, k) + rest).sum(dim=(1, 3))
+        c = (c.to(torch.float32) / count + 0.5).clamp(0, 255).to(torch.int32) << shift
+        out = c if out is None else out | c
+    return out | _ALPHA
+
+
+def _rgba_tensor(a, device):
+    """Packed RGBA (NumPy ``uint32``, or a ``torch.uint32`` / ``torch.int32``
+    tensor) -> its int32 bits as a tensor; a NumPy array goes to *device*, a
+    tensor stays where it is."""
+    if isinstance(a, torch.Tensor):
+        if a.dtype == torch.uint32:
+            return a.view(torch.int32)
+        if a.dtype != torch.int32:
+            raise TypeError("packed RGBA tensors are torch.uint32 (or its int32 "
+                            f"bits), got {a.dtype}")
+        return a
+    return _rgba_bits(np.asarray(a, dtype=np.uint32), device)
+
+
+def downsample_rgba(hi, factor: int, *, device="cuda"):
+    """K11: box-average a packed-RGBA screen by ``factor`` along H and W,
+    the resolve step of supersampled rendering (``Session.render_aa``).
+    [kH, kW(, B)] u32 -> [H, W(, B)] ``torch.uint32``, per channel in
+    float32 with round-half-up.  A tensor (``torch.uint32`` or its int32
+    bits) is resolved where it lies; a NumPy array on *device*."""
+    name = "downsample_rgba"
+    k = int(factor)
+    hi = _rgba_tensor(hi, device)
+    if hi.dim() not in (2, 3):
+        raise ValueError(f"{name}: the screen must be [kH, kW(, B)], got {tuple(hi.shape)}")
+    if not 1 <= k <= MAX_DOWNSAMPLE_FACTOR:
+        raise ValueError(f"{name}: factor must be 1..{MAX_DOWNSAMPLE_FACTOR}, got {factor}")
+    if hi.shape[0] % k or hi.shape[1] % k:
+        raise ValueError(f"screen {tuple(hi.shape[:2])} not divisible by {factor}")
+    if not _build.on_card(name, hi.device):
+        return downsample_rgba_plain(hi, k).view(torch.uint32)
+    hi = hi.contiguous()
+    H, W = hi.shape[0] // k, hi.shape[1] // k
+    B = hi.shape[2] if hi.dim() == 3 else 1
+    out = torch.empty((H, W) + tuple(hi.shape[2:]), dtype=torch.int32, device=hi.device)
+    if out.numel():
+        lib = _build.library()
+        with torch.cuda.device(hi.device):
+            rc = lib.blinky_downsample_rgba(hi.data_ptr(), k, H, W, B, out.data_ptr(),
+                                            _build.stream(hi.device))
+        _build.check(rc, name)
+        downsample_rgba.launches += 1
+    return out.view(torch.uint32)
+
+
+downsample_rgba.launches = 0
+
+
+# ------------------------------------------------- true-colour expansion (K12)
+
+
+def _plate_tints_rgb() -> np.ndarray:
+    """The six plates' tint colours as packed RGB words, [MAX_PLATES] u32."""
+    from blinky_tpu_torch.palette import PLATE_TINTS
+
+    t = PLATE_TINTS.astype(np.uint32)
+    return np.ascontiguousarray(t[:, 0] | (t[:, 1] << 8) | (t[:, 2] << 16))
+
+
+def tint_expand_rgba_plain(frames):
+    """K12's plain version: ``expand_frames_tinted_rgba`` on int32 bits:
+    [P, S, S(, B)] -> [2*MAX_PLATES, S, S(, B)], raw plates, zero planes,
+    per-plate tinted plates (``c + ((42 * (t - c)) >> 8)`` per channel, an
+    arithmetic shift, clipped; alpha 0xFF), zero planes."""
+    P = frames.shape[0]
+    tints = torch.from_numpy(_plate_tints_rgb().view(np.int32)).to(frames.device)
+    always = torch.ones((), dtype=torch.bool, device=frames.device)
+    out = frames.new_zeros((2 * MAX_PLATES,) + tuple(frames.shape[1:]))
+    out[:P] = frames
+    for p in range(P):
+        out[MAX_PLATES + p] = _tint_rgba(frames[p], tints[p], always)
+    return out
+
+
+def tint_expand_rgba(frames):
+    """K12: the rubix source expansion of packed-RGBA frames held as int32
+    bits: ``frames`` [P <= 6, S, S(, B)] int32 -> [12, S, S(, B)] int32 on
+    the frames' device."""
+    name = "tint_expand_rgba"
+    if frames.dtype != torch.int32 or frames.dim() < 1:
+        raise ValueError(f"{name}: frames must be int32 (packed RGBA bits) "
+                         f"[P, ...], got {frames.dtype} {tuple(frames.shape)}")
+    P = frames.shape[0]
+    if P > MAX_PLATES:
+        raise ValueError(f"{name}: {P} source planes: expected <= {MAX_PLATES}")
+    if not _build.on_card(name, frames.device):
+        return tint_expand_rgba_plain(frames)
+    frames = frames.contiguous()
+    out = torch.empty((2 * MAX_PLATES,) + tuple(frames.shape[1:]), dtype=torch.int32,
+                      device=frames.device)
+    if out.numel():
+        per_plane = out.numel() // (2 * MAX_PLATES)
+        tints = _plate_tints_rgb()
+        lib = _build.library()
+        with torch.cuda.device(frames.device):
+            rc = lib.blinky_tint_expand_rgba(frames.data_ptr(), P, per_plane,
+                                             tints.ctypes.data, out.data_ptr(),
+                                             _build.stream(frames.device))
+        _build.check(rc, name)
+        tint_expand_rgba.launches += 1
+    return out
+
+
+tint_expand_rgba.launches = 0
+
+
 # ------------------------------------------------------------ host helpers
 
 
@@ -338,6 +479,29 @@ def expand_frames_tinted(frames, palette, palmap=None) -> np.ndarray:
     return out
 
 
+def expand_rubix_source(frames, palette, palmap=None):
+    """Dtype-dispatching rubix expansion: route a [P, S, S(, B)] source
+    to :func:`expand_frames_tinted` (u8 via the per-plate tint palettes)
+    or :func:`expand_frames_tinted_rgba` (packed-RGBA u32, NumPy or a
+    tensor): the one entry every batched/posed rubix producer shares.  The
+    u8 expansion is host-only and returns NumPy: a u8 tensor on the CPU is
+    taken as its array, one on the card raises (nothing leaves the card
+    unasked; hand over ``frames.cpu()``)."""
+    if isinstance(frames, torch.Tensor):
+        if frames.dtype in (torch.uint32, torch.int32):
+            return expand_frames_tinted_rgba(frames)
+        if frames.device.type != "cpu":
+            raise TypeError(
+                "expand_frames_tinted (the u8 rubix expansion) is host-only: "
+                f"got a {frames.dtype} tensor on {frames.device}; pass "
+                "frames.cpu(), or packed-RGBA frames, which expand on the card")
+        frames = frames.numpy()
+    frames = np.asarray(frames)
+    if frames.dtype == np.uint32:
+        return expand_frames_tinted_rgba(frames)
+    return expand_frames_tinted(frames, palette, palmap=palmap)
+
+
 def frames_to_rgba(frames, palette) -> np.ndarray:
     """Host-side palette decode to packed RGBA uint32 (little-endian
     r|g<<8|b<<16|ff<<24), same shape as *frames*."""
@@ -368,12 +532,22 @@ def unpack_rgb(rgba) -> np.ndarray:
         [(rgba >> s).astype(np.uint8) for s in (0, 8, 16)], axis=-1)
 
 
-def expand_frames_tinted_rgba(frames_rgba) -> np.ndarray:
-    """Rubix source expansion for true-color (packed RGBA u32) frames on
-    the host: [P, S, S(, B)] u32 -> [2*MAX_PLATES, S, S(, B)] u32, raw plates
+def expand_frames_tinted_rgba(frames_rgba):
+    """Rubix source expansion for true-color (packed RGBA u32) frames:
+    [P, S, S(, B)] u32 -> [2*MAX_PLATES, S, S(, B)] u32, raw plates
     then per-plate tinted plates (``c += percent*(tint-c) >> 8`` per
-    channel, ``fisheye.c:884-901``, without the palette snap)."""
+    channel, ``fisheye.c:884-901``, without the palette snap).
+
+    A NumPy array expands on the host and returns NumPy.  A tensor
+    (``torch.uint32``, or its int32 bits) expands where it lies, through K12
+    (:func:`tint_expand_rgba`) on a card, and returns its own dtype:
+    ``Session.render_aa`` and the equirect path use this to keep a rubix
+    source on the device."""
     from blinky_tpu_torch.palette import PLATE_TINTS
+
+    if isinstance(frames_rgba, torch.Tensor):
+        out = tint_expand_rgba(_rgba_tensor(frames_rgba, None))
+        return out.view(torch.uint32) if frames_rgba.dtype == torch.uint32 else out
 
     frames_rgba = np.asarray(frames_rgba, dtype=np.uint32)
     percent = 256 // MAX_PLATES

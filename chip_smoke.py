@@ -6,8 +6,9 @@ Builds the hand-written CUDA kernels from ``blinky_tpu_torch/csrc`` and drives
 the port's main paths at 1920x1080 (panini + cube, ``f_fov 180``):
 ``Session.render``, ``Session.render_posed`` and the float32 device builder's
 (``Session(backend="torch")``, ``setviewangles``, ``PosedRemapKernel``,
-``zoom_sweep_remap``); then checks and times every kernel against its plain
-PyTorch version.  Phases:
+``zoom_sweep_remap``), and the 360-video path at 4096x2048 panos -> 1280x720
+(``Session.render_equirect``, ``Session.render_aa``); then checks and times
+every kernel against its plain PyTorch version.  Phases:
 
 1. set-up: the card's name and power limit, the kernel build;
 2. main path: with every launch counter at 0, the Session renders a
@@ -28,7 +29,9 @@ PyTorch version.  Phases:
    values below 128, and every u8 value), its extrapolation to a 1080p
    screen beside K1's 1080p time, K4 over 1 GiB, and the card's int8 and
    bf16 matrix-product rates at the one-hot gather's shapes, K3's yardstick;
-   the library call beside K3 (``torch.gather``) and K4 (``x.sum``);
+   the library call beside K3 (``torch.gather``) and K4 (``x.sum``); and the
+   plain torch yardsticks: the copy rate over 1 GiB, the row gather of a
+   1080p screen's indices at 1024 and 128 lanes, the element gather;
 6. the posed path: with every launch counter at 0, ``Session.render_posed``
    renders 64 seeded poses of the 1080p batch (K6) for the u8, the expanded
    12-plane rubix and the RGBA u32 source at render_scale 1 and 2, and two
@@ -64,11 +67,31 @@ PyTorch version.  Phases:
    the lens stage and K8, beside the exact host build and the first call; a
    rebuild to the first frame; K9 beside its bound and the sweep beside its
    loop; the builds of mollweide, winkeltripel and fisheye1; and the lens
-   stage's peak of live memory beside what the sweep's chunking allows.
+   stage's peak of live memory beside what the sweep's chunking allows;
+8. the 360-video path: with every launch counter at 0, a
+   ``Session(1280, 720, platesize=720)`` renders a 128-lane batch of
+   4096x2048 panos made on the card (4 GiB) through ``render_equirect`` in
+   the modes compact, fused and faces, plain and with ``f_rubix``, bilinear
+   and nearest (K10, and K1 for compact and faces); a 1080p Session renders
+   the 64-frame batch through ``render_aa`` at factor 2 (K1 at 3840x2160,
+   then K11), and the 720p Session a rubix ``render_aa`` of the faces'
+   expansion on the card (K12); the counters are read.  The three modes are
+   held bit-equal to each other, to ``equirect_gather_plain`` and the plain
+   remap on the card (16 lanes at a time), and lanes 0 and 127 to the
+   all-host path (``EquirectIngest.host``, ``host_remap``); K11 and K12 to
+   their plain versions; ``render_aa(factor=1)`` to the plain u32 render.
+   Then every K10 variant (the full faces, the compact subset, the fused
+   screen with and without the tint; bilinear and nearest), K11 and K12 are
+   timed beside their plain versions with their bytes, bound and share of
+   it, K10-nearest beside ``torch.index_select``; the three modes end to end
+   with the panos on the card, in panos a second
+   (``bench.throughput.run_equirect_throughput``), and once from a NumPy
+   batch; the compact mode at B = 1, 16 and 128; and ``render_aa``, split by
+   ``torch.profiler``'s records into the palette decode, K1 and K11.
 
 The line before the card's name and power limit lists every kernel with its
 launches in its path's run (phase 2 for K1-K4, phase 6 for K5-K7, phase 7
-for K8 and K9), its
+for K8 and K9, phase 8 for K10-K12), its
 time, its plain version's and its library call's time where one PyTorch call
 computes the same function, and its bound.
 
@@ -342,6 +365,15 @@ def main():
               for d, p in mxu.items()) + f"; K3 {oh['tmacs']:.2f} TMAC/s")
     require(oh["library_equal"], "torch.gather differs from onehot_gather")
     phase(5, f"onehot_gather's library call, {oh['library']}: {oh['library_ms']:.4f} ms")
+    (sc,) = (p for p in probes if p["probe"] == "stream_copy")
+    phase(5, f"stream_copy (x + 1, a plain torch call) {sc['bytes']} bytes: {sc['ms']:.4f} ms, "
+          f"{sc['gbps']:.1f} GB/s read + written")
+    for p in probes:
+        if p["probe"] in ("row_gather", "element_gather"):
+            call = "src.index_select(0, idx)" if p["probe"] == "row_gather" else "torch.take(src, idx)"
+            phase(5, f"{p['probe']} ({call}, a plain torch call) {p['n_idx']} indices into "
+                  f"{p['rows']} rows of {p['row_bytes']} bytes: {p['ms']:.4f} ms, "
+                  f"{p['ns_per_index']:.3f} ns/index, {p['gbps']:.1f} GB/s read + written")
     require(sr["equal"], "stream_read differs from the plain version")
     phase(5, f"stream_read {sr['bytes']} bytes: kernel {sr['ms']:.4f} ms "
           f"({sr['gbps']:.1f} GB/s), plain {sr['plain_ms']:.4f} ms "
@@ -353,6 +385,8 @@ def main():
     builder_launches, builder_rows = builder_phase(dev, frames, frames_dev, kernels, lm,
                                                    lensmap_s)
     launches.update(builder_launches)
+    equirect_launches, equirect_rows = equirect_phase(dev, frames, frames_dev, kernels)
+    launches.update(equirect_launches)
 
     k1, k2 = main_ms["remap_gather"], main_ms["remap_lut"]
     rows = [
@@ -367,7 +401,7 @@ def main():
         ("stream_read", "sol.cu", "blinky_tpu/bench/sol.py:222",
          sr["max_abs_err"], sr["ms"], sr["plain_ms"],
          (sr["bytes"] + 4) / HBM_BYTES_PER_S * 1e3, "bytes", sr["library_ms"], sr["library"]),
-    ] + posed_rows + builder_rows
+    ] + posed_rows + builder_rows + equirect_rows
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"blinky_tpu_torch/csrc/{src_file}",
          "replaces": replaces, "launches": launches[name], "max_abs_err": e,
@@ -1031,6 +1065,301 @@ def builder_phase(dev, frames, frames_dev, kernels, exact_lm, exact_s):
          None, None),
     ]
     return launches, rows
+
+
+
+PANO_H, PANO_W, PANO_B = 2048, 4096, 128
+EQ_W, EQ_H, EQ_S = 1280, 720, 720
+EQ_CHUNK = 16  # lanes a plain-version check holds at once
+AA_FACTOR = 2
+MODES = ("compact", "fused", "faces")
+
+
+def equirect_phase(dev, frames, frames_dev, kernels):
+    """Phase 8: the 360-video path and the supersampled render.  Returns (the
+    launches of K10, K11 and K12 in the path's run, their rows of the kernels
+    line)."""
+    from blinky_tpu_torch.api import Session
+    from blinky_tpu_torch.bench import autobatch
+    from blinky_tpu_torch.bench.sol import cuda_ms
+    from blinky_tpu_torch.bench.throughput import device_pano, run_equirect_throughput
+    from blinky_tpu_torch.kernels import ingest, posed, remap, static_ray
+    from blinky_tpu_torch.lensmap import builder
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    panos = device_pano(PANO_H, PANO_W, PANO_B, device=dev)
+    torch.cuda.synchronize()
+    phase(8, f"device_pano: {tuple(panos.shape)} {panos.dtype}, {panos.numel() * 4} bytes on "
+          f"the card in {time.perf_counter() - t0:.3f} s")
+    sess = Session(EQ_W, EQ_H, platesize=EQ_S, device=dev)
+    aa_sess = Session(1920, 1080, device=dev)
+
+    # ------------------------------------------------ the path, counted
+    path_kernels = {"equirect_gather": ingest.equirect_gather,
+                    "downsample_rgba": remap.downsample_rgba,
+                    "tint_expand_rgba": remap.tint_expand_rgba}
+    earlier = [posed.gather_posed, static_ray.static_ray_posed, posed.posed_layout,
+               builder.lensmap_resolve, posed.sweep_remap]
+    for fn in list(kernels.values()) + earlier + list(path_kernels.values()):
+        fn.launches = 0
+    outs, by_mode = {}, {}
+    for mode in MODES:
+        n10, n1 = ingest.equirect_gather.launches, remap.remap_gather.launches
+        for rubix in (False, True):
+            if sess.rubix_enabled != rubix:
+                sess.cmd("f_rubix")
+            for bilinear in (True, False):
+                t0 = time.perf_counter()
+                out = sess.render_equirect(panos, bilinear=bilinear, mode=mode)
+                torch.cuda.synchronize()
+                first_s = time.perf_counter() - t0
+                if mode == MODES[0]:
+                    outs[rubix, bilinear] = out
+                    phase(8, f"render_equirect {mode} rubix={rubix} bilinear={bilinear}: "
+                          f"{tuple(out.shape)} {out.dtype} in {first_s:.3f} s (with the "
+                          "set-up of new tables)")
+                else:
+                    require(torch.equal(out.view(torch.int32),
+                                        outs[rubix, bilinear].view(torch.int32)),
+                            f"render_equirect {mode} rubix={rubix} bilinear={bilinear} "
+                            f"differs from {MODES[0]}")
+                del out
+        by_mode[mode] = (ingest.equirect_gather.launches - n10,
+                         remap.remap_gather.launches - n1)
+    sess.cmd("f_rubix")  # off again
+    aa = aa_sess.render_aa(frames_dev, factor=AA_FACTOR)
+    faces = sess._equirect_cache[1](panos)  # nearest: the last tables the Session used
+    expanded = remap.expand_frames_tinted_rgba(faces)
+    sess.cmd("f_rubix")
+    aa_rubix = sess.render_aa(expanded, factor=AA_FACTOR)
+    sess.cmd("f_rubix")
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in path_kernels.items()}
+    phase(8, f"launches in the 360-video path's run: {launches}; (K10, K1) by mode: {by_mode}; "
+          f"K1 in all: {remap.remap_gather.launches}")
+    for name, n in launches.items():
+        require(n >= 1, f"{name} was not launched by the 360-video path")
+    for mode in MODES:
+        require(by_mode[mode][0] == 4, f"{mode} launched K10 {by_mode[mode][0]} times, not 4")
+        require(by_mode[mode][1] == (0 if mode == "fused" else 4),
+                f"{mode} launched K1 {by_mode[mode][1]} times")
+    phase(8, "compact, fused and faces bit-equal each other, plain and f_rubix, bilinear and "
+          "nearest")
+
+    # ------------------------------------------------ checks
+    k = sess._kernel  # the RemapKernel of the renders above
+    lm = sess.lensmap
+    src = panos.view(torch.int32).reshape(-1, PANO_B)
+    ingests = {b: ingest.EquirectIngest(PANO_H, PANO_W, EQ_S, globe=sess.globe, bilinear=b,
+                                        device=dev) for b in (True, False)}
+    tr, tm = k.tint_rgb_mask
+    err = 0
+    for (rubix, bilinear), out in outs.items():
+        idx, w, pmask = ingests[bilinear].device_tables()
+        bits = out.view(torch.int32)
+        for lo in range(0, PANO_B, EQ_CHUNK):
+            lanes = src[:, lo:lo + EQ_CHUNK].contiguous()
+            f = ingest.equirect_gather_plain(lanes, idx, w if bilinear else None,
+                                             plate_mask=pmask)
+            ref = remap.remap_gather_plain(f, k.flat_idx, k.valid, k.background_rgba,
+                                           **(dict(tint_rgb=tr, tint_mask=tm) if rubix else {}))
+            got = bits[..., lo:lo + EQ_CHUNK].reshape(ref.shape)
+            e = int((got.long() - ref.long()).abs().max())
+            err = max(err, e)
+            require(e == 0 and torch.equal(got, ref),
+                    f"render_equirect rubix={rubix} bilinear={bilinear} lanes {lo}.. differ "
+                    f"from the plain versions (max {e})")
+            del lanes, f, ref
+    phase(8, f"render_equirect at {PANO_W}x{PANO_H} -> {EQ_W}x{EQ_H} B={PANO_B}: every variant "
+          "bit-equal to equirect_gather_plain + remap_gather_plain on the card")
+    for b in (0, PANO_B - 1):
+        pano = src[:, b].cpu().numpy().view(np.uint32).reshape(PANO_H, PANO_W)
+        for bilinear in (True, False):
+            host_faces = ingests[bilinear].host(pano)
+            for rubix in (False, True):
+                host = remap.host_remap(lm, host_faces, sess.palette, rubix=rubix)
+                lane = outs[rubix, bilinear].view(torch.int32)[..., b].cpu().numpy()
+                require(np.array_equal(lane.view(np.uint32), host),
+                        f"render_equirect lane {b} rubix={rubix} bilinear={bilinear} differs "
+                        "from EquirectIngest.host + host_remap")
+    phase(8, f"lanes 0 and {PANO_B - 1} of every variant equal the all-host path "
+          "(EquirectIngest.host, then host_remap)")
+    del outs
+
+    hi_sess = next(iter(aa_sess._aa_cache.values()))
+    rgba = aa_sess._rgba_screen(frames_dev)
+    hi = hi_sess.render(rgba)
+    k11_ref = remap.downsample_rgba_plain(hi.view(torch.int32), AA_FACTOR)
+    k11_err = int((aa.view(torch.int32).long() - k11_ref.long()).abs().max())
+    require(torch.equal(aa.view(torch.int32), k11_ref),
+            f"render_aa differs from downsample_rgba_plain of the hi-res render ({k11_err})")
+    require(torch.equal(aa_sess.render_aa(frames_dev, factor=1).view(torch.int32),
+                        aa_sess.render(rgba).view(torch.int32)),
+            "render_aa(factor=1) differs from the plain u32 render")
+    del k11_ref
+    k12_ref = remap.tint_expand_rgba_plain(faces.view(torch.int32))
+    k12_err = int((expanded.view(torch.int32).long() - k12_ref.long()).abs().max())
+    require(torch.equal(expanded.view(torch.int32), k12_ref),
+            f"expand_frames_tinted_rgba on the card differs from its plain version ({k12_err})")
+    del k12_ref
+    hi_rubix = next(iter(sess._aa_cache.values())).render(expanded, rubix=True)
+    require(torch.equal(aa_rubix.view(torch.int32),
+                        remap.downsample_rgba_plain(hi_rubix.view(torch.int32), AA_FACTOR)),
+            "the rubix render_aa differs from downsample_rgba_plain of its hi-res render")
+    host_x = remap.expand_frames_tinted_rgba(
+        faces.view(torch.int32)[..., 0].cpu().numpy().view(np.uint32))
+    require(np.array_equal(expanded.view(torch.int32)[..., 0].cpu().numpy().view(np.uint32),
+                           host_x),
+            "expand_frames_tinted_rgba on the card differs from its NumPy branch")
+    phase(8, f"render_aa 1920x1080 factor {AA_FACTOR} B={B_MAIN} (K1 at 3840x2160, then K11) "
+          f"bit-equal to downsample_rgba_plain; factor 1 equal to the plain u32 render; the "
+          f"rubix render_aa of the faces' expansion (K12, {tuple(expanded.shape)}) bit-equal "
+          "to the plain versions and the NumPy branch")
+    del aa, aa_rubix, hi_rubix
+
+    # ------------------------------------------------ K10's variants, timed
+    def gather_bytes(idx, w, n_ops, keep=None):
+        """The least bytes of one K10 call: the distinct pano rows the
+        outputs that read any (keep) name, the tables, the per-output
+        operands (n_ops bytes an output) and the output."""
+        rows = int(torch.unique(idx if keep is None else idx[:, keep]).numel())
+        n = idx.shape[1]
+        tables = idx.numel() * 4 + (w.numel() * 4 if w is not None else 0)
+        return rows, rows * PANO_B * 4 + tables + n * n_ops + n * PANO_B * 4
+
+    chains = {b: (ingest.CompactEquirectChain(ingests[b], k),
+                  ingest.EquirectScreenKernel(ingests[b], k)) for b in (True, False)}
+    k10 = {}
+    for bilinear in (True, False):
+        tag = "bilinear" if bilinear else "nearest"
+        compact, fused = chains[bilinear]
+        full = ingests[bilinear].device_tables()
+        sub = compact.sub.device_tables()
+        variants = {
+            f"faces, {tag}": (full[0], full[1], dict(plate_mask=full[2]), 4, full[2] != 0),
+            f"compact, {tag}": (sub[0], sub[1], dict(plate_mask=sub[2]), 4, sub[2] != 0),
+            f"fused, {tag}": (fused.idx, fused.w, dict(valid=k.valid, bg=k.background_rgba),
+                              5, k.valid),
+            f"fused + tint, {tag}": (fused.idx, fused.w,
+                                     dict(valid=k.valid, bg=k.background_rgba, tint_rgb=tr,
+                                          tint_mask=tm), 10, k.valid),
+        }
+        for name, (idx, w, kw, n_ops, keep) in variants.items():
+            w = w if bilinear else None
+            rows, nbytes = gather_bytes(idx, w, n_ops, keep)
+            run = lambda idx=idx, w=w, kw=kw: ingest.equirect_gather(src, idx, w, **kw)  # noqa: E731
+            ref = lambda idx=idx, w=w, kw=kw: ingest.equirect_gather_plain(  # noqa: E731
+                src, idx, w, **kw)
+            e = lane_chunked_err(run(), ref())
+            err = max(err, e)
+            require(e == 0, f"K10 {name} differs from its plain version (max {e})")
+            ms, plain_ms = cuda_ms_pair(run, ref)
+            bound = nbytes / HBM_BYTES_PER_S * 1e3
+            k10[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound)
+            phase(8, f"K10 equirect_gather {name}, n={idx.shape[1]} B={PANO_B}: kernel "
+                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms; {rows} distinct pano rows, {nbytes} "
+                  f"bytes, bound {bound:.4f} ms, {100 * bound / ms:.1f} % of it "
+                  f"({nbytes / (ms * 1e-3) / 1e9:.1f} GB/s); bit-equal")
+            torch.cuda.empty_cache()
+    idx_near = ingests[False].device_tables()[0]
+    lib = lambda: torch.index_select(src, 0, idx_near[0])  # noqa: E731
+    require(torch.equal(lib(), ingest.equirect_gather(src, idx_near)),
+            "torch.index_select differs from K10 on the nearest tables")
+    t_k, t_lib = cuda_ms_pair(lambda: ingest.equirect_gather(src, idx_near), lib)
+    phase(8, f"K10 nearest without an epilogue (a row gather) {t_k:.4f} ms against its library "
+          f"call torch.index_select(src, 0, idx) {t_lib:.4f} ms; the bilinear blend has no "
+          "single library call")
+    texels = int(chains[True][0].sub.texels.size)
+    del chains
+
+    # ------------------------------------------------ K11 and K12, timed
+    hi_bits = hi.view(torch.int32)
+    k11_bytes = hi_bits.numel() * 4 + hi_bits.numel() * 4 // (AA_FACTOR * AA_FACTOR)
+    k11_ms, k11_plain = cuda_ms_pair(lambda: remap.downsample_rgba(hi_bits, AA_FACTOR),
+                                     lambda: remap.downsample_rgba_plain(hi_bits, AA_FACTOR))
+    k11_bound = k11_bytes / HBM_BYTES_PER_S * 1e3
+    phase(8, f"K11 downsample_rgba {tuple(hi.shape)} by {AA_FACTOR}: kernel {k11_ms:.4f} ms, "
+          f"plain {k11_plain:.4f} ms; {k11_bytes} bytes, bound {k11_bound:.4f} ms, "
+          f"{100 * k11_bound / k11_ms:.1f} % of it ({k11_bytes / (k11_ms * 1e-3) / 1e9:.1f} "
+          "GB/s); bit-equal")
+    del hi, hi_bits, rgba
+    torch.cuda.empty_cache()
+    face_bits = faces.view(torch.int32)
+    k12_bytes = face_bits.numel() * 4 + expanded.numel() * 4
+    del expanded
+    k12_ms, k12_plain = cuda_ms_pair(lambda: remap.tint_expand_rgba(face_bits),
+                                     lambda: remap.tint_expand_rgba_plain(face_bits))
+    k12_bound = k12_bytes / HBM_BYTES_PER_S * 1e3
+    phase(8, f"K12 tint_expand_rgba {tuple(faces.shape)}: kernel {k12_ms:.4f} ms, plain "
+          f"{k12_plain:.4f} ms; {k12_bytes} bytes, bound {k12_bound:.4f} ms, "
+          f"{100 * k12_bound / k12_ms:.1f} % of it ({k12_bytes / (k12_ms * 1e-3) / 1e9:.1f} "
+          "GB/s); bit-equal")
+    del faces, face_bits
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------ end to end
+    for bilinear in (True, False):
+        for mode in MODES:
+            r = run_equirect_throughput(
+                PANO_H, PANO_W, EQ_S, EQ_W, EQ_H, iters=5, bilinear=bilinear,
+                texel_compact=mode == "compact", fused=mode == "fused", device=dev, panos=panos)
+            phase(8, f"render_equirect {mode}, panos on the card ({r['config']}): "
+                  f"{r['ms_per_batch']:.4f} ms a batch, {r['fps']:.1f} panos/s")
+    for batch in (1, 16, PANO_B):
+        part = panos.view(torch.int32)[..., :batch].contiguous().view(torch.uint32)
+        ms = cuda_ms(lambda: sess.render_equirect(part, mode="compact"), 5)
+        phase(8, f"render_equirect compact bilinear at B={batch}: {ms:.4f} ms a batch, "
+              f"{batch / (ms * 1e-3):.1f} panos/s, {ms / batch:.4f} ms a pano")
+        del part
+    aa_ms = cuda_ms(lambda: aa_sess.render_aa(frames_dev, factor=AA_FACTOR), 5)
+    wall, dev_ms, busy = profiled(lambda: aa_sess.render_aa(frames_dev, factor=AA_FACTOR), 5)
+    aa_k1 = sum(t for n_, t in dev_ms.items() if "remap_gather" in n_)
+    aa_k11 = sum(t for n_, t in dev_ms.items() if "downsample" in n_)
+    require(aa_k1 > 0 and aa_k11 > 0, "torch.profiler recorded no K1 or K11 under render_aa")
+    phase(8, f"render_aa 1920x1080 factor {AA_FACTOR} B={B_MAIN}, frames on the card: "
+          f"{aa_ms:.4f} ms a batch by the events; under the profiler {wall:.3f} ms a call, the "
+          f"device busy {busy:.4f} ms = the palette decode {busy - aa_k1 - aa_k11:.4f} (every "
+          f"record but the two kernels') + K1 at 3840x2160 on u32 {aa_k1:.4f} + K11 "
+          f"{aa_k11:.4f} ms; device work by record: "
+          + ", ".join(f"{n_[:40]} {t:.4f} ms" for n_, t in dev_ms.items()))
+    fits = {mode: autobatch.equirect_feasible_batch(
+        PANO_H, PANO_W, EQ_S, EQ_W, EQ_H, mode, True, texels, device=dev) for mode in MODES}
+    phase(8, f"the lensmap reads {texels} of {6 * EQ_S * EQ_S} face texels; a pano lane keeps "
+          + ", ".join(f"{autobatch.equirect_bytes_per_lane(PANO_H, PANO_W, EQ_S, EQ_W, EQ_H, m, texels)} "
+                      f"bytes in {m}" for m in MODES)
+          + f"; batches that fit the free memory now: {fits}")
+    host_panos = panos.view(torch.int32).cpu().numpy().view(np.uint32)
+    walls = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        sess.render_equirect(host_panos, mode="compact")
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    phase(8, f"render_equirect compact of a NumPy batch ({host_panos.nbytes} bytes copied from "
+          f"pageable host memory to the card first), host wall clock: "
+          f"{', '.join(f'{w:.3f}' for w in walls)} ms")
+    del host_panos, panos
+    torch.cuda.empty_cache()
+
+    main10 = k10["compact, bilinear"]
+    rows = [
+        ("equirect_gather", "ingest.cu", "blinky_tpu/kernels/ingest.py:133", err,
+         main10["ms"], main10["plain_ms"], main10["bound_ms"], "bytes", None, None),
+        ("downsample_rgba", "resample.cu", "blinky_tpu/kernels/remap.py:370", k11_err, k11_ms,
+         k11_plain, k11_bound, "bytes", None, None),
+        ("tint_expand_rgba", "resample.cu", "blinky_tpu/kernels/remap.py:402", k12_err, k12_ms,
+         k12_plain, k12_bound, "bytes", None, None),
+    ]
+    return launches, rows
+
+
+def lane_chunked_err(got, ref):
+    """max |got - ref| of two [n, B] int32 tensors, taken EQ_CHUNK lanes at a
+    time so that the int64 copies stay small beside the tensors."""
+    require(got.shape == ref.shape, f"shapes differ: {tuple(got.shape)}, {tuple(ref.shape)}")
+    return max(int((got[:, lo:lo + EQ_CHUNK].long() - ref[:, lo:lo + EQ_CHUNK].long())
+                   .abs().max()) for lo in range(0, got.shape[1], EQ_CHUNK))
 
 
 def source_rows(idx, valid, rows, fill):

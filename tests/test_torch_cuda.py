@@ -17,7 +17,7 @@ from blinky_tpu_torch import globes, lenses
 from blinky_tpu_torch.api import Session
 from blinky_tpu_torch.bench import sol
 from blinky_tpu_torch.io.cubemap import synthetic_cubemap_batch
-from blinky_tpu_torch.kernels import posed, remap, static_ray
+from blinky_tpu_torch.kernels import ingest, posed, remap, static_ray
 from blinky_tpu_torch.lensmap import Zoom, build_lensmap, calc_scale
 from blinky_tpu_torch.lensmap import builder
 from blinky_tpu_torch.palette import default_palette, tint_lut
@@ -894,3 +894,245 @@ def test_session_backend_torch_on_card(cuda_device):
             rub[..., 1].cpu().numpy(),
             remap.host_remap(lm, frames[..., 1], sess.palette, rubix=True))
         assert sess.warm_device_builder()
+
+
+# ------------------------------------- the 360-video path and the AA resolve
+
+
+def _gather_case(K, B, n, rows, rng, device, extreme=False):
+    """src [rows, B] int32, idx [K, n], w [K, n] (None for one tap) and the
+    per-output operands of both epilogues."""
+    src = rng.integers(-2**31, 2**31, (rows, B), dtype=np.int64).astype(np.int32)
+    idx = rng.integers(0, rows, (K, n)).astype(np.int32)
+    if extreme:  # weights at 0 and 1, past 1 (the clamp) and on the .5 tie
+        w = rng.choice(np.array([0.0, 1.0, 0.5, 0.25, 2.0, 1e-30, 0.99999994],
+                                np.float32), (K, n))
+        src[:3] = np.array([0, -1, 0x00FF00FF], np.int64).astype(np.uint32).view(
+            np.int32)[:, None]
+    else:
+        f = rng.random((2, n), dtype=np.float32)
+        w = np.stack([(1 - f[0]) * (1 - f[1]), f[0] * (1 - f[1]), (1 - f[0]) * f[1],
+                      f[0] * f[1]]).astype(np.float32)[:K]
+    word = lambda: rng.integers(-2**31, 2**31, n, dtype=np.int64).astype(np.int32)  # noqa: E731
+    ops = dict(plate_mask=np.where(rng.random(n) < 0.7, -1, 0).astype(np.int32),
+               valid=rng.random(n) < 0.8, bg=word(), tint_rgb=word(),
+               tint_mask=rng.random(n) < 0.5)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+    return t(src), t(idx), (t(w) if K == 4 else None), {k: t(v) for k, v in ops.items()}
+
+
+EPILOGUES = {"none": (), "plate_mask": ("plate_mask",), "screen": ("valid", "bg"),
+             "screen_tint": ("valid", "bg", "tint_rgb", "tint_mask")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [1, 4])
+@pytest.mark.parametrize("B", [1, 3, 4, 5, 128, 129])
+@pytest.mark.parametrize("epilogue", list(EPILOGUES))
+def test_equirect_gather_equals_plain(cuda_device, K, B, epilogue):
+    """K10 against its plain version: both tap counts, every epilogue, the
+    vector path (B % 4 == 0) and the scalar one, n not a multiple of the
+    pixels a block takes, ordinary and extreme weights."""
+    rng = np.random.default_rng(K * 1000 + B)
+    for n, extreme in ((1, False), (1037, False), (515, True)):
+        src, idx, w, ops = _gather_case(K, B, n, 97, rng, cuda_device, extreme)
+        kw = {k: ops[k] for k in EPILOGUES[epilogue]}
+        n0 = ingest.equirect_gather.launches
+        got = ingest.equirect_gather(src, idx, w, **kw)
+        assert ingest.equirect_gather.launches == n0 + 1
+        _equal(got, ingest.equirect_gather_plain(src, idx, w, **kw))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [1, 4])
+def test_equirect_gather_misaligned_and_long_rows(cuda_device, K):
+    """A batch slice whose rows start off a 16-byte boundary takes the
+    scalar path; a row longer than a block's 256 vectors is walked by the
+    whole block; indices outside the source are clipped."""
+    rng = np.random.default_rng(K)
+    src, idx, w, ops = _gather_case(K, 8, 300, 50, rng, cuda_device)
+    flat = torch.cat([src.reshape(-1), src.reshape(-1)[:1]])
+    view = flat[1:].reshape(50, 8)
+    assert view.data_ptr() % 16 != 0
+    _equal(ingest.equirect_gather(view, idx, w, plate_mask=ops["plate_mask"]),
+           ingest.equirect_gather_plain(view, idx, w, plate_mask=ops["plate_mask"]))
+    src, idx, w, ops = _gather_case(K, 4 * 300, 9, 20, rng, cuda_device)
+    _equal(ingest.equirect_gather(src, idx, w, valid=ops["valid"], bg=ops["bg"]),
+           ingest.equirect_gather_plain(src, idx, w, valid=ops["valid"], bg=ops["bg"]))
+    src, idx, w, ops = _gather_case(K, 1100, 9, 20, rng, cuda_device)  # scalar, 5 passes
+    idx[:, ::3] = torch.tensor([-5, 20, 2**31 - 1], dtype=torch.int32,
+                               device=cuda_device)[rng.integers(0, 3)]
+    _equal(ingest.equirect_gather(src, idx, w), ingest.equirect_gather_plain(src, idx, w))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [1, 4])
+def test_equirect_gather_source_past_int32(cuda_device, K):
+    """A source of 2^31 + 2^20 int32 elements (8.6 GB): rows past element
+    2^31 and past byte 2^32 are read at 64-bit offsets."""
+    B = 128
+    rows = 2**24 + 2**13
+    assert rows * B > 2**31
+    src = torch.empty((rows, B), dtype=torch.int32, device=cuda_device)
+    step = 2**20
+    gen = torch.Generator(cuda_device).manual_seed(K)
+    for r0 in range(0, rows, step):
+        src[r0:r0 + step] = torch.randint(-2**31, 2**31 - 1, (min(step, rows - r0), B),
+                                          dtype=torch.int32, device=cuda_device,
+                                          generator=gen)
+    rng = np.random.default_rng(7)
+    n = 4096
+    idx = np.concatenate([rng.integers(0, rows, (K, n - 8)),
+                          np.full((K, 8), rows - 1)], 1).astype(np.int32)
+    idx[:, :8] = 2**24 + np.arange(8)  # just past element 2^31
+    f = rng.random((4, n), dtype=np.float32)
+    w = (f / f.sum(0)).astype(np.float32)[:K]
+    idx, w = (torch.from_numpy(a).to(cuda_device) for a in (idx, w))
+    w = w if K == 4 else None
+    _equal(ingest.equirect_gather(src, idx, w), ingest.equirect_gather_plain(src, idx, w))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [2, 3, 4, 6])
+@pytest.mark.parametrize("rest", [(), (1,), (3,), (4,), (5,), (64,), (130,)],
+                         ids=lambda r: "B" + "x".join(map(str, r)) if r else "single")
+def test_downsample_rgba_equals_plain(cuda_device, k, rest):
+    """K11 against its plain version: every k of the CPU tests, a single
+    screen and ragged and vector batches."""
+    gen = torch.Generator(cuda_device).manual_seed(k)
+    hi = torch.randint(-2**31, 2**31 - 1, (k * 7, k * 9) + rest, dtype=torch.int32,
+                       device=cuda_device, generator=gen)
+    n0 = remap.downsample_rgba.launches
+    got = remap.downsample_rgba(hi, k)
+    assert remap.downsample_rgba.launches == n0 + 1 and got.dtype == torch.uint32
+    _equal(got.view(torch.int32), remap.downsample_rgba_plain(hi, k))
+    _equal(remap.downsample_rgba(hi.view(torch.uint32), k).view(torch.int32),
+           got.view(torch.int32))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 6, 16])
+def test_downsample_rgba_every_sum(cuda_device, k):
+    """Every channel sum a k x k block can have (the .5 ties among them), in
+    all three channels, through the kernel."""
+    sums = np.arange(255 * k * k + 1)
+    q, r = np.divmod(sums, k * k)
+    blocks = q[:, None] + (np.arange(k * k)[None, :] < r[:, None])
+    hi = blocks.reshape(-1, k, k).transpose(1, 0, 2).reshape(k, -1).astype(np.uint32)
+    hi = torch.from_numpy((hi | (hi << 8) | (hi << 16)).view(np.int32)).to(cuda_device)
+    _equal(remap.downsample_rgba(hi, k).view(torch.int32),
+           remap.downsample_rgba_plain(hi, k))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plates", [1, 2, 6])
+@pytest.mark.parametrize("rest", [(3, 3), (5, 5, 1), (4, 4, 3), (8, 8, 4), (16, 16, 130)],
+                         ids=lambda r: "x".join(map(str, r)))
+def test_tint_expand_rgba_equals_plain(cuda_device, plates, rest):
+    """K12 against its plain version: 1, 2 and 6 plates, planes whose size is
+    and is not a multiple of four texels."""
+    gen = torch.Generator(cuda_device).manual_seed(plates)
+    frames = torch.randint(-2**31, 2**31 - 1, (plates,) + rest, dtype=torch.int32,
+                           device=cuda_device, generator=gen)
+    frames.reshape(plates, -1)[:, 0] = -1  # c = 255 against tints of 0: t < c
+    n0 = remap.tint_expand_rgba.launches
+    got = remap.tint_expand_rgba(frames)
+    assert remap.tint_expand_rgba.launches == n0 + 1
+    assert tuple(got.shape) == (12,) + rest
+    _equal(got, remap.tint_expand_rgba_plain(frames))
+    _equal(remap.expand_frames_tinted_rgba(frames.view(torch.uint32)).view(torch.int32), got)
+    np.testing.assert_array_equal(
+        got.cpu().numpy().view(np.uint32),
+        remap.expand_frames_tinted_rgba(frames.cpu().numpy().view(np.uint32)))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_u8_frames_on_card_decode_there_and_never_come_down(cuda_device, monkeypatch):
+    """The palette decode of a u8 tensor on the card, whole and in pieces,
+    equals the host's; the host-only u8 rubix expansion raises for it."""
+    from blinky_tpu_torch import api
+
+    sess = Session(32, 24, platesize=16, device=cuda_device)
+    frames = np.random.default_rng(3).integers(0, 256, (6, 9, 9, 5), dtype=np.uint8)
+    on_card = torch.from_numpy(frames).to(cuda_device)
+    want = remap.frames_to_rgba(frames, sess.palette)
+    for chunk in (1 << 26, 11):
+        monkeypatch.setattr(api, "_DECODE_CHUNK", chunk)
+        got = sess._rgba_screen(on_card)
+        assert got.device.type == "cuda" and got.dtype == torch.uint32
+        np.testing.assert_array_equal(got.view(torch.int32).cpu().numpy().view(np.uint32), want)
+    with pytest.raises(TypeError, match="host-only"):
+        remap.expand_rubix_source(on_card, sess.palette)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("script", [(), ("f_rubix",), ("f_lens hammer", "f_contain"),
+                                    ("f_globe tetra", "f_rubix")],
+                         ids=["defaults", "rubix", "hammer_contain", "tetra_rubix"])
+@pytest.mark.parametrize("B", [1, 5, 128])
+def test_session_render_equirect_on_card_equals_cpu(cuda_device, script, B):
+    """render_equirect on the card (K10, and K1 for compact and faces)
+    equals the device="cpu" Session on the same exact host lensmap, in all
+    three modes, bilinear and nearest, panos as NumPy and on the card."""
+    rng = np.random.default_rng(B)
+    panos = rng.integers(0, 2**32, (32, 64, B), dtype=np.uint64).astype(np.uint32)
+    card = Session(48, 36, platesize=24, device=cuda_device)
+    cpu = Session(48, 36, platesize=24, device="cpu")
+    for line in script:
+        card.cmd(line)
+        cpu.cmd(line)
+    on_card = torch.from_numpy(panos).to(cuda_device)
+    for bilinear in (True, False):
+        want = cpu.render_equirect(panos, bilinear=bilinear, mode="faces")
+        for mode in ("compact", "fused", "faces"):
+            n10, n1 = ingest.equirect_gather.launches, remap.remap_gather.launches
+            got = card.render_equirect(on_card, bilinear=bilinear, mode=mode)
+            assert got.device.type == "cuda" and got.dtype == torch.uint32
+            assert ingest.equirect_gather.launches == n10 + 1
+            assert remap.remap_gather.launches == n1 + (mode != "fused")
+            _equal(got.cpu().view(torch.int32), want.view(torch.int32))
+        _equal(card.render_equirect(panos, bilinear=bilinear).cpu().view(torch.int32),
+               want.view(torch.int32))
+    one = card.render_equirect(panos[..., 0])
+    _equal(one.cpu().view(torch.int32),
+           cpu.render_equirect(panos[..., 0]).view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("factor", [1, 2, 3])
+@pytest.mark.parametrize("source", ["u8", "u32_batch", "expanded_on_card"])
+def test_session_render_aa_on_card_equals_cpu(cuda_device, factor, source):
+    """render_aa on the card (K1 at factor times the size, then K11; K12
+    for the expansion of faces on the card) equals the device="cpu"
+    Session."""
+    rng = np.random.default_rng(factor)
+    card = Session(64, 48, platesize=32, device=cuda_device)
+    cpu = Session(64, 48, platesize=32, device="cpu")
+    for s in (card, cpu):
+        s.cmd("f_lens fisheye1; f_contain")
+        s.set_background(np.full((48, 64), 251, np.uint8))
+    if source == "u8":
+        frames = rng.integers(0, 256, (6, 32, 32), dtype=np.uint8)
+        got, want = card.render_aa(frames, factor=factor), cpu.render_aa(frames, factor=factor)
+    elif source == "u32_batch":
+        frames = rng.integers(0, 2**32, (6, 32, 32, 5), dtype=np.uint64).astype(np.uint32)
+        got = card.render_aa(torch.from_numpy(frames).to(cuda_device), factor=factor)
+        want = cpu.render_aa(frames, factor=factor)
+    else:
+        faces = rng.integers(0, 2**32, (6, 32, 32, 4), dtype=np.uint64).astype(np.uint32)
+        n12 = remap.tint_expand_rgba.launches
+        expanded = remap.expand_frames_tinted_rgba(torch.from_numpy(faces).to(cuda_device))
+        assert remap.tint_expand_rgba.launches == n12 + 1
+        for s in (card, cpu):
+            s.cmd("f_rubix")
+        n11 = remap.downsample_rgba.launches
+        got = card.render_aa(expanded, factor=factor)
+        assert remap.downsample_rgba.launches == n11 + (factor > 1)
+        want = cpu.render_aa(remap.expand_frames_tinted_rgba(faces), factor=factor)
+    assert got.device.type == "cuda" and got.dtype == torch.uint32
+    _equal(got.cpu().view(torch.int32), want.view(torch.int32))

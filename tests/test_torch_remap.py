@@ -342,3 +342,117 @@ def test_device_source_texels_equals_jax(rgba):
     got = device_source_texels(S, 37, rgba, texels, device="cpu", chunk=16)
     np.testing.assert_array_equal(
         got.numpy().view(np.uint32) if rgba else got.numpy(), expect)
+
+
+# ------------------------------------------------ K11 and K12's plain versions
+
+
+def _blocks_with_every_sum(k):
+    """[k, n*k] u32 screen whose n = 255*k*k + 1 blocks of k x k hold every
+    possible channel sum once (the all-equal blocks at every value and the
+    sums k*k*n + k*k/2 that land on the .5 tie among them), the same value
+    in R, G and B and a varying alpha that the resolve must overwrite."""
+    sums = np.arange(255 * k * k + 1)
+    q, r = np.divmod(sums, k * k)
+    blocks = q[:, None] + (np.arange(k * k)[None, :] < r[:, None])
+    assert (blocks.sum(1) == sums).all() and blocks.max() <= 255
+    hi = blocks.reshape(-1, k, k).transpose(1, 0, 2).reshape(k, -1).astype(np.uint32)
+    return hi | (hi << 8) | (hi << 16) | ((hi ^ 0x5A) << 24), sums
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 6])
+def test_downsample_rgba_every_sum_equals_jax(k):
+    """Every channel sum a k x k block can have, against _downsample_rgba.
+    What this pins: jnp.mean's divide by k*k and a multiply by the float32
+    reciprocal give the same byte for every sum at these k (after + 0.5 and
+    the truncation), so the kernel's correctly rounded divide equals both."""
+    hi, sums = _blocks_with_every_sum(k)
+    want = np.asarray(jremap.downsample_rgba(hi, k))
+    got = remap.downsample_rgba(hi, k, device="cpu")
+    assert got.dtype == torch.uint32 and tuple(got.shape) == (1, sums.size)
+    np.testing.assert_array_equal(got.numpy(), want)
+    on_cpu = remap.downsample_rgba(torch.from_numpy(hi), k)  # a tensor stays where it is
+    np.testing.assert_array_equal(on_cpu.numpy(), want)
+    s32 = sums.astype(np.float32)
+    by_div = np.clip(s32 / np.float32(k * k) + np.float32(0.5), 0, 255).astype(np.uint32)
+    by_rcp = np.clip(s32 * (np.float32(1) / np.float32(k * k)) + np.float32(0.5),
+                     0, 255).astype(np.uint32)
+    np.testing.assert_array_equal(want[0] & 0xFF, by_div)
+    np.testing.assert_array_equal(by_div, by_rcp)
+    assert (want >> 24 == 0xFF).all()
+
+
+@pytest.mark.parametrize("k,shape", [(2, (8, 12)), (3, (9, 6, 5)), (4, (8, 8, 1)),
+                                     (6, (12, 18, 3)), (1, (5, 7, 2))])
+def test_downsample_rgba_random_equals_jax(k, shape):
+    rng = np.random.default_rng(k * 31 + len(shape))
+    hi = rng.integers(0, 2**32, shape, dtype=np.uint64).astype(np.uint32)
+    want = np.asarray(jremap.downsample_rgba(hi, k))
+    np.testing.assert_array_equal(remap.downsample_rgba(hi, k, device="cpu").numpy(), want)
+    bits = torch.from_numpy(hi.view(np.int32))
+    np.testing.assert_array_equal(
+        remap.downsample_rgba(bits, k).numpy(), want)  # int32 bits in, uint32 out
+
+
+def test_downsample_rgba_checks_operands():
+    hi = np.zeros((8, 12), np.uint32)
+    with pytest.raises(ValueError, match="not divisible"):
+        remap.downsample_rgba(hi, 5, device="cpu")
+    with pytest.raises(ValueError, match="factor must be"):
+        remap.downsample_rgba(hi, 0, device="cpu")
+    with pytest.raises(ValueError, match="factor must be"):
+        remap.downsample_rgba(hi, 257, device="cpu")
+    with pytest.raises(TypeError, match="torch.uint32"):
+        remap.downsample_rgba(torch.zeros((8, 12), dtype=torch.uint8), 2)
+    with pytest.raises(ValueError, match=r"\[kH, kW"):
+        remap.downsample_rgba(np.zeros((8,), np.uint32), 2, device="cpu")
+    assert remap.downsample_rgba.launches == 0
+
+
+@pytest.mark.parametrize("plates,rest", [(6, (4, 4, 3)), (2, (5, 5)), (1, (3, 3, 1)),
+                                         (5, (2, 2, 7))])
+def test_expand_frames_tinted_rgba_tensor_branch_equals_jax(plates, rest):
+    """The tensor branch (K12's plain version here) against the JAX
+    function's NumPy and jnp branches.  Channels at 0 and 255 against tints
+    of 0 and 255 give t < c, where ``42 * (t - c)`` is negative and ``>>``
+    must be an arithmetic shift."""
+    rng = np.random.default_rng(plates)
+    frames = rng.integers(0, 2**32, (plates,) + rest, dtype=np.uint64).astype(np.uint32)
+    frames.reshape(plates, -1)[:, 0] = 0xFFFFFFFF  # c = 255 in every channel
+    frames.reshape(plates, -1)[:, 1] = 0
+    frames.reshape(plates, -1)[:, 2] = 0x00FE01FF
+    want = jremap.expand_frames_tinted_rgba(frames)
+    np.testing.assert_array_equal(np.asarray(
+        jremap.expand_frames_tinted_rgba(jnp.asarray(frames))), want)
+    np.testing.assert_array_equal(remap.expand_frames_tinted_rgba(frames), want)
+    got = remap.expand_frames_tinted_rgba(torch.from_numpy(frames))
+    assert got.dtype == torch.uint32 and tuple(got.shape) == (12,) + rest
+    np.testing.assert_array_equal(got.numpy(), want)
+    bits = remap.expand_frames_tinted_rgba(torch.from_numpy(frames.view(np.int32)))
+    assert bits.dtype == torch.int32
+    np.testing.assert_array_equal(bits.numpy().view(np.uint32), want)
+    # t < c somewhere: plate 1's tint is (0, 0, 255) against c = 255 in red
+    if plates > 1:
+        assert (want[7].reshape(-1)[0] & 0xFF) == 255 + ((42 * (0 - 255)) >> 8)
+
+
+def test_expand_rubix_source_dispatch(pal):
+    frames = _frames(2, seed=5)
+    rgba = remap.frames_to_rgba(frames, pal)
+    np.testing.assert_array_equal(remap.expand_rubix_source(frames, pal),
+                                  jremap.expand_rubix_source(frames, pal))
+    np.testing.assert_array_equal(remap.expand_rubix_source(rgba, pal),
+                                  jremap.expand_rubix_source(rgba, pal))
+    got = remap.expand_rubix_source(torch.from_numpy(rgba), pal)
+    assert isinstance(got, torch.Tensor)
+    np.testing.assert_array_equal(got.numpy(), jremap.expand_rubix_source(rgba, pal))
+    np.testing.assert_array_equal(remap.expand_rubix_source(torch.from_numpy(frames), pal),
+                                  jremap.expand_rubix_source(frames, pal))
+    # the u8 expansion is host-only: a u8 tensor off the CPU is not brought down
+    with pytest.raises(TypeError, match="host-only"):
+        remap.expand_rubix_source(torch.zeros((2, 4, 4), dtype=torch.uint8, device="meta"), pal)
+    with pytest.raises(ValueError, match="source planes"):
+        remap.tint_expand_rgba(torch.zeros((7, 2, 2), dtype=torch.int32))
+    with pytest.raises(ValueError, match="int32"):
+        remap.tint_expand_rgba(torch.zeros((2, 2, 2), dtype=torch.uint8))
+    assert remap.tint_expand_rgba.launches == 0

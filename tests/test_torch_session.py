@@ -341,3 +341,253 @@ def test_posed_table_reuse_needs_an_identity_view_build():
     assert p._reusable_static_lensmap(scale, p.platesize, 1) is p._lensmap  # built before
     p.lensmap
     assert p._reusable_static_lensmap(scale, p.platesize, 1) is None
+
+
+# ---------------------------------------------------------------- the 360-video path
+# and the supersampled render: tolerance 0, as the JAX package pins its own
+# three formulations to each other (tests/test_equirect_fused.py).
+
+EQ = dict(pano=(32, 64), screen=(48, 36), platesize=24)
+
+
+def _equirect_pair(script=()):
+    W, H = EQ["screen"]
+    j = JSession(W, H, platesize=EQ["platesize"], backend="numpy")
+    p = Session(W, H, platesize=EQ["platesize"], device="cpu")
+    for line in script:
+        j.cmd(line)
+        p.cmd(line)
+    return j, p
+
+
+def _eq_panos(B, seed=0):
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, 2**32, EQ["pano"] + (B,), dtype=np.uint64).astype(np.uint32)
+
+
+@pytest.mark.parametrize("mode", ["compact", "fused", "faces"])
+@pytest.mark.parametrize("script", [(), ("f_rubix",), ("f_lens hammer", "f_contain"),
+                                    ("f_globe tetra", "f_rubix")],
+                         ids=["defaults", "rubix", "hammer_contain", "tetra_rubix"])
+def test_render_equirect_equals_jax(mode, script):
+    """A batch, one [H, W] u32 pano and one [H, W, 3] u8 RGB pano, bilinear
+    and nearest, against blinky_tpu's Session; the three modes bit-equal."""
+    j, p = _equirect_pair(script)
+    panos = _eq_panos(3, seed=len(script))
+    for bilinear in (True, False):
+        want = np.asarray(j.render_equirect(panos, bilinear=bilinear, mode=mode))
+        got = p.render_equirect(panos, bilinear=bilinear, mode=mode)
+        assert isinstance(got, torch.Tensor) and got.dtype == torch.uint32
+        _same(got, want)
+        _same(p.render_equirect(panos, bilinear=bilinear), want)  # compact, the default
+        _same(p.render_equirect(torch.from_numpy(panos), bilinear=bilinear, mode=mode), want)
+    one = panos[..., 1]
+    _same(p.render_equirect(one, mode=mode), j.render_equirect(one, mode=mode))
+    _same(p.render_equirect(torch.from_numpy(one), mode=mode),
+          j.render_equirect(one, mode=mode))
+    rgb = np.random.default_rng(8).integers(0, 256, EQ["pano"] + (3,), np.uint8)
+    got = p.render_equirect(rgb, mode=mode)
+    assert tuple(got.shape) == (EQ["screen"][1], EQ["screen"][0])
+    _same(got, j.render_equirect(rgb, mode=mode))
+
+
+def test_render_equirect_state_changes_and_fallbacks():
+    j, p = _equirect_pair()
+    panos = _eq_panos(2, seed=3)
+    base = p.render_equirect(panos)
+    with pytest.raises(ValueError, match="compact|fused|faces"):
+        p.render_equirect(panos, mode="bogus")
+    for cmd in ("f_rubix", "f_rubix", "f_lens stereographic", "f_fov 120"):
+        j.cmd(cmd)
+        p.cmd(cmd)
+        for mode in ("compact", "fused", "faces"):
+            _same(p.render_equirect(panos, mode=mode), j.render_equirect(panos, mode=mode))
+    assert not torch.equal(p.render_equirect(panos).view(torch.int32),
+                           base.view(torch.int32))
+    # a u8 background shows decoded where the lens leaves gaps
+    bg = np.full((EQ["screen"][1], EQ["screen"][0]), 251, np.uint8)
+    for s in (j, p):
+        s.cmd("f_lens fisheye1; f_contain")
+        s.set_background(bg)
+    for mode in ("compact", "fused", "faces"):
+        _same(p.render_equirect(panos, mode=mode), j.render_equirect(panos, mode=mode))
+    # an invalid lens: every mode steps aside to the decoded background
+    for s in (j, p):
+        s.cmd("f_lens nosuch")
+    for mode in ("compact", "fused", "faces"):
+        got = p.render_equirect(panos, mode=mode)
+        assert got.dtype == torch.uint32
+        _same(got, j.render_equirect(panos, mode=mode))
+    # fisheye 0 raises where render raises
+    p.cmd("f_lens panini; fisheye 0")
+    for mode in ("compact", "fused", "faces"):
+        with pytest.raises(NotImplementedError, match="fisheye 0"):
+            p.render_equirect(panos, mode=mode)
+
+
+def test_render_equirect_alternating_modes_keep_both_chains(monkeypatch):
+    """The composed-chain cache is a dict validated by RemapKernel identity:
+    alternating modes builds each chain once; a lens switch drops both."""
+    import blinky_tpu_torch.kernels.ingest as ing
+
+    _, p = _equirect_pair()
+    panos = _eq_panos(2, seed=5)
+    builds = []
+    for name in ("CompactEquirectChain", "EquirectScreenKernel"):
+        orig = getattr(ing, name)
+
+        def counted(*a, _o=orig, _n=name, **k):
+            builds.append(_n)
+            return _o(*a, **k)
+
+        monkeypatch.setattr(ing, name, counted)
+    a = p.render_equirect(panos)
+    _same(p.render_equirect(panos, mode="fused"), a.numpy())
+    assert builds == ["CompactEquirectChain", "EquirectScreenKernel"]
+    _same(p.render_equirect(panos), a.numpy())
+    _same(p.render_equirect(panos, mode="faces"), a.numpy())
+    _same(p.render_equirect(panos, mode="fused"), a.numpy())
+    assert len(builds) == 2
+    ingest_before = p._equirect_cache[1]
+    p.cmd("f_lens stereographic")
+    p.render_equirect(panos)
+    assert builds[-1] == "CompactEquirectChain" and len(builds) == 3
+    assert len(p._equirect_fused) == 1  # the stale generation is evicted
+    assert p._equirect_cache[1] is ingest_before  # the ingest does not depend on the lens
+    p.render_equirect(panos, bilinear=False)
+    assert p._equirect_cache[1] is not ingest_before
+
+
+@pytest.mark.parametrize("factor", [1, 2, 3])
+@pytest.mark.parametrize("source", ["u8", "u32", "expanded_u8", "expanded_u32", "batch"])
+def test_render_aa_equals_jax(factor, source):
+    from blinky_tpu.kernels.remap import expand_frames_tinted_rgba as jexpand_rgba
+    from blinky_tpu_torch.kernels.remap import expand_frames_tinted_rgba
+
+    j = JSession(64, 48, platesize=32, backend="numpy")
+    p = Session(64, 48, platesize=32, device="cpu")
+    for s in (j, p):
+        s.cmd("f_lens fisheye1; f_contain")  # a circular boundary: aliasing
+    frames = _frames(3 if source == "batch" else 0, size=32, seed=factor)
+    rubix = source.startswith("expanded")
+    if source == "u32":
+        jf, pf = jrgba(frames, j.palette), frames_to_rgba(frames, p.palette)
+    elif source == "expanded_u8":
+        jf, pf = jexpand(frames, j.palette), expand_frames_tinted(frames, p.palette)
+    elif source == "expanded_u32":
+        jf = jexpand_rgba(jrgba(frames, j.palette))
+        pf = expand_frames_tinted_rgba(frames_to_rgba(frames, p.palette))
+    else:
+        jf = pf = frames
+    if rubix:
+        for s in (j, p):
+            s.cmd("f_rubix")
+    want = np.asarray(j.render_aa(jf, factor=factor))
+    got = p.render_aa(pf, factor=factor)
+    assert isinstance(got, torch.Tensor) and got.dtype == torch.uint32
+    _same(got, want)
+    _same(p.render_aa(torch.from_numpy(pf), factor=factor), want)  # frames as a tensor
+    if factor == 1 and not rubix:
+        _same(got, p.render(frames_to_rgba(frames, p.palette)))
+
+
+def test_render_aa_errors_background_and_cache():
+    j = JSession(32, 24, platesize=16, backend="numpy")
+    p = Session(32, 24, platesize=16, device="cpu")
+    frames = _frames(0, size=16, seed=2)
+    with pytest.raises(ValueError, match="factor"):
+        p.render_aa(frames, factor=0)
+    p.cmd("f_rubix")
+    with pytest.raises(ValueError, match="expanded"):
+        p.render_aa(frames, factor=2)
+    p.cmd("f_rubix")
+    # a background shows through where the lens leaves gaps
+    bg = np.full((24, 32), 251, np.uint8)
+    for s in (j, p):
+        s.cmd("f_lens fisheye1; f_contain")
+        s.set_background(bg)
+    aa = p.render_aa(frames, factor=2)
+    _same(aa, j.render_aa(frames, factor=2))
+    assert int(aa.view(torch.int32)[0, 0]) == int(
+        frames_to_rgba(bg, p.palette).view(np.int32)[0, 0])
+    # alternating factors both stay cached; a lens switch makes a new entry
+    p.render_aa(frames, factor=1)
+    cache = p._aa_cache
+    n = len(cache)
+    assert n >= 2
+    hi = next(iter(cache.values()))
+    p.render_aa(frames, factor=2)
+    assert len(p._aa_cache) == n and next(iter(p._aa_cache.values())) is hi
+    for s in (j, p):
+        s.cmd("f_lens hammer")
+    _same(p.render_aa(frames, factor=2), j.render_aa(frames, factor=2))
+    assert len(p._aa_cache) == n + 1
+    for f in (3, 4, 6):  # never more than four hi-res sessions
+        p.render_aa(frames, factor=f)
+    assert len(p._aa_cache) <= 4
+    # a view rotation is mirrored (the float32 device builder on both sides
+    # of the port: held to itself), and a palette change flushes the cache
+    p.cmd("setviewangles 10 30 0")
+    rot = p.render_aa(frames, factor=2)
+    assert not torch.equal(rot.view(torch.int32), aa.view(torch.int32))
+    pal2 = p.palette.copy()
+    pal2[251] = (0, 255, 0)
+    p.palette = pal2
+    j.palette = pal2
+    assert p._aa_cache is None
+    p.cmd("setviewangles")
+    _same(p.render_aa(frames, factor=2), j.render_aa(frames, factor=2))
+    # an invalid lens: the decoded background, box-averaged
+    for s in (j, p):
+        s.cmd("f_lens nosuch")
+    _same(p.render_aa(frames, factor=2), j.render_aa(frames, factor=2))
+
+
+@pytest.mark.parametrize("chunk", [1, 7, 1 << 26])
+def test_palette_decode_in_pieces_and_cached(monkeypatch, chunk):
+    """The decode of a u8 tensor to packed RGBA, whatever the piece size, is
+    the host's ``frames_to_rgba``; the LUT is uploaded once a palette."""
+    monkeypatch.setattr(api, "_DECODE_CHUNK", chunk)
+    p = Session(32, 24, platesize=16, device="cpu")
+    frames = _frames(3, size=5, seed=4)
+    got = p._rgba_screen(torch.from_numpy(frames))
+    assert got.dtype == torch.uint32 and got.shape == frames.shape
+    _same(got, frames_to_rgba(frames, p.palette))
+    lut = p._rgba_lut
+    _same(p._rgba_screen(torch.from_numpy(frames[..., 1])),  # not contiguous
+          frames_to_rgba(frames[..., 1], p.palette))
+    assert p._rgba_lut is lut
+    assert p._rgba_screen(got) is got  # packed RGBA passes
+    pal2 = p.palette.copy()
+    pal2[:, 0] = 255 - pal2[:, 0]
+    p.palette = pal2
+    assert p._rgba_lut is None
+    _same(p._rgba_screen(torch.from_numpy(frames)), frames_to_rgba(frames, pal2))
+
+
+@pytest.mark.parametrize("script", [
+    [], ["f_rubixgrid 5 3 2", "f_globe tetra", "f_vfov 70"],
+    ["f_lens stereographic", "f_fov 200", 'alias z "f_fov 100"'],
+    ["f_lens stereographic", "f_cover"],
+    ["f_lens hammer", "f_contain", "fisheye 0"],
+], ids=["defaults", "grid_tetra_vfov", "stereo_fov_alias", "stereo_cover", "hammer_contain_off"])
+def test_config_str_replays_into_a_fresh_session(script, tmp_path):
+    """config_str replayed into a bare Session gives the same state and an
+    equal lensmap; its lines are blinky_tpu's minus the bind and fov ones."""
+    j, p = _pair(script)
+    jlines = [ln for ln in j.config_str().splitlines()
+              if not ln.startswith(("unbindall", "bind ", "fov "))]
+    assert p.config_str().splitlines() == jlines
+    fresh = Session(64, 48, device="cpu", defaults=False)
+    for line in p.config_str().splitlines():
+        fresh.cmd(line)
+    p.write_config(tmp_path / "config.cfg")
+    filed = Session(64, 48, device="cpu", defaults=False)
+    filed.exec_config(tmp_path / "config.cfg")
+    for s in (fresh, filed):
+        assert s.config_str() == p.config_str()
+        assert s.aliases == p.aliases and s.fisheye_enabled == p.fisheye_enabled
+        a, b = s.lensmap, p.lensmap
+        assert (a is None) == (b is None)  # a zoom the lens cannot solve
+        for f in ("flat_idx", "valid", "tint", "plates_used") if b is not None else ():
+            np.testing.assert_array_equal(getattr(a, f), getattr(b, f))

@@ -159,3 +159,61 @@ def test_timer_needs_a_card():
         pytest.skip("checks the behaviour without a card")
     with pytest.raises((RuntimeError, AssertionError)):
         sol.cuda_ms(lambda: None, iters=1)
+
+
+def _host_ms(fn, iters, warmup=1):
+    """A host-clock stand-in for cuda_ms, so the probes' bodies run here."""
+    import time
+
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    return max((time.perf_counter() - t0) * 1e3 / iters, 1e-6)
+
+
+@pytest.mark.parametrize("probe,jkw,kw", [
+    ("stream_copy", dict(nbytes=1 << 16, iters=2), dict(nbytes=1 << 16, iters=2)),
+    ("row_gather", dict(n_rows=1 << 10, row_bytes=128, n_idx=1 << 9, iters=2),
+     dict(n_rows=1 << 10, row_bytes=128, n_idx=1 << 9, iters=2)),
+    ("element_gather", dict(n_elems=1 << 12, n_idx=1 << 10, iters=2),
+     dict(n_elems=1 << 12, n_idx=1 << 10, iters=2)),
+])
+def test_xla_probes_return_the_jax_probes_keys(monkeypatch, probe, jkw, kw):
+    """stream_copy, row_gather and element_gather: the JAX probes' keys and
+    their counted values (bytes, rows, indices), with the timer replaced by
+    a host clock so that the bodies run on the CPU."""
+    monkeypatch.setattr(sol, "cuda_ms", _host_ms)
+    want = getattr(jsol, probe)(**jkw)
+    got = getattr(sol, probe)("cpu", **kw)
+    assert set(got) == set(want)
+    for key in set(want) - {"ms", "gbps", "ns_per_index"}:
+        assert got[key] == want[key], key
+    assert got["ms"] > 0 and got["gbps"] > 0
+
+
+@pytest.mark.parametrize("n_idx,rows", [(1 << 10, 1 << 8), (300_000, 6 * 1080 * 1080),
+                                        (1 << 19, 1 << 24)])
+def test_gather_probe_indices_equal_jax(n_idx, rows):
+    """The scattered index pattern, whose int32 product wraps past 271,186
+    indices: equal to jnp's, and always inside the source."""
+    want = np.asarray(jnp.arange(n_idx, dtype=jnp.int32) * 7919 % rows)
+    got = sol.gather_probe_indices(n_idx, rows, "cpu")
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert int(got.min()) >= 0 and int(got.max()) < rows
+
+
+def test_run_sol_lists_every_probe(monkeypatch):
+    """run_sol's order and shapes, with every probe replaced by a recorder."""
+    calls = []
+    for name in ("stream_copy", "row_gather", "element_gather", "onehot_probe",
+                 "stream_read_probe", "mxu_matmul"):
+        monkeypatch.setattr(sol, name, lambda device, _n=name, **kw: calls.append((_n, kw))
+                            or dict(probe=_n))
+    out = sol.run_sol("cpu")
+    assert [c[0] for c in calls] == [
+        "stream_copy", "row_gather", "row_gather", "element_gather", "onehot_probe",
+        "onehot_probe", "stream_read_probe", "mxu_matmul", "mxu_matmul"]
+    assert [c[1].get("row_bytes") for c in calls[1:3]] == [1024, 128]
+    assert len(out) == 9
