@@ -28,13 +28,34 @@
 //    texels of 4 poses: four 16-byte stores.  The warp's second half reads
 //    its rows in the order i ^ 4, which keeps the halves 16 banks apart.
 //    RGBA: a thread gathers 4 texels of one pose into one 16-byte store.
-//  * A ragged B, a row stride or pointer off 16 bytes, or an output row not
-//    a multiple of 16 bytes takes the scalar path of the same file: the
-//    same tiles with one element a thread and a 32-bit shared word an
-//    element.
+//  * Every other shape of blinky_posed_layout (a ragged B, a row stride or
+//    pointer off 16 bytes, an output row not a multiple of 16 bytes) takes
+//    one of two kernels built for it:
+//    - posed_layout_tile stages a tile of texel rows in shared memory with
+//      16-byte loads, aligned down at each end and masked, eight of them
+//      issued before the first shared store.  A contiguous ragged batch
+//      (ld == B, rows of at most 256 bytes) is one span of memory a tile,
+//      read as such; a batch slice (ld > B: render_posed's chunks) reads
+//      each row's B·E bytes from its sector in one or a few loads, in
+//      chunks of at most 256 bytes of poses.  The tile is written out as
+//      16-byte words of each pose's texel run, neighbouring threads on
+//      neighbouring words of one pose: u8 reads 4 poses of a row as one
+//      funnel-shifted word and turns 4x4 byte blocks as the vector path
+//      does, RGBA gathers 4 texels of one pose.  Shared words are
+//      XOR-swizzled within each 128-byte line (word w at w ^ (w >> 5) mod
+//      32), so the strided column reads of any row length spread over the
+//      banks.
+//    - posed_layout_column serves a one-pose slice (B == 1, ld > 1): a
+//      warp's loads on neighbouring rows, K7_COLUMN_LOADS of them a
+//      thread, turned around in shared memory and written as 16-byte
+//      words.  Each load costs its row's 32-byte sector at least (the
+//      sector floor, T x 32 bytes read); on the H100 it costs a 64-byte
+//      segment, whatever the L2 fetch granularity limit is set to
+//      (chip_smoke.py --sweep), so the card's own floor is T x 64 bytes.
 //  * Frames whose texels are not evenly strided (a transpose of the two
 //    plate axes, say) take the strided path, blinky_posed_layout_strided:
-//    the scalar tiles again, each element read at its own four strides,
+//    scalar tiles of a 32-bit shared word an element, each element read at
+//    its own four strides,
 //    with the tile's read order following whichever of the pose and the
 //    texel column is unit-strided.  jnp.transpose takes any array, and so
 //    does K7.
@@ -47,7 +68,22 @@ using blinky::kThreads;  // 256: one texel of the tile a thread
 constexpr int kTileTexels = 256;
 constexpr int kChunkBytes = 64;   // bytes of a texel's row one tile holds
 constexpr int kStride = 80;       // the tile's row stride in shared memory
-constexpr int kScalarElems = 2048;  // the scalar path's tile, texels x poses
+constexpr int kScalarElems = 2048;  // the strided path's tile, texels x poses
+constexpr int kSpanBytes = 256;     // the longest row read as one span, and a slice's chunk
+constexpr int kTileBytes = 32768;   // shared memory a tile aims at
+constexpr int kTileLoads = 8;       // 16-byte loads a thread issues before storing them
+
+// The column path's loads a thread (a block takes this many times kThreads
+// texels); overridable with -D.  Chosen on the 1080p one-pose slice
+// (chip_smoke.py --sweep; NVIDIA H100 80GB HBM3, 700 W): u8 / RGBA with 1
+// load a thread 0.1507 / 0.2056 ms, 2 loads 0.1507 / 0.2160, 4 loads
+// 0.1505 / 0.2249, 16 loads 0.1504 / 0.2372, against permute().contiguous()'s
+// 0.1530 / 0.2292.  Occupancy alone keeps 2048 loads in flight an SM; more
+// loads a thread spread a block's reads over more of memory at once, which
+// RGBA's rows, 256 bytes apart, pay for.
+#ifndef K7_COLUMN_LOADS
+#define K7_COLUMN_LOADS 1
+#endif
 
 // The vector path.  E: element bytes, 1 (u8) or 4 (RGBA).  grid.x: texel
 // tiles; grid.y: 64-byte chunks of a row.
@@ -127,27 +163,176 @@ __global__ void __launch_bounds__(kThreads) posed_layout_vec(
   }
 }
 
-// The scalar path: tiles of tt texels x tb poses (tt * tb <= kScalarElems),
-// one element a thread.  grid.x: texel tiles; grid.y: pose tiles.
-template <typename Elem>
-__global__ void __launch_bounds__(kThreads) posed_layout_scalar(
-    const Elem* __restrict__ in, long long ld, long long T, int B, int tt, int tb,
-    long long n_out, Elem* __restrict__ out) {
-  __shared__ uint32_t tile[2 * kScalarElems];  // tt * (tb + 1) words at most
+// A shared word's place: XOR its line (32 words) into its bank, a
+// permutation within each 128-byte line.
+__device__ __forceinline__ int swz(int w) { return w ^ ((w >> 5) & 31); }
+
+// 4x4 byte transpose: a[j] holds 4 poses of texel j; o[p] gets texels 0..3
+// of pose p (the vector path's two rounds of __byte_perm).
+__device__ __forceinline__ void transpose4(const uint32_t* a, uint32_t* o) {
+  const uint32_t x0 = __byte_perm(a[0], a[1], 0x5140), x1 = __byte_perm(a[0], a[1], 0x7362);
+  const uint32_t y0 = __byte_perm(a[2], a[3], 0x5140), y1 = __byte_perm(a[2], a[3], 0x7362);
+  o[0] = __byte_perm(x0, y0, 0x5410);
+  o[1] = __byte_perm(x0, y0, 0x7632);
+  o[2] = __byte_perm(x1, y1, 0x5410);
+  o[3] = __byte_perm(x1, y1, 0x7632);
+}
+
+// The tile path.  E: element bytes, 1 (u8) or 4 (RGBA).  A block takes tt
+// texels (a multiple of 64) of the poses c0 .. c0 + cb - 1; grid.x: texel
+// tiles, grid.y: pose chunks.  SPAN: ld == B == cb, so the tile's rows are
+// one contiguous span, staged as read; else row r's bytes stage at r * rs
+// (rs = nc 16-byte chunks), from the 16-byte boundary below the row.
+// ovec: every output word is 16 bytes and 16-byte aligned.
+template <int E, bool SPAN>
+__global__ void __launch_bounds__(kThreads) posed_layout_tile(
+    const uint8_t* __restrict__ in, long long ld_bytes, long long T, int B, int cb, int tt,
+    int nc, int rs, long long n_out, int ovec, uint8_t* __restrict__ out) {
+  extern __shared__ __align__(16) uint32_t tile[];
+  const int tid = threadIdx.x;
   const long long t0 = (long long)blockIdx.x * tt;
-  const int b0 = blockIdx.y * tb;
-  const int n = tt * tb;
-  for (int i = threadIdx.x; i < n; i += kThreads) {
-    const int r = i / tb, c = i - r * tb;
-    const long long t = t0 + r;
-    tile[r * (tb + 1) + c] = (t < T && b0 + c < B) ? (uint32_t)in[t * ld + b0 + c] : 0u;
+  const int c0 = blockIdx.y * cb;
+  const int nb = min(cb, B - c0);  // poses of this chunk
+  const int R = nb * E;            // bytes of a row the chunk takes
+  const int rows = (int)max(0LL, min((long long)tt, T - t0));  // rows holding texels
+  const uint8_t* first = in + t0 * ld_bytes + (long long)c0 * E;
+  // the 16-byte chunks to stage: SPAN, chunk i of the span's aligned cover;
+  // else chunk i % nc of row i / nc, where it meets the row's bytes
+  const int head0 = (int)((uintptr_t)first & 15);
+  const int total = SPAN ? (rows ? (head0 + rows * R + 15) >> 4 : 0) : rows * nc;
+  for (int base = 0; base < total; base += kTileLoads * kThreads) {
+    uint4 v[kTileLoads];
+    int slot[kTileLoads];
+#pragma unroll
+    for (int k = 0; k < kTileLoads; ++k) {
+      const int i = base + k * kThreads + tid;
+      v[k] = make_uint4(0, 0, 0, 0);
+      slot[k] = -1;
+      if (i >= total) continue;
+      const uint8_t* a;
+      if (SPAN) {
+        a = first - head0 + 16 * i;
+        slot[k] = 4 * i;
+      } else {
+        const int r = i / nc, c = i - r * nc;
+        const uint8_t* row = first + r * ld_bytes;
+        const int h = (int)((uintptr_t)row & 15);
+        if (16 * c >= h + R) continue;
+        a = row - h + 16 * c;
+        slot[k] = (r * rs + 16 * c) >> 2;
+      }
+      v[k] = *(const uint4*)a;
+    }
+#pragma unroll
+    for (int k = 0; k < kTileLoads; ++k) {
+      if (slot[k] < 0) continue;
+      const int w = slot[k];
+      tile[swz(w)] = v[k].x;
+      tile[swz(w + 1)] = v[k].y;
+      tile[swz(w + 2)] = v[k].z;
+      tile[swz(w + 3)] = v[k].w;
+    }
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < n; i += kThreads) {
-    const int c = i / tt, r = i - c * tt;
-    const long long t = t0 + r;
-    if (t < n_out && b0 + c < B)
-      out[(long long)(b0 + c) * n_out + t] = (Elem)tile[r * (tb + 1) + c];
+
+  // byte offset in the tile of row r's pose b (of the chunk)
+  auto at = [&](int r, int b) -> int {
+    if (SPAN) return head0 + r * R + b * E;
+    return r * rs + (int)((uintptr_t)(first + r * ld_bytes) & 15) + b * E;
+  };
+  if (E == 1) {
+    // thread: 4 poses (quad q) x 16 texels (group g), g running fastest
+    const int ng = tt / 16, nq = (nb + 3) / 4;
+    for (int i = tid; i < ng * nq; i += kThreads) {
+      const int g = i % ng, q = i / ng;
+      const long long tg = t0 + g * 16;
+      if (tg >= n_out) continue;
+      uint32_t a[16];
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int r = g * 16 + j;
+        a[j] = 0;
+        if (r < rows) {
+          const int o = at(r, 4 * q), w = o >> 2;
+          a[j] = __funnelshift_r(tile[swz(w)], tile[swz(w + 1)], (o & 3) * 8);
+        }
+      }
+      uint32_t o[4][4];  // o[x][p]: texels 4x .. 4x + 3 of pose p
+#pragma unroll
+      for (int x = 0; x < 4; ++x) transpose4(a + 4 * x, o[x]);
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        if (4 * q + p >= nb) break;
+        uint8_t* dst = out + (long long)(c0 + 4 * q + p) * n_out + tg;
+        const uint4 s = make_uint4(o[0][p], o[1][p], o[2][p], o[3][p]);
+        if (ovec) {
+          *(uint4*)dst = s;
+        } else {
+          const uint32_t ws[4] = {s.x, s.y, s.z, s.w};
+          for (int e = 0; e < 16 && tg + e < n_out; ++e) dst[e] = (uint8_t)(ws[e >> 2] >> (8 * (e & 3)));
+        }
+      }
+    }
+  } else {
+    // thread: one pose b x 4 texels (group g), g running fastest
+    const int ng = tt / 4;
+    for (int i = tid; i < ng * nb; i += kThreads) {
+      const int g = i % ng, b = i / ng;
+      const long long tg = t0 + g * 4;
+      if (tg >= n_out) continue;
+      uint32_t w[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int r = g * 4 + j;
+        w[j] = r < rows ? tile[swz(at(r, b) >> 2)] : 0u;
+      }
+      uint32_t* dst = (uint32_t*)out + (long long)(c0 + b) * n_out + tg;
+      if (ovec) {
+        *(uint4*)dst = make_uint4(w[0], w[1], w[2], w[3]);
+      } else {
+        for (int j = 0; j < 4 && tg + j < n_out; ++j) dst[j] = w[j];
+      }
+    }
+  }
+}
+
+// The one-pose slice (B == 1, ld > 1): a block takes K7_COLUMN_LOADS x
+// kThreads texels.  Load j of a thread reads texel j * kThreads + tid, so a
+// warp's loads walk neighbouring rows, as the card's memory wants; all of a
+// thread's loads are issued before the first is used.  The texels turn
+// around in shared memory and leave as 16-byte words.
+template <int E>
+__global__ void __launch_bounds__(kThreads) posed_layout_column(
+    const uint8_t* __restrict__ in, long long ld_bytes, long long T, long long n_out,
+    int ovec, uint8_t* __restrict__ out) {
+  constexpr int L = K7_COLUMN_LOADS, n = L * kThreads;  // texels a block
+  __shared__ __align__(16) uint8_t col[n * E];
+  const int tid = threadIdx.x;
+  const long long tb = (long long)blockIdx.x * n;
+  uint32_t v[L];
+#pragma unroll
+  for (int j = 0; j < L; ++j) {
+    const long long t = tb + j * kThreads + tid;
+    v[j] = 0;
+    if (t < T) v[j] = E == 1 ? (uint32_t)in[t * ld_bytes] : *(const uint32_t*)(in + t * ld_bytes);
+  }
+#pragma unroll
+  for (int j = 0; j < L; ++j) {
+    if (E == 1)
+      col[j * kThreads + tid] = (uint8_t)v[j];
+    else
+      ((uint32_t*)col)[j * kThreads + tid] = v[j];
+  }
+  __syncthreads();
+  if (ovec) {  // the block's texels as 16-byte words, neighbouring threads on neighbouring words
+    for (int u = tid; u < n * E / 16; u += kThreads) {
+      const long long t = tb + u * 16 / E;
+      if (t < n_out) *(uint4*)(out + t * E) = *(const uint4*)(col + 16 * u);
+    }
+  } else {
+    for (int i = tid; i < n; i += kThreads)
+      if (tb + i < n_out)
+        for (int e = 0; e < E; ++e) out[(tb + i) * E + e] = col[i * E + e];
   }
 }
 
@@ -216,16 +401,54 @@ extern "C" int blinky_posed_layout(const void* in, long long ld, long long T, in
       posed_layout_vec<4><<<grid, kThreads, 0, s>>>((const uint8_t*)in, ld * 4, T,
                                                   (int)row_bytes, n_out, (uint8_t*)out);
   } else {
-    const int tb = batch < 32 ? batch : 32;
-    const int tt = kScalarElems / tb;
-    const dim3 grid((unsigned)((n_out + tt - 1) / tt), (unsigned)((batch + tb - 1) / tb));
-    if (grid.y > 65535) return (int)cudaErrorInvalidValue;
-    if (elem_bytes == 1)
-      posed_layout_scalar<uint8_t><<<grid, kThreads, 0, s>>>(
-          (const uint8_t*)in, ld, T, batch, tt, tb, n_out, (uint8_t*)out);
-    else
-      posed_layout_scalar<uint32_t><<<grid, kThreads, 0, s>>>(
-          (const uint32_t*)in, ld, T, batch, tt, tb, n_out, (uint32_t*)out);
+    const long long ld_bytes = ld * elem_bytes;
+    const int ovec = (n_out * elem_bytes) % 16 == 0 && (uintptr_t)out % 16 == 0;
+    const uint8_t* src = (const uint8_t*)in;
+    uint8_t* dst = (uint8_t*)out;
+    if (batch == 1 && ld > 1) {
+      const long long per = (long long)K7_COLUMN_LOADS * kThreads;
+      const long long blocks = (n_out + per - 1) / per;
+      if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+      if (elem_bytes == 1)
+        posed_layout_column<1><<<(unsigned)blocks, kThreads, 0, s>>>(src, ld_bytes, T, n_out,
+                                                                    ovec, dst);
+      else
+        posed_layout_column<4><<<(unsigned)blocks, kThreads, 0, s>>>(src, ld_bytes, T, n_out,
+                                                                    ovec, dst);
+      return (int)cudaGetLastError();
+    }
+    // a contiguous batch of rows up to kSpanBytes is one span a tile; else
+    // chunks of kSpanBytes of poses, each row staged from its own sector
+    const bool span = ld == batch && row_bytes <= kSpanBytes;
+    const int cb = span ? batch : (batch < kSpanBytes / elem_bytes ? batch : kSpanBytes / elem_bytes);
+    const int R = cb * elem_bytes;
+    // a row's 16-byte chunks: its head is fixed when the row stride is a
+    // multiple of 16 bytes (the chunks' first poses are too), else any
+    const int head = (int)(((uintptr_t)in) & 15);
+    const int nc = ld_bytes % 16 == 0 ? (head + R + 15) / 16 : (15 + R + 15) / 16;
+    const int rs = span ? R : nc * 16;  // the tile's bytes a row
+    int tt = kTileBytes / rs / 64 * 64;
+    tt = tt < 64 ? 64 : (tt > 8192 ? 8192 : tt);
+    const size_t smem = ((size_t)tt * rs + 16 + 16 + 127) / 128 * 128;
+    const long long bx = (n_out + tt - 1) / tt;
+    const long long by = (batch + cb - 1) / cb;
+    if (bx > 0x7fffffffLL || by > 65535 || smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+    const dim3 grid((unsigned)bx, (unsigned)by);
+    if (elem_bytes == 1) {
+      if (span)
+        posed_layout_tile<1, true><<<grid, kThreads, smem, s>>>(src, ld_bytes, T, batch, cb, tt,
+                                                               nc, rs, n_out, ovec, dst);
+      else
+        posed_layout_tile<1, false><<<grid, kThreads, smem, s>>>(src, ld_bytes, T, batch, cb, tt,
+                                                                nc, rs, n_out, ovec, dst);
+    } else {
+      if (span)
+        posed_layout_tile<4, true><<<grid, kThreads, smem, s>>>(src, ld_bytes, T, batch, cb, tt,
+                                                               nc, rs, n_out, ovec, dst);
+      else
+        posed_layout_tile<4, false><<<grid, kThreads, smem, s>>>(src, ld_bytes, T, batch, cb, tt,
+                                                                nc, rs, n_out, ovec, dst);
+    }
   }
   return (int)cudaGetLastError();
 }

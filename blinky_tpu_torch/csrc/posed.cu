@@ -43,6 +43,29 @@
 // lie well above the 86 operations: the issue rate of the SMs (128 lanes a
 // clock each), not the float32 rate alone, sets its pace.
 //
+// What K5's design does about it (K6's shape of work without the resolve).
+// A pixel a thread with its three dependent loads (mask, index, texel) and
+// k x k one-element stores kept a few bytes in flight a thread, far from the
+// 2 MB or so the card needs in flight to hide its memory latency.  So:
+//  * a thread takes a run of four neighbouring build pixels: one 16-byte
+//    index word and one 4-byte mask word a pose, loaded together and
+//    unconditionally;
+//  * a block takes a 2D tile of runs (K5_TILE_RUNS wide, 16 x 16 runs by
+//    default), not a screen row: a lens maps a compact patch of the screen
+//    to a compact patch of a plate in any orientation, so the block's
+//    gathers share the source's sectors in L1, where a row of 1024 pixels
+//    running across a plate's columns reads about a sector a pixel (1.8x
+//    slower at u8 k = 1, chip_smoke.py --sweep);
+//  * poses loop inside the block (K5_POSES_PER_BLOCK), the tables of the
+//    next K5_POSE_GROUP poses are loaded while this group's are used, and a
+//    group's valid texels are all gathered before its first store;
+//  * the background is read once a block into registers, and only when one
+//    of the run's pixels is invalid;
+//  * a screen row of the run is one 4-byte (u8, k = 1), 8-byte (u8, k = 2)
+//    or one or two 16-byte words (RGBA).
+// Build widths that are not a multiple of four, pointers off 16 bytes and
+// render scales k >= 3 take the scalar kernel, a pixel a thread.
+//
 // What K6's design does about it.
 //  * No shared-memory operand a pose and pixel.  The globe's plate frames
 //    ride in the launch's parameter space, so the six forward dots take
@@ -110,6 +133,35 @@
 #ifndef K6_MIN_BLOCKS
 #define K6_MIN_BLOCKS 4
 #endif
+// K5's vector kernel: threads a block, poses a block, poses whose tables
+// and gathers are in flight together, and the width of a block's tile in
+// runs of four build pixels (its height is K5_THREADS / K5_TILE_RUNS rows).
+// Chosen at 1080p B=64 on phase 6's tables (chip_smoke.py --sweep; NVIDIA
+// H100 80GB HBM3, 700 W): 256 threads, a tile 16 runs by 16 rows, 4 poses a
+// block, 2 a group: 0.3325 / 0.6174 / 0.1628 / 0.4814 ms for u8 k = 1 /
+// RGBA k = 1 / u8 k = 2 / RGBA k = 2.  Runners-up in the same run: 8 poses
+// a block 0.3330 / 0.6372 / 0.1692 / 0.5110; 2 poses 0.3817 / 0.6040 /
+// 0.1603 / 0.5031; 16 poses 0.3399 / 0.6668 / 0.1796 / 0.5440; a tile 8
+// runs wide 0.3308 / 0.6221 / 0.1643 / 0.4786, 32 runs 0.3424 / 0.6217 /
+// 0.1667 / 0.4885, 256 runs (one screen row of 1024 pixels) 0.6062 /
+// 0.8021 / 0.2495 / 0.5235; a group of 1 pose 0.3257 / 0.6242 / 0.1641 /
+// 0.5215, of 4 poses 0.3833 / 0.6202 / 0.1635 / 0.5421; 512 threads
+// 0.3495 / 0.6135 / 0.1617 / 0.4685.  None is faster on all four.
+// Streaming cache hints (__ldcs / __stcs) on the tables and screens were
+// tried and lost on every variant, so the kernel has none.
+#ifndef K5_THREADS
+#define K5_THREADS 256
+#endif
+#ifndef K5_POSES_PER_BLOCK
+#define K5_POSES_PER_BLOCK 4
+#endif
+#ifndef K5_POSE_GROUP
+#define K5_POSE_GROUP 2
+#endif
+#ifndef K5_TILE_RUNS
+#define K5_TILE_RUNS 16
+#endif
+static_assert(K5_THREADS % K5_TILE_RUNS == 0, "a K5 tile is whole rows of runs");
 
 namespace {
 
@@ -152,9 +204,135 @@ __device__ __forceinline__ uint4 operator|(uint4 a, uint4 b) {
   return make_uint4(a.x | b.x, a.y | b.y, a.z | b.z, a.w | b.w);
 }
 
+// A screen row of a run's k x k blocks, quads s[0 .. K-1]: one 4-byte or
+// 8-byte word of u8, one or two 16-byte words of RGBA.
+template <typename T, int K>
+__device__ __forceinline__ void store_row(T* o, const typename Quad<T>::V* s) {
+  using V = typename Quad<T>::V;
+  if constexpr (sizeof(T) == 1 && K == 2) {
+    *(uint2*)o = make_uint2(s[0], s[1]);
+  } else {
+#pragma unroll
+    for (int c = 0; c < K; ++c) ((V*)o)[c] = s[c];
+  }
+}
+
+// K5's vector kernel.  grid: x over 2D tiles of runs of kRun build pixels
+// (the build width a multiple of kRun, so a run lies in one row), y over
+// blocks of K5_POSES_PER_BLOCK poses.  A tile, not a row, because a lens maps
+// a compact patch of the screen to a compact patch of its plate in any
+// orientation, so a block's gathers share the source's sectors in L1; a
+// row of 1024 pixels across a plate's columns reads a sector a pixel.  K: the render scale, 1 or 2; every pointer
+// 16-byte aligned.  A thread loads a pose's 16-byte index word and 4-byte
+// mask word together, unconditionally, one pose group ahead of its use;
+// gathers the group's valid texels, all before the first store; and writes
+// each screen row of the run as whole words.
+template <typename T, int K>
+__global__ void __launch_bounds__(K5_THREADS) posed_gather_vec(
+    const T* __restrict__ src, long long N, int B, const int32_t* __restrict__ idx,
+    const uint8_t* __restrict__ valid, const T* __restrict__ bg, int hb, int wb,
+    T* __restrict__ out) {
+  using Q = Quad<T>;
+  using V = typename Q::V;
+  constexpr int G = K5_POSE_GROUP;
+  const long long npix = (long long)hb * wb;
+  // the block's tile: K5_TILE_RUNS runs wide, K5_THREADS / K5_TILE_RUNS rows
+  constexpr int kTileRows = K5_THREADS / K5_TILE_RUNS;
+  const int tiles_x = (wb / kRun + K5_TILE_RUNS - 1) / K5_TILE_RUNS;
+  const int tx = blockIdx.x % tiles_x, ty = blockIdx.x / tiles_x;
+  const int x0 = (tx * K5_TILE_RUNS + (int)threadIdx.x % K5_TILE_RUNS) * kRun;
+  const int y = ty * kTileRows + (int)threadIdx.x / K5_TILE_RUNS;
+  if (x0 >= wb || y >= hb) return;
+  const long long p0 = (long long)y * wb + x0;
+  const int b0 = blockIdx.y * K5_POSES_PER_BLOCK;
+  const int nb = min(K5_POSES_PER_BLOCK, B - b0);
+  const long long W = (long long)wb * K;
+
+  int4 iq[G];
+  uint32_t vq[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    iq[g] = make_int4(0, 0, 0, 0), vq[g] = 0;
+    if (g < nb) {
+      const long long q = (long long)(b0 + g) * npix + p0;
+      iq[g] = *(const int4*)(idx + q);
+      vq[g] = *(const uint32_t*)(valid + q);
+    }
+  }
+  V bgq[K * K];  // the run's background, row dy, quad c at [dy * K + c]
+  bool have_bg = false;
+  for (int j0 = 0; j0 < nb; j0 += G) {
+    int4 ic[G];
+    uint32_t vc[G];
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      ic[g] = iq[g], vc[g] = vq[g];
+      iq[g] = make_int4(0, 0, 0, 0), vq[g] = 0;
+      if (j0 + G + g < nb) {  // the next group's tables, in flight under this one
+        const long long q = (long long)(b0 + j0 + G + g) * npix + p0;
+        iq[g] = *(const int4*)(idx + q);
+        vq[g] = *(const uint32_t*)(valid + q);
+      }
+    }
+    T val[G][kRun];
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const T* s = src + (long long)(b0 + min(j0 + g, nb - 1)) * N;
+      const int ii[kRun] = {ic[g].x, ic[g].y, ic[g].z, ic[g].w};
+#pragma unroll
+      for (int i = 0; i < kRun; ++i) {
+        const long long t = ii[i];
+        val[g][i] = ((vc[g] >> (8 * i)) & 0xffu) ? s[t < 0 ? 0 : (t >= N ? N - 1 : t)] : T(0);
+      }
+    }
+    if (!have_bg) {
+      bool hole = false;
+#pragma unroll
+      for (int g = 0; g < G; ++g)
+        hole |= j0 + g < nb && __vcmpeq4(vc[g], 0u) != 0;  // a mask byte of 0
+      if (hole) {  // the first invalid pixel of the run: read its background
+#pragma unroll
+        for (int dy = 0; dy < K; ++dy)
+#pragma unroll
+          for (int c = 0; c < K; ++c)
+            bgq[dy * K + c] = *(const V*)(bg + ((long long)y * K + dy) * W + (long long)x0 * K + 4 * c);
+        have_bg = true;
+      }
+    }
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      if (j0 + g >= nb) break;
+      const long long b = b0 + j0 + g;
+      V t[K], mk[K];  // quad c of a screen row: texels and their mask
+#pragma unroll
+      for (int c = 0; c < K; ++c) {
+        t[c] = zero_quad<V>(), mk[c] = zero_quad<V>();
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = (4 * c + e) / K;  // the run's pixel of element e
+          Q::put(t[c], e, (uint32_t)val[g][i]);
+          if ((vc[g] >> (8 * i)) & 0xffu) mk[c] = mk[c] | Q::ones(e);
+        }
+      }
+      // rows dy of the k x k blocks: the same texels, each row's background
+#pragma unroll
+      for (int dy = 0; dy < K; ++dy) {
+        T* o = out + ((b * hb + y) * K + dy) * W + (long long)x0 * K;
+        V s[K];
+#pragma unroll
+        for (int c = 0; c < K; ++c)
+          s[c] = Q::select(t[c], mk[c], have_bg ? bgq[dy * K + c] : zero_quad<V>());
+        store_row<T, K>(o, s);
+      }
+    }
+  }
+}
+
 // grid: x over build pixels (fewer than 2^31), y over poses; neighbouring
 // threads take neighbouring pixels of one pose, so the index, mask and
-// screen accesses coalesce and no thread divides in 64 bits
+// screen accesses coalesce and no thread divides in 64 bits.  K5's scalar
+// kernel: build widths that are not a multiple of kRun, pointers off 16
+// bytes, render scales k >= 3.
 template <typename T>
 __global__ void __launch_bounds__(kThreads) posed_gather_kernel(
     const T* __restrict__ src, long long N, int B, const int32_t* __restrict__ idx,
@@ -468,7 +646,37 @@ extern "C" int blinky_posed_gather(const void* src, long long N, int elem_bytes,
   const long long npix = (long long)hb * wb;
   if (k < 1 || N < 1 || batch < 1 || npix < 1 || npix >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
+  if (elem_bytes != 1 && elem_bytes != 4) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  // the vector kernel: whole runs, render scale 1 or 2, every table,
+  // background and screen pointer 16-byte aligned
+  if (wb % kRun == 0 && (k == 1 || k == 2) && aligned16(idx) && aligned16(valid) &&
+      aligned16(bg) && aligned16(out)) {
+    constexpr int kTileRows = K5_THREADS / K5_TILE_RUNS;
+    const long long tiles = (long long)((wb / kRun + K5_TILE_RUNS - 1) / K5_TILE_RUNS) *
+                            ((hb + kTileRows - 1) / kTileRows);
+    const dim3 grid((unsigned)tiles,
+                    (unsigned)((batch + K5_POSES_PER_BLOCK - 1) / K5_POSES_PER_BLOCK));
+    if (tiles > 0x7fffffffLL || grid.y > 65535) return (int)cudaErrorInvalidValue;
+    if (elem_bytes == 1) {
+      if (k == 1)
+        posed_gather_vec<uint8_t, 1><<<grid, K5_THREADS, 0, s>>>(
+            (const uint8_t*)src, N, batch, idx, valid, (const uint8_t*)bg, hb, wb, (uint8_t*)out);
+      else
+        posed_gather_vec<uint8_t, 2><<<grid, K5_THREADS, 0, s>>>(
+            (const uint8_t*)src, N, batch, idx, valid, (const uint8_t*)bg, hb, wb, (uint8_t*)out);
+    } else {
+      if (k == 1)
+        posed_gather_vec<uint32_t, 1><<<grid, K5_THREADS, 0, s>>>(
+            (const uint32_t*)src, N, batch, idx, valid, (const uint32_t*)bg, hb, wb,
+            (uint32_t*)out);
+      else
+        posed_gather_vec<uint32_t, 2><<<grid, K5_THREADS, 0, s>>>(
+            (const uint32_t*)src, N, batch, idx, valid, (const uint32_t*)bg, hb, wb,
+            (uint32_t*)out);
+    }
+    return (int)cudaGetLastError();
+  }
   const dim3 blocks((unsigned)((npix + kThreads - 1) / kThreads),
                     (unsigned)(batch < 65535 ? batch : 65535));
   if (elem_bytes == 1) {

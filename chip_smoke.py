@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch/CUDA port (blinky_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # the smoke run, on one card
+    python3 chip_smoke.py --sweep    # K5's and K7's tuning constants
 
 Builds the hand-written CUDA kernels from ``blinky_tpu_torch/csrc`` and drives
 the port's main paths at 1920x1080 (panini + cube, ``f_fov 180``):
@@ -40,13 +41,17 @@ every kernel against its plain PyTorch version.  Phases:
    held bit-equal to ``static_ray_posed_plain`` on the card (8 poses at a
    time), the exact screens to ``host_remap`` of the exact host build at each
    pose, the identity pose near the static render; ``render_scale="auto"``
-   at 60 fps; K5 alone on the plain version's indices.  Then K6 on every
-   variant and K5 are timed at B=64 and B=1 beside their plain versions,
-   with their bytes, float32 operations and bound, K6's device time from
-   ``torch.profiler``'s kernel records and the wrapper's host time a call;
-   the ray-table build; K7 on every source at B=64 and B=1, bit-equal to
-   ``permute().contiguous()`` and timed beside it and its byte bound, and
-   the one-pose view that launches nothing; and ``render_posed``'s wall
+   at 60 fps.  Then K5 alone on the plain version's indices, for the u8,
+   expanded and RGBA source at render scales 1 and 2 at B=64, each
+   bit-checked and timed beside its plain version and its byte bound; K6 on
+   every variant at B=64 and B=1 beside its plain version, with its bytes,
+   float32 operations and bound, its device time from ``torch.profiler``'s
+   kernel records and the wrapper's host time a call; the ray-table build;
+   K7 on every source at B=64 and on a one-pose slice, and on u8 and RGBA as
+   contiguous ragged batches (B = 63, 2, 8) and a chunk slice ``[..., 0:40]``,
+   each bit-equal to ``permute().contiguous()`` and its plain version and
+   timed beside both, with its byte bound and, for a slice, its sector
+   floor; the one-pose view that launches nothing; and ``render_posed``'s wall
    clock at B=64 and B=1, split into the pose bases, K7, K6 and the rest,
    with the device's idle share, from profiler runs of the call given the
    poses and given their bases;
@@ -87,7 +92,8 @@ every kernel against its plain PyTorch version.  Phases:
    with the panos on the card, in panos a second
    (``bench.throughput.run_equirect_throughput``), and once from a NumPy
    batch; the compact mode at B = 1, 16 and 128; and ``render_aa``, split by
-   ``torch.profiler``'s records into the palette decode, K1 and K11.
+   ``torch.profiler``'s records into the palette decode, K1 and K11, with
+   K1's byte bound at 3840x2160.
 
 The line before the card's name and power limit lists every kernel with its
 launches in its path's run (phase 2 for K1-K4, phase 6 for K5-K7, phase 7
@@ -526,7 +532,7 @@ def posed_phase(dev, frames, frames_dev, kernels):
           f"(B=8, k=1) {t81 * 1e3:.3f} ms, (B=2, k={k_hi}) {t2h * 1e3:.3f} ms")
     del auto, exact, outs
 
-    # K5 alone on the plain version's indices (u8, k=1)
+    # K5's operands: the plain version's tables for poses lo .. hi - 1
     def tables(kind, k, lo, hi):
         kern, src, bases, expanded = operands(kind, k, lo, hi)
         lm = rays_to_lensmap_torch(kern.globe, kern.ray_table.vx, kern.ray_table.vy,
@@ -539,20 +545,6 @@ def posed_phase(dev, frames, frames_dev, kernels):
                                     MAX_PLATES * S * S, 0).to(torch.int32)
         return src, idx.contiguous(), valid.contiguous(), kern.background
 
-    parts = [tables("u8", 1, lo, lo + CHUNK) for lo in range(0, POSED_B, CHUNK)]
-    idx = torch.cat([p_[1] for p_ in parts])
-    valid = torch.cat([p_[2] for p_ in parts])
-    src5, _, _ = posed.prep_posed_inputs(frames_dev, bases_np, S, kerns["u8", 1].background,
-                                         dev)
-    bg5 = kerns["u8", 1].background
-    del parts
-    k5 = posed.gather_posed(src5, idx, valid, bg5, 1)
-    k5_ref = posed.gather_posed_plain(src5, idx, valid, bg5, 1)
-    k5_err = int((k5.long() - k5_ref.long()).abs().max())
-    require(torch.equal(k5, k5_ref), f"gather_posed differs from its plain version ({k5_err})")
-    phase(6, f"gather_posed (K5) at 1080p B={POSED_B} on the plain version's indices "
-          "bit-equals gather_posed_plain")
-
     # ------------------------------------------------ times and bounds
     def texels(idx, valid):  # distinct source texels the valid pixels read
         return sum(int(torch.unique(idx[b][valid[b]]).numel()) for b in range(idx.shape[0]))
@@ -561,18 +553,45 @@ def posed_phase(dev, frames, frames_dev, kernels):
         return sum(texels(*tables(kind, k, lo, min(batch, lo + CHUNK))[1:3])
                    for lo in range(0, batch, CHUNK))
 
-    n5 = idx.numel()
-    k5_bytes = n5 * 5 + texels(idx, valid) + bg5.numel() + k5.numel()
-    k5_ms = cuda_ms(lambda: posed.gather_posed(src5, idx, valid, bg5, 1), ITERS)
-    k5_plain = cuda_ms(lambda: posed.gather_posed_plain(src5, idx, valid, bg5, 1), ITERS)
-    flat = idx.reshape(POSED_B, -1).long()
-    gather_ms = cuda_ms(lambda: torch.gather(src5, 1, flat), ITERS)
-    k5_bound = k5_bytes / HBM_BYTES_PER_S * 1e3
-    phase(6, f"K5 gather_posed u8 1080p B={POSED_B}: kernel {k5_ms:.4f} ms, plain "
-          f"{k5_plain:.4f} ms, torch.gather(src, 1, idx) alone {gather_ms:.4f} ms (context, "
-          f"not the same function); {k5_bytes} bytes, bound {k5_bound:.4f} ms by bytes, "
-          f"{100 * k5_bound / k5_ms:.1f} % of it")
-    del idx, valid, flat, k5, k5_ref
+    # K5 alone on the plain version's indices: each source kind at render
+    # scales 1 and 2, bit-checked, then timed beside its plain version and
+    # its byte bound (the tables, the distinct texels, the background and
+    # the screens, each read or written once)
+    k5 = {}
+    for kind in sources:
+        for k in (1, 2):
+            parts = [tables(kind, k, lo, lo + CHUNK) for lo in range(0, POSED_B, CHUNK)]
+            idx = torch.cat([p_[1] for p_ in parts])
+            valid = torch.cat([p_[2] for p_ in parts])
+            bg5 = parts[0][3]
+            del parts
+            src5, _, _ = posed.prep_posed_inputs(sources[kind], bases_np, S, bg5, dev)
+            run = lambda s5=src5, i=idx, v=valid, g=bg5, k=k: posed.gather_posed(s5, i, v, g, k)  # noqa: E731
+            plain = lambda s5=src5, i=idx, v=valid, g=bg5, k=k: posed.gather_posed_plain(s5, i, v, g, k)  # noqa: E731
+            got, ref = run(), plain()
+            e = int((got.long() - ref.long()).abs().max())
+            require(torch.equal(got, ref),
+                    f"gather_posed {kind} k={k} differs from its plain version ({e})")
+            el = src5.element_size()
+            nbytes = (idx.numel() * 5 + texels(idx, valid) * el + bg5.numel() * bg5.element_size()
+                      + got.numel() * got.element_size())
+            del got, ref
+            ms, plain_ms = cuda_ms_pair(run, plain)
+            bound = nbytes / HBM_BYTES_PER_S * 1e3
+            k5[kind, k] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, err=e)
+            phase(6, f"K5 gather_posed {kind} k={k} 1080p B={POSED_B} on the plain version's "
+                  f"indices: bit-equal; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; {nbytes} "
+                  f"bytes, bound {bound:.4f} ms by bytes, {100 * bound / ms:.1f} % of it")
+            if (kind, k) == ("u8", 1):
+                flat = idx.reshape(POSED_B, -1).long()
+                gather_ms = cuda_ms(lambda: torch.gather(src5, 1, flat), ITERS)
+                phase(6, f"torch.gather(src, 1, idx) alone on the u8 k=1 tables {gather_ms:.4f} "
+                      "ms (context, not the same function)")
+                del flat
+            del run, plain, idx, valid, src5
+            torch.cuda.empty_cache()
+    k5_err = max(v["err"] for v in k5.values())
+    k5main = k5["u8", 1]
 
     k6 = {}
     ops_pp = k6_ops_per_pose_pixel(sess.globe)
@@ -624,35 +643,60 @@ def posed_phase(dev, frames, frames_dev, kernels):
         static_ray.ray_table_from_lens(sess.lens, scale * k, W // k, H // k)
         phase(6, f"host ray table {W // k}x{H // k} (float64 lens stage, k={k}): "
               f"{time.perf_counter() - t0:.3f} s")
-    # K7, the pose-major layout, on each source: against its plain version
-    # and the library call permute().contiguous(), with its byte bound (the
-    # poses' texels read once, the pose-major array written once)
+    # K7, the pose-major layout: against its plain version and the library
+    # call permute().contiguous(), with its byte bound (the poses' texels
+    # read once, the pose-major array written once) and, for a batch slice,
+    # the floors of reading each texel row's bytes as whole 32-byte sectors
+    # and as whole 64-byte segments.  Every source at B=64 (the vector path)
+    # and on a one-pose slice; u8 and RGBA also as contiguous ragged batches
+    # (B = 63, and the auto probes' B = 2 and 8) and on a chunk slice
+    # [..., 0:40] of the batch, the shapes of the tile path.
     layout = {}
+    cases = {"B=64": lambda b: b, "B=63 contiguous": lambda b: b[..., :63].contiguous(),
+             "B=2 contiguous": lambda b: b[..., :2].contiguous(),
+             "B=8 contiguous": lambda b: b[..., :8].contiguous(),
+             "slice [..., 0:40]": lambda b: b[..., 0:40],
+             "one-pose slice [..., 0:1]": lambda b: b[..., :1]}
     for kind, fr in sources.items():
         bits = fr.view(torch.int32) if fr.dtype == torch.uint32 else fr
         planes = bits.shape[0]
-        for batch in (POSED_B, 1):
-            x = bits[..., :batch]  # at B=1 a slice of the batch: K7's scalar path
+        for tag, cut in cases.items():
+            if kind == "expanded" and tag not in ("B=64", "one-pose slice [..., 0:1]"):
+                continue
+            x = cut(bits)
+            batch = x.shape[-1]
             run = lambda x=x, planes=planes: posed.posed_layout(x, planes)  # noqa: E731
             lib = lambda x=x: x.permute(3, 0, 1, 2).contiguous()  # noqa: E731
             require(torch.equal(run(), lib().reshape(batch, -1)),
-                    f"posed_layout {kind} B={batch} differs from permute().contiguous()")
+                    f"posed_layout {kind} {tag} differs from permute().contiguous()")
             require(torch.equal(run(), posed.posed_layout_plain(x, planes)),
-                    f"posed_layout {kind} B={batch} differs from its plain version")
+                    f"posed_layout {kind} {tag} differs from its plain version")
             ms, lib_ms = cuda_ms_pair(run, lib)
             plain_ms = cuda_ms(lambda x=x, planes=planes: posed.posed_layout_plain(x, planes),
                                ITERS)
             _, dev_ms, _ = profiled(run, ITERS, sync=False)
             k7_dev = sum(t for n_, t in dev_ms.items() if "posed_layout" in n_)
-            nbytes = 2 * x.numel() * x.element_size()
+            el = x.element_size()
+            out_bytes = batch * planes * S * S * el
+            nbytes = x.numel() * el + out_bytes
             bound = nbytes / HBM_BYTES_PER_S * 1e3
-            layout[kind, batch] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                                       bound_ms=bound)
-            phase(6, f"K7 posed_layout {kind} B={batch}: kernel {ms:.4f} ms ({k7_dev:.4f} ms "
-                  f"by the kernel record), plain {plain_ms:.4f} ms, permute().contiguous() "
-                  f"{lib_ms:.4f} ms; {nbytes} bytes, bound {bound:.4f} ms, "
-                  f"{100 * bound / ms:.1f} % of it ({nbytes / (ms * 1e-3) / 1e9:.1f} GB/s); "
-                  "bit-equal to both")
+            layout[kind, tag] = dict(ms=ms, dev_ms=k7_dev, plain_ms=plain_ms,
+                                     library_ms=lib_ms, bound_ms=bound)
+            floors = ""
+            if not x.is_contiguous():
+                rows, head = x.numel() // batch, x.data_ptr() % 64  # the rows lie 64 or 256 bytes apart
+                for seg in (32, 64):
+                    fb = rows * ((head % seg + batch * el + seg - 1) // seg) * seg + out_bytes
+                    f_ms = fb / HBM_BYTES_PER_S * 1e3
+                    floors += (f"; {seg}-byte {'sector' if seg == 32 else 'segment'} floor "
+                               f"{fb} bytes, {f_ms:.4f} ms, {100 * f_ms / k7_dev:.1f} % of it")
+            phase(6, f"K7 posed_layout {kind} {tag}: kernel {ms:.4f} ms by the events, "
+                  f"{k7_dev:.4f} ms by the kernel record; plain {plain_ms:.4f} ms, "
+                  f"permute().contiguous() {lib_ms:.4f} ms; {nbytes} bytes, bound {bound:.4f} ms, "
+                  f"{100 * bound / k7_dev:.1f} % of it by the record "
+                  f"({nbytes / (k7_dev * 1e-3) / 1e9:.1f} GB/s){floors}; bit-equal to both")
+            del x
+            torch.cuda.empty_cache()
         one = fr[..., :1].contiguous()  # the drag-look: one whole frame set
         n7 = posed.posed_layout.launches
         bg1 = kerns[kind, 1].background
@@ -695,10 +739,10 @@ def posed_phase(dev, frames, frames_dev, kernels):
               + f"; once a key: {', '.join(f'{n} {t:.3f} ms' for n, t in host.items())}")
 
     main6 = k6[POSED_B, "u8", 1]
-    k7main = layout["u8", POSED_B]
+    k7main = layout["u8", "B=64"]
     rows = [
-        ("posed_gather", "posed.cu", "blinky_tpu/kernels/posed.py:102", k5_err, k5_ms,
-         k5_plain, k5_bound, "bytes", None, None),
+        ("posed_gather", "posed.cu", "blinky_tpu/kernels/posed.py:102", k5_err, k5main["ms"],
+         k5main["plain_ms"], k5main["bound_ms"], "bytes", None, None),
         ("static_ray_posed", "posed.cu", "blinky_tpu/kernels/static_ray.py:220", err,
          main6["ms"], main6["plain_ms"], main6["bound_ms"], main6["bound_by"], None, None),
         ("posed_layout", "layout.cu", "blinky_tpu/kernels/posed.py:91", 0, k7main["ms"],
@@ -1317,6 +1361,18 @@ def equirect_phase(dev, frames, frames_dev, kernels):
     aa_k1 = sum(t for n_, t in dev_ms.items() if "remap_gather" in n_)
     aa_k11 = sum(t for n_, t in dev_ms.items() if "downsample" in n_)
     require(aa_k1 > 0 and aa_k11 > 0, "torch.profiler recorded no K1 or K11 under render_aa")
+    # K1's bound inside render_aa: the hi-res lensmap's per-pixel operands
+    # (index, mask, u32 background), the source rows it reads (clip rule) and
+    # the u32 screens, each once
+    k_hi = hi_sess._kernel
+    n_hi = k_hi.flat_idx.numel()
+    rows_hi = source_rows(k_hi.flat_idx, k_hi.valid, frames_dev[..., 0].numel(), False)
+    aa_k1_bytes = n_hi * (4 + 1 + 4) + (rows_hi + n_hi) * B_MAIN * 4
+    aa_k1_bound = aa_k1_bytes / HBM_BYTES_PER_S * 1e3
+    phase(8, f"K1 inside render_aa at 3840x2160 on the u32 source B={B_MAIN}: "
+          f"{aa_k1:.4f} ms by its kernel record; {rows_hi} distinct source rows, "
+          f"{aa_k1_bytes} bytes, bound {aa_k1_bound:.4f} ms by bytes, "
+          f"{100 * aa_k1_bound / aa_k1:.1f} % of it")
     phase(8, f"render_aa 1920x1080 factor {AA_FACTOR} B={B_MAIN}, frames on the card: "
           f"{aa_ms:.4f} ms a batch by the events; under the profiler {wall:.3f} ms a call, the "
           f"device busy {busy:.4f} ms = the palette decode {busy - aa_k1 - aa_k11:.4f} (every "
@@ -1431,5 +1487,146 @@ def cuda_ms_pair(kernel, plain):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
+# chip_smoke.py --sweep: K5's and K7's column path's tuning constants, each
+# configuration built from the sources with nvcc -D (all builds started at
+# once) and timed in turns against the others on phase 6's operands
+K5_SWEEP = [{}, {"K5_POSES_PER_BLOCK": 8}, {"K5_POSES_PER_BLOCK": 2},
+            {"K5_POSES_PER_BLOCK": 16}, {"K5_TILE_RUNS": 8}, {"K5_TILE_RUNS": 32},
+            {"K5_TILE_RUNS": 256}, {"K5_POSE_GROUP": 1}, {"K5_POSE_GROUP": 4},
+            {"K5_THREADS": 512}]
+K7_SWEEP = [{}] + [{"K7_COLUMN_LOADS": n} for n in (2, 4, 16)]
+# cudaLimitMaxL2FetchGranularity in cudaLimit
+L2_FETCH_LIMIT = 5
+
+
+def sweep():
+    """Times every configuration of K5_SWEEP on the phase 6 tables (u8 and
+    RGBA, render scales 1 and 2) and of K7_SWEEP on the one-pose slices,
+    each bit-checked against the package's build; then the package's K7 on
+    the one-pose slices under each L2 fetch granularity limit."""
+    import ctypes
+    import glob
+    import os
+
+    import numpy as np
+
+    from blinky_tpu_torch.api import Session
+    from blinky_tpu_torch.bench.posed import posed_poses
+    from blinky_tpu_torch.bench.sol import cuda_ms
+    from blinky_tpu_torch.io.cubemap import synthetic_cubemap_batch
+    from blinky_tpu_torch.kernels import _build, posed
+    from blinky_tpu_torch.lensmap.builder import rays_to_lensmap_torch
+    from blinky_tpu_torch.palette import MAX_PLATES, rgba_lut
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         check=True, capture_output=True, text=True).stdout.strip()
+    print(f"card: {smi}", flush=True)
+    home = _build.library()
+    out_dir = _build.BUILD_DIR
+    procs = []
+    for name, configs in (("posed", K5_SWEEP), ("layout", K7_SWEEP)):
+        for i, cfg in enumerate(configs[1:]):
+            lib = out_dir / f"sweep_{name}{i}.so"
+            cmd = [_build._nvcc(), *_build.NVCC_FLAGS, *(f"-D{k}={v}" for k, v in cfg.items()),
+                   "-o", str(lib), str(_build.CSRC / f"{name}.cu"),
+                   str(_build.CSRC / "remap_gather.cu")]
+            procs.append((name, cfg, lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                           stderr=subprocess.STDOUT, text=True)))
+    variants = {"posed": [({}, home)], "layout": [({}, home)]}
+    for name, cfg, lib, proc in procs:
+        log = proc.communicate()[0]
+        require(proc.returncode == 0, f"nvcc {name}.cu {cfg}:\n{log}")
+        cdll = ctypes.CDLL(str(lib))
+        for fn, argtypes in _build._SIGNATURES.items():
+            if hasattr(cdll, fn):
+                getattr(cdll, fn).argtypes = argtypes
+                getattr(cdll, fn).restype = ctypes.c_int
+        cdll.blinky_error_string.argtypes = [ctypes.c_int]
+        cdll.blinky_error_string.restype = ctypes.c_char_p
+        variants[name].append((cfg, cdll))
+
+    def timed(name, call, what):
+        """Each variant's time, in turns forwards and backwards."""
+        ref = call()
+        times = {i: [] for i in range(len(variants[name]))}
+        try:
+            for order in (list(times), list(times)[::-1]):
+                for i in order:
+                    _build._lib = variants[name][i][1]
+                    require(torch.equal(call(), ref), f"{what}: {variants[name][i][0]} differs")
+                    times[i].append(cuda_ms(call, 20))
+        finally:
+            _build._lib = home
+        for i, ts in times.items():
+            cfg = variants[name][i][0]
+            label = ", ".join(f"{k}={v}" for k, v in cfg.items()) or "the source's defaults"
+            print(f"{what}: {label}: {float(np.mean(ts)):.4f} ms; bit-equal", flush=True)
+
+    dev = torch.device("cuda")
+    S, batch = 1080, POSED_B
+    frames = torch.from_numpy(synthetic_cubemap_batch(S, batch)).to(dev)
+    sess = Session(1920, 1080, device=dev)
+    poses = posed_poses(batch)
+    bases_np = posed.bases_from_pose_track(poses)
+    lut = torch.from_numpy(rgba_lut(sess.palette).view(np.int32)).to(dev)
+    rgba = lut[frames.long()]
+    for k in (1, 2):
+        sess.render_posed(frames, poses, render_scale=k)
+        kern = sess._posed_cache[1]
+        _, bases, _ = posed.prep_posed_inputs(frames, bases_np, S, kern.background, dev)
+        parts = [rays_to_lensmap_torch(kern.globe, kern.ray_table.vx, kern.ray_table.vy,
+                                       kern.ray_table.vz, kern.ray_table.lens_valid, S,
+                                       kern.numcells, kern.cell_size, kern.pad_size,
+                                       view_basis=bases[lo:lo + CHUNK])
+                 for lo in range(0, batch, CHUNK)]
+        idx = torch.cat([p_["flat_idx"] for p_ in parts]).contiguous()
+        valid = torch.cat([p_["valid"] for p_ in parts]).contiguous()
+        del parts
+        for kind, fr in (("u8", frames), ("rgba", rgba)):
+            src = posed.posed_layout(fr, MAX_PLATES)
+            bg = kern.background if kind == "u8" else lut[kern.background.long()]
+            timed("posed", lambda: posed.gather_posed(src, idx, valid, bg, k),
+                  f"K5 {kind} k={k} 1080p B={batch}")
+            del src
+        del idx, valid
+    for kind, fr in (("u8", frames), ("rgba", rgba)):
+        x = fr[..., :1]
+        timed("layout", lambda: posed.posed_layout(x, MAX_PLATES),
+              f"K7 {kind} one-pose slice [..., 0:1]")
+        lib_ms = cuda_ms(lambda: x.permute(3, 0, 1, 2).contiguous(), 20)
+        print(f"K7 {kind} one-pose slice: permute().contiguous() {lib_ms:.4f} ms", flush=True)
+    # the L2 fetch granularity limit: a hint the CUDA runtime may clamp, read back after
+    # each setting
+    from torch.utils.cpp_extension import CUDA_HOME
+    found = sorted(glob.glob(os.path.join(CUDA_HOME or "/usr/local/cuda", "lib64", "libcudart.so*")))
+    require(found, "no libcudart under the CUDA toolkit")
+    cudart = ctypes.CDLL(found[-1])
+    cudart.cudaDeviceGetLimit.argtypes = [ctypes.POINTER(ctypes.c_size_t), ctypes.c_int]
+    cudart.cudaDeviceSetLimit.argtypes = [ctypes.c_int, ctypes.c_size_t]
+    cudart.cudaDeviceGetLimit.restype = cudart.cudaDeviceSetLimit.restype = ctypes.c_int
+    value = ctypes.c_size_t(0)
+    require(cudart.cudaDeviceGetLimit(ctypes.byref(value), L2_FETCH_LIMIT) == 0,
+            "cudaDeviceGetLimit failed")
+    default = value.value
+    for limit in (32, 64, 128, default):
+        require(cudart.cudaDeviceSetLimit(L2_FETCH_LIMIT, limit) == 0,
+                "cudaDeviceSetLimit failed")
+        cudart.cudaDeviceGetLimit(ctypes.byref(value), L2_FETCH_LIMIT)
+        for kind, fr in (("u8", frames), ("rgba", rgba)):
+            x = fr[..., :1]
+            ms = cuda_ms(lambda: posed.posed_layout(x, MAX_PLATES), 20)
+            lib_ms = cuda_ms(lambda: x.permute(3, 0, 1, 2).contiguous(), 20)
+            print(f"L2 fetch granularity limit {limit} (reads back {value.value}, default "
+                  f"{default}): K7 {kind} one-pose slice {ms:.4f} ms, permute().contiguous() "
+                  f"{lib_ms:.4f} ms", flush=True)
+    return 0
+
+
+
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--sweep"]:
+        if not torch.cuda.is_available():
+            print("chip_smoke --sweep: no CUDA device", file=sys.stderr)
+            sys.exit(1)
+        sys.exit(sweep())
     sys.exit(main())

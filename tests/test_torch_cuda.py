@@ -287,6 +287,83 @@ def test_posed_gather_equals_plain(cuda_device, dtype, k, B):
     _equal(got, posed.gather_posed_plain(*args, k))
 
 
+def _gather_tables(B, hb, wb, N, mask, rng, device):
+    """K5's index and mask tables: indices out of range either side, and a
+    random, all-valid or all-invalid mask."""
+    idx = rng.integers(-N - 3, 2 * N + 3, (B, hb, wb)).astype(np.int32)
+    valid = {"random": rng.random((B, hb, wb)) < 0.8, "all": np.ones((B, hb, wb), bool),
+             "none": np.zeros((B, hb, wb), bool)}[mask]
+    return torch.from_numpy(idx).to(device), torch.from_numpy(valid).to(device)
+
+
+def _misaligned(t, offset):
+    """The same values in a contiguous slice of a larger tensor, *offset*
+    elements past its start (offset 1: a pointer off 16 bytes)."""
+    if not offset:
+        return t
+    flat = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    view = flat[offset:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int32], ids=["u8", "int32"])
+@pytest.mark.parametrize("k", [1, 2, 4])
+@pytest.mark.parametrize("B", [1, 17, 65, 300])
+@pytest.mark.parametrize("mask", ["random", "all", "none"])
+@pytest.mark.parametrize("bg_offset", [0, 1], ids=["bg", "bg+1"])
+def test_posed_gather_vector_equals_plain(cuda_device, dtype, k, B, mask, bg_offset):
+    """K5 on an 8x12 build grid (a width that is a multiple of four: the
+    vector kernel at k = 1 and 2, the scalar one at k = 4 and for a
+    background one element off its alignment), every batch edge of a
+    block's poses and pose group, masks all valid and all invalid."""
+    rng = np.random.default_rng(B * 100 + k * 10 + bg_offset)
+    N, hb, wb = 61, 8, 12
+    int32 = dtype == torch.int32
+    src = _texels(int32, (B, N), rng, cuda_device)
+    bg = _misaligned(_texels(int32, (hb * k, wb * k), rng, cuda_device), bg_offset)
+    idx, valid = _gather_tables(B, hb, wb, N, mask, rng, cuda_device)
+    n0 = posed.gather_posed.launches
+    got = posed.gather_posed(src, idx, valid, bg, k)
+    assert posed.gather_posed.launches == n0 + 1
+    _equal(got, posed.gather_posed_plain(src, idx, valid, bg, k))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int32], ids=["u8", "int32"])
+@pytest.mark.parametrize("k", [1, 2, 4])
+def test_posed_gather_1080(cuda_device, dtype, k):
+    """K5 on a 270x480 build grid (1080p at k = 4), 17 poses of a 1080p
+    frame set."""
+    rng = np.random.default_rng(k)
+    B, hb, wb, N = 17, 270, 480, 6 * 1080 * 1080
+    int32 = dtype == torch.int32
+    gen = torch.Generator(cuda_device).manual_seed(k)
+    src = torch.randint(-2**31 if int32 else 0, 2**31 if int32 else 256, (B, N), dtype=dtype,
+                        device=cuda_device, generator=gen)
+    bg = _texels(int32, (hb * k, wb * k), rng, cuda_device)
+    idx, valid = _gather_tables(B, hb, wb, N, "random", rng, cuda_device)
+    _equal(posed.gather_posed(src, idx, valid, bg, k),
+           posed.gather_posed_plain(src, idx, valid, bg, k))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 2])
+def test_posed_gather_source_past_int32(cuda_device, k):
+    """B * N >= 2^31: 3 poses of 800,000,000 u8 texels (2.4 GB).  The last
+    pose reads past element 2^31."""
+    B, N, hb, wb = 3, 800_000_000, 8, 12
+    assert not posed.flat_gather_safe(B, N)
+    rng = np.random.default_rng(k)
+    gen = torch.Generator(cuda_device).manual_seed(k)
+    src = torch.randint(0, 256, (B, N), dtype=torch.uint8, device=cuda_device, generator=gen)
+    bg = _texels(False, (hb * k, wb * k), rng, cuda_device)
+    idx, valid = _gather_tables(B, hb, wb, N, "random", rng, cuda_device)
+    _equal(posed.gather_posed(src, idx, valid, bg, k),
+           posed.gather_posed_plain(src, idx, valid, bg, k))
+
+
 def _posed_table(globe_name, hb, wb, device, odd_rays=True):
     """The panini ray table of a globe on a ragged build grid, with NaN,
     inf and zero-length rays planted in it."""
@@ -551,6 +628,69 @@ def test_posed_layout_batch_slices(cuda_device, dtype, lo, hi):
         frames.view(torch.uint32) if rgba else frames, np.tile(np.eye(3), (hi - lo, 1, 1)),
         24, torch.zeros((8, 8), dtype=dtype, device=cuda_device), cuda_device)
     _equal(src, got)
+
+
+def _layout_equal(frames, planes):
+    """K7 once, bit-equal to its plain version and to permute().contiguous()."""
+    P, S, _, B = frames.shape
+    n0 = posed.posed_layout.launches
+    got = posed.posed_layout(frames, planes)
+    assert posed.posed_layout.launches == n0 + 1
+    _equal(got, posed.posed_layout_plain(frames, planes))
+    _equal(got[:, :P * S * S], frames.permute(3, 0, 1, 2).contiguous().reshape(B, -1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int32], ids=["u8", "int32"])
+@pytest.mark.parametrize("P", [3, 6, 12])
+@pytest.mark.parametrize("B", [1, 2, 3, 5, 8, 15, 17, 63, 100])
+@pytest.mark.parametrize("S", [5, 64, 1080])
+def test_posed_layout_contiguous_batches(cuda_device, dtype, P, B, S):
+    """K7 on contiguous batches: the span tiles (rows up to 256 bytes that
+    are no multiple of 16), the vector path where B allows it, and the
+    chunked tiles of RGBA's 100 poses."""
+    gen = torch.Generator(cuda_device).manual_seed(P * 1000 + B * 10 + S)
+    frames = torch.randint(0, 256, (P, S, S, B), dtype=torch.uint8, device=cuda_device,
+                           generator=gen)
+    if dtype == torch.int32:
+        frames = frames.int() * 16843009 + torch.arange(B, device=cuda_device, dtype=torch.int32)
+    _layout_equal(frames, 12 if P == 12 else 6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int32], ids=["u8", "int32"])
+@pytest.mark.parametrize("width", [1, 2, 5, 8, 40])
+@pytest.mark.parametrize("offset", [0, 3])
+@pytest.mark.parametrize("S", [24, 1080])
+def test_posed_layout_slices(cuda_device, dtype, width, offset, S):
+    """K7 on batch slices frames[..., lo:lo + width] of a 64-pose batch:
+    the one-pose column path, the slice tiles (render_posed's chunks), and
+    their prep_posed_inputs."""
+    gen = torch.Generator(cuda_device).manual_seed(width * 10 + offset + S)
+    full = torch.randint(0, 256, (6, S, S, 64), dtype=torch.uint8, device=cuda_device,
+                         generator=gen)
+    if dtype == torch.int32:
+        full = full.int() * 16843009
+    frames = full[..., offset:offset + width]
+    _layout_equal(frames, 6)
+    rgba = dtype == torch.int32
+    src, _, _ = posed.prep_posed_inputs(
+        frames.view(torch.uint32) if rgba else frames, np.tile(np.eye(3), (width, 1, 1)), S,
+        torch.zeros((8, 8), dtype=dtype, device=cuda_device), cuda_device)
+    _equal(src, posed.posed_layout_plain(frames, 6))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int32], ids=["u8", "int32"])
+@pytest.mark.parametrize("B", [1, 3, 16, 63, 64])
+@pytest.mark.parametrize("sliced", [False, True], ids=["whole", "slice"])
+def test_posed_layout_misaligned_base(cuda_device, dtype, B, sliced):
+    """K7 on frames whose base pointer is off 16 bytes (a contiguous view
+    one element into a larger tensor), whole or as the slice [..., 1:B]."""
+    rng = np.random.default_rng(B * 2 + sliced)
+    frames = _misaligned(_frames(dtype, 6, 24, B + 1, rng, cuda_device), 1)
+    assert frames.data_ptr() % 16
+    _layout_equal(frames[..., 1:] if sliced else frames, 6)
 
 
 def _strided(frames, layout):

@@ -144,13 +144,19 @@ def test_flat_gather_safe(batch, n):
     assert posed.flat_gather_safe(batch, n) == jposed.flat_gather_safe(batch, n)
 
 
-@pytest.mark.parametrize("k", [1, 2, 3])
-@pytest.mark.parametrize("rgba", [False, True], ids=["u8", "u32"])
-def test_gather_posed_plain_equals_jax(k, rgba):
+# (k, rgba, build width): a ragged width of 7 (K5's scalar kernel on a card)
+# and one that is a multiple of four (its vector kernel at k = 1 and 2)
+GATHER_CASES = [pytest.param(k, rgba, wb, id=f"{'u32' if rgba else 'u8'}-{k}"
+                             + ("" if wb == 7 else f"-w{wb}"))
+                for rgba in (False, True) for wb in (7, 8) for k in (1, 2, 3, 4)]
+
+
+@pytest.mark.parametrize("k,rgba,wb", GATHER_CASES)
+def test_gather_posed_plain_equals_jax(k, rgba, wb):
     """K5's plain version against the JAX gather tail, with indices out of
     range either side and holes in the mask."""
-    rng = np.random.default_rng(10 * k + rgba)
-    N, hb, wb = 40, 6, 7
+    rng = np.random.default_rng(10 * k + rgba + (0 if wb == 7 else 100))
+    N, hb = 40, 6
     dt = np.uint32 if rgba else np.uint8
     src = rng.integers(0, 2**32 if rgba else 256, (B, N), dtype=np.uint64).astype(dt)
     bg = rng.integers(0, 2**32 if rgba else 256, (hb * k, wb * k), dtype=np.uint64).astype(dt)
@@ -164,19 +170,39 @@ def test_gather_posed_plain_equals_jax(k, rgba):
     np.testing.assert_array_equal(got.numpy().view(dt), want)
 
 
-@pytest.mark.parametrize("kind", SOURCES)
-def test_prep_posed_inputs_equals_jax(kind):
+# (kind, batch): the five-pose batch; ragged contiguous batches (K7's span
+# tiles on a card, B = 1 and 3 below and 63 above its vector path's 16 u8
+# poses); batch slices of an 8-pose batch (its slice tiles and, one pose
+# wide, its column path)
+PREP_CASES = [pytest.param(kind, batch, id=kind + ("" if batch is None else f"-{batch}"))
+              for kind in SOURCES for batch in (None, 1, 3, 63, "3:8", "5:6")]
+
+
+@pytest.mark.parametrize("kind,batch", PREP_CASES)
+def test_prep_posed_inputs_equals_jax(kind, batch):
     """The pose-major source: P < 6 planes pad to 6, the expanded layout
-    stays 12, RGBA rides as int32 bits; bases are cast to float32."""
-    frames = _source(kind)
+    stays 12, RGBA rides as int32 bits; bases are cast to float32.  Ragged
+    batches and batch slices (a strided tensor on the port's side) lay out
+    as the JAX package's transpose does."""
+    lo = hi = None
+    if isinstance(batch, str):
+        lo, hi = map(int, batch.split(":"))
+        frames = _source(kind, synthetic_cubemap_batch(S, 8))
+    else:
+        frames = _source(kind, None if batch is None else synthetic_cubemap_batch(S, batch))
     if kind == "u8":
         frames = frames[:4]
-    bases = jposed.bases_from_pose_track(POSES)
+    port = frames
+    if lo is not None:
+        port = torch.from_numpy(frames)[..., lo:hi]
+        frames = frames[..., lo:hi]
+    n = frames.shape[-1]
+    bases = jposed.bases_from_pose_track([POSES[i % len(POSES)] for i in range(n)])
     rgba = kind == "rgba"
     jbg = jnp.zeros((H, W), jnp.uint32 if rgba else jnp.uint8)
     jsrc, jb, jexp = jposed.prep_posed_inputs(frames, bases, S, jnp.float32, jbg)
     bg = torch.zeros((H, W), dtype=torch.int32 if rgba else torch.uint8)
-    src, b, exp = posed.prep_posed_inputs(frames, bases, S, bg, "cpu")
+    src, b, exp = posed.prep_posed_inputs(port, bases, S, bg, "cpu")
     assert exp == jexp
     np.testing.assert_array_equal(src.numpy().view(np.uint32) if rgba else src.numpy(),
                                   np.asarray(jsrc))
@@ -913,6 +939,12 @@ def test_render_posed_nonblocking_preview_then_swap(monkeypatch):
     frames = _source("u8")
     out = ps.render_posed(frames, np.asarray(POSES), block=False)
     assert out.shape == (B, H, W) and ps.posed_pending
+    # count the calls once the build thread has made its own, which it may
+    # make after the first call returns
+    deadline = time.time() + 30
+    while not gate["started"] and time.time() < deadline:
+        time.sleep(0.01)
+    assert gate["started"]
     n = len(gate["calls"])
     assert torch.equal(ps.render_posed(frames, np.asarray(POSES), block=False), out)
     assert len(gate["calls"]) == n  # the preview kernel is reused
