@@ -480,9 +480,11 @@ class Session:
     def _resolved_backend(self) -> str:
         """See the backend policy in the class's note."""
         if self.backend == "auto":
-            # every ported lens and globe runs on tensors (scalar-only
+            # every ported inverse lens and globe runs on tensors (scalar-only
             # script lenses and resolvers are not ported), so a rotated view
-            # always takes the device builder
+            # takes the device builder; a forward lens has no float32 twin and
+            # rasterizes on the host, with the view basis, under either
+            # backend (build_lensmap routes it)
             return "torch" if self.view_angles is not None else "numpy"
         return self.backend
 
@@ -589,12 +591,7 @@ class Session:
     def _load_lens(self) -> bool:
         """Load the active lens for the current globe (``LUA_load_lens``
         semantics: the metadata is re-evaluated per globe,
-        ``fisheye.c:734-737``).  A built-in of ``blinky_tpu`` that is not
-        ported raises ``NotImplementedError``; any other unknown name is
-        not a valid lens."""
-        if self.lens_name in lenses_mod.UNPORTED_LENSES:
-            raise NotImplementedError(
-                f"lens '{self.lens_name}' is not ported to blinky_tpu_torch yet")
+        ``fisheye.c:734-737``).  An unknown name is not a valid lens."""
         if self.lens_name not in lenses_mod.BUILTIN_LENSES:
             return False
         self.lens = lenses_mod.get(self.lens_name, self.globe)
@@ -1021,7 +1018,11 @@ class Session:
         The path is the static-ray recomposition
         (:mod:`blinky_tpu_torch.kernels.static_ray`): one camera-ray table
         per (lens, zoom, size), then per pose a lens-free rotate, plate
-        resolve and gather, fused in one CUDA kernel on a card.
+        resolve and gather, fused in one CUDA kernel on a card.  A
+        forward-only lens's table holds the texel-centre rays of its host
+        rasterization at the build grid (at render_scale k, ``W/k`` by
+        ``H/k`` with the zoom scale times k); the session's static lensmap
+        seeds it at k = 1.
 
         ``render_scale`` k > 1 builds at 1/k of the screen and
         nearest-upsamples, with the full-resolution background.
@@ -1031,7 +1032,7 @@ class Session:
 
         ``exact=True`` builds every pose's lensmap on the exact float64
         host path instead (the table a static render at those angles
-        uses), then gathers all poses in one launch of
+        uses; a forward-only lens rasterizes each pose's basis), then gathers all poses in one launch of
         :func:`blinky_tpu_torch.kernels.posed.gather_posed`.
 
         ``block=False`` makes a first call for a new (lens, zoom, size,

@@ -162,9 +162,10 @@ def build_ray_table(lens, globe, scale, width_px, height_px,
     * an inverse lens -> the float32 lens stage on *device* (bit-aligned
       with the fused posed pipeline; every ported lens and globe runs on
       tensors: scalar-only script lenses and resolvers are not ported);
-    * a forward-only lens -> the texel centers of *lensmap* when its size
-      and zoom scale match (the forward rasterizer that would build one is
-      not ported yet).
+    * a forward-only lens -> the texel centers of the host forward
+      rasterization (*lensmap* when its size and zoom scale match, else a
+      new :func:`blinky_tpu_torch.lensmap.forward_raster.build_forward`;
+      rubix tint is recomputed per pose, so the tint in it is irrelevant).
     """
     if platesize is None:
         platesize = min(width_px, height_px)
@@ -175,11 +176,10 @@ def build_ray_table(lens, globe, scale, width_px, height_px,
             or lensmap.height_px != height_px \
             or lensmap.platesize != platesize \
             or lensmap.scale != float(scale):
-        raise NotImplementedError(
-            f"lens '{lens.name}' is forward-mapped; the forward rasterizer "
-            "is not ported yet")
-    if isinstance(lensmap.plate, torch.Tensor):
-        lensmap = lensmap.to_numpy()
+        from blinky_tpu_torch.lensmap.forward_raster import build_forward
+
+        lensmap = build_forward(lens, globe, float(scale), int(width_px),
+                                int(height_px), int(platesize))
     return ray_table_from_lensmap(lensmap, globe)
 
 

@@ -12,10 +12,9 @@ contract is :mod:`blinky_tpu.lenses`'s:
 Each lens lives in its own module defining ``make(ctx) -> dict``; its
 mapping functions are dtype-generic array functions (see
 :mod:`blinky_tpu_torch.xmath`), evaluated in float64 on NumPy by the exact
-host builder and in float32 on tensors by the device builder.  The
-port brings lenses over in groups: :data:`BUILTIN_LENSES` lists the
-ported ones, and :func:`get` of a lens that :mod:`blinky_tpu` has but the
-port does not yet raises ``NotImplementedError``.
+host builder and in float32 on tensors by the device builder.  The ten
+forward-only lenses run on NumPy only, inside the host rasterizer
+(:mod:`blinky_tpu_torch.lensmap.forward_raster`).
 """
 
 from __future__ import annotations
@@ -25,20 +24,14 @@ import importlib
 from types import SimpleNamespace
 from typing import Callable, Optional
 
-# the ported built-ins, each a module of this package
+# the built-ins, each a module of this package: all 31 of blinky_tpu's
 BUILTIN_LENSES = [
-    "cube", "cubestereo", "cylinder", "eckert4", "equirect", "fahey",
-    "fisheye1", "fisheye2", "gallstereo", "gumby", "hammer", "mercator",
-    "miller", "mollweide", "panini", "rectilinear", "stereographic",
-    "vandergrinten", "winkeltripel",
-]
-
-# blinky_tpu's built-in lenses that are still to be ported: quincuncial and
-# debug (they reach the array namespace directly), and the ten forward-only
-# lenses, which wait for the forward rasterizer
-UNPORTED_LENSES = [
-    "debug", "eckert1", "eckert5", "gins8", "kavrayskiy7", "larrivee",
-    "polyconic", "quincuncial", "sinusoidal", "wagner6", "winkel1", "winkel2",
+    "cube", "cubestereo", "cylinder", "debug", "eckert1", "eckert4",
+    "eckert5", "equirect", "fahey", "fisheye1", "fisheye2", "gallstereo",
+    "gins8", "gumby", "hammer", "kavrayskiy7", "larrivee", "mercator",
+    "miller", "mollweide", "panini", "polyconic", "quincuncial",
+    "rectilinear", "sinusoidal", "stereographic", "vandergrinten", "wagner6",
+    "winkel1", "winkel2", "winkeltripel",
 ]
 
 
@@ -132,18 +125,14 @@ def make_context(globe) -> SimpleNamespace:
 
 
 def names() -> list:
-    """Ported built-in lens names (the ``f_lens <tab>`` completion set,
-    reference ``fisheye.c:1106-1118``)."""
+    """Built-in lens names (the ``f_lens <tab>`` completion set, reference
+    ``fisheye.c:1106-1118``)."""
     return list(BUILTIN_LENSES)
 
 
 def get(name: str, globe=None) -> LensDef:
     """Load a built-in lens for the given globe (re-evaluating metadata per
     globe, as the reference reloads the Lua script — ``fisheye.c:734-737``)."""
-    if name in UNPORTED_LENSES:
-        raise NotImplementedError(
-            f"lens '{name}' is not ported to blinky_tpu_torch yet "
-            f"(ported: {', '.join(BUILTIN_LENSES)})")
     if name not in BUILTIN_LENSES:
         raise KeyError(f"unknown lens '{name}' (have: {', '.join(BUILTIN_LENSES)})")
     mod = importlib.import_module(f"blinky_tpu_torch.lenses.{name}")

@@ -1,0 +1,23 @@
+"""Winkel II projection (forward-only).
+
+Reference: ``game/lua-scripts/lenses/winkel2.lua``.
+"""
+
+from blinky_tpu_torch import xmath as m
+from blinky_tpu_torch.geometry import ray_to_latlon
+
+
+def make(ctx):
+    def lens_forward(x, y, z):
+        lat, lon = ray_to_latlon(x, y, z)
+        px = lon / 2 * (2 / m.pi + m.sqrt(m.pi * m.pi - 4 * lat * lat) / m.pi)
+        return px, lat, True
+
+    return dict(
+        lens_forward=lens_forward,
+        max_fov=360,
+        max_vfov=180,
+        lens_width=m.pi / 2 * (2 / m.pi + 1) * 2,
+        lens_height=m.pi,
+        onload="f_contain",
+    )

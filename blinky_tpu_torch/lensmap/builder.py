@@ -17,7 +17,11 @@ inverse scan ``resume_lensmap_inverse`` (``fisheye.c:2084-2124``).
   a zoom sweep need; its tables differ from the exact ones at a few boundary
   texels.
 
-The forward-lens rasterizer is not ported yet.
+A forward-mapped lens has no inverse to evaluate: whatever the backend,
+:func:`build_lensmap` rasterizes it on the host
+(:func:`blinky_tpu_torch.lensmap.forward_raster.build_forward`, NumPy
+float64 and the native quad fill), as the JAX package does, and returns
+NumPy tables.
 """
 
 from __future__ import annotations
@@ -615,13 +619,16 @@ def build_lensmap(
     view_basis=None,
     device="cuda",
 ) -> LensMap:
-    """Build the lensmap of an inverse-mapped *lens*.
+    """Build the lensmap of *lens*.
 
     ``backend``: ``"numpy"`` (the default), the exact float64 host path,
     NumPy arrays; or ``"torch"``, the float32 builder on *device* (``"cuda"``
     unless the caller asks for another): the lens stage as tensor
     operations, then :func:`lensmap_resolve` (K8 on a card).  Its tables are
-    tensors on the device; :meth:`LensMap.to_numpy` copies them out.
+    tensors on the device; :meth:`LensMap.to_numpy` copies them out.  A
+    forward-mapped lens rasterizes on the host under either backend
+    (:func:`blinky_tpu_torch.lensmap.forward_raster.build_forward`) and
+    returns NumPy tables.
 
     ``platesize`` defaults to ``min(width_px, height_px)``
     (``fisheye.c:707``).  ``view_basis``: optional (forward, right, up)
@@ -631,12 +638,17 @@ def build_lensmap(
     """
     if backend not in ("numpy", "torch"):
         raise ValueError(f"unknown lensmap backend {backend!r}")
-    if lens.map_type == "forward":
-        raise NotImplementedError(
-            f"lens '{lens.name}' is forward-mapped; the forward rasterizer "
-            "is not ported yet")
     if platesize is None:
         platesize = min(width_px, height_px)
+    if lens.map_type == "forward":
+        # a serial scatter with no float32 twin: the host rasterizer, NumPy
+        # tables, whatever the backend
+        from blinky_tpu_torch.lensmap.forward_raster import build_forward
+
+        return build_forward(
+            lens, globe, scale, width_px, height_px, platesize,
+            numcells, cell_size, pad_size, view_basis=view_basis,
+        )
     if backend == "numpy":
         out = inverse_grid(
             lens, globe, np.float64(scale), width_px, height_px, platesize,

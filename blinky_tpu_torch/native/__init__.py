@@ -134,6 +134,45 @@ def pcx_encode_body(img: np.ndarray, mode: str = "reference"):
     return out[:n].tobytes()
 
 
+def forward_rasterize_plate(lx, ly, ok, owned, offgrid, plate,
+                            plate_a, px_a, py_a, tint_a):
+    """Native quad rasterizer for one plate (draw_quad scan-order
+    transcription); mutates plate_a/px_a/py_a/tint_a in place.  *offgrid*
+    is the [S, S] not-on-rubix-grid texel mask (tint is only written for
+    off-grid texels — set_lensmap_grid, fisheye.c:1955-1958).  Returns
+    True if any pixel was written, None if the library is unavailable."""
+    lib = _load()
+    if lib is None:
+        return None
+    S = owned.shape[0]
+    H, W = plate_a.shape
+    lx = np.ascontiguousarray(lx, dtype=np.int32)
+    ly = np.ascontiguousarray(ly, dtype=np.int32)
+    ok = np.ascontiguousarray(ok, dtype=np.uint8)
+    owned = np.ascontiguousarray(owned, dtype=np.uint8)
+    offgrid = np.ascontiguousarray(offgrid, dtype=np.uint8)
+    # the C loop trusts these shapes: corners [S+1, S+1], texels [S, S], and
+    # the tables it writes in place [H, W], C-contiguous, of their dtypes
+    for a, shape in ((lx, (S + 1, S + 1)), (ly, (S + 1, S + 1)), (ok, (S + 1, S + 1)),
+                     (owned, (S, S)), (offgrid, (S, S))):
+        if a.shape != shape:
+            raise ValueError(f"forward_rasterize_plate: {a.shape} where {shape} is needed")
+    for a, dtype in ((plate_a, np.int32), (px_a, np.int32), (py_a, np.int32),
+                     (tint_a, np.uint8)):
+        if a.shape != (H, W) or a.dtype != dtype or not a.flags.c_contiguous:
+            raise ValueError("forward_rasterize_plate: the tables must be C-contiguous "
+                             f"[{H}, {W}] arrays, int32 (uint8 for the tint)")
+
+    def _i32(a):
+        return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int32))
+
+    wrote = lib.forward_rasterize_plate(
+        _i32(lx), _i32(ly), _u8(ok), _u8(owned), _u8(offgrid), S, W, H, plate,
+        _i32(plate_a), _i32(px_a), _i32(py_a), _u8(tint_a),
+    )
+    return bool(wrote)
+
+
 def _f64(a: np.ndarray):
     return a.ctypes.data_as(ctypes.POINTER(ctypes.c_double))
 

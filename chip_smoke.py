@@ -7,9 +7,10 @@ Builds the hand-written CUDA kernels from ``blinky_tpu_torch/csrc`` and drives
 the port's main paths at 1920x1080 (panini + cube, ``f_fov 180``):
 ``Session.render``, ``Session.render_posed`` and the float32 device builder's
 (``Session(backend="torch")``, ``setviewangles``, ``PosedRemapKernel``,
-``zoom_sweep_remap``), and the 360-video path at 4096x2048 panos -> 1280x720
-(``Session.render_equirect``, ``Session.render_aa``); then checks and times
-every kernel against its plain PyTorch version.  Phases:
+``zoom_sweep_remap``), the 360-video path at 4096x2048 panos -> 1280x720
+(``Session.render_equirect``, ``Session.render_aa``), and the twelve lenses
+that ride the forward rasterizer and the float32 builder; then checks and
+times every kernel against its plain PyTorch version.  Phases:
 
 1. set-up: the card's name and power limit, the kernel build;
 2. main path: with every launch counter at 0, the Session renders a
@@ -93,7 +94,25 @@ every kernel against its plain PyTorch version.  Phases:
    (``bench.throughput.run_equirect_throughput``), and once from a NumPy
    batch; the compact mode at B = 1, 16 and 128; and ``render_aa``, split by
    ``torch.profiler``'s records into the palette decode, K1 and K11, with
-   K1's byte bound at 3840x2160.
+   K1's byte bound at 3840x2160;
+9. the last twelve lenses (quincuncial, debug and the ten forward-only
+   projections): with every launch counter at 0, a 1080p Session renders the
+   64-frame batch through each of the twelve at its ``onload`` zoom after an
+   exact host build (the forward rasterizer with the native quad fill for
+   the ten), eckert1 with ``f_rubix`` and ``decode_rgb`` (K2), eckert1's
+   ``render_posed`` of the 64 poses at render scales 1 and 2 on the
+   rasterized lensmap's ray table (K7, K6) and two exact poses (K5), eckert1
+   after ``setviewangles 10 30 0`` (the rasterizer with the view basis, K1),
+   quincuncial and debug on ``Session(backend="torch")`` (the lens stage,
+   K8, K1), and eckert1's ``render_equirect`` of phase 8's panos in the
+   compact and the fused mode (K10); the counters are read and printed.  Each
+   output is held bit-equal to its plain version on the card and to
+   ``host_remap`` (of the per-pose rasterizations for the exact poses, of an
+   independent rasterization for the rotated view), the equirect modes to
+   each other and lanes 0 and 127 to the all-host path; each host build's
+   seconds, valid share and plates used, the identity pose's share off the
+   static render, and quincuncial's and debug's lens stage and K8 times and
+   float32 share off the exact build are printed.
 
 The line before the card's name and power limit lists every kernel with its
 launches in its path's run (phase 2 for K1-K4, phase 6 for K5-K7, phase 7
@@ -393,6 +412,7 @@ def main():
     launches.update(builder_launches)
     equirect_launches, equirect_rows = equirect_phase(dev, frames, frames_dev, kernels)
     launches.update(equirect_launches)
+    lenses_phase(dev, frames, frames_dev, kernels)
 
     k1, k2 = main_ms["remap_gather"], main_ms["remap_lut"]
     rows = [
@@ -1369,9 +1389,13 @@ def equirect_phase(dev, frames, frames_dev, kernels):
     rows_hi = source_rows(k_hi.flat_idx, k_hi.valid, frames_dev[..., 0].numel(), False)
     aa_k1_bytes = n_hi * (4 + 1 + 4) + (rows_hi + n_hi) * B_MAIN * 4
     aa_k1_bound = aa_k1_bytes / HBM_BYTES_PER_S * 1e3
+    src_hi = aa_sess._rgba_screen(frames_dev).view(torch.int32).reshape(-1, B_MAIN)
+    aa_k1_plain = cuda_ms(lambda: remap.remap_gather_plain(
+        src_hi, k_hi.flat_idx, k_hi.valid, k_hi.background_rgba), 3)
+    del src_hi
     phase(8, f"K1 inside render_aa at 3840x2160 on the u32 source B={B_MAIN}: "
-          f"{aa_k1:.4f} ms by its kernel record; {rows_hi} distinct source rows, "
-          f"{aa_k1_bytes} bytes, bound {aa_k1_bound:.4f} ms by bytes, "
+          f"{aa_k1:.4f} ms by its kernel record, plain {aa_k1_plain:.4f} ms; {rows_hi} "
+          f"distinct source rows, {aa_k1_bytes} bytes, bound {aa_k1_bound:.4f} ms by bytes, "
           f"{100 * aa_k1_bound / aa_k1:.1f} % of it")
     phase(8, f"render_aa 1920x1080 factor {AA_FACTOR} B={B_MAIN}, frames on the card: "
           f"{aa_ms:.4f} ms a batch by the events; under the profiler {wall:.3f} ms a call, the "
@@ -1408,6 +1432,266 @@ def equirect_phase(dev, frames, frames_dev, kernels):
          k12_plain, k12_bound, "bytes", None, None),
     ]
     return launches, rows
+
+
+# phase 9: the twelve lenses that came with the forward rasterizer, in the
+# order of blinky_tpu_torch.lenses.BUILTIN_LENSES
+NEW_LENSES = ("debug", "eckert1", "eckert5", "gins8", "kavrayskiy7", "larrivee",
+              "polyconic", "quincuncial", "sinusoidal", "wagner6", "winkel1", "winkel2")
+
+
+def lenses_phase(dev, frames, frames_dev, kernels):
+    """Phase 9: the last twelve lenses on the render, posed and device-builder
+    paths.  Its launch counts are printed here; the kernels line keeps each
+    kernel's launches in its own path's phase."""
+    from blinky_tpu_torch.api import Session
+    from blinky_tpu_torch.bench import builder as bb
+    from blinky_tpu_torch.bench.posed import posed_poses
+    from blinky_tpu_torch.bench.sol import cuda_ms
+    from blinky_tpu_torch.bench.throughput import device_pano
+    from blinky_tpu_torch.camera import view_basis_from_angles
+    from blinky_tpu_torch.kernels import ingest, posed, remap, static_ray
+    from blinky_tpu_torch.lensmap import build_lensmap
+    from blinky_tpu_torch.lensmap import builder
+
+    S, H, W = 1080, 1080, 1920
+    phase_t0 = time.perf_counter()
+    poses = posed_poses(POSED_B)
+    bases_np = posed.bases_from_pose_track(poses)
+    torch.cuda.empty_cache()
+    panos = device_pano(PANO_H, PANO_W, PANO_B, device=dev)  # phase 8's panos
+    torch.cuda.synchronize()
+
+    # ------------------------------------------------ the path, counted
+    path_kernels = {"remap_gather": remap.remap_gather, "remap_lut": remap.remap_lut,
+                    "posed_gather": posed.gather_posed,
+                    "static_ray_posed": static_ray.static_ray_posed,
+                    "posed_layout": posed.posed_layout,
+                    "lensmap_resolve": builder.lensmap_resolve,
+                    "equirect_gather": ingest.equirect_gather}
+    for fn in list(kernels.values()) + list(path_kernels.values()):
+        fn.launches = 0
+    sessions, outs, build_s = {}, {}, {}
+    for name in NEW_LENSES:                                   # a
+        sess = Session(W, H, device=dev)
+        t0 = time.perf_counter()
+        sess.cmd(f"f_lens {name}")
+        lm = sess.lensmap  # the exact host build (a forward lens: the rasterizer)
+        build_s[name] = time.perf_counter() - t0
+        outs[name] = sess.render(frames_dev)
+        sessions[name] = sess
+    eck = sessions["eckert1"]
+    eck.cmd("f_rubix")                                        # b
+    out_rubix = eck.render(frames_dev)
+    eck.cmd("f_rubix")
+    out_rgb = eck.render(frames_dev, decode_rgb=True)
+    posed_outs, posed_kerns = {}, {}                          # c
+    for k in (1, 2):
+        posed_outs[k] = eck.render_posed(frames_dev, poses, render_scale=k)
+        posed_kerns[k] = eck._posed_cache[1]
+    exact = eck.render_posed(frames_dev[..., :2], poses[:2], exact=True)  # d
+    view = Session(W, H, device=dev)                          # e
+    view.cmd("f_lens eckert1; setviewangles 10 30 0")
+    out_view = view.render(frames_dev)
+    torch_sessions, torch_outs = {}, {}                       # f
+    for name in ("quincuncial", "debug"):
+        ts = Session(W, H, device=dev, backend="torch")
+        ts.cmd(f"f_lens {name}")
+        torch_outs[name] = ts.render(frames_dev)
+        torch_sessions[name] = ts
+    eq = Session(EQ_W, EQ_H, platesize=EQ_S, device=dev)      # g
+    eq.cmd("f_lens eckert1")
+    eq_outs = {mode: eq.render_equirect(panos, mode=mode) for mode in ("compact", "fused")}
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in path_kernels.items()}
+    run_s = time.perf_counter() - phase_t0
+    phase(9, f"launches in the last twelve lenses' run (a: Session.render of the B={B_MAIN} "
+          f"batch for each of {len(NEW_LENSES)} lenses, b: eckert1 f_rubix and decode_rgb, "
+          f"c: eckert1 render_posed B={POSED_B} k = 1 and 2, d: two exact poses, e: eckert1 "
+          f"after setviewangles 10 30 0, f: quincuncial and debug on Session(backend='torch'), "
+          f"g: eckert1 render_equirect compact and fused): {launches}; {run_s:.3f} s")
+    for name, n in launches.items():
+        require(n >= 1, f"{name} was not launched by the last twelve lenses' path")
+
+    # ------------------------------------------------ a and b: the renders
+    src = frames_dev.reshape(-1, B_MAIN)
+    for name in NEW_LENSES:
+        sess, out = sessions[name], outs[name]
+        k = sess._kernel
+        lm = sess.lensmap
+        plain = remap.remap_gather_plain(src, k.flat_idx, k.valid, k.background,
+                                         fill=True).reshape(out.shape)
+        e = int((out.int() - plain.int()).abs().max())
+        require(torch.equal(out, plain), f"{name}: render differs from the plain version ({e})")
+        for b in (0, B_MAIN - 1):
+            require(np.array_equal(out[..., b].cpu().numpy(), sess.render_host(frames[..., b])),
+                    f"{name}: render frame {b} differs from host_remap")
+        # K1's bound as phase 2 counts it: the per-pixel operands, the source
+        # rows this lensmap reads, the screens
+        n = k.flat_idx.numel()
+        nbytes = n * 6 + (source_rows(k.flat_idx, k.valid, src.shape[0], True) + n) * B_MAIN
+        k1_ms = cuda_ms(lambda: remap.remap_gather(src, k.flat_idx, k.valid, k.background,
+                                                   fill=True), ITERS)
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        phase(9, f"{name} ({sess.lens.map_type}, {sess.zoom.command()}): exact host build "
+              f"{build_s[name]:.3f} s"
+              + (" (the forward rasterizer, native quad fill)" if sess.lens.map_type == "forward"
+                 else "")
+              + f"; {float(lm.valid.mean()):.6f} of the pixels valid; plates_used "
+              f"{lm.plates_used.astype(int).tolist()}; K1 render bit-equal to its plain "
+              f"version and to host_remap for frames 0 and {B_MAIN - 1}; K1 {k1_ms:.4f} ms, "
+              f"{nbytes} bytes, bound {bound_ms:.4f} ms, {100 * bound_ms / k1_ms:.1f} % of it")
+        del plain
+    k = eck._kernel
+    for what, got, ref, kw in (
+            ("f_rubix", out_rubix, remap.remap_lut_plain(src, k.flat_idx, k.valid, k.tint,
+                                                         k.background, k.tint_lut), {}),
+            ("decode_rgb", out_rgb, remap.remap_lut_plain(src, k.flat_idx, k.valid, k.tint,
+                                                          k.background, None, k.rgb_lut),
+             dict(decode_rgb=True))):
+        require(torch.equal(got, ref.reshape(got.shape)),
+                f"eckert1 {what}: render differs from K2's plain version")
+        host = eck.render_host(frames[..., 0], rubix=what == "f_rubix", **kw)
+        dev0 = got[..., 0, :] if kw else got[..., 0]
+        require(np.array_equal(dev0.cpu().numpy(), host),
+                f"eckert1 {what}: frame 0 differs from host_remap")
+        del ref
+    phase(9, "eckert1 f_rubix and decode_rgb renders (K2) bit-equal their plain versions and "
+          "host_remap for frame 0")
+    del out_rubix, out_rgb
+
+    # ------------------------------------------------ c and d: the posed path
+    scale = posed_kerns[1].scale
+    for k in (1, 2):
+        kern, out = posed_kerns[k], posed_outs[k]
+        require(kern.ray_table.source == "lensmap",
+                f"eckert1 k={k}: the ray table is not the rasterized lensmap's")
+        for lo in range(0, POSED_B, CHUNK):
+            src_c, b32, expanded = posed.prep_posed_inputs(
+                frames_dev[..., lo:lo + CHUNK], bases_np[lo:lo + CHUNK], S,
+                kern.background, dev)
+            ref = static_ray.static_ray_posed_plain(src_c, kern.ray_table, b32, kern.globe, S,
+                                                    kern.numcells, kern.cell_size,
+                                                    kern.pad_size, expanded, kern.background, k)
+            e = int((out[lo:lo + CHUNK].long() - ref.long()).abs().max())
+            require(torch.equal(out[lo:lo + CHUNK], ref),
+                    f"eckert1 render_posed k={k} poses {lo}.. differ from "
+                    f"static_ray_posed_plain (max {e})")
+    kern = posed_kerns[1]
+    src_p, bases_p, expanded = posed.prep_posed_inputs(frames_dev, bases_np, S,
+                                                       kern.background, dev)
+    k6_ms = cuda_ms(lambda: static_ray.static_ray_posed(
+        src_p, kern.ray_table, bases_p, kern.globe, S, kern.numcells, kern.cell_size,
+        kern.pad_size, expanded, kern.background, 1), ITERS)
+    del src_p
+    ident = float((posed_outs[1][0] != outs["eckert1"][..., 0]).float().mean())
+    phase(9, f"eckert1 render_posed at 1080p B={POSED_B}, u8, render_scale 1 and 2: the ray "
+          "table from the rasterized lensmap (k=1: the session's static one; k=2: a "
+          f"rasterization at {W // 2}x{H // 2}), K7 and K6 bit-equal to static_ray_posed_plain "
+          "on the "
+          f"card; K6 at k=1 {k6_ms:.4f} ms on this table; the identity pose differs from "
+          f"the static render on {ident:.6f} of the pixels (plate seams: max-dot "
+          "re-resolution against the rasterizer's ownership)")
+    require(ident <= 0.02, f"eckert1's identity pose differs from the static render at {ident}")
+    exact_s = []
+    for b in range(2):
+        t0 = time.perf_counter()
+        lm_b = build_lensmap(eck.lens, eck.globe, scale, W, H, S,
+                             view_basis=tuple(bases_np[b]))
+        exact_s.append(time.perf_counter() - t0)
+        host = remap.host_remap(lm_b, frames[..., b], eck.palette)
+        require(np.array_equal(exact[b].cpu().numpy(), host),
+                f"eckert1 render_posed(exact=True) pose {b} differs from host_remap")
+    phase(9, "eckert1 render_posed(exact=True) of two poses (K5) bit-equal host_remap of the "
+          "host rasterization at each pose's basis ("
+          + ", ".join(f"{t:.3f}" for t in exact_s) + " s a rasterization)")
+    del posed_outs, exact
+
+    # ------------------------------------------------ e: a rotated view under "auto"
+    require(isinstance(view._lensmap.flat_idx, np.ndarray),
+            "eckert1 after setviewangles did not take the host rasterizer")
+    vb = view_basis_from_angles(10.0, 30.0, 0.0)
+    t0 = time.perf_counter()
+    lm_v = build_lensmap(view.lens, view.globe, view._lensmap.scale, W, H, S, view_basis=vb)
+    view_s = time.perf_counter() - t0
+    require(np.array_equal(lm_v.flat_idx, view._lensmap.flat_idx),
+            "eckert1 after setviewangles: the Session's table differs from build_lensmap")
+    kv = view._kernel
+    require(torch.equal(out_view, remap.remap_gather_plain(
+        src, kv.flat_idx, kv.valid, kv.background, fill=True).reshape(out_view.shape)),
+        "eckert1 after setviewangles: render differs from the plain version")
+    for b in (0, B_MAIN - 1):
+        require(np.array_equal(out_view[..., b].cpu().numpy(),
+                               remap.host_remap(lm_v, frames[..., b], view.palette)),
+                f"eckert1 after setviewangles: frame {b} differs from host_remap")
+    moved = float((lm_v.flat_idx != sessions["eckert1"].lensmap.flat_idx).mean())
+    phase(9, f"eckert1 after setviewangles 10 30 0 under 'auto': the host rasterizer with the "
+          f"view basis ({view_s:.3f} s), then K1, bit-equal to the plain version and to "
+          f"host_remap for frames 0 and {B_MAIN - 1}; the rotation moved {moved:.4f} of the "
+          "lensmap's indices")
+    del out_view, outs
+
+    # ------------------------------------------------ f: the float32 device builder
+    ident_basis = torch.from_numpy(builder.basis_f32(builder.IDENTITY_BASIS)).to(dev)
+    fields = ("plate", "px", "py", "valid", "tint", "flat_idx", "plates_used")
+    for name, ts in torch_sessions.items():
+        lm_t = ts._lensmap
+        require(isinstance(lm_t.flat_idx, torch.Tensor),
+                f"{name} on Session(backend='torch') did not build on the card")
+        sc = lm_t.scale
+        rays = builder.lens_rays_torch(ts.lens, sc, W, H, dev)
+        got = builder.lensmap_resolve(ts.globe, *rays, S, 10, 4.0, 1.0, builder.IDENTITY_BASIS)
+        want = builder.rays_to_lensmap_torch(ts.globe, *rays, S, 10, 4.0, 1.0,
+                                             view_basis=ident_basis)
+        for f in fields:
+            require(torch.equal(got[f], want[f]),
+                    f"{name}: lensmap_resolve's {f} differs from rays_to_lensmap_torch")
+            require(torch.equal(got[f], getattr(lm_t, f)),
+                    f"{name}: the Session's float32 table differs from K8 on the same rays")
+        del got, want
+        out = torch_outs[name]
+        require(torch.equal(out, remap.remap_gather_plain(
+            src, lm_t.flat_idx.reshape(-1), lm_t.valid.reshape(-1),
+            torch.zeros(H * W, dtype=torch.uint8, device=dev), fill=True).reshape(out.shape)),
+            f"{name} on Session(backend='torch'): render differs from the plain version")
+        exact_lm = sessions[name].lensmap
+        f32 = lm_t.to_numpy()
+        share = float((f32.flat_idx != exact_lm.flat_idx).mean())
+        _, dev_ms, _ = profiled(lambda: builder.lensmap_resolve(
+            ts.globe, *rays, S, 10, 4.0, 1.0, builder.IDENTITY_BASIS), ITERS, sync=False)
+        k8_dev = sum(t for n_, t in dev_ms.items() if "lensmap_resolve" in n_)
+        require(k8_dev > 0, "torch.profiler recorded no lensmap_resolve kernel")
+        rl = bb.rebuild_ms(ts.lens, ts.globe, sc, W, H, S, dev, iters=3)
+        phase(9, f"{name} on Session(backend='torch'): lens stage {rl['lens_ms']:.4f} ms, K8 "
+              f"{k8_dev:.4f} ms by its kernel record ({rl['resolve_ms']:.4f} ms a call by the "
+              f"events), build_lensmap(backend='torch') {rl['build_wall_ms']:.3f} ms of wall "
+              f"clock against the exact host build's {build_s[name]:.3f} s; K8 bit-equal to "
+              f"rays_to_lensmap_torch on the same rays and the render to the plain version; "
+              f"the float32 build differs from the exact build on {share:.6f} of the pixels")
+        del rays
+    del torch_outs
+
+    # ------------------------------------------------ g: render_equirect
+    require(torch.equal(eq_outs["compact"].view(torch.int32), eq_outs["fused"].view(torch.int32)),
+            "eckert1 render_equirect: compact differs from fused")
+    bits = panos.view(torch.int32).reshape(-1, PANO_B)
+    ing = ingest.EquirectIngest(PANO_H, PANO_W, EQ_S, globe=eq.globe, bilinear=True, device=dev)
+    for b in (0, PANO_B - 1):
+        pano = bits[:, b].cpu().numpy().view(np.uint32).reshape(PANO_H, PANO_W)
+        host = remap.host_remap(eq.lensmap, ing.host(pano), eq.palette)
+        for mode, out in eq_outs.items():
+            lane = out.view(torch.int32)[..., b].cpu().numpy().view(np.uint32)
+            require(np.array_equal(lane, host),
+                    f"eckert1 render_equirect {mode} lane {b} differs from the all-host path")
+    eq_ms = {mode: cuda_ms(lambda mode=mode: eq.render_equirect(panos, mode=mode), ITERS)
+             for mode in ("compact", "fused")}
+    phase(9, f"eckert1 render_equirect at {PANO_W}x{PANO_H} -> {EQ_W}x{EQ_H} B={PANO_B}, "
+          f"compact (K10, K1) and fused (K10): equal to each other, and lanes 0 and "
+          f"{PANO_B - 1} to EquirectIngest.host + host_remap; a batch, panos on the card: "
+          f"compact {eq_ms['compact']:.4f} ms, fused {eq_ms['fused']:.4f} ms; phase 9 took "
+          f"{time.perf_counter() - phase_t0:.3f} s")
+    del eq_outs, panos, bits
+    torch.cuda.empty_cache()
 
 
 def lane_chunked_err(got, ref):

@@ -570,6 +570,71 @@ def test_session_render_posed_on_card_equals_cpu(cuda_device, monkeypatch, size,
     _equal(got.cpu(), cpu.render_posed(fr[..., :2], poses[:2], exact=True))
 
 
+# the twelve lenses that came with the forward rasterizer
+NEW_LENSES = ["debug", "eckert1", "eckert5", "gins8", "kavrayskiy7", "larrivee",
+              "polyconic", "quincuncial", "sinusoidal", "wagner6", "winkel1", "winkel2"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", NEW_LENSES)
+def test_new_lens_renders_on_card_equal_cpu(cuda_device, name):
+    """Each of the twelve lenses through Session.render on the card (K1, K2
+    for rubix) equals the CPU session: the exact host build on both sides.
+    quincuncial and debug also take the float32 builder on the card (the
+    lens stage, K8), whose render equals host_remap of its own table."""
+    frames = synthetic_cubemap_batch(48, 3)
+    card = Session(64, 48, device=cuda_device)
+    cpu = Session(64, 48, device="cpu")
+    for sess in (card, cpu):
+        sess.cmd(f"f_lens {name}")
+    assert card.lens_valid
+    n1, n2 = remap.remap_gather.launches, remap.remap_lut.launches
+    _equal(card.render(frames).cpu(), cpu.render(frames))
+    _equal(card.render(frames, rubix=True).cpu(), cpu.render(frames, rubix=True))
+    assert remap.remap_gather.launches == n1 + 1 and remap.remap_lut.launches == n2 + 1
+    if card.lens.map_type == "forward":
+        return
+    dev = Session(64, 48, device=cuda_device, backend="torch")
+    dev.cmd(f"f_lens {name}")
+    n8 = builder.lensmap_resolve.launches
+    out = dev.render(frames)
+    assert builder.lensmap_resolve.launches == n8 + 1
+    assert isinstance(dev._lensmap.flat_idx, torch.Tensor)
+    for b in range(3):
+        np.testing.assert_array_equal(out[..., b].cpu().numpy(),
+                                      dev.render_host(frames[..., b]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["u8", "expanded", "rgba"])
+def test_forward_lens_render_posed_on_card_equals_cpu(cuda_device, kind):
+    """eckert1's render_posed on the card (K7, K6 on the rasterized table's
+    texel-centre rays; K5 for exact=True) equals the CPU session at render
+    scales 1 and 2 and with exact=True."""
+    rng = np.random.default_rng(7)
+    B = 9
+    frames = rng.integers(0, 256, (6, 48, 48, B), dtype=np.uint8)
+    poses = np.stack([rng.uniform(-90, 90, B), rng.uniform(-360, 360, B),
+                      rng.uniform(-180, 180, B)], 1)
+    poses[0] = (0.0, 0.0, 0.0)
+    card = Session(64, 48, device=cuda_device)
+    cpu = Session(64, 48, device="cpu")
+    for sess in (card, cpu):
+        sess.cmd("f_lens eckert1")
+    fr = {"u8": frames, "expanded": remap.expand_frames_tinted(frames, card.palette),
+          "rgba": remap.frames_to_rgba(frames, card.palette)}[kind]
+    for k in (1, 2):
+        n6 = static_ray.static_ray_posed.launches
+        got = card.render_posed(fr, poses, render_scale=k)
+        assert static_ray.static_ray_posed.launches == n6 + 1
+        assert card._posed_cache[1].ray_table.source == "lensmap"
+        _equal(got.cpu(), cpu.render_posed(fr, poses, render_scale=k))
+    n5 = posed.gather_posed.launches
+    got = card.render_posed(fr[..., :2], poses[:2], exact=True)
+    assert posed.gather_posed.launches == n5 + 1
+    _equal(got.cpu(), cpu.render_posed(fr[..., :2], poses[:2], exact=True))
+
+
 # ------------------------------------------------------ K7, the posed layout
 
 
@@ -824,11 +889,13 @@ def test_lensmap_resolve_equals_plain(cuda_device, globe_name, basis, grid):
 @pytest.mark.parametrize("size", [(64, 48, 48), (61, 37, 40), (32, 24, 1080)],
                          ids=["64x48", "61x37", "S1080"])
 def test_build_lensmap_torch_on_card(cuda_device, name, size):
-    """build_lensmap(backend="torch") on the card for every ported lens:
-    its tables equal the plain version's on the lens stage's own rays (the
-    NaN and inf the lenses leave to IEEE among them), and lie within the
-    boundary tolerance of the CPU's float32 build (the card's float32
-    transcendentals differ from the CPU's in their last bits)."""
+    """build_lensmap(backend="torch") on the card for every lens: an
+    inverse lens's tables equal the plain version's on the lens stage's own
+    rays (the NaN and inf the lenses leave to IEEE among them), and lie
+    within the boundary tolerance of the CPU's float32 build (the card's
+    float32 transcendentals differ from the CPU's in their last bits).  A
+    forward-only lens has no float32 builder: it rasterizes on the host,
+    NumPy tables equal to the exact build, and launches no K8."""
     W, H, S = size
     g = globes.get("cube")
     lens = lenses.get(name, g)
@@ -837,6 +904,13 @@ def test_build_lensmap_torch_on_card(cuda_device, name, size):
     vb = np.eye(3)[[2, 0, 1]]  # the identity: forward z, right x, up y
     n0 = builder.lensmap_resolve.launches
     lm = build_lensmap(lens, g, scale, W, H, S, backend="torch", device=cuda_device)
+    if lens.map_type == "forward":
+        assert builder.lensmap_resolve.launches == n0
+        exact = build_lensmap(lens, g, scale, W, H, S)
+        for f in FIELDS:
+            assert isinstance(getattr(lm, f), np.ndarray), f
+            np.testing.assert_array_equal(getattr(lm, f), getattr(exact, f), err_msg=f)
+        return
     assert builder.lensmap_resolve.launches == n0 + 1
     assert lm.flat_idx.device.type == "cuda"
     rays = builder.lens_rays_torch(lens, scale, W, H, cuda_device)

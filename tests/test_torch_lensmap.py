@@ -107,16 +107,21 @@ def test_globes_equal(name):
 
 
 def test_lens_registry():
-    assert "panini" in lenses.BUILTIN_LENSES and len(lenses.BUILTIN_LENSES) == 19
-    assert len(lenses.UNPORTED_LENSES) == 12
-    assert sorted(lenses.BUILTIN_LENSES + lenses.UNPORTED_LENSES) == sorted(
-        jlenses.BUILTIN_LENSES)
-    lens, jl = lenses.get("panini", globes.get("cube")), jlenses.get(
-        "panini", jglobes.get("cube"))
-    for f in ("map_type", "width", "height", "max_fov", "max_vfov", "onload"):
-        assert getattr(lens, f) == getattr(jl, f), f
-    with pytest.raises(NotImplementedError, match="quincuncial"):
-        lenses.get("quincuncial")
+    assert "panini" in lenses.BUILTIN_LENSES and len(lenses.BUILTIN_LENSES) == 31
+    assert lenses.BUILTIN_LENSES == jlenses.BUILTIN_LENSES
+    for name in ("panini", "quincuncial", "eckert1", "debug"):
+        lens, jl = lenses.get(name, globes.get("cube")), jlenses.get(
+            name, jglobes.get("cube"))
+        for f in ("map_type", "width", "height", "max_fov", "max_vfov", "onload"):
+            assert getattr(lens, f) == getattr(jl, f), (name, f)
+    # a lens whose metadata needs no globe loads without one; debug's layout
+    # needs numplates, and both packages refuse it alike
+    assert lenses.get("quincuncial").map_type == "inverse"
+    assert lenses.get("eckert1").map_type == "forward"
+    with pytest.raises(ValueError, match="globe context"):
+        jlenses.get("debug")
+    with pytest.raises(ValueError, match="globe context"):
+        lenses.get("debug")
     with pytest.raises(KeyError):
         lenses.get("nosuch")
 
@@ -300,3 +305,54 @@ def test_device_builder_warm():
     assert device_builder_warm(lens, g, 40, 30, 30, device="cpu")
     assert not device_builder_warm(lens, g, 40, 30)  # not on the card
     assert not device_builder_warm(lens, g, 42, 30, device="cpu")
+
+
+# ------------------------------------------------------ the parity oracle
+@pytest.mark.parametrize("globe_name", ["cube", "fast"])
+@pytest.mark.parametrize("name", ["quincuncial", "debug"])
+def test_oracle_inverse_lensmap_equals_jax_and_the_builder(name, globe_name):
+    """The port's scalar oracle (blinky_tpu_torch.parity) at 32x24: every
+    table equal to blinky_tpu's oracle and to the port's NumPy builder
+    (tolerance 0: both are the per-pixel float64 transcription)."""
+    from blinky_tpu.parity import oracle_inverse_lensmap as joracle
+    from blinky_tpu_torch.parity import oracle_inverse_lensmap
+
+    w, h = 32, 24
+    jg, g = jglobes.get(globe_name), globes.get(globe_name)
+    jl, lens = jlenses.get(name, jg), lenses.get(name, g)
+    scale = calc_scale(Zoom("contain"), lens, w, h)
+    assert scale == jcalc(JZoom("contain"), jl, w, h)
+    got = oracle_inverse_lensmap(lens, g, scale, w, h, h)
+    want = joracle(jl, jg, scale, w, h, h)
+    built = build_lensmap(lens, g, scale, w, h, h)
+    assert got["valid"].any()
+    for f in FIELDS:
+        assert got[f].dtype == want[f].dtype, f
+        np.testing.assert_array_equal(got[f], want[f], err_msg=f)
+        np.testing.assert_array_equal(got[f], getattr(built, f), err_msg=f)
+
+
+def test_oracle_remap_equals_jax_and_the_remap_kernel():
+    """oracle_remap of a rubix screen: equal to blinky_tpu's and to the
+    port's RemapKernel on the CPU."""
+    from blinky_tpu.palette import create_palmap as jcreate_palmap
+    from blinky_tpu.parity import oracle_remap as joracle_remap
+    from blinky_tpu_torch.kernels.remap import RemapKernel, expand_frames_tinted
+    from blinky_tpu_torch.palette import create_palmap, default_palette
+    from blinky_tpu_torch.parity import oracle_remap
+
+    w, h = 32, 24
+    g = globes.get("cube")
+    lens = lenses.get("quincuncial", g)
+    lm = build_lensmap(lens, g, calc_scale(Zoom("contain"), lens, w, h), w, h, h)
+    rng = np.random.default_rng(3)
+    frames = rng.integers(0, 256, (6, h, h), np.uint8)
+    bg = rng.integers(0, 256, (h, w), np.uint8)
+    pal = default_palette()
+    table = dict(valid=lm.valid, plate=lm.plate, px=lm.px, py=lm.py, tint=lm.tint)
+    got = oracle_remap(table, frames, bg, rubix_enabled=True, palmap=create_palmap(pal))
+    np.testing.assert_array_equal(
+        got, joracle_remap(table, frames, bg, rubix_enabled=True, palmap=jcreate_palmap(pal)))
+    kernel = RemapKernel(lm, pal, bg, device="cpu")
+    np.testing.assert_array_equal(
+        got, kernel(expand_frames_tinted(frames, pal), rubix=True).numpy())

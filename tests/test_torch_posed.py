@@ -391,13 +391,14 @@ def test_ray_table_from_lensmap_equals_jax(globe_name):
 # ------------------------------------------------------ the static-ray kernel
 
 
-def _jax_numpy_f32_screens(kind, k, frames, bg=None):
+def _jax_numpy_f32_screens(kind, k, frames, bg=None, jg=None, t=None):
     """The JAX package's posed screens through its NumPy float32 index
     math and its gather tail: per pose ``rays_to_lensmap(..., np,
-    np.float32)`` of the host ray table, the expanded offset, then
-    ``gather_posed``."""
-    jg, jl, _, _, scale = _panini()
-    t = jstatic.ray_table_from_lens(jl, scale * k, W // k, H // k, backend="numpy")
+    np.float32)`` of the host ray table (panini's, unless globe *jg* and
+    table *t* are given), the expanded offset, then ``gather_posed``."""
+    if t is None:
+        jg, jl, _, _, scale = _panini()
+        t = jstatic.ray_table_from_lens(jl, scale * k, W // k, H // k, backend="numpy")
     bases = jposed.bases_from_pose_track(POSES)
     rgba = kind == "rgba"
     jbg = jnp.asarray(np.zeros((H, W), np.uint32 if rgba else np.uint8) if bg is None else bg)
@@ -761,6 +762,63 @@ def test_session_render_posed_exact_equals_jax(kind, k):
     want = np.asarray(js.render_posed(frames, np.asarray(POSES), render_scale=k, exact=True))
     got = ps.render_posed(frames, np.asarray(POSES), render_scale=k, exact=True)
     np.testing.assert_array_equal(_np(got), want)
+
+
+@pytest.mark.parametrize("kind", SOURCES)
+@pytest.mark.parametrize("k", [1, 2])
+def test_session_render_posed_forward_lens_equals_jax(kind, k):
+    """eckert1, a forward-only lens: the Session's table is the host
+    rasterization's texel centres (the session's static lensmap at k = 1,
+    a rasterization at W/k with the zoom scale times k at k = 2), equal to
+    the JAX package's build_ray_table; the screens equal the JAX package's
+    NumPy float32 index math on that table bit for bit, and its jitted
+    Session within CPU_FUZZ."""
+    js, ps = _sessions()
+    for s_ in (js, ps):
+        s_.cmd("f_lens eckert1")
+    frames = _source(kind)
+    ps.render(frames[..., 0])  # a static build the k = 1 table may reuse
+    got = ps.render_posed(frames, np.asarray(POSES), render_scale=k)
+    table = ps._posed_cache[1].ray_table
+    jt = jstatic.build_ray_table(js.lens, js.globe, ps._posed_scale[1] * k, W // k, H // k, S)
+    assert table.source == jt.source == "lensmap"
+    for f in ("vx", "vy", "vz", "lens_valid"):
+        np.testing.assert_array_equal(getattr(table, f).numpy(), np.asarray(getattr(jt, f)))
+    bg = ps._posed_background(kind == "rgba")  # zeros, decoded for RGBA
+    np.testing.assert_array_equal(_np(got), _jax_numpy_f32_screens(kind, k, frames, bg,
+                                                                   jg=js.globe, t=jt))
+    want = np.asarray(js.render_posed(frames, np.asarray(POSES), render_scale=k))
+    print(f"eckert1 {kind} k={k}: {int((_np(got) != want).sum())} of {want.size} pixels "
+          "differ from the jitted JAX Session")
+    assert _mismatch(_np(got), want) <= CPU_FUZZ
+
+
+@pytest.mark.parametrize("kind,k", [("u8", 1), ("u8", 2), ("expanded", 1), ("rgba", 2)])
+def test_session_render_posed_exact_forward_lens_equals_jax(kind, k):
+    """exact=True with eckert1: one host rasterization per pose with the
+    pose's basis on both sides, bit for bit."""
+    js, ps = _sessions()
+    for s_ in (js, ps):
+        s_.cmd("f_lens eckert1")
+    frames = _source(kind)
+    want = np.asarray(js.render_posed(frames, np.asarray(POSES), render_scale=k, exact=True))
+    got = ps.render_posed(frames, np.asarray(POSES), render_scale=k, exact=True)
+    np.testing.assert_array_equal(_np(got), want)
+
+
+def test_forward_lens_has_no_fused_posed_pipeline():
+    """PosedRemapKernel and zoom_sweep_remap run the float32 lens stage,
+    which a forward-only lens does not have: both packages refuse it."""
+    jg, pg = jglobes.get("cube"), globes.get("cube")
+    jl, pl = jlenses.get("eckert1", jg), lenses.get("eckert1", pg)
+    scale = calc_scale(Zoom("contain"), pl, W, H)
+    with pytest.raises(ValueError, match="forward-only"):
+        jposed.PosedRemapKernel(jl, jg, W, H, scale, platesize=S)
+    with pytest.raises(ValueError, match="forward-only"):
+        posed.PosedRemapKernel(pl, pg, W, H, scale, platesize=S, device="cpu")
+    with pytest.raises(ValueError, match="forward-only"):
+        posed.zoom_sweep_remap(pl, pg, [scale, scale * 2], _source("u8")[..., 0], W, H,
+                               device="cpu")
 
 
 def test_render_posed_identity_near_static_render():

@@ -144,9 +144,14 @@ def test_unported_surface_raises():
             getattr(p, name)
     with pytest.raises(AttributeError):
         p.no_such_attribute
-    # a lens blinky_tpu has but the port lacks is not "not a valid lens"
-    with pytest.raises(NotImplementedError, match="quincuncial"):
-        p.cmd("f_lens quincuncial")
+    # every lens of blinky_tpu loads and renders as there (the last twelve
+    # came with the forward rasterizer); an unknown name is not a valid lens
+    for line in ("f_lens quincuncial", "f_lens eckert1", "f_lens nosuch"):
+        p.cmd(line)
+        j.cmd(line)
+        assert (p.lens_name, p.lens_valid) == (j.lens_name, j.lens_valid), line
+        _same(p.render(_frames(1)), j.render(_frames(1)))
+    assert p.console == j.console
     p.cmd("fisheye 0")
     with pytest.raises(NotImplementedError, match="fisheye 0"):
         p.render(_frames(1))
