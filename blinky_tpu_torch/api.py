@@ -16,10 +16,12 @@ through :class:`blinky_tpu_torch.kernels.remap.RemapKernel`, and
     posed = sess.render_posed(frames, poses)     # + [B, 3] degrees -> [B, H, W] u8
 
 The device defaults to ``"cuda"``; nothing probes and nothing falls back,
-so on a machine without a card a render with the default raises.  What
-``blinky_tpu``'s Session has beyond this raises ``NotImplementedError``
-naming it: the ``fisheye 0`` plain view, time-sliced builds,
-script directories, key bindings, ``f_saveglobe`` and ``f_dumppal``, and
+so on a machine without a card a render with the default raises.  Lens and
+globe script directories (``lens_dirs``, ``globe_dirs``) hold ``.py`` and
+``.lua`` drop-ins (:mod:`blinky_tpu_torch.lua_bridge`), which take every
+path a built-in takes.  What ``blinky_tpu``'s Session has beyond this
+raises ``NotImplementedError`` naming it: the ``fisheye 0`` plain view,
+time-sliced builds, key bindings, ``f_saveglobe`` and ``f_dumppal``, and
 the sharded render.  The 360-video path (:meth:`Session.render_equirect`)
 and the supersampled render (:meth:`Session.render_aa`) run on the device
 through :mod:`blinky_tpu_torch.kernels.ingest` and
@@ -62,8 +64,7 @@ _UNPORTED_COMMANDS = frozenset({
 
 # blinky_tpu's other Session entry points that the port does not have yet
 _UNPORTED_METHODS = frozenset({
-    "press_key", "build_progress", "render_sharded", "complete_lens",
-    "complete_globe",
+    "press_key", "build_progress", "render_sharded",
 })
 
 
@@ -302,7 +303,13 @@ class Session:
     :attr:`lensmap` bit-equals the reference, while a pose-tracked view
     (``setviewangles``) switches to the float32 builder on the device,
     whose rebuilds cost milliseconds.  ``"numpy"`` / ``"torch"`` force one
-    path.
+    path.  A lens or globe that does not evaluate on tensors (a ``.lua``
+    script that needs per-lane control, ``jittable`` False) builds on the
+    exact host path under every backend.
+
+    *lens_dirs* and *globe_dirs*: directories searched, in order, for a
+    ``<name>.py`` then a ``<name>.lua`` drop-in when ``f_lens`` /
+    ``f_globe`` names no built-in.
     """
 
     def __init__(
@@ -320,10 +327,6 @@ class Session:
         globe_dirs=(),
         build_budget_s: Optional[float] = None,
     ):
-        if lens_dirs or globe_dirs:
-            raise NotImplementedError(
-                "lens/globe script directories are not ported to "
-                "blinky_tpu_torch yet")
         if build_budget_s is not None:
             raise NotImplementedError(
                 "time-sliced lensmap builds (build_budget_s) are not ported "
@@ -333,6 +336,10 @@ class Session:
                              "expected 'auto', 'numpy' or 'torch'")
         self.device = torch.device(device)
         self.backend = backend
+        self.lens_dirs = [Path(p) for p in lens_dirs]
+        self.globe_dirs = [Path(p) for p in globe_dirs]
+        self._lens_cache: dict = {}  # (name or path, globe generation, mtime) -> LensDef
+        self._globe_gen = 0  # bumped at every globe load
         self.width_px = int(width)
         self.height_px = int(height)
         self.platesize = int(platesize) if platesize else min(width, height)
@@ -477,15 +484,20 @@ class Session:
             self.view_angles = (_atof(argv[1]), _atof(argv[2]), _atof(argv[3]))
         self._changed = True
 
+    def _jittable(self) -> bool:
+        """Device builds need both the lens map and the globe's plate
+        resolver to evaluate on tensors (decided at load, lua_bridge)."""
+        return (getattr(self.lens, "jittable", True)
+                and getattr(self.globe, "jittable", True))
+
     def _resolved_backend(self) -> str:
         """See the backend policy in the class's note."""
         if self.backend == "auto":
-            # every ported inverse lens and globe runs on tensors (scalar-only
-            # script lenses and resolvers are not ported), so a rotated view
-            # takes the device builder; a forward lens has no float32 twin and
-            # rasterizes on the host, with the view basis, under either
-            # backend (build_lensmap routes it)
-            return "torch" if self.view_angles is not None else "numpy"
+            # a rotated view takes the device builder; a lens or globe that
+            # does not evaluate on tensors takes the host builder, which
+            # composes the view basis too (build_lensmap routes it, as it
+            # routes a forward lens to the host rasterizer)
+            return "torch" if self.view_angles is not None and self._jittable() else "numpy"
         return self.backend
 
     def _view_basis(self):
@@ -591,17 +603,82 @@ class Session:
     def _load_lens(self) -> bool:
         """Load the active lens for the current globe (``LUA_load_lens``
         semantics: the metadata is re-evaluated per globe,
-        ``fisheye.c:734-737``).  An unknown name is not a valid lens."""
-        if self.lens_name not in lenses_mod.BUILTIN_LENSES:
-            return False
-        self.lens = lenses_mod.get(self.lens_name, self.globe)
-        return True
+        ``fisheye.c:734-737``): a built-in, else ``<name>.py`` then
+        ``<name>.lua`` in the lens directories.  An unknown name is not a
+        valid lens.
+
+        As in the JAX package, a reload is observable only when the globe
+        or the script changed, so the loaded ``LensDef`` is cached on
+        (name or path, globe generation, script mtime): a zoom or pose
+        change reuses it (a ``.lua`` drop-in's reload is a script run).  The
+        cache holds every lens visited (at most 64); an evicted lens's
+        ``release`` unwinds its parked coroutines unless it is still in use."""
+        try:
+            cache = self._lens_cache
+
+            def _hit(key, load):
+                lens = cache.get(key)
+                if lens is None:
+                    lens = load()
+                    if len(cache) >= 64:
+                        evicted = cache.pop(next(iter(cache)))
+                        rel = getattr(evicted, "release", None)
+                        pend = self._posed_async
+                        pend_lens = pend["key"][0] if pend is not None else None
+                        if (rel is not None and evicted is not self.lens
+                                and evicted is not pend_lens):
+                            rel()
+                    cache[key] = lens
+                self.lens = lens
+                return True
+
+            ggen = self._globe_gen
+            if self.lens_name in lenses_mod.BUILTIN_LENSES:
+                return _hit((self.lens_name, ggen, None),
+                            lambda: lenses_mod.get(self.lens_name, self.globe))
+            for d in self.lens_dirs:
+                for ext in (".py", ".lua"):  # .lua = reference drop-ins
+                    p = d / f"{self.lens_name}{ext}"
+                    if p.exists():
+                        return _hit((str(p), ggen, p.stat().st_mtime_ns),
+                                    lambda: lenses_mod.load_lens_module(p, self.globe))
+        except Exception as e:  # loader diagnostics, fisheye.c:1671-1677
+            self._print(f"could not load lens: {e}")
+        return False
 
     def _load_globe(self) -> bool:
-        if self.globe_name not in globes_mod.names():
-            return False
-        self.globe = globes_mod.get(self.globe_name)
-        return True
+        try:
+            if self.globe_name in globes_mod.names():
+                self.globe = globes_mod.get(self.globe_name)
+                self._globe_gen += 1
+                return True
+            for d in self.globe_dirs:
+                for ext in (".py", ".lua"):
+                    p = d / f"{self.globe_name}{ext}"
+                    if p.exists():
+                        self.globe = globes_mod.load_globe_module(p)
+                        self._globe_gen += 1
+                        return True
+        except Exception as e:
+            self._print(f"could not load globe: {e}")
+        return False
+
+    # -------------------------------------------------------- completion
+    def complete_lens(self, prefix: str = "") -> list:
+        """Tab-completion analog (``cmdarg_lens`` -> ``COM_ScanDir``,
+        ``fisheye.c:1106-1118``): built-ins plus user script dirs."""
+        names = set(lenses_mod.names())
+        for d in self.lens_dirs:
+            names.update(p.stem for p in d.glob("*.py"))
+            names.update(p.stem for p in d.glob("*.lua"))
+        return sorted(n for n in names if n.startswith(prefix))
+
+    def complete_globe(self, prefix: str = "") -> list:
+        names = set(globes_mod.names())
+        for d in self.globe_dirs:
+            names.update(p.stem for p in d.glob("*.py"))
+            names.update(p.stem for p in d.glob("*.lua"))
+        return sorted(n for n in names if n.startswith(prefix))
 
     # ------------------------------------------------------------ pipeline
     def _rebuild(self) -> None:
@@ -661,7 +738,7 @@ class Session:
         if not (self.lens_valid and self.globe_valid):
             return False
         self.lens_valid = self._load_lens()
-        if not (self.lens_valid and self.lens.map_type == "inverse"):
+        if not (self.lens_valid and self._jittable() and self.lens.map_type == "inverse"):
             return False
         try:
             scale = calc_scale(self.zoom, self.lens, self.width_px, self.height_px)
@@ -856,7 +933,8 @@ class Session:
         if hi_sess is None:
             hi_sess = Session(self.width_px * factor, self.height_px * factor,
                               platesize=S, palette=self.palette,
-                              device=self.device, backend=self.backend)
+                              device=self.device, backend=self.backend,
+                              lens_dirs=self.lens_dirs, globe_dirs=self.globe_dirs)
             for line in self.config_str().splitlines():
                 hi_sess.cmd(line)
             if self.view_angles is not None:
@@ -1032,8 +1110,12 @@ class Session:
 
         ``exact=True`` builds every pose's lensmap on the exact float64
         host path instead (the table a static render at those angles
-        uses; a forward-only lens rasterizes each pose's basis), then gathers all poses in one launch of
-        :func:`blinky_tpu_torch.kernels.posed.gather_posed`.
+        uses; a forward-only lens rasterizes each pose's basis), then
+        gathers all poses in one launch of
+        :func:`blinky_tpu_torch.kernels.posed.gather_posed`.  A globe whose
+        plate resolver does not evaluate on tensors (a scalar-only ``.lua``
+        ``globe_plate``) always takes this route, as in the JAX package; a
+        lens that does not builds its ray table on the host.
 
         ``block=False`` makes a first call for a new (lens, zoom, size,
         scale) return at once: the table builds on a background thread
@@ -1049,6 +1131,7 @@ class Session:
         from blinky_tpu_torch.kernels.posed import (
             bases_from_pose_track, check_render_scale,
         )
+        from blinky_tpu_torch.lensmap.builder import plate_resolver_mode
 
         if not (self.fisheye_enabled and self.lens_valid and self.globe_valid):
             raise ValueError("render_posed needs fisheye enabled and a valid lens/globe")
@@ -1076,6 +1159,10 @@ class Session:
             return torch.empty((0, self.height_px, self.width_px),
                                dtype=torch.uint32 if is_rgba else torch.uint8,
                                device=self.device)
+        if not getattr(self.globe, "jittable", True):
+            # the per-pose plate resolve needs the resolver on tensors: a
+            # scalar-only script globe resolves on the exact host path
+            exact = True
         if render_scale == "auto":
             render_scale = 1 if exact else self._auto_render_scale(
                 frames, bases, scale, float(target_fps))
@@ -1090,9 +1177,10 @@ class Session:
         # a batch above the cap last read
         ckey = (key, frames.shape[0])
         if self._posed_cap is None or self._posed_cap[0] != ckey or B > self._posed_cap[1]:
+            script = plate_resolver_mode(self.globe) == "script"
             self._posed_cap = (ckey, feasible_batch(posed_bytes_per_lane(
-                S, frames.shape[0], self.width_px, self.height_px, rgba=is_rgba), 0,
-                device=self.device))
+                S, frames.shape[0], self.width_px, self.height_px, rgba=is_rgba,
+                script=script), 0, device=self.device))
         cap = self._posed_cap[1]
         if B > cap:
             return torch.cat([

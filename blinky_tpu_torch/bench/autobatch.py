@@ -79,14 +79,18 @@ def planes_bytes_per_lane(planesize, nplanes, rgba=False, expanded=False) -> int
 
 
 def posed_bytes_per_lane(planesize, nplanes, width, height, rgba=False,
-                         expanded=False) -> int:
+                         expanded=False, script=False) -> int:
     """What a static-ray posed call keeps per pose: the caller's frames on
     the device, their pose-major copy (``prep_posed_inputs``) and the
-    full-resolution screen.  The JAX pipeline also held a [H/k, W/k] int32
-    index table and its bool mask per pose; the fused kernel (K6) writes
-    none, so the render scale does not enter the count."""
+    full-resolution screen, and with a *script* globe the pose's int8
+    plates (at most a byte a screen pixel).  The JAX pipeline also held a
+    [H/k, W/k] int32 index table and its bool mask per pose; the fused
+    kernel (K6) writes none, so the render scale does not enter the count.
+    A script's evaluation is chunked on its own
+    (:func:`script_bytes_per_lane`)."""
     planes = planes_bytes_per_lane(planesize, nplanes, rgba, expanded)
-    return 2 * planes + screen_bytes_per_lane(width, height, rgba)
+    return (2 * planes + screen_bytes_per_lane(width, height, rgba)
+            + (width * height if script else 0))
 
 
 # float32 planes the lens stage may hold live at once for one zoom step: the
@@ -99,12 +103,22 @@ def posed_bytes_per_lane(planesize, nplanes, width, height, rgba=False,
 SWEEP_LENS_PLANES = 40
 
 
-def sweep_bytes_per_lane(width, height, rgba=False) -> int:
+def sweep_bytes_per_lane(width, height, rgba=False, script=False) -> int:
     """What the fused zoom sweep keeps per zoom step: the lens stage's live
     float32 planes (:data:`SWEEP_LENS_PLANES`), the step's 13-byte-a-pixel
-    ray table and its screen."""
-    return width * height * (4 * SWEEP_LENS_PLANES + 13) + screen_bytes_per_lane(
-        width, height, rgba)
+    ray table and its screen; with a *script* globe also the step's unit
+    rays and int8 plates (its resolver's live planes fit the lens stage's,
+    which are freed before it runs)."""
+    return width * height * (4 * SWEEP_LENS_PLANES + 13 + (13 if script else 0)) + \
+        screen_bytes_per_lane(width, height, rgba)
+
+
+def script_bytes_per_lane(npix) -> int:
+    """What evaluating a script globe's resolver keeps per pose or zoom step
+    of *npix* rays: the 12-byte unit rays (:func:`rotate_rays`' output),
+    the script's live float32 planes, bounded like the lens stage's by
+    :data:`SWEEP_LENS_PLANES`, and the plates as int32 and int8."""
+    return npix * (12 + 4 * SWEEP_LENS_PLANES + 5)
 
 
 def equirect_bytes_per_lane(pano_h, pano_w, platesize, width, height,

@@ -39,14 +39,25 @@ def resolve_ops_per_pixel(globe, rotate=True) -> int:
     compares, 2 divisions, 2 mul, 2 abs, 2 compares, then the chosen plate's
     forward dot), the chosen plate's right and up dots, u and v (compare, 2
     divisions, 2 mul, 2 add; the sign flip of -ry is free), four range
-    compares, the truncation (2 mul, 2 conversions)."""
+    compares, the truncation (2 mul, 2 conversions).  A script globe's
+    given plate (resolver mode 2): its clip (2 compares) and the chosen
+    plate's forward dot; the script's own operations are not the
+    kernel's."""
     n = globe.numplates
-    choose = 6 * n - 1 if builder.plate_resolver_mode(globe) == "maxdot" else 10 + 5
+    choose = {"maxdot": 6 * n - 1, "fast": 10 + 5,
+              "script": 2 + 5}[builder.plate_resolver_mode(globe)]
     return (15 if rotate else 0) + 11 + choose + 10 + 7 + 4 + 4
 
 
-# what K8 moves a pixel: the ray and its mask in, the six tables out
+# what the rotate pre-pass (K13) does for one ray and pose: the rotation and
+# the normalize of resolve_ops_per_pixel
+ROTATE_OPS = 15 + 11
+
+
+# what K8 moves a pixel: the ray and its mask in (and a script globe's int32
+# plate, GIVEN_PLATE_BYTES more), the six tables out
 RESOLVE_BYTES_IN = 13
+GIVEN_PLATE_BYTES = 4
 RESOLVE_BYTES_OUT = 4 * 4 + 2
 
 

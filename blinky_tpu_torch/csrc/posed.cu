@@ -363,12 +363,13 @@ __global__ void __launch_bounds__(kThreads) posed_gather_kernel(
 // may be short), y over blocks of kPosesPerBlock poses.  K: the render
 // scale of the vector kernels (1 or 2; the build width a multiple of kRun
 // and every pointer 16-byte aligned), or 0 for the scalar kernel, which
-// takes any width and render scale k.  R: the plate resolver.
+// takes any width and render scale k.  R: the plate resolver; kGiven reads
+// pose b's plate of pixel p at given[b * hb * wb + p].
 template <typename T, int K, int R>
 __global__ void __launch_bounds__(K6_THREADS, K6_MIN_BLOCKS) static_ray_posed_kernel(
     const float* __restrict__ vx, const float* __restrict__ vy,
     const float* __restrict__ vz, const uint8_t* __restrict__ lens_valid, int hb, int wb,
-    const float* __restrict__ bases, int B, const Resolve r,
+    const float* __restrict__ bases, int B, const Resolve r, const int8_t* __restrict__ given,
     const uint32_t* __restrict__ grid_lines, const T* __restrict__ src, long long N,
     const T* __restrict__ bg, int k, T* __restrict__ out) {
   using Q = Quad<T>;
@@ -438,9 +439,12 @@ __global__ void __launch_bounds__(K6_THREADS, K6_MIN_BLOCKS) static_ray_posed_ke
       const float4 e2 = *(const float4*)(s_bases + j * kRecord + 8);
       const float3 f = make_float3(e0.x, e0.y, e0.z), rt = make_float3(e0.w, e1.x, e1.y),
                    up = make_float3(e1.z, e1.w, e2.x);
+      const int8_t* gp =
+          R == blinky::kGiven ? given + (long long)(b0 + j) * hb * wb + p0 : nullptr;
 #pragma unroll
       for (int i = 0; i < kRun; ++i)
-        idx[g][i] = resolve_index<R, true>(rx[i], ry[i], rz[i], lv[i], f, rt, up, r, s_recs, s_lines);
+        idx[g][i] = resolve_index<R, true>(rx[i], ry[i], rz[i], lv[i], f, rt, up, r, s_recs,
+                                           s_lines, R == blinky::kGiven && i < m ? gp[i] : 0);
     }
     T val[kPoseGroup][kRun];
 #pragma unroll
@@ -511,12 +515,14 @@ __global__ void __launch_bounds__(K6_THREADS, K6_MIN_BLOCKS) static_ray_posed_ke
 // K9.  grid: x over runs of kRun pixels of the flat screen (VEC: npix a
 // multiple of kRun and every pointer 16-byte aligned) or over single pixels,
 // y over zoom steps.  Step n resolves its own rays, vx + n * npix, with no
-// rotation, and gathers from the one source.  R: the plate resolver.
+// rotation, and gathers from the one source.  R: the plate resolver; kGiven
+// reads step n's plate of pixel p at given[n * npix + p].
 template <typename T, int R, bool VEC>
 __global__ void __launch_bounds__(kThreads) sweep_remap_kernel(
     const float* __restrict__ vx, const float* __restrict__ vy,
     const float* __restrict__ vz, const uint8_t* __restrict__ lens_valid, long long npix,
-    int steps, const Resolve r, const uint32_t* __restrict__ grid_lines,
+    int steps, const Resolve r, const int8_t* __restrict__ given,
+    const uint32_t* __restrict__ grid_lines,
     const T* __restrict__ src, long long N, const T* __restrict__ bg, T* __restrict__ out) {
   using Q = Quad<T>;
   using V = typename Q::V;
@@ -552,7 +558,8 @@ __global__ void __launch_bounds__(kThreads) sweep_remap_kernel(
 #pragma unroll
     for (int i = 0; i < M; ++i)
       idx[i] = resolve_index<R, false>(rx[i], ry[i], rz[i], lv[i], none, none, none, r,
-                                       s_recs, s_lines);
+                                       s_recs, s_lines,
+                                       R == blinky::kGiven ? given[q0 + i] : 0);
     T val[M];
 #pragma unroll
     for (int i = 0; i < M; ++i) val[i] = idx[i] >= 0 ? src[idx[i] >= N ? N - 1 : idx[i]] : T(0);
@@ -576,8 +583,8 @@ __global__ void __launch_bounds__(kThreads) sweep_remap_kernel(
 template <typename T, int R>
 int launch_sweep_remap(bool vec, cudaStream_t s, const float* vx, const float* vy,
                        const float* vz, const uint8_t* lv, long long npix, int steps,
-                       const Resolve& r, const uint32_t* lines, const void* src, long long N,
-                       const void* bg, void* out) {
+                       const Resolve& r, const int8_t* given, const uint32_t* lines,
+                       const void* src, long long N, const void* bg, void* out) {
   const size_t smem = r.expanded ? (size_t)((r.S + 31) / 32) * 4 : 0;
   const long long items = vec ? npix / kRun : npix;
   const long long bx = (items + kThreads - 1) / kThreads;
@@ -585,21 +592,39 @@ int launch_sweep_remap(bool vec, cudaStream_t s, const float* vx, const float* v
   const dim3 grid((unsigned)bx, (unsigned)(steps < 65535 ? steps : 65535));
   if (vec)
     sweep_remap_kernel<T, R, true><<<grid, kThreads, smem, s>>>(
-        vx, vy, vz, lv, npix, steps, r, lines, (const T*)src, N, (const T*)bg, (T*)out);
+        vx, vy, vz, lv, npix, steps, r, given, lines, (const T*)src, N, (const T*)bg,
+        (T*)out);
   else
     sweep_remap_kernel<T, R, false><<<grid, kThreads, smem, s>>>(
-        vx, vy, vz, lv, npix, steps, r, lines, (const T*)src, N, (const T*)bg, (T*)out);
+        vx, vy, vz, lv, npix, steps, r, given, lines, (const T*)src, N, (const T*)bg,
+        (T*)out);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int dispatch_sweep_remap(int resolver, bool vec, cudaStream_t s, const float* vx,
+                         const float* vy, const float* vz, const uint8_t* lv, long long npix,
+                         int steps, const Resolve& r, const int8_t* given,
+                         const uint32_t* lines, const void* src, long long N, const void* bg,
+                         void* out) {
+  if (resolver == blinky::kMaxDot)
+    return launch_sweep_remap<T, blinky::kMaxDot>(vec, s, vx, vy, vz, lv, npix, steps, r,
+                                                  given, lines, src, N, bg, out);
+  if (resolver == blinky::kFast)
+    return launch_sweep_remap<T, blinky::kFast>(vec, s, vx, vy, vz, lv, npix, steps, r, given,
+                                                lines, src, N, bg, out);
+  return launch_sweep_remap<T, blinky::kGiven>(vec, s, vx, vy, vz, lv, npix, steps, r, given,
+                                               lines, src, N, bg, out);
 }
 
 template <typename T, int K, int R>
 int launch_static_ray_posed(dim3 grid, size_t smem, cudaStream_t s, const float* vx,
                             const float* vy, const float* vz, const uint8_t* lens_valid,
                             int hb, int wb, const float* bases, int batch, const Resolve& r,
-                            const uint32_t* grid_lines, const void* src, long long N,
-                            const void* bg, int k, void* out) {
+                            const int8_t* given, const uint32_t* grid_lines, const void* src,
+                            long long N, const void* bg, int k, void* out) {
   static_ray_posed_kernel<T, K, R><<<grid, K6_THREADS, smem, s>>>(
-      vx, vy, vz, lens_valid, hb, wb, bases, batch, r, grid_lines, (const T*)src, N,
+      vx, vy, vz, lens_valid, hb, wb, bases, batch, r, given, grid_lines, (const T*)src, N,
       (const T*)bg, k, (T*)out);
   return (int)cudaGetLastError();
 }
@@ -608,29 +633,36 @@ template <typename T, int R>
 int dispatch_static_ray_posed(bool vec, int k, dim3 grid, size_t smem, cudaStream_t s,
                               const float* vx, const float* vy, const float* vz,
                               const uint8_t* lv, int hb, int wb, const float* bases,
-                              int batch, const Resolve& r, const uint32_t* lines,
-                              const void* src, long long N, const void* bg, void* out) {
+                              int batch, const Resolve& r, const int8_t* given,
+                              const uint32_t* lines, const void* src, long long N,
+                              const void* bg, void* out) {
   if (vec && k == 1)
     return launch_static_ray_posed<T, 1, R>(grid, smem, s, vx, vy, vz, lv, hb, wb, bases,
-                                            batch, r, lines, src, N, bg, k, out);
+                                            batch, r, given, lines, src, N, bg, k, out);
   if (vec && k == 2)
     return launch_static_ray_posed<T, 2, R>(grid, smem, s, vx, vy, vz, lv, hb, wb, bases,
-                                            batch, r, lines, src, N, bg, k, out);
+                                            batch, r, given, lines, src, N, bg, k, out);
   return launch_static_ray_posed<T, 0, R>(grid, smem, s, vx, vy, vz, lv, hb, wb, bases,
-                                          batch, r, lines, src, N, bg, k, out);
+                                          batch, r, given, lines, src, N, bg, k, out);
 }
 
 template <typename T>
 int dispatch_resolver(int resolver, bool vec, int k, dim3 grid, size_t smem, cudaStream_t s,
                       const float* vx, const float* vy, const float* vz, const uint8_t* lv,
                       int hb, int wb, const float* bases, int batch, const Resolve& r,
-                      const uint32_t* lines, const void* src, long long N, const void* bg,
-                      void* out) {
-  if (resolver == 0)
-    return dispatch_static_ray_posed<T, 0>(vec, k, grid, smem, s, vx, vy, vz, lv, hb, wb,
-                                           bases, batch, r, lines, src, N, bg, out);
-  return dispatch_static_ray_posed<T, 1>(vec, k, grid, smem, s, vx, vy, vz, lv, hb, wb,
-                                         bases, batch, r, lines, src, N, bg, out);
+                      const int8_t* given, const uint32_t* lines, const void* src,
+                      long long N, const void* bg, void* out) {
+  if (resolver == blinky::kMaxDot)
+    return dispatch_static_ray_posed<T, blinky::kMaxDot>(vec, k, grid, smem, s, vx, vy, vz,
+                                                         lv, hb, wb, bases, batch, r, given,
+                                                         lines, src, N, bg, out);
+  if (resolver == blinky::kFast)
+    return dispatch_static_ray_posed<T, blinky::kFast>(vec, k, grid, smem, s, vx, vy, vz, lv,
+                                                       hb, wb, bases, batch, r, given, lines,
+                                                       src, N, bg, out);
+  return dispatch_static_ray_posed<T, blinky::kGiven>(vec, k, grid, smem, s, vx, vy, vz, lv,
+                                                      hb, wb, bases, batch, r, given, lines,
+                                                      src, N, bg, out);
 }
 
 bool aligned16(const void* p) { return (uintptr_t)p % 16 == 0; }
@@ -697,7 +729,9 @@ extern "C" int blinky_posed_gather(const void* src, long long N, int elem_bytes,
 // bases [batch, 3, 3] f32 (forward, right, up rows); plates: a HOST pointer
 // to 6 x 10 floats (forward, right, up, dist of each plate), copied into the
 // launch; resolver 0 = max-dot, 1 = the fast globe with fast_dist and
-// fast_half; grid_lines: the rubix grid-line bitmask on the device, bit px
+// fast_half, 2 = the plates given in given [batch, hb, wb] int8 (a script
+// globe's, clamped to [-1, 6]; null for the other resolvers); grid_lines:
+// the rubix grid-line bitmask on the device, bit px
 // of word px / 32 for px < S (lensmap/builder.py::rubix_grid_lines; read only
 // when expanded, else may be null); S the plate size; src [batch, N]
 // pose-major texels of elem_bytes; bg [hb * k, wb * k]; out
@@ -706,12 +740,13 @@ extern "C" int blinky_static_ray_posed(const float* vx, const float* vy, const f
                                        const uint8_t* lens_valid, int hb, int wb,
                                        const float* bases, int batch, const float* plates,
                                        int nplates, int resolver, float fast_dist,
-                                       float fast_half, const uint32_t* grid_lines, int S,
-                                       int expanded, const void* src, long long N,
-                                       int elem_bytes, const void* bg, int k, void* out,
-                                       void* stream) {
+                                       float fast_half, const int8_t* given,
+                                       const uint32_t* grid_lines, int S, int expanded,
+                                       const void* src, long long N, int elem_bytes,
+                                       const void* bg, int k, void* out, void* stream) {
   Resolve r;
   if (k < 1 || N < 1 || batch < 1 || hb < 1 || wb < 1 || (expanded && grid_lines == nullptr) ||
+      (resolver == blinky::kGiven && given == nullptr) ||
       !blinky::make_resolve(r, plates, nplates, resolver, fast_dist, fast_half, S, expanded))
     return (int)cudaErrorInvalidValue;
   const long long runs = (long long)hb * ((wb + kRun - 1) / kRun);
@@ -727,43 +762,40 @@ extern "C" int blinky_static_ray_posed(const float* vx, const float* vy, const f
   cudaStream_t s = (cudaStream_t)stream;
   if (elem_bytes == 1)
     return dispatch_resolver<uint8_t>(resolver, vec, k, grid, smem, s, vx, vy, vz, lens_valid,
-                                      hb, wb, bases, batch, r, grid_lines, src, N, bg, out);
+                                      hb, wb, bases, batch, r, given, grid_lines, src, N, bg,
+                                      out);
   if (elem_bytes == 4)
     return dispatch_resolver<uint32_t>(resolver, vec, k, grid, smem, s, vx, vy, vz,
-                                       lens_valid, hb, wb, bases, batch, r, grid_lines, src,
-                                       N, bg, out);
+                                       lens_valid, hb, wb, bases, batch, r, given, grid_lines,
+                                       src, N, bg, out);
   return (int)cudaErrorInvalidValue;
 }
 
 // vx, vy, vz [steps, npix] f32 and lens_valid [steps, npix] bool: a ray table
 // a zoom step; src [N] texels of elem_bytes, the one frame every step gathers
 // from; bg and a step of out [npix].  plates, resolver, fast_dist, fast_half,
-// grid_lines, S, expanded as for blinky_static_ray_posed.  No rotation.
+// grid_lines, S, expanded as for blinky_static_ray_posed; given [steps, npix]
+// int8 for resolver 2.  No rotation.
 extern "C" int blinky_sweep_remap(const float* vx, const float* vy, const float* vz,
                                   const uint8_t* lens_valid, long long npix, int steps,
                                   const float* plates, int nplates, int resolver,
-                                  float fast_dist, float fast_half,
+                                  float fast_dist, float fast_half, const int8_t* given,
                                   const uint32_t* grid_lines, int S, int expanded,
                                   const void* src, long long N, int elem_bytes,
                                   const void* bg, void* out, void* stream) {
   Resolve r;
   if (N < 1 || steps < 1 || npix < 1 || (expanded && grid_lines == nullptr) ||
+      (resolver == blinky::kGiven && given == nullptr) ||
       !blinky::make_resolve(r, plates, nplates, resolver, fast_dist, fast_half, S, expanded))
     return (int)cudaErrorInvalidValue;
   const bool vec = npix % kRun == 0 && aligned16(vx) && aligned16(vy) && aligned16(vz) &&
                    aligned16(lens_valid) && aligned16(bg) && aligned16(out);
   cudaStream_t s = (cudaStream_t)stream;
   if (elem_bytes == 1)
-    return resolver == 0
-               ? launch_sweep_remap<uint8_t, 0>(vec, s, vx, vy, vz, lens_valid, npix, steps, r,
-                                                grid_lines, src, N, bg, out)
-               : launch_sweep_remap<uint8_t, 1>(vec, s, vx, vy, vz, lens_valid, npix, steps, r,
-                                                grid_lines, src, N, bg, out);
+    return dispatch_sweep_remap<uint8_t>(resolver, vec, s, vx, vy, vz, lens_valid, npix, steps,
+                                         r, given, grid_lines, src, N, bg, out);
   if (elem_bytes == 4)
-    return resolver == 0
-               ? launch_sweep_remap<uint32_t, 0>(vec, s, vx, vy, vz, lens_valid, npix, steps,
-                                                 r, grid_lines, src, N, bg, out)
-               : launch_sweep_remap<uint32_t, 1>(vec, s, vx, vy, vz, lens_valid, npix, steps,
-                                                 r, grid_lines, src, N, bg, out);
+    return dispatch_sweep_remap<uint32_t>(resolver, vec, s, vx, vy, vz, lens_valid, npix,
+                                          steps, r, given, grid_lines, src, N, bg, out);
   return (int)cudaErrorInvalidValue;
 }

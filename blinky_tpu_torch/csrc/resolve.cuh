@@ -41,10 +41,15 @@ struct Resolve {
   int S, expanded;
 };
 
+// The plate resolvers: the strict first max of the forward dots, the fast
+// globe's, and a plate given per ray (a script globe's globe_plate, which
+// lensmap/builder.py::script_plates evaluates on the rotated rays first).
+constexpr int kMaxDot = 0, kFast = 1, kGiven = 2;
+
 // plates: a HOST pointer to 6 x 10 floats.  False for arguments no kernel takes.
 inline bool make_resolve(Resolve& r, const float* plates, int nplates, int resolver,
                          float fast_dist, float fast_half, int S, int expanded) {
-  if (nplates < 1 || nplates > kMaxPlates || resolver < 0 || resolver > 1 || S < 1)
+  if (nplates < 1 || nplates > kMaxPlates || resolver < kMaxDot || resolver > kGiven || S < 1)
     return false;
   memcpy(r.plates, plates, sizeof(r.plates));
   r.nplates = nplates;
@@ -83,17 +88,17 @@ struct Texel {
   bool valid;
 };
 
-// One ray -> its texel.  R: the plate resolver, 0 the strict first max of
-// the forward dots, 1 the fast globe's.  ROT: rotate the ray by the basis
-// f, rt, up (its forward, right, up rows) first; without it the ray is
-// taken as it is, which differs from a rotation by the identity where a
-// component is infinite (inf * 0 is NaN).  recs: the plate records in
-// shared memory.
-template <int R, bool ROT>
-__device__ __forceinline__ Texel resolve_texel(float vx, float vy, float vz, bool lens_valid,
-                                               float3 f, float3 rt, float3 up,
-                                               const Resolve& r, const float* recs) {
-  float x = vx, y = vy, z = vz;
+// One ray -> the unit ray the plate resolve reads.  ROT: rotate it by the
+// basis f, rt, up (its forward, right, up rows) first; without it the ray
+// is taken as it is, which differs from a rotation by the identity where a
+// component is infinite (inf * 0 is NaN).  The rotate pre-pass of a script
+// globe (lensmap.cu, blinky_rotate_rays) runs this same code, so the
+// script resolves the very rays the kernels resolve.
+template <bool ROT>
+__device__ __forceinline__ void rotate_normalize(float vx, float vy, float vz, float3 f,
+                                                 float3 rt, float3 up, float& x, float& y,
+                                                 float& z) {
+  x = vx, y = vy, z = vz;
   if (ROT) {
     // ray' = vx * right + vy * up + vz * forward, each component left to right
     x = __fadd_rn(__fadd_rn(__fmul_rn(vx, rt.x), __fmul_rn(vy, up.x)), __fmul_rn(vz, f.x));
@@ -112,6 +117,18 @@ __device__ __forceinline__ Texel resolve_texel(float vx, float vy, float vz, boo
   x = __fmul_rn(x, inv);
   y = __fmul_rn(y, inv);
   z = __fmul_rn(z, inv);
+}
+
+// One ray -> its texel.  R: the plate resolver (kMaxDot, kFast or kGiven,
+// whose plate is `given`, read by no other resolver).  ROT: as for
+// rotate_normalize.  recs: the plate records in shared memory.
+template <int R, bool ROT>
+__device__ __forceinline__ Texel resolve_texel(float vx, float vy, float vz, bool lens_valid,
+                                               float3 f, float3 rt, float3 up,
+                                               const Resolve& r, const float* recs,
+                                               int given = 0) {
+  float x, y, z;
+  rotate_normalize<ROT>(vx, vy, vz, f, rt, up, x, y, z);
 
   const float* P = r.plates;
   int plate, pc;
@@ -131,6 +148,13 @@ __device__ __forceinline__ Texel resolve_texel(float vx, float vy, float vz, boo
       }
     }
     plate = pc;
+  } else if (R == kGiven) {
+    // the script's plate: valid only where it is >= 0, its frame the
+    // clipped plate's (rays_to_lensmap, blinky_tpu/lensmap/builder.py:232-236)
+    plate = given;
+    pc = plate < 0 ? 0 : (plate > r.nplates - 1 ? r.nplates - 1 : plate);
+    const float4 fw = *(const float4*)(recs + pc * kRecord + 8);
+    rz = dot3(x, y, z, fw.x, fw.y, fw.z);
   } else {
     // globes/fast.lua:10-27: the sharp plate's window, else the wide plate,
     // and nothing behind the camera
@@ -185,8 +209,8 @@ template <int R, bool ROT>
 __device__ __forceinline__ int resolve_index(float vx, float vy, float vz, bool lens_valid,
                                              float3 f, float3 rt, float3 up,
                                              const Resolve& r, const float* recs,
-                                             const uint32_t* lines) {
-  const Texel t = resolve_texel<R, ROT>(vx, vy, vz, lens_valid, f, rt, up, r, recs);
+                                             const uint32_t* lines, int given = 0) {
+  const Texel t = resolve_texel<R, ROT>(vx, vy, vz, lens_valid, f, rt, up, r, recs, given);
   if (!t.valid) return -1;
   const int S = r.S;
   int idx = t.pc * S * S + t.py * S + t.px;

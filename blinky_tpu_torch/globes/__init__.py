@@ -15,8 +15,8 @@ The loader semantics reproduced here:
 * forward vectors are **not** normalized — plate selection dots against
   them as given (matters for ``tetra``'s computed vectors).
 
-User globes are plain Python modules in a scripts directory defining the
-same names the Lua contract uses (``plates``, optional ``globe_plate``);
+User globes are Python modules defining the names the Lua contract uses
+(``plates``, optional ``globe_plate``) or the reference's ``.lua`` scripts;
 see :func:`load_globe_module`.
 """
 
@@ -48,9 +48,9 @@ class Globe:
     dist: np.ndarray  # [n] f32 = 0.5 / tan(fov/2) (fisheye.c:1868)
     # Optional vectorized resolver (x, y, z, globe) -> plate index, -1 = none.
     plate_resolver: Optional[Callable] = None
-    # False when the resolver cannot trace (a scalar-only .lua
-    # globe_plate): device builds route to the exact host path, like
-    # LensDef.jittable does for lenses
+    # False when the resolver does not evaluate on tensors (a scalar-only
+    # .lua globe_plate): device builds route to the exact host path, like
+    # LensDef.jittable does for lenses (the JAX package's name)
     jittable: bool = True
 
     @property
@@ -115,13 +115,12 @@ def load_globe_module(path) -> Globe:
     """Load a user globe from a script: a Python module defining ``plates``
     (list of ``(forward, up, fov_deg)``) and optionally ``globe_plate``, or
     a reference-format ``.lua`` script (``LUA_load_globe``,
-    ``fisheye.c:1752-1875``), which needs the Lua bridge the port does not
-    have yet."""
+    ``fisheye.c:1752-1875``, through :mod:`blinky_tpu_torch.lua_bridge`)."""
     path = Path(path)
     if path.suffix.lower() == ".lua":
-        raise NotImplementedError(
-            f"globe script {path.name}: .lua globes are not ported to "
-            "blinky_tpu_torch yet")
+        from blinky_tpu_torch.lua_bridge import load_lua_globe
+
+        return load_lua_globe(path)
     spec = importlib.util.spec_from_file_location(f"blinky_globe_{path.stem}", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)

@@ -53,24 +53,26 @@ _SIGNATURES = {
     # src, N, elem_bytes, batch, idx, valid, bg, k, hb, wb, out, stream
     "blinky_posed_gather": [_vp, _ll, _i, _i, _vp, _vp, _vp, _i, _i, _i, _vp, _vp],
     # vx, vy, vz, lens_valid, hb, wb, bases, batch, plates (host), nplates,
-    # resolver, fast_dist, fast_half, grid_lines, S, expanded, src, N,
+    # resolver, fast_dist, fast_half, given, grid_lines, S, expanded, src, N,
     # elem_bytes, bg, k, out, stream
     "blinky_static_ray_posed": [_vp, _vp, _vp, _vp, _i, _i, _vp, _i, _vp, _i, _i,
-                                _f, _f, _vp, _i, _i, _vp, _ll, _i, _vp, _i, _vp, _vp],
+                                _f, _f, _vp, _vp, _i, _i, _vp, _ll, _i, _vp, _i, _vp, _vp],
     # in, ld, T, batch, elem_bytes, n_out, out, stream
     "blinky_posed_layout": [_vp, _ll, _ll, _i, _i, _ll, _vp, _vp],
     # in, sp, sy, sx, sb, P, S, batch, elem_bytes, n_out, out, stream
     "blinky_posed_layout_strided": [_vp, _ll, _ll, _ll, _ll, _i, _i, _i, _i, _ll, _vp, _vp],
     # vx, vy, vz, lens_valid, npix, basis (host), plates (host), nplates,
-    # resolver, fast_dist, fast_half, grid_lines, S, plate, px, py, valid,
-    # tint, flat_idx, used, stream
-    "blinky_lensmap_resolve": [_vp, _vp, _vp, _vp, _ll, _vp, _vp, _i, _i, _f, _f, _vp, _i,
-                               _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp],
+    # resolver, fast_dist, fast_half, given, grid_lines, S, plate, px, py,
+    # valid, tint, flat_idx, used, stream
+    "blinky_lensmap_resolve": [_vp, _vp, _vp, _vp, _ll, _vp, _vp, _i, _i, _f, _f, _vp, _vp,
+                               _i, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp],
+    # vx, vy, vz, npix, bases, batch, ox, oy, oz, stream
+    "blinky_rotate_rays": [_vp, _vp, _vp, _ll, _vp, _i, _vp, _vp, _vp, _vp],
     # vx, vy, vz, lens_valid, npix, steps, plates (host), nplates, resolver,
-    # fast_dist, fast_half, grid_lines, S, expanded, src, N, elem_bytes, bg,
-    # out, stream
-    "blinky_sweep_remap": [_vp, _vp, _vp, _vp, _ll, _i, _vp, _i, _i, _f, _f, _vp, _i, _i,
-                           _vp, _ll, _i, _vp, _vp, _vp],
+    # fast_dist, fast_half, given, grid_lines, S, expanded, src, N,
+    # elem_bytes, bg, out, stream
+    "blinky_sweep_remap": [_vp, _vp, _vp, _vp, _ll, _i, _vp, _i, _i, _f, _f, _vp, _vp, _i,
+                           _i, _vp, _ll, _i, _vp, _vp, _vp],
     # src, rows, batch, idx, w, taps, n, plate_mask, valid, bg, tint_rgb,
     # tint_mask, out, stream
     "blinky_equirect_gather": [_vp, _ll, _i, _vp, _vp, _i, _ll, _vp, _vp, _vp, _vp, _vp,

@@ -317,13 +317,13 @@ def posed_remap_sharded(*args, **kwargs):
 
 
 def sweep_remap_plain(src, vx, vy, vz, lens_valid, globe, platesize, numcells,
-                      cell_size, pad_size, expanded, background):
+                      cell_size, pad_size, expanded, background, plates=None):
     """K9's plain version: per zoom step,
     :func:`blinky_tpu_torch.lensmap.builder.rays_to_lensmap_torch` of the
-    step's rays with NO rotation, the expanded source's tinted-half offset,
-    the clipped gather from the one source and the background select
-    (``one_scale`` of ``blinky_tpu.kernels.posed._compiled_sweep_pipeline``)
-    -> [N, H, W]."""
+    step's rays with NO rotation (a script globe's *plates* given,
+    [steps, H, W]), the expanded source's tinted-half offset, the clipped
+    gather from the one source and the background select (``one_scale`` of
+    ``blinky_tpu.kernels.posed._compiled_sweep_pipeline``) -> [N, H, W]."""
     from blinky_tpu_torch.lensmap.builder import TINT_NONE, rays_to_lensmap_torch
 
     S = platesize
@@ -331,7 +331,8 @@ def sweep_remap_plain(src, vx, vy, vz, lens_valid, globe, platesize, numcells,
     outs = []
     for n in range(vx.shape[0]):
         lm = rays_to_lensmap_torch(globe, vx[n], vy[n], vz[n], lens_valid[n], S,
-                                   numcells, cell_size, pad_size)
+                                   numcells, cell_size, pad_size,
+                                   plate=None if plates is None else plates[n])
         idx, valid = lm["flat_idx"], lm["valid"]
         if expanded:
             idx = idx + torch.where((lm["tint"] != TINT_NONE) & valid,
@@ -342,16 +343,21 @@ def sweep_remap_plain(src, vx, vy, vz, lens_valid, globe, platesize, numcells,
 
 
 def sweep_remap(src, vx, vy, vz, lens_valid, globe, platesize, numcells,
-                cell_size, pad_size, expanded, background):
+                cell_size, pad_size, expanded, background, plates=None):
     """K9, the fused zoom sweep's resolve and gather: a ray table a zoom
     step -> a screen a step, all from ONE source frame, with no rotation.
 
     ``src`` [N] u8 or int32 (packed RGBA bits), N = 6·S² or 12·S² when
     *expanded*; ``vx, vy, vz`` contiguous f32 and ``lens_valid`` contiguous
-    bool, [steps, H, W]; ``background`` [H, W] of src's dtype.  Returns
-    [steps, H, W] (see :func:`sweep_remap_plain`).
+    bool, [steps, H, W]; ``background`` [H, W] of src's dtype.  A script
+    globe resolves in mode 2 from *plates*, a contiguous int8 [steps, H, W]
+    tensor, by default its resolver on the normalized rays (K13 with no
+    rotation, then :func:`blinky_tpu_torch.lensmap.builder.script_plates`).
+    Returns [steps, H, W] (see :func:`sweep_remap_plain`).
     """
-    from blinky_tpu_torch.lensmap.builder import grid_line_words, resolver_args
+    from blinky_tpu_torch.lensmap.builder import (
+        RESOLVERS, grid_line_words, resolver_args, rotate_rays, script_plates,
+    )
 
     name = "sweep_remap"
     dev = src.device
@@ -372,29 +378,42 @@ def sweep_remap(src, vx, vy, vz, lens_valid, globe, platesize, numcells,
             raise ValueError(
                 f"{name}: {what} must be a contiguous {dtype} tensor of shape {shp} "
                 f"([steps, H, W] rays) on {dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
-    globe_args = resolver_args(globe)  # a globe without a twin raises here
+    globe_args = resolver_args(globe)  # a non-jittable globe raises here
+    if globe_args[2] == RESOLVERS["script"]:
+        if plates is None:
+            plates = script_plates(globe, *rotate_rays(vx, vy, vz)).clamp(
+                -1, MAX_PLATES).to(torch.int8)
+        if (plates.dtype != torch.int8 or tuple(plates.shape) != shape
+                or not plates.is_contiguous() or plates.device != dev):
+            raise ValueError(f"{name}: plates must be a contiguous int8 {shape} tensor on "
+                             f"{dev}, got {plates.dtype} {tuple(plates.shape)}")
+    else:
+        plates = None
     if not _build.on_card(name, dev):
         return sweep_remap_plain(src, vx, vy, vz, lens_valid, globe, S, numcells,
-                                 cell_size, pad_size, expanded, background)
+                                 cell_size, pad_size, expanded, background, plates)
     out = torch.empty(shape, dtype=src.dtype, device=dev)
     if out.numel():
-        plates, nplates, resolver, fast_dist, fast_half = globe_args
+        consts, nplates, resolver, fast_dist, fast_half = globe_args
         lines = (grid_line_words(S, float(numcells), float(cell_size), float(pad_size), dev)
                  if expanded else None)
         lib = _build.library()
         with torch.cuda.device(dev):
             rc = lib.blinky_sweep_remap(
                 vx.data_ptr(), vy.data_ptr(), vz.data_ptr(), lens_valid.data_ptr(),
-                shape[1] * shape[2], shape[0], plates.ctypes.data, nplates, resolver,
-                fast_dist, fast_half, _build.ptr(lines), S, int(expanded), src.data_ptr(),
+                shape[1] * shape[2], shape[0], consts.ctypes.data, nplates, resolver,
+                fast_dist, fast_half, _build.ptr(plates), _build.ptr(lines), S,
+                int(expanded), src.data_ptr(),
                 src.numel(), src.element_size(), background.data_ptr(), out.data_ptr(),
                 _build.stream(dev))
         _build.check(rc, name)
         sweep_remap.launches += 1
+        sweep_remap.given_launches += resolver == RESOLVERS["script"]
     return out
 
 
 sweep_remap.launches = 0
+sweep_remap.given_launches = 0  # the launches in resolver mode 2 (a script globe)
 
 
 def zoom_sweep_remap(lens, globe, scales, frame, width_px, height_px,
@@ -427,7 +446,7 @@ def zoom_sweep_remap(lens, globe, scales, frame, width_px, height_px,
             "sweep it per step through Session.cmd/render (cli sweep does)")
     if dtype not in (None, torch.float32):
         raise ValueError(f"zoom_sweep_remap builds in float32, not {dtype}")
-    plate_resolver_mode(globe)  # a globe without a twin raises here
+    script = plate_resolver_mode(globe) == "script"  # a non-jittable globe raises
     dev = torch.device(device)
     frame, is_rgba = frames_tensor(frame)
     P, S, _ = frame.shape
@@ -447,7 +466,8 @@ def zoom_sweep_remap(lens, globe, scales, frame, width_px, height_px,
         frame = torch.cat([frame, frame.new_zeros((MAX_PLATES - P, S, S))])
     src = frame.contiguous().reshape(-1)
     scales = torch.as_tensor(np.asarray(scales, np.float64), dtype=torch.float32, device=dev)
-    chunk = feasible_batch(sweep_bytes_per_lane(width_px, height_px, is_rgba), 0, device=dev)
+    chunk = feasible_batch(sweep_bytes_per_lane(width_px, height_px, is_rgba, script), 0,
+                           device=dev)
     outs = []
     for lo in range(0, scales.numel(), chunk):
         rays = lens_rays_torch(lens, scales[lo:lo + chunk], width_px, height_px, dev)

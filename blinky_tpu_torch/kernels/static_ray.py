@@ -21,6 +21,13 @@ gather fused, so the per-pose index table is never written.
 :func:`static_ray_posed` launches it for tensors on a card and runs its
 plain version, :func:`static_ray_posed_plain`, for tensors on the CPU.
 
+A script globe's resolver runs per pose on the rotated rays, as in the JAX
+package (``blinky_tpu/kernels/static_ray.py:235-244``):
+:func:`script_pose_plates` rotates the table by each pose (K13, the
+pre-pass that runs K6's own rotation) and evaluates the script on those
+rays as tensors, and K6 reads the int8 plate it gave each pose-pixel
+(resolver mode 2).
+
 As in the JAX package, :func:`build_ray_table` evaluates a traceable
 inverse lens in float32 on the device, which keeps the table bit-aligned
 with the fused posed pipeline
@@ -40,8 +47,8 @@ from blinky_tpu_torch.kernels.posed import (
     prep_posed_inputs,
 )
 from blinky_tpu_torch.lensmap.builder import (
-    TINT_NONE, LensMap, grid_line_words, lens_ray_grid, lens_rays_torch,
-    plate_resolver_mode, rays_to_lensmap_torch, resolver_args,
+    RESOLVERS, TINT_NONE, LensMap, grid_line_words, lens_ray_grid, lens_rays_torch,
+    plate_resolver_mode, rays_to_lensmap_torch, resolver_args, rotate_rays, script_plates,
 )
 from blinky_tpu_torch.palette import MAX_PLATES
 
@@ -157,11 +164,14 @@ def ray_table_from_lensmap(lm: LensMap, globe) -> RayTable:
 
 def build_ray_table(lens, globe, scale, width_px, height_px,
                     platesize=None, lensmap=None, device="cuda") -> RayTable:
-    """Route a lens to its ray-table source:
+    """Route a lens to its ray-table source, as the JAX package does:
 
-    * an inverse lens -> the float32 lens stage on *device* (bit-aligned
-      with the fused posed pipeline; every ported lens and globe runs on
-      tensors: scalar-only script lenses and resolvers are not ported);
+    * an inverse lens that evaluates on tensors, on a globe that does
+      (``jittable``) -> the float32 lens stage on *device* (bit-aligned
+      with the fused posed pipeline);
+    * any other inverse lens (a ``.lua`` script that needs per-lane
+      control) -> the float64 host lens stage, its rays truncated to
+      float32 (``ray_table_from_lens(backend="numpy")``);
     * a forward-only lens -> the texel centers of the host forward
       rasterization (*lensmap* when its size and zoom scale match, else a
       new :func:`blinky_tpu_torch.lensmap.forward_raster.build_forward`;
@@ -170,8 +180,10 @@ def build_ray_table(lens, globe, scale, width_px, height_px,
     if platesize is None:
         platesize = min(width_px, height_px)
     if getattr(lens, "map_type", "inverse") == "inverse":
+        on_tensors = getattr(lens, "jittable", True) and getattr(globe, "jittable", True)
         return ray_table_from_lens(lens, scale, width_px, height_px,
-                                   backend="torch", device=device)
+                                   backend="torch" if on_tensors else "numpy",
+                                   device=device)
     if lensmap is None or lensmap.width_px != width_px \
             or lensmap.height_px != height_px \
             or lensmap.platesize != platesize \
@@ -196,16 +208,39 @@ def _check_table(kernel, table, device):
                 f"tensor of shape {(hb, wb)} on {device} (RayTable.device)")
 
 
+def script_pose_plates(table, bases, globe):
+    """A script globe's plates for every pose: per pose, the table's rays
+    rotated and normalized by :func:`rotate_rays` (K13 on a card) and the
+    script's resolver on them as tensors (:func:`script_plates`), clamped
+    to [-1, MAX_PLATES] (which keeps ``plate >= 0`` and the clip to the
+    globe's plates) -> int8 [B, H, W] on the table's device.  The poses go
+    in pieces whose evaluation fits the device's budget
+    (:func:`blinky_tpu_torch.bench.autobatch.script_bytes_per_lane`)."""
+    from blinky_tpu_torch.bench.autobatch import feasible_batch, script_bytes_per_lane
+
+    dev = table.vx.device
+    B = int(bases.shape[0])
+    out = torch.empty((B,) + tuple(table.vx.shape), dtype=torch.int8, device=dev)
+    chunk = feasible_batch(script_bytes_per_lane(table.vx.numel()), 0, device=dev)
+    for lo in range(0, B, chunk):
+        rays = rotate_rays(table.vx, table.vy, table.vz, bases[lo:lo + chunk])
+        out[lo:lo + chunk] = script_plates(globe, *rays).clamp(-1, MAX_PLATES)
+        del rays
+    return out
+
+
 def static_ray_posed_plain(src, table, bases, globe, platesize, numcells,
-                           cell_size, pad_size, expanded, background, k):
+                           cell_size, pad_size, expanded, background, k,
+                           plates=None):
     """K6's plain version: per pose, :func:`rays_to_lensmap_torch` of the
-    rotated table, the expanded source's tinted-half offset
-    (``expanded_flat_idx``, ``fisheye.c:2416-2419``), then
-    :func:`gather_posed_plain` -> [B, H, W]."""
+    rotated table (a script globe's *plates* given, [B, H, W]), the
+    expanded source's tinted-half offset (``expanded_flat_idx``,
+    ``fisheye.c:2416-2419``), then :func:`gather_posed_plain` ->
+    [B, H, W]."""
     S = platesize
     lm = rays_to_lensmap_torch(globe, table.vx, table.vy, table.vz,
                                table.lens_valid, S, numcells, cell_size,
-                               pad_size, view_basis=bases)
+                               pad_size, view_basis=bases, plate=plates)
     idx, valid = lm["flat_idx"], lm["valid"]
     if expanded:
         idx = idx + torch.where((lm["tint"] != TINT_NONE) & valid,
@@ -214,7 +249,7 @@ def static_ray_posed_plain(src, table, bases, globe, platesize, numcells,
 
 
 def static_ray_posed(src, table, bases, globe, platesize, numcells,
-                     cell_size, pad_size, expanded, background, k):
+                     cell_size, pad_size, expanded, background, k, plates=None):
     """K6, E with D fused: per pose, rotate the ray table by ``bases[b]``,
     resolve plate and texel as :func:`rays_to_lensmap_torch` does, and
     gather from pose ``b``'s frame -> [B, H, W].
@@ -222,7 +257,9 @@ def static_ray_posed(src, table, bases, globe, platesize, numcells,
     ``src`` [B, N] u8 or int32 bits, pose-major (:func:`prep_posed_inputs`),
     N = 6·S² or 12·S² when *expanded*; ``table`` a :class:`RayTable` on the
     device, [H/k, W/k]; ``bases`` [B, 3, 3] f32; ``background`` [H, W] of
-    src's dtype; ``k`` the render scale.
+    src's dtype; ``k`` the render scale.  A script globe resolves in mode
+    2 from *plates*, a contiguous int8 [B, H/k, W/k] tensor, by default
+    :func:`script_pose_plates`.
     """
     name = "static_ray_posed"
     check_gather_operands(name, src, table.height_px, table.width_px, background, k)
@@ -238,14 +275,24 @@ def static_ray_posed(src, table, bases, globe, platesize, numcells,
             or not bases.is_contiguous() or bases.device != dev):
         raise ValueError(f"{name}: bases must be a contiguous float32 [B={B}, 3, 3] "
                          f"tensor on {dev}, got {bases.dtype} {tuple(bases.shape)}")
-    globe_args = resolver_args(globe)  # a globe without a twin raises here
+    globe_args = resolver_args(globe)  # a non-jittable globe raises here
+    hb, wb = table.height_px, table.width_px
+    if globe_args[2] == RESOLVERS["script"]:
+        if plates is None:
+            plates = script_pose_plates(table, bases, globe)
+        if (plates.dtype != torch.int8 or tuple(plates.shape) != (B, hb, wb)
+                or not plates.is_contiguous() or plates.device != dev):
+            raise ValueError(f"{name}: plates must be a contiguous int8 [{B}, {hb}, {wb}] "
+                             f"tensor on {dev}, got {plates.dtype} {tuple(plates.shape)}")
+    else:
+        plates = None
     if not _build.on_card(name, dev):
         return static_ray_posed_plain(src, table, bases, globe, S, numcells,
-                                      cell_size, pad_size, expanded, background, k)
-    hb, wb = table.height_px, table.width_px
+                                      cell_size, pad_size, expanded, background, k,
+                                      plates)
     out = torch.empty((B, hb * k, wb * k), dtype=src.dtype, device=dev)
     if out.numel():
-        plates, nplates, resolver, fast_dist, fast_half = globe_args
+        consts, nplates, resolver, fast_dist, fast_half = globe_args
         lines = (grid_line_words(S, float(numcells), float(cell_size), float(pad_size), dev)
                  if expanded else None)
         lib = _build.library()
@@ -253,15 +300,18 @@ def static_ray_posed(src, table, bases, globe, platesize, numcells,
             rc = lib.blinky_static_ray_posed(
                 table.vx.data_ptr(), table.vy.data_ptr(), table.vz.data_ptr(),
                 table.lens_valid.data_ptr(), hb, wb, bases.data_ptr(), B,
-                plates.ctypes.data, nplates, resolver, fast_dist, fast_half, _build.ptr(lines), S, int(expanded),
+                consts.ctypes.data, nplates, resolver, fast_dist, fast_half, _build.ptr(plates),
+                _build.ptr(lines), S, int(expanded),
                 src.data_ptr(), N, src.element_size(), background.data_ptr(),
                 int(k), out.data_ptr(), _build.stream(dev))
         _build.check(rc, name)
         static_ray_posed.launches += 1
+        static_ray_posed.given_launches += resolver == RESOLVERS["script"]
     return out
 
 
 static_ray_posed.launches = 0
+static_ray_posed.given_launches = 0  # the launches in resolver mode 2 (a script globe)
 
 
 def background_tensor(background, height_px, width_px, device):
@@ -299,7 +349,7 @@ class StaticRayPosedKernel:
                  platesize=None, numcells=10, cell_size=4.0, pad_size=1.0,
                  background=None, render_scale=1, ray_table=None,
                  lensmap=None, *, device="cuda"):
-        plate_resolver_mode(globe)  # a globe without a twin raises here
+        plate_resolver_mode(globe)  # a non-jittable globe raises here
         self.device = torch.device(device)
         self.lens = lens
         self.globe = globe

@@ -9,6 +9,9 @@ contract is :mod:`blinky_tpu.lenses`'s:
 * ``lens_width`` / ``lens_height``, ``max_fov`` / ``max_vfov``, ``map``
   and ``onload`` metadata, with the reference's map-type resolution.
 
+User lenses are ``.py`` modules defining ``make(ctx)`` or the reference's
+``.lua`` scripts (:func:`load_lens_module`).
+
 Each lens lives in its own module defining ``make(ctx) -> dict``; its
 mapping functions are dtype-generic array functions (see
 :mod:`blinky_tpu_torch.xmath`), evaluated in float64 on NumPy by the exact
@@ -21,6 +24,8 @@ from __future__ import annotations
 
 import dataclasses
 import importlib
+import importlib.util
+from pathlib import Path
 from types import SimpleNamespace
 from typing import Callable, Optional
 
@@ -48,6 +53,14 @@ class LensDef:
     max_fov: int
     max_vfov: int
     onload: Optional[str]
+    # False for a lens whose inverse map does not evaluate on tensors (a
+    # .lua drop-in that needs per-lane scalar control): it builds on the
+    # exact float64 host builder only.  The JAX package's name.
+    jittable: bool = True
+    # resource-release hook (.lua lenses: unwinds coroutine threads a
+    # script parked in its scalar interpreters, see lua_bridge.load_lua_lens).
+    # Call only when discarding the LensDef for good; None for built-ins.
+    release: Optional[Callable] = None
 
 
 def resolve(name: str, spec: dict) -> LensDef:
@@ -79,6 +92,8 @@ def resolve(name: str, spec: dict) -> LensDef:
         max_fov=int(spec.get("max_fov", 0) or 0),
         max_vfov=int(spec.get("max_vfov", 0) or 0),
         onload=spec.get("onload"),
+        jittable=bool(spec.get("jittable", True)),
+        release=spec.get("release"),
     )
 
 
@@ -138,3 +153,19 @@ def get(name: str, globe=None) -> LensDef:
     mod = importlib.import_module(f"blinky_tpu_torch.lenses.{name}")
     ctx = make_context(globe) if globe is not None else None
     return resolve(name, mod.make(ctx))
+
+
+def load_lens_module(path, globe=None) -> LensDef:
+    """Load a user lens from a script: a Python module defining
+    ``make(ctx)``, or a reference-format ``.lua`` script (``LUA_load_lens``,
+    ``fisheye.c:1659-1750``, through :mod:`blinky_tpu_torch.lua_bridge`)."""
+    path = Path(path)
+    if path.suffix.lower() == ".lua":
+        from blinky_tpu_torch.lua_bridge import load_lua_lens
+
+        return load_lua_lens(path, globe)
+    spec = importlib.util.spec_from_file_location(f"blinky_lens_{path.stem}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    ctx = make_context(globe) if globe is not None else None
+    return resolve(path.stem, mod.make(ctx))

@@ -299,19 +299,35 @@ def rays_to_lensmap(globe, vx, vy, vz, lens_valid, platesize,
 
 
 def plate_resolver_mode(globe) -> str:
-    """How the float32 torch builder (and the posed kernel) resolves a
-    ray's plate on *globe*: ``"maxdot"`` (the strict first-max of the
-    forward dots) or ``"fast"`` (the ``fast`` globe's resolver twin).  Any
-    other resolver (a script's ``globe_plate``) has no twin yet."""
+    """How the float32 torch builder and the posed kernels resolve a ray's
+    plate on *globe*: ``"maxdot"`` (the strict first-max of the forward
+    dots), ``"fast"`` (the ``fast`` globe's resolver twin) or ``"script"``
+    (any other resolver, a ``.lua`` or ``.py`` script's ``globe_plate``:
+    :func:`script_plates` evaluates it on the rotated unit rays as
+    tensors, and the kernels read the plate it gives each ray).  A globe
+    whose resolver does not evaluate on tensors (``jittable`` False) has no
+    device path: :func:`build_lensmap` and the Session route it to the
+    exact host builder, and this raises for it."""
     from blinky_tpu_torch.globes.builtin import TORCH_RESOLVERS
 
     if globe.plate_resolver is None:
         return "maxdot"
     if globe.plate_resolver in TORCH_RESOLVERS:
         return "fast"
-    raise NotImplementedError(
-        f"globe '{globe.name}': its plate resolver has no float32 torch "
-        "twin (script globe resolvers are not ported yet)")
+    if not getattr(globe, "jittable", True):
+        raise ValueError(
+            f"globe '{globe.name}': its plate resolver does not evaluate on "
+            "tensors (jittable is False), so it builds on the exact host path")
+    return "script"
+
+
+def script_plates(globe, x, y, z):
+    """A script globe's plates: its resolver on the unit rays ``x, y, z``
+    (float32 tensors, as the JAX float32 builder calls it,
+    ``blinky_tpu/lensmap/builder.py:228-236``) -> int32 plates of their
+    shape on their device, -1 where the script gives none."""
+    plate = torch.as_tensor(globe.plate_resolver(x, y, z, globe), device=x.device)
+    return torch.broadcast_to(plate, x.shape).to(torch.int32).contiguous()
 
 
 def plate_dists_f32(globe) -> list:
@@ -347,26 +363,14 @@ def rubix_grid_lines(platesize, numcells, cell_size, pad_size) -> np.ndarray:
         return np.fmod(np.arange(platesize, dtype=np.float64) / unit, block) < pad
 
 
-def rays_to_lensmap_torch(globe, vx, vy, vz, lens_valid, platesize,
-                          numcells, cell_size, pad_size, view_basis=None):
-    """:func:`rays_to_lensmap` in float32 on torch tensors of any device:
-    the lens-independent half of the JAX package's float32 builder
-    (``blinky_tpu.lensmap.builder.rays_to_lensmap`` with ``dtype`` f32).
-
-    ``vx, vy, vz`` f32 and ``lens_valid`` bool, [H, W]; ``view_basis`` None
-    or a [..., 3, 3] tensor of (forward, right, up) rows, whose leading
-    dims the outputs gain.  Each operation rounds on its own, in the JAX
-    code's order: the f32 rotation ``rx*right + ry*up + rz*forward``;
-    ``normalize_c`` with an f32 sqrt (a zero length leaves the ray, a NaN
-    length is truthy); f32 ``DotProduct``s; the strict-``>`` first-max
-    plate (NaN keeps plate 0) or the ``fast`` resolver's twin; f32
-    ``safe_div``, ``* dist``, ``+ 0.5``; truncation of ``u * S``; the
-    rubix grid test in double (:func:`rubix_grid_consts`).  No ``addcmul``
-    or other fused multiply-add: the CUDA posed kernel, which this is the
-    plain version of, rounds the same way.  Returns the fields of
-    :func:`rays_to_lensmap` as tensors.
-    """
-    S = platesize
+def rotate_normalize_torch(vx, vy, vz, view_basis=None):
+    """The rays the plate resolve reads: ``vx, vy, vz`` (float32 tensors)
+    rotated by *view_basis* (None, or a [..., 3, 3] tensor of (forward,
+    right, up) rows, whose leading dims the outputs gain), then normalized,
+    each operation rounded on its own in the JAX float32 builder's order:
+    the f32 rotation ``rx*right + ry*up + rz*forward``, then ``normalize_c``
+    with an f32 sqrt (a zero length leaves the ray, a NaN length is
+    truthy).  The plain version of K13 (:func:`rotate_rays`)."""
     f32 = torch.float32
     dev = vx.device
     vx, vy, vz = (t.to(f32) for t in (vx, vy, vz))
@@ -389,7 +393,82 @@ def rays_to_lensmap_torch(globe, vx, vy, vz, lens_valid, platesize,
     nonzero = length != 0
     one = torch.ones_like(length)
     inv = torch.where(nonzero, one / torch.where(nonzero, length, one), one)
-    vx, vy, vz = vx * inv, vy * inv, vz * inv
+    return vx * inv, vy * inv, vz * inv
+
+
+def rotate_rays(vx, vy, vz, bases=None):
+    """K13, the rotate pre-pass of a script globe: the unit rays the
+    kernels resolve, for the script's resolver to evaluate on.
+
+    With ``bases`` (a contiguous float32 [B, 3, 3] tensor), ``vx, vy, vz``
+    are one contiguous float32 table (any shape) and the outputs gain a
+    leading pose axis: the rays rotated by each basis and normalized, the
+    arithmetic of ``resolve.cuh``'s ``rotate_normalize``, which K6 and K8
+    run.  With ``bases`` None the table's leading axis is the batch (a zoom
+    step's rays) and the rays are normalized only, as K9 takes them.
+    Launches ``blinky_rotate_rays`` (``csrc/lensmap.cu``) for tensors on a
+    card and runs the plain version, :func:`rotate_normalize_torch`, for
+    tensors on the CPU."""
+    name = "rotate_rays"
+    dev = vx.device
+    shape = tuple(vx.shape)
+    for what, t in (("vx", vx), ("vy", vy), ("vz", vz)):
+        if (t.dtype != torch.float32 or tuple(t.shape) != shape or not t.is_contiguous()
+                or t.device != dev):
+            raise ValueError(f"{name}: {what} must be a contiguous float32 tensor of shape "
+                             f"{shape} on {dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    if bases is not None and (bases.dtype != torch.float32 or bases.dim() != 3
+                              or tuple(bases.shape[1:]) != (3, 3)
+                              or not bases.is_contiguous() or bases.device != dev):
+        raise ValueError(f"{name}: bases must be a contiguous float32 [B, 3, 3] tensor on "
+                         f"{dev}, got {bases.dtype} {tuple(bases.shape)} on {bases.device}")
+    if bases is None and not shape:
+        raise ValueError(f"{name}: without bases the rays need a leading batch axis")
+    if not _build.on_card(name, dev):
+        return rotate_normalize_torch(vx, vy, vz, bases)
+    batch = int(bases.shape[0]) if bases is not None else shape[0]
+    out_shape = (batch,) + shape if bases is not None else shape
+    out = [torch.empty(out_shape, dtype=torch.float32, device=dev) for _ in range(3)]
+    npix = vx.numel() if bases is not None else vx.numel() // max(batch, 1)
+    if out[0].numel():
+        lib = _build.library()
+        with torch.cuda.device(dev):
+            rc = lib.blinky_rotate_rays(vx.data_ptr(), vy.data_ptr(), vz.data_ptr(), npix,
+                                        _build.ptr(bases), batch, out[0].data_ptr(),
+                                        out[1].data_ptr(), out[2].data_ptr(),
+                                        _build.stream(dev))
+        _build.check(rc, name)
+        rotate_rays.launches += 1
+    return tuple(out)
+
+
+rotate_rays.launches = 0
+
+
+def rays_to_lensmap_torch(globe, vx, vy, vz, lens_valid, platesize,
+                          numcells, cell_size, pad_size, view_basis=None,
+                          plate=None):
+    """:func:`rays_to_lensmap` in float32 on torch tensors of any device:
+    the lens-independent half of the JAX package's float32 builder
+    (``blinky_tpu.lensmap.builder.rays_to_lensmap`` with ``dtype`` f32).
+
+    ``vx, vy, vz`` f32 and ``lens_valid`` bool, [H, W]; ``view_basis`` None
+    or a [..., 3, 3] tensor of (forward, right, up) rows, whose leading
+    dims the outputs gain.  Each operation rounds on its own, in the JAX
+    code's order: :func:`rotate_normalize_torch`; f32 ``DotProduct``s; the
+    strict-``>`` first-max plate (NaN keeps plate 0), the ``fast``
+    resolver's twin or a script's plates (*plate*, an integer tensor of
+    the outputs' shape, or, when None, :func:`script_plates` of the unit
+    rays), valid where >= 0 and clipped to the globe's plates; f32
+    ``safe_div``, ``* dist``, ``+ 0.5``; truncation of ``u * S``; the
+    rubix grid test in double (:func:`rubix_grid_consts`).  No ``addcmul``
+    or other fused multiply-add: the CUDA kernels, which this is the plain
+    version of, round the same way.  Returns the fields of
+    :func:`rays_to_lensmap` as tensors.
+    """
+    S = platesize
+    dev = vx.device
+    vx, vy, vz = rotate_normalize_torch(vx, vy, vz, view_basis)
 
     n = globe.numplates
     frames = [np.asarray(a, np.float32) for a in (globe.forward, globe.right, globe.up)]
@@ -399,10 +478,16 @@ def rays_to_lensmap_torch(globe, vx, vy, vz, lens_valid, platesize,
                 + vz * float(vecs[k, 2]))
 
     dF = [dot3(frames[0], k) for k in range(n)]
-    if plate_resolver_mode(globe) == "fast":
+    mode = plate_resolver_mode(globe)
+    if mode == "fast":
         from blinky_tpu_torch.globes.builtin import TORCH_RESOLVERS
 
         plate = TORCH_RESOLVERS[globe.plate_resolver](vx, vy, vz)
+        pc = plate.clamp(0, n - 1)
+    elif mode == "script":
+        if plate is None:
+            plate = script_plates(globe, vx, vy, vz)
+        plate = torch.broadcast_to(plate.to(device=dev, dtype=torch.int32), vx.shape)
         pc = plate.clamp(0, n - 1)
     else:
         best = dF[0]
@@ -463,7 +548,7 @@ def rays_to_lensmap_torch(globe, vx, vy, vz, lens_valid, platesize,
 # the plate constants the resolve kernels take by value: per plate forward,
 # right, up, dist
 PLATE_FLOATS = 10
-RESOLVERS = {"maxdot": 0, "fast": 1}
+RESOLVERS = {"maxdot": 0, "fast": 1, "script": 2}
 
 
 def plate_consts(globe) -> np.ndarray:
@@ -514,7 +599,7 @@ def basis_f32(view_basis) -> np.ndarray:
 
 
 def lensmap_resolve(globe, vx, vy, vz, lens_valid, platesize, numcells,
-                    cell_size, pad_size, view_basis):
+                    cell_size, pad_size, view_basis, plate=None):
     """K8, the float32 builder's resolve: the lens stage's rays, rotated by
     *view_basis*, -> the lensmap's tables, as :func:`rays_to_lensmap_torch`
     gives them, bit for bit.
@@ -522,8 +607,11 @@ def lensmap_resolve(globe, vx, vy, vz, lens_valid, platesize, numcells,
     ``vx, vy, vz`` contiguous f32 and ``lens_valid`` contiguous bool, all
     [H, W] on one device; ``view_basis`` (forward, right, up), always
     applied: a build without a view passes the identity, as the JAX
-    builder does.  Launches ``blinky_lensmap_resolve`` (``csrc/lensmap.cu``)
-    for tensors on a card and runs the plain version for tensors on the CPU.
+    builder does.  A script globe resolves in mode 2: *plate*, a
+    contiguous int32 [H, W] tensor, or when None the script's plates of
+    the rays that :func:`rotate_rays` (K13) rotates (:func:`script_plates`).
+    Launches ``blinky_lensmap_resolve`` (``csrc/lensmap.cu``) for tensors on
+    a card and runs the plain version for tensors on the CPU.
     """
     name = "lensmap_resolve"
     dev = vx.device
@@ -537,11 +625,21 @@ def lensmap_resolve(globe, vx, vy, vz, lens_valid, platesize, numcells,
                 f"got {t.dtype} {tuple(t.shape)} on {t.device}")
     S = int(platesize)
     basis = basis_f32(view_basis)
-    globe_args = resolver_args(globe)  # a globe without a twin raises here
+    globe_args = resolver_args(globe)  # a non-jittable globe raises here
+    if globe_args[2] == RESOLVERS["script"]:
+        if plate is None:
+            plate = script_plates(globe, *rotate_rays(
+                vx, vy, vz, torch.from_numpy(basis)[None].to(dev)))[0]
+        if (plate.dtype != torch.int32 or tuple(plate.shape) != shape
+                or not plate.is_contiguous() or plate.device != dev):
+            raise ValueError(f"{name}: plate must be a contiguous int32 {shape} tensor on "
+                             f"{dev}, got {plate.dtype} {tuple(plate.shape)} on {plate.device}")
+    else:
+        plate = None
     if not _build.on_card(name, dev):
         return rays_to_lensmap_torch(globe, vx, vy, vz, lens_valid, S, numcells,
                                      cell_size, pad_size,
-                                     view_basis=torch.from_numpy(basis))
+                                     view_basis=torch.from_numpy(basis), plate=plate)
     out = {f: torch.empty(shape, dtype=dt, device=dev) for f, dt in (
         ("plate", torch.int32), ("px", torch.int32), ("py", torch.int32),
         ("valid", torch.bool), ("tint", torch.uint8), ("flat_idx", torch.int32))}
@@ -554,17 +652,20 @@ def lensmap_resolve(globe, vx, vy, vz, lens_valid, platesize, numcells,
             rc = lib.blinky_lensmap_resolve(
                 vx.data_ptr(), vy.data_ptr(), vz.data_ptr(), lens_valid.data_ptr(),
                 vx.numel(), basis.ctypes.data, plates.ctypes.data, nplates, resolver,
-                fast_dist, fast_half, lines.data_ptr(), S, out["plate"].data_ptr(),
+                fast_dist, fast_half, _build.ptr(plate), lines.data_ptr(), S,
+                out["plate"].data_ptr(),
                 out["px"].data_ptr(), out["py"].data_ptr(), out["valid"].data_ptr(),
                 out["tint"].data_ptr(), out["flat_idx"].data_ptr(), used.data_ptr(),
                 _build.stream(dev))
         _build.check(rc, name)
         lensmap_resolve.launches += 1
+        lensmap_resolve.given_launches += resolver == RESOLVERS["script"]
     out["plates_used"] = used != 0
     return out
 
 
 lensmap_resolve.launches = 0
+lensmap_resolve.given_launches = 0  # the launches in resolver mode 2 (a script globe)
 
 
 def inverse_grid(lens, globe, scale, width_px, height_px, platesize,
@@ -628,7 +729,9 @@ def build_lensmap(
     tensors on the device; :meth:`LensMap.to_numpy` copies them out.  A
     forward-mapped lens rasterizes on the host under either backend
     (:func:`blinky_tpu_torch.lensmap.forward_raster.build_forward`) and
-    returns NumPy tables.
+    returns NumPy tables, and so does a lens or globe that does not
+    evaluate on tensors (``jittable`` False, a ``.lua`` script that needs
+    per-lane control) on the exact host path.
 
     ``platesize`` defaults to ``min(width_px, height_px)``
     (``fisheye.c:707``).  ``view_basis``: optional (forward, right, up)
@@ -640,6 +743,11 @@ def build_lensmap(
         raise ValueError(f"unknown lensmap backend {backend!r}")
     if platesize is None:
         platesize = min(width_px, height_px)
+    if not (getattr(lens, "jittable", True) and getattr(globe, "jittable", True)):
+        # a .lua lens or globe whose map or resolver does not evaluate on
+        # tensors (decided at load, lua_bridge) builds on the exact host
+        # path, by the JAX package's rule (blinky_tpu/lensmap/builder.py:412)
+        backend = "numpy"
     if lens.map_type == "forward":
         # a serial scatter with no float32 twin: the host rasterizer, NumPy
         # tables, whatever the backend

@@ -114,9 +114,31 @@ times every kernel against its plain PyTorch version.  Phases:
    static render, and quincuncial's and debug's lens stage and K8 times and
    float32 share off the exact build are printed.
 
+10. the Lua drop-ins (``blinky_tpu_torch/bench/lua_drop_ins.py``, written to
+   a temporary directory for ``lens_dirs`` and ``globe_dirs``): with every
+   launch counter at 0, ``lpanini.lua`` renders the batch on
+   ``Session(backend="torch")`` (the Lua lens stage on the card, K8, K1),
+   after ``setviewangles 10 30 0`` and through ``render_posed`` of the 64
+   poses at k = 1 and 2 (K7, K6); ``lnewton.lua`` (a data-dependent
+   ``repeat ... until``: the tensor mode's masked loop) on
+   ``Session(backend="torch")``; the ``lfast.lua`` globe on
+   ``Session(backend="torch")`` (K13, the rotate pre-pass, the script
+   resolver on the card, K8 in resolver mode 2, K1), through
+   ``render_posed`` of the 64 poses (K13, K6 in mode 2) and an 8-step
+   ``zoom_sweep_remap`` (K13 unrotated, K9 in mode 2); and ``scat.lua``, a
+   scalar-only lens, on the exact host route (its host build, K1,
+   ``render_posed`` at k=2 through a host ray table, one exact pose, K5);
+   the counters are read.  lpanini's screens are held bit-equal to the
+   built-in panini's on the card; K8, K6 and K9 in mode 2 and K13 bit-equal
+   to their plain versions on the same rays and plates; lfast's tables and
+   screens beside the built-in fast globe's; each Lua lens stage's time
+   beside the built-in's, the resolver's over the posed batch, and the
+   mode-2 kernels and K13 beside their bounds.
+
 The line before the card's name and power limit lists every kernel with its
 launches in its path's run (phase 2 for K1-K4, phase 6 for K5-K7, phase 7
-for K8 and K9, phase 8 for K10-K12), its
+for K8 and K9, phase 8 for K10-K12, phase 10 for the mode-2 kernels and
+K13), its
 time, its plain version's and its library call's time where one PyTorch call
 computes the same function, and its bound.
 
@@ -413,6 +435,8 @@ def main():
     equirect_launches, equirect_rows = equirect_phase(dev, frames, frames_dev, kernels)
     launches.update(equirect_launches)
     lenses_phase(dev, frames, frames_dev, kernels)
+    lua_launches, lua_rows = lua_phase(dev, frames, frames_dev, kernels)
+    launches.update(lua_launches)
 
     k1, k2 = main_ms["remap_gather"], main_ms["remap_lut"]
     rows = [
@@ -427,7 +451,7 @@ def main():
         ("stream_read", "sol.cu", "blinky_tpu/bench/sol.py:222",
          sr["max_abs_err"], sr["ms"], sr["plain_ms"],
          (sr["bytes"] + 4) / HBM_BYTES_PER_S * 1e3, "bytes", sr["library_ms"], sr["library"]),
-    ] + posed_rows + builder_rows + equirect_rows
+    ] + posed_rows + builder_rows + equirect_rows + lua_rows
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"blinky_tpu_torch/csrc/{src_file}",
          "replaces": replaces, "launches": launches[name], "max_abs_err": e,
@@ -1694,6 +1718,443 @@ def lenses_phase(dev, frames, frames_dev, kernels):
     torch.cuda.empty_cache()
 
 
+LUA_SWEEP_STEPS = 8
+
+
+def lua_phase(dev, frames, frames_dev, kernels):
+    """Phase 10: the Lua drop-ins (blinky_tpu_torch/bench/lua_drop_ins.py,
+    written to a temporary directory for lens_dirs and globe_dirs).  Returns
+    (the launches of K8, K6 and K9 in resolver mode 2 and of K13 in the
+    phase's run, their rows of the kernels line)."""
+    import shutil
+    import tempfile
+
+    from blinky_tpu_torch import globes, lua_vector
+    from blinky_tpu_torch.api import Session
+    from blinky_tpu_torch.bench import builder as bb
+    from blinky_tpu_torch.bench import lua_drop_ins
+    from blinky_tpu_torch.bench.posed import posed_poses
+    from blinky_tpu_torch.bench.sol import cuda_ms
+    from blinky_tpu_torch.camera import view_basis_from_angles
+    from blinky_tpu_torch.kernels import _build, posed, remap, static_ray
+    from blinky_tpu_torch.lensmap import build_lensmap
+    from blinky_tpu_torch.lensmap import builder
+
+    S, H, W = 1080, 1080, 1920
+    npix = H * W
+    phase_t0 = time.perf_counter()
+    poses = posed_poses(POSED_B)
+    bases_np = posed.bases_from_pose_track(poses)
+    tmp = tempfile.mkdtemp(prefix="blinky_lua_")
+    try:
+        d = lua_drop_ins.write_scripts(tmp)
+
+        def session(*lines, **kw):
+            s = Session(W, H, device=dev, lens_dirs=[d], globe_dirs=[d], **kw)
+            for line in lines:
+                s.cmd(line)
+            return s
+
+        # ------------------------------------------------ the path, counted
+        path_kernels = {"remap_gather": remap.remap_gather, "posed_gather": posed.gather_posed,
+                        "static_ray_posed": static_ray.static_ray_posed,
+                        "posed_layout": posed.posed_layout,
+                        "lensmap_resolve": builder.lensmap_resolve,
+                        "sweep_remap": posed.sweep_remap, "rotate_rays": builder.rotate_rays}
+        given = (builder.lensmap_resolve, static_ray.static_ray_posed, posed.sweep_remap)
+        for fn in list(kernels.values()) + list(path_kernels.values()):
+            fn.launches = 0
+        for fn in given:
+            fn.given_launches = 0
+        t = {}
+        pan_t = session("f_lens lpanini", backend="torch")             # a
+        out_a = pan_t.render(frames_dev)
+        pan_v = session("f_lens lpanini", "setviewangles 10 30 0")      # b
+        out_b = pan_v.render(frames_dev)
+        pan_p = session("f_lens lpanini")                               # c
+        posed_c = {k: pan_p.render_posed(frames_dev, poses, render_scale=k) for k in (1, 2)}
+        newton = session("f_lens lnewton", backend="torch")             # d
+        out_d = newton.render(frames_dev)
+        fast_t = session("f_globe lfast", backend="torch")              # e
+        out_e = fast_t.render(frames_dev)
+        fast_p = session("f_globe lfast")                               # f
+        posed_f = fast_p.render_posed(frames_dev, poses)
+        fovs = bb.sweep_fovs(steps=LUA_SWEEP_STEPS)                      # g
+        scales = bb.sweep_scales(fast_t.lens, W, H, fovs)
+        sweep_g = posed.zoom_sweep_remap(fast_t.lens, fast_t.globe, scales, frames[..., 0], W,
+                                         H, device=dev)
+        scat = session("f_lens scat")                                   # h
+        t0 = time.perf_counter()
+        scat_lm = scat.lensmap
+        t["scat exact"] = time.perf_counter() - t0
+        out_h = scat.render(frames_dev)
+        t0 = time.perf_counter()
+        posed_h = scat.render_posed(frames_dev, poses, render_scale=2)
+        t["scat posed"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        exact_h = scat.render_posed(frames_dev[..., :1], poses[:1], render_scale=2, exact=True)
+        t["scat exact pose"] = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches = {name: fn.launches for name, fn in path_kernels.items()}
+        launches.update({f"{fn.__name__}_given": fn.given_launches for fn in given})
+        phase(10, f"launches in the Lua drop-ins' run (a: lpanini on Session(backend='torch'), "
+              f"b: lpanini after setviewangles 10 30 0, c: lpanini render_posed B={POSED_B} "
+              f"k = 1 and 2, d: lnewton on Session(backend='torch'), e: lfast on "
+              f"Session(backend='torch'), f: lfast render_posed B={POSED_B}, g: lfast "
+              f"zoom_sweep_remap of {LUA_SWEEP_STEPS} steps, h: scat's exact host build, its "
+              f"render, render_posed k=2 and one exact pose at k=2): {launches}; "
+              f"{time.perf_counter() - phase_t0:.3f} s")
+        for name, n in launches.items():
+            require(n >= 1, f"{name} was not launched by the Lua drop-ins' path")
+        require(pan_t.lens.jittable and newton.lens.jittable and fast_t.globe.jittable
+                and not scat.lens.jittable, "a drop-in's jittable is not as its script says")
+        require(pan_v._resolved_backend() == "torch" and scat._resolved_backend() == "numpy",
+                "a drop-in did not take its builder")
+
+        # ------------------------------------------------ a-c: lpanini = panini
+        def differs(got, want, what):
+            share = float((got != want).float().mean())
+            require(share == 0.0, f"{what} differs from the built-in's on {share:.6f} of the "
+                    "pixels")
+
+        ref_t = Session(W, H, device=dev, backend="torch")
+        differs(out_a, ref_t.render(frames_dev), "lpanini on Session(backend='torch')")
+        ref_v = Session(W, H, device=dev)
+        ref_v.cmd("setviewangles 10 30 0")
+        differs(out_b, ref_v.render(frames_dev), "lpanini after setviewangles 10 30 0")
+        ref_p = Session(W, H, device=dev)
+        for k in (1, 2):
+            differs(posed_c[k], ref_p.render_posed(frames_dev, poses, render_scale=k),
+                    f"lpanini render_posed k={k}")
+        del posed_c, ref_v
+        lens_ms = {}
+        for name, lens, globe in (("lpanini", pan_t.lens, pan_t.globe),
+                                  ("panini", ref_t.lens, ref_t.globe),
+                                  ("lnewton", newton.lens, newton.globe)):
+            sc = calc_scale_of(lens, W, H)
+            lens_ms[name] = bb.rebuild_ms(lens, globe, sc, W, H, S, dev, iters=3)
+        phase(10, "lpanini's screens (Session(backend='torch'), setviewangles 10 30 0, "
+              f"render_posed of {POSED_B} poses at k = 1 and 2) bit-equal the built-in "
+              "panini's on the card; the lens stage at 1080p: lpanini "
+              f"{lens_ms['lpanini']['lens_ms']:.4f} ms, the built-in panini "
+              f"{lens_ms['panini']['lens_ms']:.4f} ms, lnewton "
+              f"{lens_ms['lnewton']['lens_ms']:.4f} ms (CUDA events around the call: the "
+              "script's host time included); build_lensmap(backend='torch') "
+              f"{lens_ms['lpanini']['build_wall_ms']:.3f} / "
+              f"{lens_ms['panini']['build_wall_ms']:.3f} / "
+              f"{lens_ms['lnewton']['build_wall_ms']:.3f} ms of wall clock")
+
+        # ------------------------------------------------ d: lnewton, the masked loop
+        lm_d = newton._lensmap
+        rays_d = builder.lens_rays_torch(newton.lens, lm_d.scale, W, H, dev)
+        ident = torch.from_numpy(builder.basis_f32(builder.IDENTITY_BASIS)).to(dev)
+        want = builder.rays_to_lensmap_torch(newton.globe, *rays_d, S, 10, 4.0, 1.0,
+                                             view_basis=ident)
+        for f in ("plate", "px", "py", "valid", "tint", "flat_idx", "plates_used"):
+            require(torch.equal(getattr(lm_d, f), want[f]),
+                    f"lnewton: the Session's table differs from K8's plain version in {f}")
+        t0 = time.perf_counter()
+        exact_d = build_lensmap(newton.lens, newton.globe, lm_d.scale, W, H, S)
+        exact_d_s = time.perf_counter() - t0
+        share_d = float((lm_d.flat_idx.cpu().numpy() != exact_d.flat_idx).mean())
+        require(share_d <= 0.15, f"lnewton's float32 build is off the exact one on {share_d} "
+                "of the pixels, past the float32 boundary tolerance")
+        src = frames_dev.reshape(-1, B_MAIN)
+        k = newton._kernel
+        require(torch.equal(out_d, remap.remap_gather_plain(
+            src, k.flat_idx, k.valid, k.background, fill=True).reshape(out_d.shape)),
+            "lnewton: render differs from the plain version")
+        iters = []
+        orig = lua_vector.VectorInterpreter._any_alive
+
+        def counting(alive):
+            go = orig(alive)
+            iters.append(go)
+            return go
+
+        lua_vector.VectorInterpreter._any_alive = staticmethod(counting)
+        try:
+            builder.lens_rays_torch(newton.lens, lm_d.scale, W, H, dev)
+        finally:
+            lua_vector.VectorInterpreter._any_alive = staticmethod(orig)
+        phase(10, f"lnewton on the card: its masked repeat-until loop ran {sum(iters) + 1} "
+              f"iterations at 1080p (the cap is {lua_vector.VectorInterpreter.TRACE_LOOP_CAP}); "
+              "the Session's table bit-equal to K8's plain version on the lens stage's rays, "
+              f"the render to K1's plain version; the float32 build differs from the exact "
+              f"host build ({exact_d_s:.3f} s) on {share_d:.6f} of the pixels")
+        del rays_d, want
+
+        # ------------------------------------------------ e: lfast, K13 and K8 mode 2
+        g_lua, g_ref = fast_t.globe, globes.get("fast")
+        lens_e = fast_t.lens
+        rays_e = builder.lens_rays_torch(lens_e, fast_t._lensmap.scale, W, H, dev)
+        k8_err, share_fast = 0, 0.0
+        for vname, angles in VIEWS.items():
+            vb = builder.IDENTITY_BASIS if angles is None else view_basis_from_angles(*angles)
+            vbt = torch.from_numpy(builder.basis_f32(vb)).to(dev)
+            rot = builder.rotate_rays(*rays_e[:3], vbt[None])
+            rot_plain = builder.rotate_normalize_torch(*rays_e[:3], vbt[None])
+            for a, b in zip(rot, rot_plain):
+                require(torch.equal(a, b), f"rotate_rays ({vname}) differs from its plain version")
+            plate = builder.script_plates(g_lua, *(r[0] for r in rot))
+            got = builder.lensmap_resolve(g_lua, *rays_e, S, 10, 4.0, 1.0, vb, plate=plate)
+            want = builder.rays_to_lensmap_torch(g_lua, *rays_e, S, 10, 4.0, 1.0,
+                                                 view_basis=vbt, plate=plate)
+            ref = builder.lensmap_resolve(g_ref, *rays_e, S, 10, 4.0, 1.0, vb)
+            for f in ("plate", "px", "py", "valid", "tint", "flat_idx", "plates_used"):
+                e = int((got[f].long() - want[f].long()).abs().max())
+                require(torch.equal(got[f], want[f]),
+                        f"lensmap_resolve mode 2 ({vname}): {f} differs from its plain "
+                        f"version (max {e})")
+                k8_err = max(k8_err, e)
+            share_fast = max(share_fast, float((got["flat_idx"] != ref["flat_idx"])
+                                               .float().mean()))
+            del rot, rot_plain, got, want, ref
+        k = fast_t._kernel
+        require(torch.equal(out_e, remap.remap_gather_plain(
+            src, k.flat_idx, k.valid, k.background, fill=True).reshape(out_e.shape)),
+            "lfast: render differs from K1's plain version")
+        screen_fast = float((out_e != _fast_screen(W, H, dev, frames_dev)).float().mean())
+        plate_e = builder.script_plates(g_lua, *(r[0] for r in builder.rotate_rays(
+            *rays_e[:3], ident[None])))
+        def k8_launch_ms(globe, plate, iters=50):
+            """K8's ms a launch on lfast's rays: CUDA events around *iters*
+            back-to-back launches of its C entry point, whose host time
+            (a ctypes call) is under the kernel's, unlike the wrapper's.
+            (torch.profiler's kernel records, phase 7's measure, came back
+            short or empty late in a full run on an NVIDIA H100.)"""
+            consts, nplates, resolver, fast_dist, fast_half = builder.resolver_args(globe)
+            basis = builder.basis_f32(builder.IDENTITY_BASIS)
+            lines = builder.grid_line_words(S, 10.0, 4.0, 1.0, dev)
+            outs = [torch.empty(npix, dtype=dt, device=dev) for dt in (
+                torch.int32, torch.int32, torch.int32, torch.bool, torch.uint8, torch.int32)]
+            used = torch.zeros(6, dtype=torch.int32, device=dev)
+            args = ([t.data_ptr() for t in rays_e] + [npix, basis.ctypes.data,
+                    consts.ctypes.data, nplates, resolver, fast_dist, fast_half,
+                    None if plate is None else plate.data_ptr(), lines.data_ptr(), S]
+                    + [t.data_ptr() for t in outs] + [used.data_ptr(), _build.stream(dev)])
+            lib = _build.library()
+
+            def launch():
+                _build.check(lib.blinky_lensmap_resolve(*args), "lensmap_resolve")
+
+            return cuda_ms(launch, iters)
+
+        k8_dev, k8_fast = k8_launch_ms(g_lua, plate_e), k8_launch_ms(g_ref, None)
+        k8_plain = cuda_ms(lambda: builder.rays_to_lensmap_torch(
+            g_lua, *rays_e, S, 10, 4.0, 1.0, view_basis=ident, plate=plate_e), 3)
+        k8_bytes = (npix * (bb.RESOLVE_BYTES_IN + bb.GIVEN_PLATE_BYTES + bb.RESOLVE_BYTES_OUT)
+                    + 4 * ((S + 31) // 32) + 24)
+        k8_ops = bb.resolve_ops_per_pixel(g_lua) * npix
+        k8_bytes_ms, k8_ops_ms = k8_bytes / HBM_BYTES_PER_S * 1e3, k8_ops / F32_OPS_PER_S * 1e3
+        k8_bound = max(k8_bytes_ms, k8_ops_ms)
+        k8_by = "bytes" if k8_bytes_ms >= k8_ops_ms else "operations"
+        resolver_e = cuda_ms(lambda: builder.script_plates(g_lua, *rays_e[:3]), 3)
+        phase(10, f"lfast on the card: K13 bit-equal to its plain version and K8 in mode 2 "
+              f"to rays_to_lensmap_torch on the same rays and plates, the identity and two "
+              f"rotated bases; K8 mode 2's tables differ from K8 on the built-in fast globe on "
+              f"{share_fast:.6f} of the pixels, the screen from the built-in fast's on "
+              f"{screen_fast:.6f}; the render bit-equal to K1's plain version.  K8 mode 2 at "
+              f"1080p: kernel {k8_dev:.4f} ms (events around its entry point's launches), plain "
+              f"{k8_plain:.4f} ms; {k8_bytes} bytes ({k8_bytes_ms:.4f} ms), {k8_ops} f32 "
+              f"operations ({k8_ops_ms:.4f} ms); bound {k8_bound:.4f} ms by {k8_by}, "
+              f"{100 * k8_bound / k8_dev:.1f} % of it (K8 on the built-in fast globe, resolver "
+              f"1, on the same rays: {k8_fast:.4f} ms); the script resolver on one 1080p "
+              f"screen of rays {resolver_e:.4f} ms")
+        del rays_e
+
+        # ------------------------------------------------ f: lfast posed, K13 and K6 mode 2
+        kern = fast_p._posed_cache[1]
+        table = kern.ray_table
+        src_p, bases_p, expanded = posed.prep_posed_inputs(frames_dev, bases_np, S,
+                                                           kern.background, dev)
+        plates_f = static_ray.script_pose_plates(table, bases_p, g_lua)
+        k6_err = 0
+        for lo in range(0, POSED_B, CHUNK):
+            sl = slice(lo, lo + CHUNK)
+            rot = builder.rotate_rays(table.vx, table.vy, table.vz, bases_p[sl])
+            rot_plain = builder.rotate_normalize_torch(table.vx, table.vy, table.vz,
+                                                       bases_p[sl])
+            for a, b in zip(rot, rot_plain):
+                require(torch.equal(a, b), f"rotate_rays poses {lo}.. differ from the plain "
+                        "version")
+            del rot, rot_plain
+            ref = static_ray.static_ray_posed_plain(
+                src_p[sl], table, bases_p[sl], g_lua, S, kern.numcells, kern.cell_size,
+                kern.pad_size, expanded, kern.background, 1, plates=plates_f[sl])
+            e = int((posed_f[sl].long() - ref.long()).abs().max())
+            require(torch.equal(posed_f[sl], ref), f"lfast render_posed poses {lo}.. differ "
+                    f"from static_ray_posed_plain on the same plates (max {e})")
+            k6_err = max(k6_err, e)
+        ref_f = Session(W, H, device=dev)
+        ref_f.cmd("f_globe fast")
+        posed_share = float((posed_f != ref_f.render_posed(frames_dev, poses)).float().mean())
+        args6 = (src_p, table, bases_p, g_lua, S, kern.numcells, kern.cell_size,
+                 kern.pad_size, expanded, kern.background, 1)
+        # by the events alone: at 0.6-0.9 ms a call they read K6's kernel
+        # record (phase 6), while late in a full run on an NVIDIA H100
+        # torch.profiler's records of this call came back empty
+        k6_ms, k6_plain = cuda_ms_pair(
+            lambda: static_ray.static_ray_posed(*args6, plates=plates_f),
+            lambda: static_ray.static_ray_posed_plain(*args6, plates=plates_f))
+        torch.cuda.empty_cache()
+        texel_n = 0
+        for lo in range(0, POSED_B, CHUNK):
+            lm = builder.rays_to_lensmap_torch(
+                g_lua, table.vx, table.vy, table.vz, table.lens_valid, S, 10, 4.0, 1.0,
+                view_basis=bases_p[lo:lo + CHUNK], plate=plates_f[lo:lo + CHUNK])
+            for b in range(lm["flat_idx"].shape[0]):
+                texel_n += int(torch.unique(lm["flat_idx"][b][lm["valid"][b]]).numel())
+            del lm
+        torch.cuda.empty_cache()
+        npix_b = table.vx.numel()
+        k6_bytes = (npix_b * 13 + POSED_B * 36 + POSED_B * npix_b + texel_n + npix
+                    + POSED_B * npix)
+        k6_ops = bb.resolve_ops_per_pixel(g_lua) * npix_b * POSED_B
+        k6_bytes_ms, k6_ops_ms = k6_bytes / HBM_BYTES_PER_S * 1e3, k6_ops / F32_OPS_PER_S * 1e3
+        k6_bound = max(k6_bytes_ms, k6_ops_ms)
+        k6_by = "bytes" if k6_bytes_ms >= k6_ops_ms else "operations"
+        k13_ms, k13_plain = cuda_ms_pair(
+            lambda: builder.rotate_rays(table.vx, table.vy, table.vz, bases_p),
+            lambda: builder.rotate_normalize_torch(table.vx, table.vy, table.vz, bases_p))
+        torch.cuda.empty_cache()
+        k13_bytes = 12 * npix_b + 36 * POSED_B + 12 * POSED_B * npix_b
+        k13_ops = bb.ROTATE_OPS * npix_b * POSED_B
+        k13_bytes_ms = k13_bytes / HBM_BYTES_PER_S * 1e3
+        k13_ops_ms = k13_ops / F32_OPS_PER_S * 1e3
+        k13_bound = max(k13_bytes_ms, k13_ops_ms)
+        k13_by = "bytes" if k13_bytes_ms >= k13_ops_ms else "operations"
+        resolver_ms = cuda_ms(lambda: static_ray.script_pose_plates(table, bases_p, g_lua), 3)
+        wall_f = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fast_p.render_posed(frames_dev, poses)
+            torch.cuda.synchronize()
+            wall_f.append((time.perf_counter() - t0) * 1e3)
+        phase(10, f"lfast render_posed at 1080p B={POSED_B}: every pose bit-equal to "
+              f"static_ray_posed_plain on the same plates, K13 to its plain version {CHUNK} poses "
+              f"at a time; {posed_share:.6f} of the pixels differ from the built-in fast's "
+              f"render_posed.  The resolver over the posed batch (K13 and the script on "
+              f"{POSED_B} x {npix_b} rays) {resolver_ms:.4f} ms, K13 alone {k13_ms:.4f} ms "
+              f"(plain {k13_plain:.4f} ms; {k13_bytes} bytes, {k13_ops} f32 operations, bound "
+              f"{k13_bound:.4f} ms by {k13_by}, {100 * k13_bound / k13_ms:.1f} % of it); K6 "
+              f"mode 2 u8 k=1: kernel {k6_ms:.4f} ms by the events, plain {k6_plain:.4f} ms; "
+              f"{k6_bytes} bytes ({k6_bytes_ms:.4f} ms), {k6_ops} f32 operations "
+              f"({k6_ops_ms:.4f} ms); bound {k6_bound:.4f} ms by {k6_by}, "
+              f"{100 * k6_bound / k6_ms:.1f} % of it; render_posed end to end "
+              f"{', '.join(f'{w:.3f}' for w in wall_f)} ms of wall clock")
+        del src_p, plates_f, args6, posed_f
+
+        # ------------------------------------------------ g: lfast zoom sweep, K9 mode 2
+        step_rays = builder.lens_rays_torch(lens_e, torch.tensor(scales, dtype=torch.float64),
+                                            W, H, dev)
+        plates_g = builder.script_plates(g_lua, *builder.rotate_rays(*step_rays[:3])).clamp(
+            -1, 6).to(torch.int8)
+        zero_bg = torch.zeros((H, W), dtype=torch.uint8, device=dev)
+        src_g = torch.from_numpy(np.ascontiguousarray(frames[..., 0])).to(dev).reshape(-1)
+        args9 = (src_g, *step_rays, g_lua, S, 10.0, 4.0, 1.0, False, zero_bg)
+        got = posed.sweep_remap(*args9, plates=plates_g)
+        require(torch.equal(got, sweep_g), "zoom_sweep_remap on lfast differs from sweep_remap "
+                "on the same rays")
+        k9_err = 0
+        for n in range(LUA_SWEEP_STEPS):
+            ref = posed.sweep_remap_plain(src_g, *(r[n:n + 1] for r in step_rays), g_lua, S,
+                                          10.0, 4.0, 1.0, False, zero_bg,
+                                          plates=plates_g[n:n + 1])
+            e = int((got[n:n + 1].long() - ref.long()).abs().max())
+            require(torch.equal(got[n:n + 1], ref),
+                    f"sweep_remap mode 2 step {n} differs from its plain version (max {e})")
+            k9_err = max(k9_err, e)
+        k9_ms, k9_plain = cuda_ms_pair(lambda: posed.sweep_remap(*args9, plates=plates_g),
+                                       lambda: posed.sweep_remap_plain(*args9, plates=plates_g))
+        seen = torch.zeros(src_g.numel(), dtype=torch.bool, device=dev)
+        holes = False
+        for n in range(LUA_SWEEP_STEPS):
+            lm = builder.rays_to_lensmap_torch(g_lua, *(r[n] for r in step_rays), S, 10.0,
+                                               4.0, 1.0, plate=plates_g[n])
+            seen[lm["flat_idx"][lm["valid"]].long()] = True
+            holes |= not bool(lm["valid"].all())
+        k9_bytes = (LUA_SWEEP_STEPS * npix * (bb.RESOLVE_BYTES_IN + 1 + 1) + int(seen.sum())
+                    + (npix if holes else 0))
+        k9_ops = bb.resolve_ops_per_pixel(g_lua, rotate=False) * npix * LUA_SWEEP_STEPS
+        k9_bytes_ms, k9_ops_ms = k9_bytes / HBM_BYTES_PER_S * 1e3, k9_ops / F32_OPS_PER_S * 1e3
+        k9_bound = max(k9_bytes_ms, k9_ops_ms)
+        k9_by = "bytes" if k9_bytes_ms >= k9_ops_ms else "operations"
+        phase(10, f"lfast zoom_sweep_remap, {LUA_SWEEP_STEPS} steps (f_fov {fovs[0]}.."
+              f"{fovs[-1]}) at 1080p: K9 in mode 2 bit-equal to its plain version step by "
+              f"step; kernel {k9_ms:.4f} ms, plain {k9_plain:.4f} ms; {k9_bytes} bytes "
+              f"({k9_bytes_ms:.4f} ms), {k9_ops} f32 operations ({k9_ops_ms:.4f} ms); bound "
+              f"{k9_bound:.4f} ms by {k9_by}, {100 * k9_bound / k9_ms:.1f} % of it")
+        del step_rays, plates_g, got, sweep_g
+
+        # ------------------------------------------------ h: scat, the host routes
+        require(isinstance(scat_lm.flat_idx, np.ndarray), "scat did not build on the host")
+        k = scat._kernel
+        require(torch.equal(out_h, remap.remap_gather_plain(
+            src, k.flat_idx, k.valid, k.background, fill=True).reshape(out_h.shape)),
+            "scat: render differs from K1's plain version")
+        for b in (0, B_MAIN - 1):
+            require(np.array_equal(out_h[..., b].cpu().numpy(), scat.render_host(frames[..., b])),
+                    f"scat: render frame {b} differs from host_remap")
+        kern_h = scat._posed_cache[1]
+        src_h, bases_h, expanded = posed.prep_posed_inputs(frames_dev[..., :CHUNK],
+                                                           bases_np[:CHUNK], S,
+                                                           kern_h.background, dev)
+        ref = static_ray.static_ray_posed_plain(src_h, kern_h.ray_table, bases_h, kern_h.globe,
+                                                S, kern_h.numcells, kern_h.cell_size,
+                                                kern_h.pad_size, expanded, kern_h.background, 2)
+        require(torch.equal(posed_h[:CHUNK], ref),
+                "scat render_posed k=2 differs from static_ray_posed_plain")
+        exact_share = float((exact_h[0] != posed_h[0]).float().mean())
+        require(exact_share <= 0.02, f"scat's exact pose differs from its K6 pose on "
+                f"{exact_share}")
+        phase(10, f"scat (jittable False) on the exact host route: its exact host build "
+              f"{t['scat exact']:.3f} s (the scalar interpreter, a pixel at a time), the render "
+              f"bit-equal to K1's plain version and host_remap for frames 0 and "
+              f"{B_MAIN - 1}; render_posed k=2 through the host ray table "
+              f"({t['scat posed']:.3f} s, the table's build included) bit-equal to "
+              f"static_ray_posed_plain for poses 0-{CHUNK - 1}; one exact pose at k=2 "
+              f"({t['scat exact pose']:.3f} s) differs from its K6 pose on {exact_share:.6f} "
+              f"of the pixels; phase 10 took {time.perf_counter() - phase_t0:.3f} s")
+        del out_h, posed_h, exact_h, src_h
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    counted = {"lensmap_resolve_given": launches["lensmap_resolve_given"],
+               "static_ray_posed_given": launches["static_ray_posed_given"],
+               "sweep_remap_given": launches["sweep_remap_given"],
+               "rotate_rays": launches["rotate_rays"]}
+    rows = [
+        ("lensmap_resolve_given", "lensmap.cu", "blinky_tpu/lensmap/builder.py:228", k8_err,
+         k8_dev, k8_plain, k8_bound, k8_by, None, None),
+        ("static_ray_posed_given", "posed.cu", "blinky_tpu/kernels/static_ray.py:235", k6_err,
+         k6_ms, k6_plain, k6_bound, k6_by, None, None),
+        ("sweep_remap_given", "posed.cu", "blinky_tpu/kernels/posed.py:294", k9_err, k9_ms,
+         k9_plain, k9_bound, k9_by, None, None),
+        ("rotate_rays", "lensmap.cu", "blinky_tpu/lensmap/builder.py:185", 0, k13_ms,
+         k13_plain, k13_bound, k13_by, None, None),
+    ]
+    return counted, rows
+
+
+def calc_scale_of(lens, width_px, height_px):
+    """The zoom scale of a lens's onload command (f_fov 180 without one)."""
+    from blinky_tpu_torch.lensmap import Zoom, calc_scale
+
+    zoom = (lens.onload or "f_fov 180").split()
+    return calc_scale(Zoom(zoom[0][2:], *map(int, zoom[1:])), lens, width_px, height_px)
+
+
+def _fast_screen(width_px, height_px, dev, frames_dev):
+    """The batch through the built-in fast globe on Session(backend='torch')."""
+    from blinky_tpu_torch.api import Session
+
+    s = Session(width_px, height_px, device=dev, backend="torch")
+    s.cmd("f_globe fast")
+    return s.render(frames_dev)
+
+
 def lane_chunked_err(got, ref):
     """max |got - ref| of two [n, B] int32 tensors, taken EQ_CHUNK lanes at a
     time so that the int64 copies stay small beside the tensors."""
@@ -1727,28 +2188,40 @@ def time_variant(name, kernel, plain, nbytes):
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms)
 
 
-def profiled(fn, iters, sync=True):
+def profiled(fn, iters, sync=True, tries=3):
     """Runs ``fn()`` *iters* times under ``torch.profiler`` after a warm-up
     call, synchronising after each call when *sync*.  Returns (host wall ms a
     call, {device record name: ms a call} from the CUPTI records of kernels,
-    copies and fills, their sum: the device's busy ms a call)."""
+    copies and fills, their sum: the device's busy ms a call).  Late in a
+    full run on an NVIDIA H100, profiles came back with too few records, or
+    none; CUPTI keeps its records in device memory, so the allocator's
+    cached blocks are released before each profile, and a profile whose
+    records look incomplete (none at all, or a record name seen a number of
+    times that is no multiple of *iters*) is taken again, up to *tries*
+    times."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            fn()
-            if sync:
-                torch.cuda.synchronize()
+    for _ in range(tries):
+        torch.cuda.empty_cache()
+        fn()  # a warm-up call: its blocks are cached again, the rest stays free
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3 / iters
-    dev_ms = {}
-    for e in prof.events():
-        if e.device_type.name == "CUDA":
-            dev_ms[e.name] = dev_ms.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / iters
-    require(dev_ms, "torch.profiler recorded no device work")
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fn()
+                if sync:
+                    torch.cuda.synchronize()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / iters
+        dev_ms, seen = {}, {}
+        for e in prof.events():
+            if e.device_type.name == "CUDA":
+                dev_ms[e.name] = (dev_ms.get(e.name, 0.0)
+                                  + e.time_range.elapsed_us() / 1e3 / iters)
+                seen[e.name] = seen.get(e.name, 0) + 1
+        if dev_ms and all(n % iters == 0 for n in seen.values()):
+            break
+    require(dev_ms, f"torch.profiler recorded no device work in {tries} profiles")
     return wall, dev_ms, sum(dev_ms.values())
 
 

@@ -1350,3 +1350,242 @@ def test_session_render_aa_on_card_equals_cpu(cuda_device, factor, source):
         want = cpu.render_aa(remap.expand_frames_tinted_rgba(faces), factor=factor)
     assert got.device.type == "cuda" and got.dtype == torch.uint32
     _equal(got.cpu().view(torch.int32), want.view(torch.int32))
+
+
+# ------------------------------------------------ script globes: resolver mode 2
+
+# a script resolver that gives every kind of plate: a NaN (-> -1), nil
+# (-> -1), values below 0 and past the last plate, and in-range ones
+ODD_RESOLVER = """
+plates = { {{0, 0, 1}, {0, 1, 0}, 90} }
+function globe_plate(x, y, z)
+  if x > 0.6 then return 0 / 0 end
+  if y > 0.55 then return nil end
+  return math.floor((x + 1) * 4 + z) - 1
+end
+"""
+
+
+def _script_globe(globe_name, src, tmp_path):
+    """The built-in globe's plates with a .lua script's resolver."""
+    import dataclasses
+
+    from blinky_tpu_torch.lua_bridge import load_lua_globe
+
+    path = tmp_path / f"r_{globe_name}.lua"
+    path.write_text(src)
+    lua = load_lua_globe(path)
+    assert lua.jittable
+    return dataclasses.replace(globes.get(globe_name), plate_resolver=lua.plate_resolver,
+                               name=f"{globe_name}+script")
+
+
+def _maxdot_resolver(globe_name):
+    """A Lua resolver that picks the strict first maximum of the forward
+    dots, as the max-dot kernels do, with the globe's float32 forwards."""
+    g = globes.get(globe_name)
+    rows = ", ".join("{" + ", ".join(repr(float(c)) for c in f) + "}" for f in g.forward)
+    return f"""
+plates = {{ {{{{0, 0, 1}}, {{0, 1, 0}}, 90}} }}
+F = {{{rows}}}
+function globe_plate(x, y, z)
+  local best = x * F[1][1] + y * F[1][2] + z * F[1][3]
+  local p = 0
+  for k = 2, #F do
+    local d = x * F[k][1] + y * F[k][2] + z * F[k][3]
+    if d > best then
+      best = d
+      p = k - 1
+    end
+  end
+  return p
+end
+"""
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("globe_name", ["fast", "trism", "tetra", "cube"])
+@pytest.mark.parametrize("basis", list(BASES))
+def test_lensmap_resolve_given_plates_equal_plain(cuda_device, globe_name, basis, tmp_path):
+    """K8 in resolver mode 2 against rays_to_lensmap_torch on the same rays
+    and plates, every table bit for bit: globes of 2-6 plates, plates from
+    a script (NaN and nil -> -1, below 0, past the last plate) and random
+    int32 plates, a ragged 37x23 grid with the odd rays, three bases."""
+    from blinky_tpu_torch.camera import view_basis_from_angles
+
+    hb, wb, S = 23, 37, 32
+    _, t = _posed_table(globe_name, hb, wb, cuda_device)
+    g = _script_globe(globe_name, ODD_RESOLVER, tmp_path)
+    vb = view_basis_from_angles(*BASES[basis])
+    vbt = torch.from_numpy(np.asarray(vb, np.float64)).to(cuda_device)
+    n0 = builder.lensmap_resolve.given_launches
+    got = builder.lensmap_resolve(g, t.vx, t.vy, t.vz, t.lens_valid, S, 7.0, 2.5, 1.5, vb)
+    torch.cuda.synchronize()
+    assert builder.lensmap_resolve.given_launches == n0 + 1
+    want = builder.rays_to_lensmap_torch(g, t.vx, t.vy, t.vz, t.lens_valid, S, 7.0, 2.5, 1.5,
+                                         view_basis=vbt)
+    _tables_equal(got, want)
+    gen = torch.Generator(device=cuda_device).manual_seed(len(globe_name))
+    plate = torch.randint(-3, g.numplates + 3, (hb, wb), generator=gen, device=cuda_device,
+                          dtype=torch.int32)
+    got = builder.lensmap_resolve(g, t.vx, t.vy, t.vz, t.lens_valid, S, 10, 4.0, 1.0, vb,
+                                  plate=plate)
+    want = builder.rays_to_lensmap_torch(g, t.vx, t.vy, t.vz, t.lens_valid, S, 10, 4.0, 1.0,
+                                         view_basis=vbt, plate=plate)
+    _tables_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("globe_name", ["cube", "trism"])
+def test_given_maxdot_plates_equal_the_maxdot_kernels(cuda_device, globe_name, tmp_path):
+    """The rotate pre-pass (K13) gives a script the rays K6 and K8 rotate
+    inside: a script that picks the strict first max of the forward dots on
+    K13's rays gives, through K6 and K8 in mode 2, the very tables and
+    screens of their max-dot mode, odd rays included."""
+    from blinky_tpu_torch.camera import view_basis_from_angles
+
+    rng = np.random.default_rng(3)
+    hb, wb, S, B = 24, 40, 32, 7
+    g0, table = _posed_table(globe_name, hb, wb, cuda_device)
+    g = _script_globe(globe_name, _maxdot_resolver(globe_name), tmp_path)
+    for angles in BASES.values():
+        vb = view_basis_from_angles(*angles)
+        got = builder.lensmap_resolve(g, table.vx, table.vy, table.vz, table.lens_valid, S,
+                                      10, 4.0, 1.0, vb)
+        want = builder.lensmap_resolve(g0, table.vx, table.vy, table.vz, table.lens_valid, S,
+                                       10, 4.0, 1.0, vb)
+        _tables_equal(got, want)
+    poses = np.stack([rng.uniform(-90, 90, B), rng.uniform(0, 360, B),
+                      rng.uniform(-45, 45, B)], 1)
+    bases = torch.from_numpy(posed.bases_from_pose_track(poses)).float().to(cuda_device)
+    for kind, k in (("u8", 1), ("expanded", 2), ("int32", 3)):
+        src = _posed_source(kind, B, S, rng, cuda_device)
+        bg = _texels(kind == "int32", (hb * k, wb * k), rng, cuda_device)
+        args = (src, table, bases)
+        rest = (S, 7.0, 2.5, 1.5, kind == "expanded", bg, k)
+        _equal(static_ray.static_ray_posed(*args, g, *rest),
+               static_ray.static_ray_posed(*args, g0, *rest))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("globe_name", ["fast", "trism", "tetra", "cube"])
+@pytest.mark.parametrize("kind", ["u8", "expanded", "int32"])
+@pytest.mark.parametrize("size", [(23, 37, 1), (24, 40, 1), (24, 40, 2), (23, 37, 2)],
+                         ids=["ragged-k1", "vec-k1", "vec-k2", "ragged-k2"])
+def test_static_ray_posed_given_plates_equal_plain(cuda_device, globe_name, kind, size,
+                                                   tmp_path):
+    """K6 in resolver mode 2 (a pose's int8 plate a build pixel) against its
+    plain version on the same plates: globes of 2-6 plates, the script's
+    plates (-1, out of range, NaN-derived) and random ones clamped to
+    [-1, 6], the scalar and the vector kernels at k = 1 and 2."""
+    hb, wb, k = size
+    rng = np.random.default_rng(hb + wb + k + len(kind))
+    S, B = 32, 11
+    _, table = _posed_table(globe_name, hb, wb, cuda_device)
+    g = _script_globe(globe_name, ODD_RESOLVER, tmp_path)
+    poses = np.stack([rng.uniform(-90, 90, B), rng.uniform(0, 360, B),
+                      rng.uniform(-45, 45, B)], 1)
+    bases = torch.from_numpy(posed.bases_from_pose_track(poses)).float().to(cuda_device)
+    src = _posed_source(kind, B, S, rng, cuda_device)
+    bg = _texels(kind == "int32", (hb * k, wb * k), rng, cuda_device)
+    args = (src, table, bases, g, S, 7.0, 2.5, 1.5, kind == "expanded", bg, k)
+    plates = static_ray.script_pose_plates(table, bases, g)
+    assert plates.dtype == torch.int8 and set(plates.unique().tolist()) >= {-1, 0}
+    n0 = static_ray.static_ray_posed.given_launches
+    got = static_ray.static_ray_posed(*args)
+    assert static_ray.static_ray_posed.given_launches == n0 + 1
+    _equal(got, static_ray.static_ray_posed_plain(*args, plates=plates))
+    rand = torch.from_numpy(rng.integers(-1, 7, (B, hb, wb), dtype=np.int8)).to(cuda_device)
+    _equal(static_ray.static_ray_posed(*args, plates=rand),
+           static_ray.static_ray_posed_plain(*args, plates=rand))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 11, 70000])
+def test_rotate_rays_equals_plain(cuda_device, B):
+    """K13 against rotate_normalize_torch on the card, with the odd rays:
+    rotated by each pose (B past the grid's 65535 poses), and normalized
+    with no rotation (a table a step)."""
+    hb, wb = (4, 8) if B > 100 else (23, 37)
+    _, t = _posed_table("cube", hb, wb, cuda_device) if B <= 100 else (None, None)
+    if t is None:
+        vx, vy, vz, _ = (p[0] for p in _odd_ray_planes(cuda_device))
+    else:
+        vx, vy, vz = t.vx, t.vy, t.vz
+    rng = np.random.default_rng(B)
+    bases = torch.from_numpy(rng.normal(size=(B, 3, 3)).astype(np.float32)).to(cuda_device)
+    n0 = builder.rotate_rays.launches
+    got = builder.rotate_rays(vx, vy, vz, bases)
+    assert builder.rotate_rays.launches == n0 + 1
+    # the odd rays give NaN components, equal as NaN (their payloads are
+    # the arithmetic's, not compared)
+    for a, b in zip(got, builder.rotate_normalize_torch(vx, vy, vz, bases)):
+        assert a.shape == (B,) + tuple(vx.shape)
+        torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+    steps = torch.stack([vx, vy * 2, vz]).contiguous()
+    for a, b in zip(builder.rotate_rays(steps, steps.flip(0).contiguous(), steps),
+                    builder.rotate_normalize_torch(steps, steps.flip(0), steps)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["u8", "expanded", "int32"])
+def test_sweep_remap_given_plates_equal_plain(cuda_device, kind, tmp_path):
+    """K9 in resolver mode 2 against its plain version: the script on each
+    step's normalized rays, and random int8 plates."""
+    rng = np.random.default_rng(len(kind))
+    hb, wb, S, steps = 24, 40, 32, 4
+    g = _script_globe("trism", ODD_RESOLVER, tmp_path)
+    tables = []
+    for n in range(steps):
+        _, t = _posed_table("trism", hb, wb, cuda_device)
+        f = 0.6 + 0.35 * n
+        tables.append((t.vx * f, t.vy * f, t.vz, t.lens_valid))
+    vx, vy, vz, lv = (torch.stack(p).contiguous() for p in zip(*tables))
+    src = _posed_source(kind, 1, S, rng, cuda_device)[0]
+    bg = _texels(kind == "int32", (hb, wb), rng, cuda_device)
+    args = (src, vx, vy, vz, lv, g, S, 7.0, 2.5, 1.5, kind == "expanded", bg)
+    plates = builder.script_plates(g, *builder.rotate_rays(vx, vy, vz)).clamp(-1, 6).to(
+        torch.int8)
+    n0 = posed.sweep_remap.given_launches
+    got = posed.sweep_remap(*args)
+    assert posed.sweep_remap.given_launches == n0 + 1
+    _equal(got, posed.sweep_remap_plain(*args, plates=plates))
+    rand = torch.from_numpy(rng.integers(-1, 7, (steps, hb, wb), dtype=np.int8)).to(cuda_device)
+    _equal(posed.sweep_remap(*args, plates=rand), posed.sweep_remap_plain(*args, plates=rand))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 2])
+def test_lua_drop_ins_on_card_equal_cpu(cuda_device, k, tmp_path):
+    """The four drop-ins through a Session on the card: lpanini and lfast
+    equal the built-in panini and fast on the card bit for bit (render,
+    rotated view, render_posed); scat renders on the exact host path and
+    its poses through a host ray table; on the CPU's float32 ray table the
+    card's posed screens equal the CPU Session's."""
+    from blinky_tpu_torch.bench import lua_drop_ins
+
+    d = lua_drop_ins.write_scripts(tmp_path)
+    frames = synthetic_cubemap_batch(32, 5)
+    poses = np.stack([np.linspace(-40, 40, 5), np.linspace(0, 300, 5), np.zeros(5)], 1)
+    for lines, ref_lines in ((["f_lens lpanini"], ["f_lens panini"]),
+                             (["f_globe lfast"], ["f_globe fast"]),
+                             (["f_globe lfast", "f_lens lpanini"], ["f_globe fast"])):
+        for backend in ("torch", "auto"):
+            lua = Session(64, 48, platesize=32, device=cuda_device, backend=backend,
+                          lens_dirs=[d], globe_dirs=[d])
+            ref = Session(64, 48, platesize=32, device=cuda_device, backend=backend)
+            for s, ls in ((lua, lines), (ref, ref_lines)):
+                for line in ls + ["setviewangles 10 30 0"]:
+                    s.cmd(line)
+            _equal(lua.render(frames), ref.render(frames))
+            _equal(lua.render_posed(frames, poses, render_scale=k),
+                   ref.render_posed(frames, poses, render_scale=k))
+    scat = Session(64, 48, platesize=32, device=cuda_device, lens_dirs=[d])
+    scat.cmd("f_lens scat")
+    assert not scat.lens.jittable
+    cpu = Session(64, 48, platesize=32, device="cpu", lens_dirs=[d])
+    cpu.cmd("f_lens scat")
+    _equal(scat.render(frames).cpu(), cpu.render(frames))
+    _equal(scat.render_posed(frames, poses, render_scale=k).cpu(),
+           cpu.render_posed(frames, poses, render_scale=k))

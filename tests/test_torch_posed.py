@@ -334,17 +334,28 @@ def test_rays_to_lensmap_torch_odd_rays():
 
 def test_resolver_modes():
     """The fast globe takes its resolver's float32 twin; the others the
-    max-dot select; a resolver with no twin (a script globe's) raises."""
+    max-dot select; any other resolver (a script globe's) is evaluated on
+    tensors and given to the kernels ("script", resolver mode 2), unless it
+    does not evaluate on tensors (jittable False), which raises: such a
+    globe has no device path and renders on the exact host path."""
     import dataclasses
 
     assert [plate_resolver_mode(globes.get(n)) for n in GLOBES] == [
         "fast" if n == "fast" else "maxdot" for n in GLOBES]
     lua_like = dataclasses.replace(globes.get("fast"), plate_resolver=lambda *a: 0)
-    with pytest.raises(NotImplementedError, match="twin"):
-        plate_resolver_mode(lua_like)
+    assert plate_resolver_mode(lua_like) == "script"
+    scalar_only = dataclasses.replace(lua_like, jittable=False)
+    with pytest.raises(ValueError, match="jittable"):
+        plate_resolver_mode(scalar_only)
     _, _, _, pl, scale = _panini()
-    with pytest.raises(NotImplementedError, match="twin"):
-        static_ray.StaticRayPosedKernel(pl, lua_like, W, H, scale, platesize=S, device="cpu")
+    with pytest.raises(ValueError, match="jittable"):
+        static_ray.StaticRayPosedKernel(pl, scalar_only, W, H, scale, platesize=S,
+                                        device="cpu")
+    # every ray of the constant resolver lands on plate 0
+    k = static_ray.StaticRayPosedKernel(pl, lua_like, W, H, scale, platesize=S, device="cpu")
+    plates = static_ray.script_pose_plates(k.ray_table, torch.zeros((2, 3, 3)), lua_like)
+    assert plates.dtype == torch.int8 and plates.shape == (2, H, W)
+    assert bool((plates == 0).all())
 
 
 # -------------------------------------------------------------- ray tables

@@ -156,8 +156,6 @@ def test_unported_surface_raises():
     with pytest.raises(NotImplementedError, match="fisheye 0"):
         p.render(_frames(1))
     with pytest.raises(NotImplementedError):
-        Session(64, 48, device="cpu", lens_dirs=[REPO])
-    with pytest.raises(NotImplementedError):
         Session(64, 48, device="cpu", build_budget_s=0.01)
     # the card unless the caller asks for the CPU; nothing is allocated
     # until a render, so this needs no card
