@@ -41,9 +41,50 @@
 // and not rotated (the zoom sweep's rays, a table a step).  It runs
 // resolve.cuh's rotate_normalize, the code K6, K8 and K9 resolve with, so the
 // script sees their rays bit for bit.
-// Bound by bytes: 12 read a pixel once, 12 written a pose and pixel.
+//
+// What bounds K13: bytes, 12 read a pixel once and 12 written a pose and
+// pixel (1.62 GB at 1080p and 64 poses, 0.48 ms at 3.35 TB/s), against 26
+// float32 operations a pose and pixel (0.10 ms).  The output is a pure write
+// stream, 30 times the L2.  What its design does about it:
+//  * a thread takes a run of four neighbouring pixels: one float4 load a
+//    plane, one float4 store a plane and pose;
+//  * and K13_POSES poses: the run's rays stay in registers for all of them,
+//    so the table is read once a block of poses, not once a pose;
+//  * a block stages its poses' bases once in shared memory, and reads a
+//    pose's as three broadcast 16-byte loads;
+//  * the grid covers the poses in blocks of K13_POSES (y, a block-stride
+//    loop past 65535 blocks) and the runs in x: one pose is a grid over
+//    pixels only (the build's call);
+//  * streaming stores (__stcs, evict-first), so the write stream does not
+//    push the ray table out of L2.
+// The unrotated mode is elementwise over batch * npix rays, so it runs as
+// one row of that length and one "pose".  A run stores whole float4s where
+// its output rows lie on 16 bytes (npix a multiple of four, or one pose, and
+// the outputs aligned); its loads are float4s where the three inputs lie on
+// 16 bytes too, else four scalar loads (an input view with a storage
+// offset).  A row's last run, short when npix % 4 != 0, is stored a pixel
+// at a time.  Rotated rows off 16 bytes (npix % 4 != 0 and more than one
+// pose) take the kernel with runs of one pixel.
 
 #include "resolve.cuh"
+
+// K13's tuning constants, overridable with -D for bench/posed.py's sweep.
+// Chosen at 1080p (NVIDIA H100 80GB HBM3, 700 W; see PERF.md), by events
+// around launches of the entry point: 128 threads, 32 poses a thread,
+// streaming stores: 0.5520 ms at B = 64 (88 % of the byte bound), 0.0151 ms
+// for one pose, 0.1371 ms for 8 unrotated steps.  Runners-up in the same
+// run: plain stores in place of __stcs 0.7566 / 0.0182 / 0.1366, so the
+// stores are streaming; 8 poses 0.6358, 16 poses 0.6053, 64 poses 0.6075
+// at B = 64; 256 threads 0.5696 / 0.0153; 512 threads 0.5700 / 0.0158; 64
+// poses and 256 threads 0.6022; 16 poses and plain stores 0.7193.  The
+// poses a thread, not the threads, set the rays' reuse: 4 poses took 0.69
+// ms.
+#ifndef K13_THREADS
+#define K13_THREADS 128
+#endif
+#ifndef K13_POSES
+#define K13_POSES 32
+#endif
 
 namespace {
 
@@ -107,31 +148,89 @@ __global__ void __launch_bounds__(kThreads) lensmap_resolve_kernel(
   if (tid < kMaxPlates && ((s_used >> tid) & 1u)) atomicOr(used + tid, 1);
 }
 
-// K13.  grid: x over pixels, y over poses or steps (a grid-stride loop past
-// 65535).  ROT: rotate the one table by each pose's basis; else normalize
-// table b (vx + b * npix).
-template <bool ROT>
-__global__ void __launch_bounds__(kThreads) rotate_rays_kernel(
+bool aligned16(const void* p) { return (uintptr_t)p % 16 == 0; }
+
+// K13.  grid: x over runs of M pixels of a row of n, y over blocks of
+// K13_POSES poses (a block-stride loop past 65535).  ROT: rotate the one
+// table by each pose's basis, out[b * n + p]; else normalize element p of
+// one row (n = batch * npix, one "pose").  M: 4 (a whole run stores
+// float4s; vload: it loads float4s) or 1.
+template <bool ROT, int M>
+__global__ void __launch_bounds__(K13_THREADS) rotate_rays_kernel(
     const float* __restrict__ vx, const float* __restrict__ vy, const float* __restrict__ vz,
-    long long npix, const float* __restrict__ bases, int batch, float* __restrict__ ox,
-    float* __restrict__ oy, float* __restrict__ oz) {
-  const long long p = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (p >= npix) return;
-  for (int b = blockIdx.y; b < batch; b += gridDim.y) {
-    const long long q = (long long)b * npix + p;
-    const long long in = ROT ? p : q;
-    float3 f = make_float3(0.f, 0.f, 0.f), rt = f, up = f;  // read only when ROT
-    if (ROT) {
-      const float* m = bases + (long long)b * 9;
-      f = make_float3(m[0], m[1], m[2]);
-      rt = make_float3(m[3], m[4], m[5]);
-      up = make_float3(m[6], m[7], m[8]);
+    long long n, const float* __restrict__ bases, int batch, bool vload,
+    float* __restrict__ ox, float* __restrict__ oy, float* __restrict__ oz) {
+  constexpr int P = ROT ? K13_POSES : 1;
+  __shared__ __align__(16) float s_bases[P * kRecord];
+  const int tid = threadIdx.x;
+  const long long p0 = ((long long)blockIdx.x * K13_THREADS + tid) * M;
+  // the run's pixels: M, or fewer for a row's last run
+  const int m = p0 < n ? (int)(n - p0 < M ? n - p0 : M) : 0;
+  float rx[M], ry[M], rz[M];
+  bool loaded = false;
+  if constexpr (M == 4) {
+    if (m == 4 && vload) {
+      const float4 a = *(const float4*)(vx + p0), b = *(const float4*)(vy + p0),
+                   c = *(const float4*)(vz + p0);
+      rx[0] = a.x, rx[1] = a.y, rx[2] = a.z, rx[3] = a.w;
+      ry[0] = b.x, ry[1] = b.y, ry[2] = b.z, ry[3] = b.w;
+      rz[0] = c.x, rz[1] = c.y, rz[2] = c.z, rz[3] = c.w;
+      loaded = true;
     }
-    float x, y, z;
-    blinky::rotate_normalize<ROT>(vx[in], vy[in], vz[in], f, rt, up, x, y, z);
-    ox[q] = x;
-    oy[q] = y;
-    oz[q] = z;
+  }
+  if (!loaded) {
+#pragma unroll
+    for (int i = 0; i < M; ++i) {
+      rx[i] = i < m ? vx[p0 + i] : 0.f;
+      ry[i] = i < m ? vy[p0 + i] : 0.f;
+      rz[i] = i < m ? vz[p0 + i] : 0.f;
+    }
+  }
+  const float3 none = make_float3(0.f, 0.f, 0.f);  // no rotation: never read
+  for (int b0 = blockIdx.y * P; b0 < batch; b0 += gridDim.y * P) {
+    const int nb = min(P, batch - b0);
+    if (ROT) {
+      __syncthreads();  // the previous block of poses' bases are read
+      // a pose's record: forward, right, up, then three zeros
+      for (int i = tid; i < nb * kRecord; i += K13_THREADS) {
+        const int j = i / kRecord, c = i - j * kRecord;
+        s_bases[i] = c < 9 ? bases[(long long)(b0 + j) * 9 + c] : 0.f;
+      }
+      __syncthreads();
+    }
+    if (m == 0) continue;
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      if (j >= nb) break;
+      float3 f = none, rt = none, up = none;
+      if (ROT) {
+        const float4 e0 = *(const float4*)(s_bases + j * kRecord);
+        const float4 e1 = *(const float4*)(s_bases + j * kRecord + 4);
+        const float4 e2 = *(const float4*)(s_bases + j * kRecord + 8);
+        f = make_float3(e0.x, e0.y, e0.z), rt = make_float3(e0.w, e1.x, e1.y);
+        up = make_float3(e1.z, e1.w, e2.x);
+      }
+      float x[M], y[M], z[M];
+#pragma unroll
+      for (int i = 0; i < M; ++i)
+        blinky::rotate_normalize<ROT>(rx[i], ry[i], rz[i], f, rt, up, x[i], y[i], z[i]);
+      const long long q = (long long)(b0 + j) * (ROT ? n : 0) + p0;
+      if constexpr (M == 4) {
+        if (m == 4) {
+          __stcs((float4*)(ox + q), make_float4(x[0], x[1], x[2], x[3]));
+          __stcs((float4*)(oy + q), make_float4(y[0], y[1], y[2], y[3]));
+          __stcs((float4*)(oz + q), make_float4(z[0], z[1], z[2], z[3]));
+          continue;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < M; ++i) {
+        if (i >= m) break;
+        __stcs(ox + q + i, x[i]);
+        __stcs(oy + q + i, y[i]);
+        __stcs(oz + q + i, z[i]);
+      }
+    }
   }
 }
 
@@ -187,15 +286,31 @@ extern "C" int blinky_rotate_rays(const float* vx, const float* vy, const float*
                                   long long npix, const float* bases, int batch, float* ox,
                                   float* oy, float* oz, void* stream) {
   if (npix < 1 || batch < 1) return (int)cudaErrorInvalidValue;
-  const long long blocks = (npix + kThreads - 1) / kThreads;
+  const bool rot = bases != nullptr;
+  // the unrotated mode is one row of batch * npix rays
+  const long long n = rot ? npix : npix * batch;
+  const int rows = rot ? batch : 1;
+  // runs of four: every output row on 16 bytes
+  const bool vec = (n % 4 == 0 || rows == 1) && aligned16(ox) && aligned16(oy) && aligned16(oz);
+  const bool vload = aligned16(vx) && aligned16(vy) && aligned16(vz);
+  const int M = vec ? 4 : 1;
+  const long long blocks = ((n + M - 1) / M + K13_THREADS - 1) / K13_THREADS;
+  const int P = rot ? K13_POSES : 1;
+  const long long pose_blocks = (rows + P - 1) / P;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)blocks, (unsigned)(batch < 65535 ? batch : 65535));
+  const dim3 grid((unsigned)blocks, (unsigned)(pose_blocks < 65535 ? pose_blocks : 65535));
   cudaStream_t s = (cudaStream_t)stream;
-  if (bases != nullptr)
-    rotate_rays_kernel<true><<<grid, kThreads, 0, s>>>(vx, vy, vz, npix, bases, batch, ox, oy,
-                                                       oz);
+  if (rot && vec)
+    rotate_rays_kernel<true, 4><<<grid, K13_THREADS, 0, s>>>(vx, vy, vz, n, bases, rows, vload,
+                                                             ox, oy, oz);
+  else if (rot)
+    rotate_rays_kernel<true, 1><<<grid, K13_THREADS, 0, s>>>(vx, vy, vz, n, bases, rows, vload,
+                                                             ox, oy, oz);
+  else if (vec)
+    rotate_rays_kernel<false, 4><<<grid, K13_THREADS, 0, s>>>(vx, vy, vz, n, bases, rows,
+                                                              vload, ox, oy, oz);
   else
-    rotate_rays_kernel<false><<<grid, kThreads, 0, s>>>(vx, vy, vz, npix, bases, batch, ox, oy,
-                                                        oz);
+    rotate_rays_kernel<false, 1><<<grid, K13_THREADS, 0, s>>>(vx, vy, vz, n, bases, rows,
+                                                              vload, ox, oy, oz);
   return (int)cudaGetLastError();
 }

@@ -98,17 +98,25 @@
 //    (bench/posed.py, 1080p B=64 u8 k=1 and k=2); the choice and its
 //    runners-up are at the constants below.
 //
-// What is left: 175 SASS instructions a pose-pixel on the main path
-// (bench/posed.py counts them) against the 86 operations of the bound, each
-// IEEE sequence some ten instructions with its range check and slow-path
-// branch; at 128 lane-instructions a clock on 132 SMs that alone is about
-// twice the operation bound (PERF.md, K6's instruction floor).
+//  * Mode 2, a script globe's plates (R == kGiven): the block's plates of
+//    every pose are copied into shared memory at its start, one 4-byte
+//    cp.async a pose and run, so no resolve waits on a plate; the gather
+//    clips its index in 32 bits from the pose's frame.
+//
+// What is left: 179 SASS instructions a pose-pixel on the main path of the
+// max-dot mode, 146.5 in mode 2 (bench/posed.py counts them: the loop less
+// the slow paths, the expanded grid test and the background read) against
+// the 86 and 58 operations of their bounds, each IEEE sequence some ten
+// instructions with its range check and slow-path branch; at 128
+// lane-instructions a clock on 132 SMs that alone is about twice the
+// operation bound (PERF.md, K6's instruction floor).
 //
 // Rounding.  K6 and K9 must give the indices of their plain version,
 // rays_to_lensmap_torch (blinky_tpu_torch/lensmap/builder.py), bit for bit;
 // resolve.cuh says how.  The source offset b * N is 64-bit: it passes 2^31
 // at 154 poses of an expanded 1080p source.
 
+#include <limits.h>
 #include <string.h>
 
 #include "resolve.cuh"
@@ -133,6 +141,16 @@
 #ifndef K6_MIN_BLOCKS
 #define K6_MIN_BLOCKS 4
 #endif
+// Mode 2 (a script globe's given plates) keeps these constants: swept at
+// 1080p B=64 on lfast's plates (bench/posed.py --what given; NVIDIA H100
+// 80GB HBM3, 700 W), 16 poses a block and one a group took 0.6807 / 0.6956 /
+// 0.2013 ms for u8 k = 1 / RGBA k = 1 / u8 k = 2.  Runners-up in the same
+// run: 32 poses 0.6745 / 0.6953 / 0.2131 (a fifth fewer blocks at k = 2, so
+// a worse last wave); 8 poses 0.7013 / 0.7133 / 0.2044; 64 poses 0.7614 /
+// 0.8785 / 0.2958; a group of 2 poses 0.7030 / 0.7109 / 0.2110; 32 poses in
+// groups of 2 0.6833 / 0.7282 / 0.2143.  A prefetch of the run's rays into
+// L1 under the staging lost (0.6969 against 0.6954 ms), so the kernel has
+// none.
 // K5's vector kernel: threads a block, poses a block, poses whose tables
 // and gathers are in flight together, and the width of a block's tile in
 // runs of four build pixels (its height is K5_THREADS / K5_TILE_RUNS rows).
@@ -175,6 +193,16 @@ using blinky::resolve_index;
 constexpr int kRun = 4;           // neighbouring build pixels a thread takes
 constexpr int kPosesPerBlock = K6_POSES_PER_BLOCK;
 constexpr int kPoseGroup = K6_POSE_GROUP;
+
+// cp.async of 4 bytes from global to shared memory (sm_80 on), and the
+// wait for every copy this thread issued
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(gmem) : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_all;\n" ::: "memory");
+}
 
 // Four elements of a screen row: one 4-byte word of u8, one 16-byte word of
 // RGBA.
@@ -365,6 +393,16 @@ __global__ void __launch_bounds__(kThreads) posed_gather_kernel(
 // and every pointer 16-byte aligned), or 0 for the scalar kernel, which
 // takes any width and render scale k.  R: the plate resolver; kGiven reads
 // pose b's plate of pixel p at given[b * hb * wb + p].
+//
+// Mode 2's plates.  The block's plates are all in flight before its first
+// resolve: at its start each thread copies its run's plates of every pose of
+// the block into a shared tile (pose j's at s_given[j * K6_THREADS + tid],
+// four int8 plates a word, byte i pixel x0 + i), under the staging of the
+// bases and lines, and each pose then reads one word from the tile.  In the
+// vector kernels a pose's four plates are one 4-byte cp.async (p0 is a
+// multiple of kRun, and so is a pose's plane hb * wb); the scalar kernel,
+// and a plates pointer off 4 bytes, read the run's bytes (the bytes past a
+// short run are 0).
 template <typename T, int K, int R>
 __global__ void __launch_bounds__(K6_THREADS, K6_MIN_BLOCKS) static_ray_posed_kernel(
     const float* __restrict__ vx, const float* __restrict__ vy,
@@ -374,13 +412,41 @@ __global__ void __launch_bounds__(K6_THREADS, K6_MIN_BLOCKS) static_ray_posed_ke
     const T* __restrict__ bg, int k, T* __restrict__ out) {
   using Q = Quad<T>;
   using V = typename Q::V;
+  constexpr bool kGiven = R == blinky::kGiven;
   __shared__ __align__(16) float s_recs[kMaxPlates * kRecord];
   __shared__ __align__(16) float s_bases[kPosesPerBlock * kRecord];
+  __shared__ uint32_t s_given[kGiven ? kPosesPerBlock * K6_THREADS : 1];
   extern __shared__ uint32_t s_lines[];  // (S + 31) / 32 words when expanded
   const int tid = threadIdx.x;
   if (tid == 0) blinky::fill_plate_records(r, s_recs);
   const int b0 = blockIdx.y * kPosesPerBlock;
   const int nb = min(kPosesPerBlock, B - b0);
+  if constexpr (kGiven) {
+    const int runs = (wb + kRun - 1) / kRun;
+    const long long q = (long long)blockIdx.x * K6_THREADS + tid;
+    if (q < (long long)hb * runs) {
+      const int y = (int)(q / runs);
+      const int x0 = (int)(q - (long long)y * runs) * kRun;
+      const int m = min(kRun, wb - x0);
+      const long long plane = (long long)hb * wb;
+      const int8_t* g = given + (long long)b0 * plane + (long long)y * wb + x0;
+      if (K > 0 && (uintptr_t)given % 4 == 0 && plane % 4 == 0) {
+#pragma unroll
+        for (int j = 0; j < kPosesPerBlock; ++j)
+          if (j < nb) cp_async4(s_given + j * K6_THREADS + tid, g + j * plane);
+      } else {
+#pragma unroll
+        for (int j = 0; j < kPosesPerBlock; ++j) {
+          if (j >= nb) break;
+          uint32_t w = 0u;
+#pragma unroll
+          for (int i = 0; i < kRun; ++i)
+            if (i < m) w |= (uint32_t)(uint8_t)g[j * plane + i] << (8 * i);
+          s_given[j * K6_THREADS + tid] = w;
+        }
+      }
+    }
+  }
   // a pose's record: forward, right, up, then three zeros
   for (int i = tid; i < nb * kRecord; i += K6_THREADS) {
     const int j = i / kRecord, c = i - j * kRecord;
@@ -388,6 +454,7 @@ __global__ void __launch_bounds__(K6_THREADS, K6_MIN_BLOCKS) static_ray_posed_ke
   }
   if (r.expanded)
     for (int i = tid; i < (r.S + 31) / 32; i += K6_THREADS) s_lines[i] = grid_lines[i];
+  if constexpr (kGiven) cp_async_wait_all();
   __syncthreads();
 
   const int runs = (wb + kRun - 1) / kRun;  // runs a row
@@ -421,6 +488,7 @@ __global__ void __launch_bounds__(K6_THREADS, K6_MIN_BLOCKS) static_ray_posed_ke
 
   const int kk = K > 0 ? K : k;
   const long long H = (long long)hb * kk, W = (long long)wb * kk;
+  const int top = kGiven ? (int)min(N - 1, (long long)INT_MAX) : 0;  // mode 2's clip
   V bgq[K > 0 ? K * K : 1];  // the run's background, row dy, quad c at [dy * K + c]
   bool have_bg = false;
   for (int j0 = 0; j0 < nb; j0 += kPoseGroup) {
@@ -439,21 +507,31 @@ __global__ void __launch_bounds__(K6_THREADS, K6_MIN_BLOCKS) static_ray_posed_ke
       const float4 e2 = *(const float4*)(s_bases + j * kRecord + 8);
       const float3 f = make_float3(e0.x, e0.y, e0.z), rt = make_float3(e0.w, e1.x, e1.y),
                    up = make_float3(e1.z, e1.w, e2.x);
-      const int8_t* gp =
-          R == blinky::kGiven ? given + (long long)(b0 + j) * hb * wb + p0 : nullptr;
+      const uint32_t gw = kGiven ? s_given[j * K6_THREADS + tid] : 0u;  // four plates
 #pragma unroll
       for (int i = 0; i < kRun; ++i)
         idx[g][i] = resolve_index<R, true>(rx[i], ry[i], rz[i], lv[i], f, rt, up, r, s_recs,
-                                           s_lines, R == blinky::kGiven && i < m ? gp[i] : 0);
+                                           s_lines, (int)(int8_t)(gw >> (8 * i)));
     }
     T val[kPoseGroup][kRun];
 #pragma unroll
     for (int g = 0; g < kPoseGroup; ++g) {
       const long long base = (long long)(b0 + min(j0 + g, nb - 1)) * N;
+      if constexpr (kGiven) {
+        // the same clip in 32 bits from the pose's frame: an int index
+        // never reaches an N past INT_MAX
+        const T* s = src + base;
 #pragma unroll
-      for (int i = 0; i < kRun; ++i) {
-        const int t = idx[g][i];
-        val[g][i] = t >= 0 ? src[base + (t >= N ? N - 1 : t)] : T(0);
+        for (int i = 0; i < kRun; ++i) {
+          const int t = idx[g][i];
+          val[g][i] = t >= 0 ? s[min(t, top)] : T(0);
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < kRun; ++i) {
+          const int t = idx[g][i];
+          val[g][i] = t >= 0 ? src[base + (t >= N ? N - 1 : t)] : T(0);
+        }
       }
     }
     if (K > 0) {

@@ -1719,6 +1719,11 @@ def lenses_phase(dev, frames, frames_dev, kernels):
 
 
 LUA_SWEEP_STEPS = 8
+# the script-globe kernels before their redesign (K13 a pixel and pose a
+# thread; K6's mode 2 reading its plates a byte at a time before each
+# resolve), measured by this script's phase 10 on an NVIDIA H100 80GB HBM3 at
+# 700 W, printed beside today's for comparison
+BEFORE_REDESIGN = "K13 1.0730 ms, K6 mode 2 0.7277 ms, the resolver over the batch 9.9-14.2 ms"
 
 
 def lua_phase(dev, frames, frames_dev, kernels):
@@ -1733,12 +1738,14 @@ def lua_phase(dev, frames, frames_dev, kernels):
     from blinky_tpu_torch.api import Session
     from blinky_tpu_torch.bench import builder as bb
     from blinky_tpu_torch.bench import lua_drop_ins
+    from blinky_tpu_torch.bench import posed as bench_posed
     from blinky_tpu_torch.bench.posed import posed_poses
     from blinky_tpu_torch.bench.sol import cuda_ms
     from blinky_tpu_torch.camera import view_basis_from_angles
     from blinky_tpu_torch.kernels import _build, posed, remap, static_ray
     from blinky_tpu_torch.lensmap import build_lensmap
     from blinky_tpu_torch.lensmap import builder
+    from blinky_tpu_torch.palette import rgba_lut
 
     S, H, W = 1080, 1080, 1920
     npix = H * W
@@ -1998,22 +2005,34 @@ def lua_phase(dev, frames, frames_dev, kernels):
             lambda: static_ray.static_ray_posed(*args6, plates=plates_f),
             lambda: static_ray.static_ray_posed_plain(*args6, plates=plates_f))
         torch.cuda.empty_cache()
-        texel_n = 0
-        for lo in range(0, POSED_B, CHUNK):
-            lm = builder.rays_to_lensmap_torch(
-                g_lua, table.vx, table.vy, table.vz, table.lens_valid, S, 10, 4.0, 1.0,
-                view_basis=bases_p[lo:lo + CHUNK], plate=plates_f[lo:lo + CHUNK])
-            for b in range(lm["flat_idx"].shape[0]):
-                texel_n += int(torch.unique(lm["flat_idx"][b][lm["valid"][b]]).numel())
-            del lm
-        torch.cuda.empty_cache()
+
+        def mode2_bound(npix_b, npix_s, texels, el):
+            """K6 mode 2's bytes (the rays, bases, plates, the distinct
+            texels, background and screens of el bytes), operations and
+            bound for npix_b build and npix_s screen pixels a pose."""
+            nbytes = (npix_b * 13 + POSED_B * 36 + POSED_B * npix_b
+                      + (texels + npix_s + POSED_B * npix_s) * el)
+            ops = bb.resolve_ops_per_pixel(g_lua) * npix_b * POSED_B
+            b_ms, o_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+            return nbytes, ops, max(b_ms, o_ms), "bytes" if b_ms >= o_ms else "operations"
+
+        def distinct_texels(table, plates):
+            """The distinct texels the posed batch reads, pose by pose."""
+            n = 0
+            for lo in range(0, POSED_B, CHUNK):
+                lm = builder.rays_to_lensmap_torch(
+                    g_lua, table.vx, table.vy, table.vz, table.lens_valid, S, 10, 4.0, 1.0,
+                    view_basis=bases_p[lo:lo + CHUNK], plate=plates[lo:lo + CHUNK])
+                for b in range(lm["flat_idx"].shape[0]):
+                    n += int(torch.unique(lm["flat_idx"][b][lm["valid"][b]]).numel())
+                del lm
+            torch.cuda.empty_cache()
+            return n
+
         npix_b = table.vx.numel()
-        k6_bytes = (npix_b * 13 + POSED_B * 36 + POSED_B * npix_b + texel_n + npix
-                    + POSED_B * npix)
-        k6_ops = bb.resolve_ops_per_pixel(g_lua) * npix_b * POSED_B
+        k6_bytes, k6_ops, k6_bound, k6_by = mode2_bound(npix_b, npix,
+                                                        distinct_texels(table, plates_f), 1)
         k6_bytes_ms, k6_ops_ms = k6_bytes / HBM_BYTES_PER_S * 1e3, k6_ops / F32_OPS_PER_S * 1e3
-        k6_bound = max(k6_bytes_ms, k6_ops_ms)
-        k6_by = "bytes" if k6_bytes_ms >= k6_ops_ms else "operations"
         k13_ms, k13_plain = cuda_ms_pair(
             lambda: builder.rotate_rays(table.vx, table.vy, table.vz, bases_p),
             lambda: builder.rotate_normalize_torch(table.vx, table.vy, table.vz, bases_p))
@@ -2024,6 +2043,14 @@ def lua_phase(dev, frames, frames_dev, kernels):
         k13_ops_ms = k13_ops / F32_OPS_PER_S * 1e3
         k13_bound = max(k13_bytes_ms, k13_ops_ms)
         k13_by = "bytes" if k13_bytes_ms >= k13_ops_ms else "operations"
+        k13_launch = {}  # K13 by events around launches of its entry point
+        k13_launch["B=64"] = bench_posed.rotate_rays_launch_ms(
+            _build.library(), table.vx, table.vy, table.vz, bases_p, 20)[0]
+        k13_launch["one pose"] = bench_posed.rotate_rays_launch_ms(
+            _build.library(), table.vx, table.vy, table.vz, bases_p[:1].contiguous(), 50)[0]
+        k13_1_bytes = 24 * npix_b + 36
+        torch.cuda.empty_cache()
+
         resolver_ms = cuda_ms(lambda: static_ray.script_pose_plates(table, bases_p, g_lua), 3)
         wall_f = []
         for _ in range(3):
@@ -2044,6 +2071,56 @@ def lua_phase(dev, frames, frames_dev, kernels):
               f"({k6_ops_ms:.4f} ms); bound {k6_bound:.4f} ms by {k6_by}, "
               f"{100 * k6_bound / k6_ms:.1f} % of it; render_posed end to end "
               f"{', '.join(f'{w:.3f}' for w in wall_f)} ms of wall clock")
+
+        # K6 mode 2 on the other operands: u8 at k = 2, RGBA at k = 1
+        k6_more = {"u8 k=1": (k6_ms, k6_plain, k6_bytes, k6_ops, (k6_bound, k6_by))}
+        lut = torch.from_numpy(rgba_lut(fast_p.palette).view(np.int32)).to(dev)
+        fast_p.render_posed(frames_dev, poses, render_scale=2)
+        kern2 = fast_p._posed_cache[1]
+        plates_2 = static_ray.script_pose_plates(kern2.ray_table, bases_p, g_lua)
+        src_rgba = posed.posed_layout(lut[frames_dev.long()], 6)
+        bg_rgba = lut[kern.background.long()]
+        for what, kk, tb, sk, bg, pl, el in (
+                ("u8 k=2", kern2, kern2.ray_table, src_p, kern2.background, plates_2, 1),
+                ("RGBA k=1", kern, table, src_rgba, bg_rgba, plates_f, 4)):
+            k_ = 2 if what == "u8 k=2" else 1
+            a6 = (sk, tb, bases_p, g_lua, S, kk.numcells, kk.cell_size, kk.pad_size, expanded,
+                  bg, k_)
+            got6 = static_ray.static_ray_posed(*a6, plates=pl)
+            for lo in range(0, POSED_B, CHUNK):
+                sl = slice(lo, lo + CHUNK)
+                ref = static_ray.static_ray_posed_plain(
+                    sk[sl], tb, bases_p[sl], g_lua, S, kk.numcells, kk.cell_size, kk.pad_size,
+                    expanded, bg, k_, plates=pl[sl])
+                e = int((got6[sl].long() - ref.long()).abs().max())
+                require(torch.equal(got6[sl], ref), f"K6 mode 2 {what} poses {lo}.. differ "
+                        f"from static_ray_posed_plain (max {e})")
+                k6_err = max(k6_err, e)
+            del got6, ref
+            ms_, plain_ = cuda_ms_pair(lambda: static_ray.static_ray_posed(*a6, plates=pl),
+                                       lambda: static_ray.static_ray_posed_plain(*a6,
+                                                                                 plates=pl))
+            nb_ = tb.vx.numel()
+            nbytes, ops, bound, by = mode2_bound(nb_, nb_ * k_ * k_, distinct_texels(tb, pl),
+                                                 el)
+            k6_more[what] = (ms_, plain_, nbytes, ops, (bound, by))
+            torch.cuda.empty_cache()
+        del plates_2, src_rgba, kern2
+        phase(10, f"before the redesign of K13 and K6's mode 2 (this phase, NVIDIA H100 80GB "
+              f"HBM3, 700 W): {BEFORE_REDESIGN}")
+        k13_64_bytes_ms = k13_bytes / HBM_BYTES_PER_S * 1e3
+        k13_1_ms = k13_1_bytes / HBM_BYTES_PER_S * 1e3
+        phase(10, f"K13 at 1080p by events around launches of its entry point: B={POSED_B} "
+              f"rotated {k13_launch['B=64']:.4f} ms against its byte bound "
+              f"{k13_64_bytes_ms:.4f} ms ({100 * k13_64_bytes_ms / k13_launch['B=64']:.1f} %); "
+              f"one pose (the build's call) {k13_launch['one pose']:.4f} ms against "
+              f"{k13_1_ms:.4f} ms ({k13_1_bytes} bytes, "
+              f"{100 * k13_1_ms / k13_launch['one pose']:.1f} %)")
+        for what, (ms_, plain_, nbytes, ops, (bound, by)) in k6_more.items():
+            phase(10, f"K6 mode 2 (lfast) {what} B={POSED_B}: kernel {ms_:.4f} ms by the events "
+                  f"(bit-equal to its plain version), plain {plain_:.4f} ms; {nbytes} bytes, "
+                  f"{ops} f32 operations; bound {bound:.4f} ms by {by}, "
+                  f"{100 * bound / ms_:.1f} % of it")
         del src_p, plates_f, args6, posed_f
 
         # ------------------------------------------------ g: lfast zoom sweep, K9 mode 2
@@ -2068,6 +2145,19 @@ def lua_phase(dev, frames, frames_dev, kernels):
             k9_err = max(k9_err, e)
         k9_ms, k9_plain = cuda_ms_pair(lambda: posed.sweep_remap(*args9, plates=plates_g),
                                        lambda: posed.sweep_remap_plain(*args9, plates=plates_g))
+        k13_steps_ms, rot_g = bench_posed.rotate_rays_launch_ms(_build.library(),
+                                                                *step_rays[:3], None, 20)
+        for a, b in zip(rot_g, builder.rotate_normalize_torch(*step_rays[:3])):
+            require(torch.equal(a.nan_to_num(7.0), b.nan_to_num(7.0))
+                    and torch.equal(a.isnan(), b.isnan()),
+                    "rotate_rays on the sweep's tables differs from its plain version")
+        del rot_g
+        k13_steps_bytes = 24 * npix * LUA_SWEEP_STEPS
+        k13_steps_bound = k13_steps_bytes / HBM_BYTES_PER_S * 1e3
+        phase(10, f"K13 on the {LUA_SWEEP_STEPS}-step sweep's tables (not rotated) at 1080p, "
+              f"bit-equal to its plain version: {k13_steps_ms:.4f} ms by events around "
+              f"launches of its entry point, against its byte bound {k13_steps_bound:.4f} ms "
+              f"({k13_steps_bytes} bytes, {100 * k13_steps_bound / k13_steps_ms:.1f} %)")
         seen = torch.zeros(src_g.numel(), dtype=torch.bool, device=dev)
         holes = False
         for n in range(LUA_SWEEP_STEPS):
@@ -2188,24 +2278,42 @@ def time_variant(name, kernel, plain, nbytes):
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms)
 
 
-def profiled(fn, iters, sync=True, tries=3):
+PROFILE_TAIL_S = 0.3  # a pause before a profile stops
+PROFILE_GAP_S = 0.1  # a pause between a profile's lead-in calls and its timed ones
+
+
+def profiled(fn, iters, sync=True, tries=6):
     """Runs ``fn()`` *iters* times under ``torch.profiler`` after a warm-up
     call, synchronising after each call when *sync*.  Returns (host wall ms a
     call, {device record name: ms a call} from the CUPTI records of kernels,
-    copies and fills, their sum: the device's busy ms a call).  Late in a
-    full run on an NVIDIA H100, profiles came back with too few records, or
-    none; CUPTI keeps its records in device memory, so the allocator's
-    cached blocks are released before each profile, and a profile whose
-    records look incomplete (none at all, or a record name seen a number of
-    times that is no multiple of *iters*) is taken again, up to *tries*
-    times."""
+    copies and fills, their sum: the device's busy ms a call).
+
+    On an NVIDIA H100 80GB HBM3 with torch 2.11.0+cu128, a profile of 20
+    launches loses the device records of its first launches, more of them
+    the longer the process has run: one every 16-17 s, all 20 after about
+    330 s (``python -m blinky_tpu_torch.bench.profiler_records``).  A pause
+    before the profile starts does not help.  A pause at its end
+    (``PROFILE_TAIL_S``) kept every record in all profiles after the first
+    130 s.  A lead-in of 20 untimed launches, split from the timed ones by a
+    pause, loses the records in their place, and kept every timed record up
+    to about 350 s.  So the tries alternate: a tail alone, then a lead-in of
+    ``4 * iters`` calls, ``PROFILE_GAP_S`` and a tail, with the allocator's
+    cached blocks released before each.  A profile whose records look
+    incomplete (none at all, or a record name seen a number of times that is
+    no multiple of *iters*) is taken again, up to *tries* times."""
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(tries):
+    for attempt in range(tries):
+        lead = 4 * iters if attempt % 2 else 0
         torch.cuda.empty_cache()
         fn()  # a warm-up call: its blocks are cached again, the rest stays free
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            if lead:
+                for _ in range(lead):
+                    fn()
+                torch.cuda.synchronize()
+                time.sleep(PROFILE_GAP_S)
             t0 = time.perf_counter()
             for _ in range(iters):
                 fn()
@@ -2213,12 +2321,20 @@ def profiled(fn, iters, sync=True, tries=3):
                     torch.cuda.synchronize()
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3 / iters
+            time.sleep(PROFILE_TAIL_S)
+        recs = sorted((e.time_range.start, e.time_range.elapsed_us(), e.name)
+                      for e in prof.events() if e.device_type.name == "CUDA")
+        if lead and len(recs) > 1:
+            # the timed calls' records: those after the lead-in's pause, the
+            # widest gap, unless the lead-in left no record
+            gaps = [b[0] - a[0] for a, b in zip(recs, recs[1:])]
+            i = max(range(len(gaps)), key=gaps.__getitem__)
+            if gaps[i] >= 0.9 * PROFILE_GAP_S * 1e6:
+                recs = recs[i + 1:]
         dev_ms, seen = {}, {}
-        for e in prof.events():
-            if e.device_type.name == "CUDA":
-                dev_ms[e.name] = (dev_ms.get(e.name, 0.0)
-                                  + e.time_range.elapsed_us() / 1e3 / iters)
-                seen[e.name] = seen.get(e.name, 0) + 1
+        for _, us, name in recs:
+            dev_ms[name] = dev_ms.get(name, 0.0) + us / 1e3 / iters
+            seen[name] = seen.get(name, 0) + 1
         if dev_ms and all(n % iters == 0 for n in seen.values()):
             break
     require(dev_ms, f"torch.profiler recorded no device work in {tries} profiles")

@@ -1472,15 +1472,18 @@ def test_given_maxdot_plates_equal_the_maxdot_kernels(cuda_device, globe_name, t
 @pytest.mark.parametrize("kind", ["u8", "expanded", "int32"])
 @pytest.mark.parametrize("size", [(23, 37, 1), (24, 40, 1), (24, 40, 2), (23, 37, 2)],
                          ids=["ragged-k1", "vec-k1", "vec-k2", "ragged-k2"])
-def test_static_ray_posed_given_plates_equal_plain(cuda_device, globe_name, kind, size,
+@pytest.mark.parametrize("B", [11, 1, 15, 16, 17, 63])
+def test_static_ray_posed_given_plates_equal_plain(cuda_device, globe_name, kind, size, B,
                                                    tmp_path):
     """K6 in resolver mode 2 (a pose's int8 plate a build pixel) against its
     plain version on the same plates: globes of 2-6 plates, the script's
-    plates (-1, out of range, NaN-derived) and random ones clamped to
-    [-1, 6], the scalar and the vector kernels at k = 1 and 2."""
+    plates (-1, out of range, NaN-derived), random ones over [-1, 6] with
+    the int8 extremes -128 and 127, and the same plates through a view off
+    4 bytes (byte loads); the scalar and the vector kernels at k = 1 and 2;
+    B around the 16 poses of a block, a short last block included."""
     hb, wb, k = size
-    rng = np.random.default_rng(hb + wb + k + len(kind))
-    S, B = 32, 11
+    rng = np.random.default_rng(hb + wb + k + len(kind) + (0 if B == 11 else B))
+    S = 32
     _, table = _posed_table(globe_name, hb, wb, cuda_device)
     g = _script_globe(globe_name, ODD_RESOLVER, tmp_path)
     poses = np.stack([rng.uniform(-90, 90, B), rng.uniform(0, 360, B),
@@ -1495,23 +1498,59 @@ def test_static_ray_posed_given_plates_equal_plain(cuda_device, globe_name, kind
     got = static_ray.static_ray_posed(*args)
     assert static_ray.static_ray_posed.given_launches == n0 + 1
     _equal(got, static_ray.static_ray_posed_plain(*args, plates=plates))
-    rand = torch.from_numpy(rng.integers(-1, 7, (B, hb, wb), dtype=np.int8)).to(cuda_device)
-    _equal(static_ray.static_ray_posed(*args, plates=rand),
-           static_ray.static_ray_posed_plain(*args, plates=rand))
+    values = np.array([-128, -1, 0, 1, 2, 3, 4, 5, 6, 127], np.int8)
+    rand = torch.from_numpy(values[rng.integers(0, values.size, (B, hb, wb))]).to(cuda_device)
+    want = static_ray.static_ray_posed_plain(*args, plates=rand)
+    _equal(static_ray.static_ray_posed(*args, plates=rand), want)
+    buf = torch.empty(rand.numel() + 1, dtype=torch.int8, device=cuda_device)
+    off = buf[1:].view(rand.shape)
+    off.copy_(rand)
+    assert off.is_contiguous() and off.data_ptr() % 4 == 1
+    _equal(static_ray.static_ray_posed(*args, plates=off), want)
+
+
+def _k13_poses_a_thread():
+    """K13_POSES, the poses a K13 thread takes, from csrc/lensmap.cu."""
+    import re
+    from pathlib import Path
+
+    src = (Path(builder.__file__).resolve().parents[1] / "csrc" / "lensmap.cu").read_text()
+    return int(re.search(r"#define K13_POSES (\d+)", src).group(1))
+
+
+# K13's ray tables: npix a multiple of 4 and 1, 2, 3 past one, an input
+# view off 16 bytes, the [4, 8] planes of odd rays
+K13_SHAPES = {"23x37": (23, 37), "24x40": (24, 40), "13x17": (13, 17), "11x18": (11, 18),
+              "offset": (24, 40), "4x8": None}
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B", [1, 11, 70000])
-def test_rotate_rays_equals_plain(cuda_device, B):
+@pytest.mark.parametrize("B", [1, 11, 70000, "P-1", "P", "P+1", 63, 64])
+@pytest.mark.parametrize("shape", list(K13_SHAPES))
+def test_rotate_rays_equals_plain(cuda_device, B, shape):
     """K13 against rotate_normalize_torch on the card, with the odd rays:
-    rotated by each pose (B past the grid's 65535 poses), and normalized
-    with no rotation (a table a step)."""
-    hb, wb = (4, 8) if B > 100 else (23, 37)
-    _, t = _posed_table("cube", hb, wb, cuda_device) if B <= 100 else (None, None)
-    if t is None:
+    rotated by each pose (B around the poses a thread, and past the grid's
+    65535 blocks), and normalized with no rotation (a table a step); npix a
+    multiple of four (the vector kernel), 1-3 past one (its scalar tail at
+    one pose, the one-pixel runs past it), and an input view whose storage
+    offset puts it off 16 bytes (scalar loads)."""
+    if isinstance(B, str):
+        P = _k13_poses_a_thread()
+        B = max(1, P + int(B[1:]) if len(B) > 1 else P)
+    if K13_SHAPES[shape] is None:
         vx, vy, vz, _ = (p[0] for p in _odd_ray_planes(cuda_device))
     else:
+        _, t = _posed_table("cube", *K13_SHAPES[shape], cuda_device)
         vx, vy, vz = t.vx, t.vy, t.vz
+    if shape == "offset":
+        def off(a):  # a contiguous view one float past a 16-byte boundary
+            buf = torch.empty(a.numel() + 1, dtype=a.dtype, device=a.device)
+            v = buf[1:].view(a.shape)
+            v.copy_(a)
+            return v
+
+        vx, vy, vz = off(vx), off(vy), off(vz)
+        assert vx.is_contiguous() and vx.data_ptr() % 16 == 4
     rng = np.random.default_rng(B)
     bases = torch.from_numpy(rng.normal(size=(B, 3, 3)).astype(np.float32)).to(cuda_device)
     n0 = builder.rotate_rays.launches
@@ -1522,10 +1561,17 @@ def test_rotate_rays_equals_plain(cuda_device, B):
     for a, b in zip(got, builder.rotate_normalize_torch(vx, vy, vz, bases)):
         assert a.shape == (B,) + tuple(vx.shape)
         torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+    del got
     steps = torch.stack([vx, vy * 2, vz]).contiguous()
     for a, b in zip(builder.rotate_rays(steps, steps.flip(0).contiguous(), steps),
                     builder.rotate_normalize_torch(steps, steps.flip(0), steps)):
         torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+    # the unrotated mode with one table a step, at the batch's own step count
+    if B <= 100:
+        steps = torch.stack([vx * (1 + 0.25 * n) for n in range(B)]).contiguous()
+        for a, b in zip(builder.rotate_rays(steps, steps, steps),
+                        builder.rotate_normalize_torch(steps, steps, steps)):
+            torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
 
 
 @pytest.mark.cuda

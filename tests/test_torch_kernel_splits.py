@@ -1,0 +1,238 @@
+"""Python models of two CUDA kernels' work splits, run on the CPU.
+
+The kernels themselves run only on a card.  What decides whether every
+output is written once and every input read where it should be is their
+index arithmetic, which these models repeat line for line, with the
+tuning constants read from the ``.cu`` sources (so that the tests follow a
+retune):
+
+* K13, ``blinky_rotate_rays`` (``csrc/lensmap.cu``): runs of four pixels
+  with float4 loads and stores, a scalar tail, a kernel of one-pixel runs for
+  rotated rows off 16 bytes, and blocks of ``K13_POSES`` poses in a
+  block-stride loop past the grid's 65535 blocks;
+* K6 in resolver mode 2 (``csrc/posed.cu``): the shared tile of a block's
+  plates, one 4-byte word a pose and run in the vector kernels, the run's
+  bytes in the scalar kernel and off 4 bytes.
+"""
+
+import re
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+CSRC = Path(__file__).resolve().parents[1] / "blinky_tpu_torch" / "csrc"
+GRID_Y_MAX = 65535
+
+
+def _const(source, name):
+    """The value a ``#define NAME n`` or ``constexpr int NAME = n;`` gives."""
+    text = (CSRC / source).read_text()
+    m = (re.search(rf"#define {name} (\d+)", text)
+         or re.search(rf"constexpr int {name} = (\d+);", text))
+    assert m, f"{name} not found in {source}"
+    return int(m.group(1))
+
+
+def _ceil(a, b):
+    return -(-a // b)
+
+
+# --------------------------------------------------------------------- K13
+
+
+def k13_model(npix, batch, rot, in_offset=0, out_offset=0, y_max=GRID_Y_MAX):
+    """The element accesses of one ``blinky_rotate_rays`` launch.
+
+    *in_offset* / *out_offset*: the inputs' and outputs' byte offsets from
+    16 bytes.  Returns (writes, vector writes, reads): arrays of the flat
+    output indices each thread-pose stores (one entry per element), of the
+    first index of each float4 store, and of the input indices it loads,
+    with the vector loads' first indices apart."""
+    T, P = _const("lensmap.cu", "K13_THREADS"), _const("lensmap.cu", "K13_POSES")
+    n = npix if rot else npix * batch
+    rows = batch if rot else 1
+    vec = (n % 4 == 0 or rows == 1) and out_offset % 16 == 0
+    vload = in_offset % 16 == 0
+    M = 4 if vec else 1
+    blocks = _ceil(_ceil(n, M), T)
+    Pk = P if rot else 1
+    gy = min(_ceil(rows, Pk), y_max)
+    p0 = np.arange(blocks * T, dtype=np.int64) * M
+    m = np.clip(n - p0, 0, M)
+    whole = (m == 4) if M == 4 else np.zeros_like(m, dtype=bool)
+    vload_run = whole & vload
+    reads_vec = p0[vload_run]
+    reads = np.concatenate([p0[m > i][~vload_run[m > i]] + i for i in range(M)]
+                           + [p0[vload_run] + i for i in range(4) if M == 4])
+    poses = []
+    for by in range(gy):  # the block-stride loop of every block row
+        b0 = by * Pk
+        while b0 < rows:
+            nb = min(Pk, rows - b0)
+            poses.extend(range(b0, b0 + nb))
+            b0 += gy * Pk
+    poses = np.asarray(poses, dtype=np.int64)
+    live = m > 0
+    q = poses[:, None] * (n if rot else 0) + p0[None, live]
+    mm = np.broadcast_to(m[live], q.shape)
+    vw = np.broadcast_to(whole[live], q.shape)
+    vec_writes = q[vw]
+    writes = np.concatenate([q[vw] + i for i in range(4) if M == 4]
+                            + [q[(mm > i) & ~vw] + i for i in range(M)])
+    return writes, vec_writes, reads, reads_vec, n, rows
+
+
+def _k13_check(npix, batch, rot, in_offset=0, out_offset=0, y_max=GRID_Y_MAX):
+    writes, vec_writes, reads, reads_vec, n, rows = k13_model(
+        npix, batch, rot, in_offset, out_offset, y_max)
+    total = rows * n
+    # every (pose, pixel) pair, or every unrotated element, exactly once
+    assert writes.size == total
+    assert np.array_equal(np.sort(writes), np.arange(total))
+    # a float4 store lies inside one output row, on 16 bytes
+    assert np.all((vec_writes * 4 + out_offset) % 16 == 0)
+    assert np.all(vec_writes % n + 3 < n)
+    # every input element is read by exactly one run, float4 loads on 16 bytes
+    assert np.array_equal(np.sort(reads), np.arange(n))
+    assert np.all((reads_vec * 4 + in_offset) % 16 == 0)
+    return writes, vec_writes
+
+
+@pytest.mark.parametrize("npix", [32, 33, 34, 35, 851, 1024, 2073])
+@pytest.mark.parametrize("batch", [1, "P-1", "P", "P+1", 63, 64])
+@pytest.mark.parametrize("rot", [True, False], ids=["rotated", "unrotated"])
+def test_k13_writes_each_pose_pixel_once(npix, batch, rot):
+    """Every (pose, pixel) pair written once, inside its plane; the vector
+    body and the scalar tail meet without a gap or an overlap."""
+    P = _const("lensmap.cu", "K13_POSES")
+    if isinstance(batch, str):
+        batch = max(1, P + int(batch[1:]) if len(batch) > 1 else P)
+    writes, vec_writes = _k13_check(npix, batch, rot)
+    n = npix if rot else npix * batch
+    rows = batch if rot else 1
+    if n % 4 == 0 or rows == 1:  # the vector kernel, with its tail
+        tail = n % 4
+        assert vec_writes.size == rows * (n // 4)
+        covered = np.zeros(rows * n, dtype=np.int64)
+        for i in range(4):
+            np.add.at(covered, vec_writes + i, 1)
+        row_pos = np.arange(rows * n) % n
+        assert np.all(covered[row_pos < n - tail] == 1)  # the body
+        assert np.all(covered[row_pos >= n - tail] == 0)  # the tail, stored a pixel at a time
+    else:  # rotated rows off 16 bytes: runs of one pixel
+        assert vec_writes.size == 0
+
+
+@pytest.mark.parametrize("in_offset", [0, 4, 8, 12])
+@pytest.mark.parametrize("npix", [32, 35, 1024])
+@pytest.mark.parametrize("batch", [1, 9])
+def test_k13_input_offsets(in_offset, npix, batch):
+    """An input view off 16 bytes (a storage offset) loads a pixel at a
+    time and still stores whole float4s."""
+    writes, vec_writes = _k13_check(npix, batch, True, in_offset=in_offset)
+    if npix % 4 == 0 or batch == 1:
+        assert vec_writes.size == batch * (npix // 4)
+
+
+@pytest.mark.parametrize("out_offset", [4, 8])
+def test_k13_outputs_off_16_bytes_take_one_pixel_runs(out_offset):
+    writes, vec_writes = _k13_check(64, 5, True, out_offset=out_offset)
+    assert vec_writes.size == 0
+
+
+@pytest.mark.parametrize("batch", [70000, "grid+5"])
+def test_k13_pose_blocks_past_the_grid(batch):
+    """More blocks of poses than the grid's 65535 rows: the block-stride
+    loop covers every pose once."""
+    P = _const("lensmap.cu", "K13_POSES")
+    if batch == "grid+5":
+        batch = GRID_Y_MAX * P + 5
+    _k13_check(3, batch, True)
+    _k13_check(4, batch, True)
+
+
+@pytest.mark.parametrize("y_max", [1, 2, 3, 7])
+@pytest.mark.parametrize("batch", [1, 17, 40, 64])
+def test_k13_block_stride_loop(y_max, batch):
+    """The same loop with a smaller grid: every pose once, whatever the
+    number of block rows."""
+    _k13_check(40, batch, True, y_max=y_max)
+    _k13_check(41, batch, True, y_max=y_max)
+
+
+# ------------------------------------------------------------- K6 mode 2
+
+
+def k6_given_model(hb, wb, B, given_offset=0):
+    """The plate tile of one ``blinky_static_ray_posed`` launch in resolver
+    mode 2: for every (block, thread, pose of the block) whose run is on the
+    screen, the bytes of the plates array its tile word holds (-1 for a
+    byte past a short run) and the tile slot it fills.  Returns (pose, y,
+    x0, tile slot numbered across blocks, byte addresses [.., 4], word
+    loads) over all of them."""
+    T = _const("posed.cu", "K6_THREADS")
+    PB = _const("posed.cu", "K6_POSES_PER_BLOCK")
+    kRun = _const("posed.cu", "kRun")
+    runs = _ceil(wb, kRun)
+    vec = wb % kRun == 0  # the vector kernels (every other pointer aligned)
+    plane = hb * wb
+    words = vec and given_offset % 4 == 0 and plane % 4 == 0
+    bx = _ceil(hb * runs, T)
+    gy = _ceil(B, PB)
+    q = np.arange(bx * T, dtype=np.int64)
+    tid = q % T
+    on = q < hb * runs
+    q, tid = q[on], tid[on]
+    y = q // runs
+    x0 = (q - y * runs) * kRun
+    m = np.minimum(kRun, wb - x0)
+    out = []
+    for by in range(gy):
+        b0 = by * PB
+        nb = min(PB, B - b0)
+        for j in range(nb):
+            base = b0 * plane + y * wb + x0 + j * plane
+            addr = base[:, None] + np.arange(kRun)[None, :]
+            if not words:
+                addr = np.where(np.arange(kRun)[None, :] < m[:, None], addr, -1)
+            slot = j * T + tid  # the slot in its block's tile
+            block = (q // T) * gy + by
+            out.append((np.full(q.shape, b0 + j), y, x0, block * PB * T + slot, addr,
+                        np.full(q.shape, words)))
+    return tuple(np.concatenate(c) for c in zip(*out)), plane, words
+
+
+@pytest.mark.parametrize("shape", [(24, 40), (23, 37), (270, 480), (9, 4), (5, 6)],
+                         ids=["vec", "ragged", "270x480", "one-run", "short-run"])
+@pytest.mark.parametrize("B", [1, 15, 16, 17, 63])
+@pytest.mark.parametrize("given_offset", [0, 1, 2], ids=["aligned", "off1", "off2"])
+def test_k6_given_tile_reads_its_own_pose_and_run(shape, B, given_offset):
+    """Each (pose, run) reads the plates of its own pose and run: a word on
+    4 bytes in the vector kernels, the run's bytes elsewhere; each tile
+    slot is filled once; a short last block of poses reads no pose past B."""
+    hb, wb = shape
+    (pose, y, x0, slot, addr, words), plane, is_words = k6_given_model(hb, wb, B,
+                                                                        given_offset)
+    kRun = _const("posed.cu", "kRun")
+    assert is_words == (wb % kRun == 0 and given_offset % 4 == 0)
+    assert np.all(pose < B)
+    if is_words:  # one aligned 4-byte load a pose and run
+        assert np.all((addr[:, 0] + given_offset) % 4 == 0)
+    real = addr >= 0
+    # every byte read belongs to its own pose, row and run's pixels
+    b_of = np.where(real, addr // plane, -1)
+    pix = np.where(real, addr % plane, -1)
+    assert np.all(b_of[real] == np.broadcast_to(pose[:, None], addr.shape)[real])
+    assert np.all(pix[real] // wb == np.broadcast_to(y[:, None], addr.shape)[real])
+    col = pix % wb
+    i = np.broadcast_to(np.arange(kRun)[None, :], addr.shape)
+    assert np.all(col[real] == (np.broadcast_to(x0[:, None], addr.shape) + i)[real])
+    assert np.all(addr[real] < B * plane)
+    # every (pose, pixel) plate is read exactly once
+    got = np.sort(addr[real])
+    assert np.array_equal(got, np.arange(B * plane))
+    # the tiles: one slot a (block, pose, thread), each filled once
+    PB, T = _const("posed.cu", "K6_POSES_PER_BLOCK"), _const("posed.cu", "K6_THREADS")
+    assert np.unique(slot).size == slot.size
+    assert np.all(slot % (PB * T) < np.minimum(PB, B) * T)
