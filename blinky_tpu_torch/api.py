@@ -1,14 +1,17 @@
 """Session: the console-semantics API surface.
 
-The port of :class:`blinky_tpu.api.Session` for the static remap and the
-posed playback: the ``F_Init`` defaults (``engine/NQ/fisheye.c:668-672``),
-the console tokenizer, the lens/globe/zoom/rubix commands and
-``setviewangles``, the change-driven lensmap rebuild of ``F_RenderView``
-(``fisheye.c:698-811``) on the exact float64 host builder or, for a rotated
-view or on request (``backend="torch"``), on the float32 device builder,
-the remap of frame batches on a device
-through :class:`blinky_tpu_torch.kernels.remap.RemapKernel`, and
-:meth:`Session.render_posed`, every frame at its own view rotation through
+The port of :class:`blinky_tpu.api.Session`: the ``F_Init`` defaults
+(``engine/NQ/fisheye.c:668-672``), the console tokenizer and every console
+command of the JAX package (the lens/globe/zoom/rubix commands,
+``setviewangles``, the ``fov`` cvar, ``f_saveglobe``, ``f_dumppal``, the key
+bindings and ``f_shortcutkeys``, ``stuffcmds``, ``exec``, ``alias``), the
+change-driven lensmap rebuild of ``F_RenderView`` (``fisheye.c:698-811``) on
+the exact float64 host builder or, for a rotated view or on request
+(``backend="torch"``), on the float32 device builder, time-sliced exact
+builds behind a preview (``build_budget_s``), the remap of frame batches on a
+device through :class:`blinky_tpu_torch.kernels.remap.RemapKernel`, the
+``fisheye 0`` plain rectilinear view, and :meth:`Session.render_posed`,
+every frame at its own view rotation through
 :class:`blinky_tpu_torch.kernels.static_ray.StaticRayPosedKernel`::
 
     sess = Session(1920, 1080)                   # panini + cube, f_fov 180, on "cuda"
@@ -19,14 +22,11 @@ The device defaults to ``"cuda"``; nothing probes and nothing falls back,
 so on a machine without a card a render with the default raises.  Lens and
 globe script directories (``lens_dirs``, ``globe_dirs``) hold ``.py`` and
 ``.lua`` drop-ins (:mod:`blinky_tpu_torch.lua_bridge`), which take every
-path a built-in takes.  What ``blinky_tpu``'s Session has beyond this
-raises ``NotImplementedError`` naming it: the ``fisheye 0`` plain view,
-time-sliced builds, key bindings, ``f_saveglobe`` and ``f_dumppal``, and
-the sharded render.  The 360-video path (:meth:`Session.render_equirect`)
+path a built-in takes.  The 360-video path (:meth:`Session.render_equirect`)
 and the supersampled render (:meth:`Session.render_aa`) run on the device
 through :mod:`blinky_tpu_torch.kernels.ingest` and
-:func:`blinky_tpu_torch.kernels.remap.downsample_rgba`.
-``Unknown command`` is kept for names neither package knows.
+:func:`blinky_tpu_torch.kernels.remap.downsample_rgba`.  The sharded render
+(``render_sharded``) is not ported yet and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -40,10 +40,13 @@ import torch
 from blinky_tpu_torch import globes as globes_mod
 from blinky_tpu_torch import lenses as lenses_mod
 from blinky_tpu_torch import palette as palette_mod
+from blinky_tpu_torch.io.cubemap import save_globe_pcx
 from blinky_tpu_torch.kernels.remap import (
     RemapKernel, expanded_flat_idx, frames_tensor, frames_to_rgba, host_remap,
 )
-from blinky_tpu_torch.lensmap import Zoom, ZoomError, build_lensmap, calc_scale
+from blinky_tpu_torch.lensmap import (
+    Zoom, ZoomError, build_lensmap, calc_scale, device_builder_warm,
+)
 
 HELP_TEXT = """-----------------------------
 Welcome to the FISHEYE ADDON!
@@ -56,16 +59,26 @@ Welcome to the FISHEYE ADDON!
 -> f_<tab>         (MORE COMMANDS)
 -----------------------------"""
 
-# blinky_tpu's console commands that the port does not have yet
-_UNPORTED_COMMANDS = frozenset({
-    "fov", "f_saveglobe", "f_dumppal", "f_shortcutkeys", "stuffcmds",
-    "bind", "unbind", "unbindall", "exec",
-})
+# fisheye.c:984-997: the shortcut preset table
+SHORTCUT_BINDINGS = {
+    "1": "f_lens panini",
+    "2": "f_lens stereographic",
+    "3": "f_lens hammer",
+    "4": "f_lens winkeltripel",
+    "5": "f_lens fisheye1",
+    "6": "f_lens mercator",
+    "7": "f_lens quincuncial",
+    "8": "f_lens cube",
+    "9": "f_lens debug",
+    "y": "f_globe cube",
+    "u": "f_globe cube_edge",
+    "i": "f_globe trism",
+    "o": "f_globe tetra",
+    "p": "f_globe fast",
+}
 
-# blinky_tpu's other Session entry points that the port does not have yet
-_UNPORTED_METHODS = frozenset({
-    "press_key", "build_progress", "render_sharded",
-})
+# blinky_tpu's Session entry points that the port does not have yet
+_UNPORTED_METHODS = frozenset({"render_sharded"})
 
 
 _SINGLE_CHARS = "{})(':"  # common/common.c:1063 — NQ splits these alone
@@ -310,6 +323,12 @@ class Session:
     *lens_dirs* and *globe_dirs*: directories searched, in order, for a
     ``<name>.py`` then a ``<name>.lua`` drop-in when ``f_lens`` /
     ``f_globe`` names no built-in.
+
+    *build_budget_s*: seconds of exact-build work per render call (the
+    reference's time-sliced builder, ``fisheye.c:306-322``; an interactive
+    host sets about 1/60).  None, the default, blocks until the exact
+    table is built.  *cmdline_cmds*: the command-line commands that
+    ``stuffcmds`` runs again.
     """
 
     def __init__(
@@ -326,11 +345,8 @@ class Session:
         lens_dirs=(),
         globe_dirs=(),
         build_budget_s: Optional[float] = None,
+        cmdline_cmds=(),
     ):
-        if build_budget_s is not None:
-            raise NotImplementedError(
-                "time-sliced lensmap builds (build_budget_s) are not ported "
-                "to blinky_tpu_torch yet")
         if backend not in ("auto", "numpy", "torch"):
             raise ValueError(f"unknown lensmap backend {backend!r}: "
                              "expected 'auto', 'numpy' or 'torch'")
@@ -344,6 +360,8 @@ class Session:
         self.height_px = int(height)
         self.platesize = int(platesize) if platesize else min(width, height)
         self._kernel = None
+        self._plain_cache = None  # (key, RemapKernel) of the fisheye-0 view
+        self._plain_lm_cache = None  # (key, its lensmap)
         self._palette_gen = 0
         self._aa_cache = None  # {state: hi-res Session}, at most 4
         self._equirect_cache = None  # (key, EquirectIngest)
@@ -351,9 +369,14 @@ class Session:
         self.palette = palette if palette is not None else palette_mod.default_palette()
         self.echo = echo
         self.console: list = []
+        self.cmdline_cmds = list(cmdline_cmds)
+        self._in_stuffcmds = False
 
         self.fisheye_enabled = False
+        self.fov = 90.0  # the engine "fov" cvar (scr_fov, NQ/view.c:116)
         self.view_angles = None  # (pitch, yaw, roll) deg, None = identity
+        self.shortcutkeys_enabled = False
+        self.bindings: dict = {}
         self.aliases: dict = {}  # name -> command string (common/cmd.c:373)
         self._alias_depth = 0  # bounds self-referential alias expansion
         self.lens_name = ""
@@ -367,6 +390,7 @@ class Session:
         self.rubix_numcells = 10
         self.rubix_cell_size = 4.0
         self.rubix_pad_size = 1.0
+        self.save_request = None  # (name, with_margins) of a pending f_saveglobe
 
         self._changed = True
         self._lensmap = None
@@ -374,6 +398,10 @@ class Session:
         self._lensmap_meta = None  # (lens, globe, view_is_identity)
         self._background = None
         self._background_gen = 0
+        # time-sliced exact builds: seconds of build work a render call
+        self.build_budget_s = build_budget_s
+        self._pending_build = None  # the ProgressiveHostBuild in flight
+        self._preview_is_partial = False  # the preview is its partial table
         self._posed_cache = None  # (key, StaticRayPosedKernel)
         self._posed_scale = None  # ((zoom, lens, width, height), zoom scale)
         self._posed_cap = None  # ((key, planes), batch cap)
@@ -383,6 +411,7 @@ class Session:
         self._auto_scale_probes = None  # (key, (t21, t81, t2h, k_hi))
 
         self._commands = {
+            "fov": self._cmd_plainfov,
             "fisheye": self._cmd_fisheye,
             "f_help": self._cmd_help,
             "f_lens": self._cmd_lens,
@@ -393,8 +422,16 @@ class Session:
             "f_contain": self._cmd_contain,
             "f_rubix": self._cmd_rubix,
             "f_rubixgrid": self._cmd_rubixgrid,
+            "f_saveglobe": self._cmd_saveglobe,
+            "f_dumppal": self._cmd_dumppal,
+            "f_shortcutkeys": self._cmd_shortcutkeys,
             "impulse": lambda argv: None,  # game-sim command: no-op here
+            "stuffcmds": self._cmd_stuffcmds,
             "setviewangles": self._cmd_setviewangles,
+            "bind": self._cmd_bind,
+            "unbind": self._cmd_unbind,
+            "unbindall": self._cmd_unbindall,
+            "exec": self._cmd_exec,
             "alias": self._cmd_alias,
             "echo": self._cmd_echo,
             # Cmd_Wait_f defers the rest of the buffer to the next frame
@@ -437,10 +474,6 @@ class Session:
                 continue
             handler = self._commands.get(argv[0])
             if handler is None:
-                if argv[0] in _UNPORTED_COMMANDS:
-                    raise NotImplementedError(
-                        f"console command '{argv[0]}' is not ported to "
-                        "blinky_tpu_torch yet")
                 # aliases expand only after real commands miss
                 # (Cmd_ExecuteString order, common/cmd.c:758-775)
                 value = self.aliases.get(argv[0])
@@ -471,6 +504,15 @@ class Session:
         # fisheye_enabled = Q_atoi(Cmd_Argv(1)) — "will return 0 if not
         # valid" (cmd_fisheye, fisheye.c:975); "2abc" is truthy there
         self.fisheye_enabled = bool(_atoi(argv[1]))
+
+    def _cmd_plainfov(self, argv):
+        """The engine ``fov`` cvar: horizontal FOV of the normal
+        (fisheye-off) view, clamped to 10..170 (``SCR_CalcRefdef``,
+        ``common/screen.c:589-592``)."""
+        if len(argv) < 2:
+            self._print(f'"fov" is "{self.fov:g}"')
+            return
+        self.fov = min(170.0, max(10.0, _atof(argv[1])))
 
     def _cmd_setviewangles(self, argv):
         """Rotate the view within recorded plates: ``setviewangles <pitch>
@@ -580,6 +622,101 @@ class Session:
             self._print(f"   cellsize (default  4) = {self.rubix_cell_size:f}")
             self._print(f"   padsize  (default  1) = {self.rubix_pad_size:f}")
 
+    def _cmd_saveglobe(self, argv):
+        """``f_saveglobe <name> [full]``: queue a screenshot of the globe
+        plates, written by the next render of a frame
+        (``cmd_saveglobe``, ``fisheye.c:1120-1136``)."""
+        if len(argv) < 2:
+            self._print("f_saveglobe <name> [full flag=0]: screenshot the globe plates")
+            return
+        # with_margins = Q_atoi(Cmd_Argv(2)), fisheye.c:1130
+        with_margins = _atoi(argv[2]) if len(argv) >= 3 else 0
+        self.save_request = (argv[1][:32], with_margins)
+
+    def _cmd_dumppal(self, argv):
+        """``f_dumppal``: write the palette as text to ``./palette``
+        (``fisheye.c:916-931``)."""
+        Path("palette").write_text(palette_mod.save_dumppal(self.palette))
+
+    def _cmd_shortcutkeys(self, argv):
+        """``cmd_shortcutkeys`` (``fisheye.c:979-1016``): toggle the preset
+        bindings of keys 1-9 (lenses) and Y, U, I, O, P (globes)."""
+        self.shortcutkeys_enabled = not self.shortcutkeys_enabled
+        if self.shortcutkeys_enabled:
+            self._print("Enabled Fisheye shortcut keys: 1-9 = Lenses, Y,U,I,O,P = Globes")
+            for key, command in SHORTCUT_BINDINGS.items():
+                self.bindings[key] = command
+        else:
+            self._print("Disabled Fisheye shortcut keys")
+            for key in "12345678":
+                self.bindings[key] = f"impulse {key}"
+            for key in ("9", "y", "u", "i", "o", "p"):
+                self.bindings.pop(key, None)
+
+    def _cmd_bind(self, argv):
+        """``Key_Bind_f`` (``common/keys.c:661-703``): exactly ``bind <key>``
+        (query) or ``bind <key> <command>`` (set; one quoted token, the
+        reference rejects argc > 3)."""
+        if len(argv) not in (2, 3):
+            self._print("bind <key> [command] : attach a command to a key")
+            return
+        if len(argv) == 2:
+            if argv[1] in self.bindings:
+                self._print(f'"{argv[1]}" = "{self.bindings[argv[1]]}"')
+            else:
+                self._print(f'"{argv[1]}" is not bound')
+            return
+        self.bindings[argv[1]] = argv[2]
+
+    def _cmd_unbind(self, argv):
+        """``Key_Unbind_f`` (``common/keys.c:628-644``)."""
+        if len(argv) != 2:
+            self._print("unbind <key> : remove commands from a key")
+            return
+        self.bindings.pop(argv[1], None)
+
+    def _cmd_unbindall(self, argv):
+        """``Key_Unbindall_f`` (``common/keys.c:647-656``): clear every
+        binding, the first line of an engine-written config."""
+        self.bindings.clear()
+
+    def _cmd_stuffcmds(self, argv):
+        """``Cmd_StuffCmds_f`` (``common/cmd.c:236-296``): run the
+        command-line commands again, so that a config ending in
+        ``stuffcmds`` lets them win over its own settings (quake.rc's
+        order: exec defaults, exec config.cfg, stuffcmds)."""
+        if len(argv) != 1:
+            # common/cmd.c:253-256: usage, nothing executed
+            self._print("stuffcmds : execute command line parameters")
+            return
+        if self._in_stuffcmds:
+            # the C engine consumes the command line through a one-shot
+            # buffer; here a command-line exec of a config that ends in
+            # stuffcmds would recurse for ever
+            self._print("stuffcmds: ignoring recursive call")
+            return
+        self._in_stuffcmds = True
+        try:
+            for c in self.cmdline_cmds:
+                self.cmd(c)
+        finally:
+            self._in_stuffcmds = False
+
+    def _cmd_exec(self, argv):
+        """``Cmd_Exec_f``: run a config file; one that cannot be read or
+        decoded prints ``couldn't exec`` and the console goes on
+        (``common/cmd.c:325``)."""
+        if len(argv) >= 2:
+            try:
+                self.exec_config(argv[1])
+            except (OSError, UnicodeDecodeError):
+                self._print(f"couldn't exec {argv[1]}")
+
+    def press_key(self, key: str) -> None:
+        """Run the command bound to *key* (the shortcut-key surface)."""
+        if key in self.bindings:
+            self.cmd(self.bindings[key])
+
     def _cmd_alias(self, argv):
         """``Cmd_Alias_f`` (``common/cmd.c:373-432``): no args lists the
         aliases; else ``alias <name> <value...>`` stores argv[2:] joined
@@ -688,11 +825,21 @@ class Session:
         builder the backend policy picks, with the view rotation composed
         in.  A float32 build leaves its tables on the session's device,
         where the remap kernel takes them without a trip through the
-        host."""
+        host.
+
+        With :attr:`build_budget_s` set and an exact host build ahead, the
+        build is time-sliced (the reference's resumable builder,
+        ``fisheye.c:306-322``): a preview is installed now, the float32
+        device build when the lens evaluates on tensors and its builder is
+        warm on this device, else the growing partial table, and each
+        render advances the exact build by the budget until it swaps in,
+        bit-identical to the blocking build."""
         self._lensmap = None
         self._lensmap_np = None
         self._lensmap_meta = None
         self._kernel = None
+        self._pending_build = None
+        self._preview_is_partial = False
         if not (self.lens_valid and self.globe_valid):
             self._changed = False
             return
@@ -708,6 +855,35 @@ class Session:
             self._print(str(e))
             self._changed = False
             return
+        backend = self._resolved_backend()
+        # what the table is built FROM, recorded now rather than inferred
+        # later: consumers that need an identity-view table at a known scale
+        # check this, not the session's mutable state (a pending
+        # setviewangles must not hide a reusable earlier build)
+        self._lensmap_meta = (self.lens, self.globe, self._view_basis() is None)
+        if (self.build_budget_s is not None and backend == "numpy"
+                and self.lens.map_type == "inverse"):
+            from blinky_tpu_torch.lensmap.progressive import ProgressiveHostBuild
+
+            pb = ProgressiveHostBuild(
+                self.lens, self.globe, scale, self.width_px, self.height_px,
+                self.platesize, numcells=self.rubix_numcells,
+                cell_size=self.rubix_cell_size, pad_size=self.rubix_pad_size,
+                view_basis=self._view_basis())
+            self._pending_build = pb
+            if self._jittable() and device_builder_warm(
+                    self.lens, self.globe, self.width_px, self.height_px,
+                    self.platesize, device=self.device):
+                # the float32 device preview, milliseconds once warm; a
+                # cold builder would stall on its first run, so a cold lens
+                # paints the growing partial table instead
+                backend = "torch"
+            else:
+                pb.step(self.build_budget_s)  # the first slice right away
+                self._lensmap = pb.partial()
+                self._preview_is_partial = True
+                self._changed = False
+                return
         self._lensmap = build_lensmap(
             self.lens,
             self.globe,
@@ -718,16 +894,37 @@ class Session:
             numcells=self.rubix_numcells,
             cell_size=self.rubix_cell_size,
             pad_size=self.rubix_pad_size,
-            backend=self._resolved_backend(),
+            backend=backend,
             view_basis=self._view_basis(),
             device=self.device,
         )
-        # what the table was built FROM, recorded now rather than inferred
-        # later: consumers that need an identity-view table at a known scale
-        # check this, not the session's mutable state (a pending
-        # setviewangles must not hide a reusable earlier build)
-        self._lensmap_meta = (self.lens, self.globe, self._view_basis() is None)
         self._changed = False
+
+    def _advance_build(self, budget_s=None) -> None:
+        """One time slice of a pending exact build (``resume_lensmap``,
+        ``fisheye.c:744-746,2074``); swaps the exact table in when it lands.
+        ``budget_s=None`` finishes the build."""
+        pb = self._pending_build
+        if pb is None:
+            return
+        pb.step(float("inf") if budget_s is None else budget_s)
+        if pb.done:
+            self._lensmap = pb.result()
+            self._pending_build = None
+            self._preview_is_partial = False
+        elif self._preview_is_partial:
+            self._lensmap = pb.partial()  # pixels appear
+        else:
+            return
+        self._lensmap_np = None
+        self._kernel = None
+
+    @property
+    def build_progress(self):
+        """Exact-build progress 0..1 while a time-sliced build is pending,
+        else None."""
+        pb = self._pending_build
+        return None if pb is None else pb.progress
 
     def warm_device_builder(self) -> bool:
         """Run the float32 device builder for the active lens and globe at
@@ -755,9 +952,11 @@ class Session:
     @property
     def lensmap(self):
         """The current lensmap with NumPy arrays (a float32 build's tables
-        are copied from the device once a build)."""
+        are copied from the device once a build).  A pending time-sliced
+        build is finished first: this is the exact table."""
         if self._changed or self._lensmap is None:
             self._rebuild()
+        self._advance_build(budget_s=None)
         return self._lensmap_numpy()
 
     def _lensmap_numpy(self):
@@ -779,6 +978,7 @@ class Session:
         # a generation counter, not id(): a freed array's id can be reused
         self._palette_gen += 1
         self._kernel = None
+        self._plain_cache = None
         self._posed_cache = None  # its RGBA background decodes the palette
         self._aa_cache = None  # hi-res sessions bake the palette in
         self._rgba_lut = None  # the palette's RGBA LUT on the device
@@ -790,6 +990,7 @@ class Session:
         # a generation counter, not id(): a freed array's id can be reused
         self._background_gen += 1
         self._kernel = None  # rebuilt lazily in render() from the lensmap
+        self._plain_cache = None
         self._posed_cache = None
 
     def set_size(self, width: int, height: int, platesize: Optional[int] = None) -> None:
@@ -804,22 +1005,38 @@ class Session:
             self._background_gen += 1
         self._changed = True  # sizechange, fisheye.c:709
 
-    def _prepare(self, frames) -> None:
+    def _sync_platesize(self, frames) -> None:
         S = frames.shape[1]
         if S != self.platesize:
             self.platesize = S
             self._changed = True
-        if not self.fisheye_enabled:
-            raise NotImplementedError(
-                "fisheye 0: the plain rectilinear view is not ported to "
-                "blinky_tpu_torch yet")
-        if self._changed or self._lensmap is None:
-            self._rebuild()
 
     def _background_np(self) -> np.ndarray:
         if self._background is None:
             return np.zeros((self.height_px, self.width_px), np.uint8)
         return self._background
+
+    def _background_screen(self, frames):
+        """The background on the device, one screen a frame of *frames*."""
+        bg = torch.from_numpy(self._background_np()).to(self.device)
+        if frames.ndim == 4:
+            return bg[..., None].expand(-1, -1, frames.shape[-1])
+        return bg
+
+    def _service_save(self, frames) -> None:
+        """Write a pending ``f_saveglobe`` from frame 0 of *frames* (the
+        frame itself when there is one), copied to the host; packed-RGBA
+        plates write their low byte, as ``blinky_tpu`` writes them."""
+        if self.save_request is None:
+            return
+        name, with_margins = self.save_request
+        self.save_request = None
+        fr = frames if frames.ndim == 3 else frames[..., 0]
+        if isinstance(fr, torch.Tensor):
+            fr = (fr.view(torch.int32).cpu().numpy().view(np.uint32)
+                  if fr.dtype == torch.uint32 else fr.cpu().numpy())
+        for p in save_globe_pcx(name, fr, self.globe, self.palette, bool(with_margins)):
+            self._print(f"Wrote {p}")
 
     def render(self, frames, rubix: Optional[bool] = None, decode_rgb: bool = False):
         """Remap a cubemap frame ([P, S, S]) or batch ([P, S, S, B]), a
@@ -827,16 +1044,30 @@ class Session:
         session's device.  Returns a tensor there: [H, W] / [H, W, B] u8
         (u32 for packed-RGBA frames, RGB [..., 3] with ``decode_rgb``).
         Returns the background when the current lens/zoom is invalid (the
-        reference keeps running and shows the cleared screen)."""
+        reference keeps running and shows the cleared screen).
+
+        Under ``fisheye 0`` the frames go through the plain rectilinear
+        view at the ``fov`` cvar, without rubix (V_RenderView's non-fisheye
+        branch, ``NQ/view.c:947-952``); the warped lensmap is neither built
+        nor consulted, and a pending ``f_saveglobe`` stays queued until
+        fisheye is on again, as in the reference, where only
+        ``F_RenderView`` services it.  A pending time-sliced build advances
+        by one budget slice a call."""
         if not hasattr(frames, "ndim"):
             frames = np.asarray(frames)
-        self._prepare(frames)
+        self._sync_platesize(frames)
+        if not self.fisheye_enabled:
+            kernel = self._plain_view_kernel()
+            if kernel is None:
+                return self._background_screen(frames)
+            return kernel(frames, rubix=False, decode_rgb=decode_rgb)
+        if self._changed or self._lensmap is None:
+            self._rebuild()
+        self._advance_build(budget_s=self.build_budget_s)
         lm = self._lensmap
+        self._service_save(frames)
         if lm is None:
-            bg = torch.from_numpy(self._background_np()).to(self.device)
-            if frames.ndim == 4:
-                return bg[..., None].expand(-1, -1, frames.shape[-1])
-            return bg
+            return self._background_screen(frames)
         if self._kernel is None:  # e.g. invalidated by set_background
             self._kernel = RemapKernel(lm, self.palette, self._background,
                                        device=self.device)
@@ -846,22 +1077,72 @@ class Session:
     def render_host(self, frames, rubix=None, decode_rgb: bool = False):
         """Render ONE [P, S, S] NumPy frame entirely on the host, with
         :func:`blinky_tpu_torch.kernels.remap.host_remap`, which is
-        bit-equal to the device remap on the same table."""
+        bit-equal to the device remap on the same table.  It runs
+        :meth:`render`'s state machine (the plain view, a rebuild on
+        change, one budget slice of a pending build, ``f_saveglobe``) with
+        the host builder."""
         frames = np.asarray(frames)
         if frames.ndim != 3:
             raise ValueError("render_host takes one [P, S, S] frame")
+        self._sync_platesize(frames)
         # host-side only: even a setviewangles rebuild takes the host builder
         saved_backend, self.backend = self.backend, "numpy"
         try:
-            self._prepare(frames)
+            if not self.fisheye_enabled:
+                plain = self._plain_view_lensmap()
+                if plain is None:
+                    return self._background_np()
+                return host_remap(plain, frames, self.palette, self._background,
+                                  rubix=False, decode_rgb=decode_rgb)
+            if self._changed or self._lensmap is None:
+                self._rebuild()
+            self._advance_build(budget_s=self.build_budget_s)
         finally:
             self.backend = saved_backend
         lm = self._lensmap_numpy()
+        self._service_save(frames)
         if lm is None:
             return self._background_np()
         rubix = self.rubix_enabled if rubix is None else rubix
         return host_remap(lm, frames, self.palette, self._background,
                           rubix=rubix, decode_rgb=decode_rgb)
+
+    def _plain_view_lensmap(self):
+        """The lensmap of the normal (fisheye-off) rectilinear view at the
+        ``fov`` cvar, from the current globe's plates, on the builder the
+        backend policy picks (a rotated view: the float32 device builder);
+        cached per (fov, size, plate size, globe, view angles, backend)."""
+        if not self.globe_valid:
+            return None
+        backend = self._resolved_backend()
+        key = (self.fov, self.width_px, self.height_px, self.platesize,
+               self.globe, self.view_angles, backend)
+        if self._plain_lm_cache is not None and self._plain_lm_cache[0] == key:
+            return self._plain_lm_cache[1]
+        try:
+            lens = lenses_mod.get("rectilinear", self.globe)
+            scale = calc_scale(Zoom("fov", self.fov), lens, self.width_px, self.height_px)
+            lm = build_lensmap(
+                lens, self.globe, scale, self.width_px, self.height_px,
+                self.platesize, backend=backend, view_basis=self._view_basis(),
+                device=self.device)
+        except Exception as e:  # the plain view's diagnostics, as blinky_tpu prints them
+            self._print(f"plain view unavailable: {e}")
+            return None
+        self._plain_lm_cache = (key, lm)
+        return lm
+
+    def _plain_view_kernel(self):
+        """The remap kernel over :meth:`_plain_view_lensmap`, cached with it
+        and dropped by a palette or background change."""
+        lm = self._plain_view_lensmap()
+        if lm is None:
+            return None
+        key = self._plain_lm_cache[0]
+        if self._plain_cache is None or self._plain_cache[0] != key:
+            self._plain_cache = (key, RemapKernel(lm, self.palette, self._background,
+                                                  device=self.device))
+        return self._plain_cache[1]
 
     # ------------------------------------------------------ true colour
     def _rgba_screen(self, screen):
@@ -977,9 +1258,12 @@ class Session:
           ``[P, S, S, B]`` faces (K10, then :meth:`render`'s K1), which
           feeds SEVERAL lenses from one ingest.
 
-        compact/fused step aside to "faces" when the lens or zoom is
-        invalid (the background shows).  ``fisheye 0`` raises where
-        :meth:`render` raises.
+        compact/fused step aside to "faces" whenever the materialized
+        faces are needed: ``fisheye 0`` (the plain view renders them), an
+        invalid lens or zoom (the background shows), a pending
+        ``f_saveglobe`` (it saves the ingested faces' lane 0) or a pending
+        time-sliced build (the preview table changes under a composed chain
+        every slice).
         """
         from blinky_tpu_torch.kernels.ingest import (
             CompactEquirectChain, EquirectIngest, EquirectScreenKernel,
@@ -1006,14 +1290,17 @@ class Session:
             self._equirect_cache = (key, kern)
         ingest = self._equirect_cache[1]
 
-        if mode != "faces" and self.fisheye_enabled:
-            # the rebuild sequence render() runs before gathering
+        if mode != "faces" and self.fisheye_enabled and self.save_request is None:
+            # the rebuild sequence render() runs before gathering, but not
+            # the time slice: with a build pending this falls through to the
+            # faces, whose render() advances the one slice
             if self._changed or self._lensmap is None:
                 self._rebuild()
-            if self._lensmap is not None and self._kernel is None:
+            if (self._lensmap is not None and self._pending_build is None
+                    and self._kernel is None):
                 self._kernel = RemapKernel(self._lensmap, self.palette,
                                            self._background, device=self.device)
-            if (self._kernel is not None
+            if (self._kernel is not None and self._pending_build is None
                     and self._lensmap.platesize == self.platesize):
                 fkey = (key, bool(bilinear), mode)
                 # a small dict, not a single slot: alternating compact/fused
@@ -1046,21 +1333,23 @@ class Session:
         # rubix on the u32 faces: the remap kernel tints AFTER the gather,
         # so the face batch is not expanded on the device.  An invalid lens
         # returns the u8 palette background: decode it so the u32 contract
-        # holds
+        # holds.  The plain view of fisheye 0 renders the faces too
         out = self._rgba_screen(self.render(faces))
         return out[..., 0] if squeeze else out
 
     # ------------------------------------------------------------- config
     def config_str(self) -> str:
-        """``Host_WriteConfiguration`` (``NQ/host.c:272-291``) for the state
-        this Session holds: the aliases (an extension: the reference loses
-        them on restart), then the fisheye state block (``F_WriteConfig``,
-        ``fisheye.c:683-696``).  ``blinky_tpu``'s version leads with the key
-        binds (``unbindall``, ``bind``) and writes the ``fov`` cvar; those
-        commands are not ported yet, so their lines are left out here, and a
-        config file written by ``blinky_tpu`` raises at them on replay."""
-        lines = [f'alias "{n}" "{v}"' for n, v in self.aliases.items()]
+        """``Host_WriteConfiguration`` (``NQ/host.c:272-291``): the key binds
+        (``Key_WriteBindings``, which leads with ``unbindall`` so that a
+        replay starts clean, ``keys.c:715-724``), the aliases (an extension:
+        the reference loses them on restart), the ``fov`` cvar, then the
+        fisheye state block (``F_WriteConfig``, ``fisheye.c:683-696``); the
+        lines of ``blinky_tpu``'s, in its order."""
+        lines = ["unbindall"]
+        lines += [f'bind "{k}" "{v}"' for k, v in self.bindings.items()]
+        lines += [f'alias "{n}" "{v}"' for n, v in self.aliases.items()]
         lines += [
+            f"fov {self.fov:g}",
             f"fisheye {int(self.fisheye_enabled)}",
             f'f_lens "{self.lens_name}"',
             f'f_globe "{self.globe_name}"',
@@ -1306,11 +1595,13 @@ class Session:
 
     def _reusable_static_lensmap(self, scale, platesize, render_scale):
         """The session's built static lensmap when it can seed a ray table:
-        built from this lens and globe with no view rotation composed in
+        finished (no pending time-sliced build, no partial preview), built
+        from this lens and globe with no view rotation composed in
         (``_lensmap_meta``), at this size, plate size and zoom scale, for a
         full-resolution posed grid."""
         lm, meta = self._lensmap, self._lensmap_meta
-        if lm is None or meta is None or render_scale != 1:
+        if (lm is None or meta is None or render_scale != 1
+                or self._pending_build is not None or self._preview_is_partial):
             return None
         if not (meta[0] is self.lens and meta[1] is self.globe and meta[2]):
             return None

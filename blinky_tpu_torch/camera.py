@@ -1,6 +1,6 @@
 """Camera pose math: view angles -> basis.
 
-The port of :mod:`blinky_tpu.camera`'s two angle functions.  The reference
+The port of :mod:`blinky_tpu.camera`.  The reference
 drives each plate render by composing the plate's camera-relative frame
 with the player's view basis: ``AngleVectors(r_refdef.viewangles)``
 (``engine/common/mathlib.c:311-341``) then ``plate (x) camera``
@@ -70,3 +70,20 @@ def view_basis_from_angles(pitch, yaw, roll):
     right = cr * right0 - sr * up0
     up = cr * up0 + sr * right0
     return forward, right, up
+
+
+def plate_world_basis(globe, forward, right, up):
+    """World-frame (forward, right, up) for every plate of *globe* given a
+    camera basis: the per-plate composition in ``F_RenderView``
+    (``fisheye.c:777-792``), each plate vector's components weighting the
+    camera's (right, up, forward) axes.
+
+    ``forward, right, up``: the camera basis, arrays [..., 3].  Returns
+    (f, r, u), arrays [..., numplates, 3].
+    """
+    cam = np.stack([np.asarray(right), np.asarray(up), np.asarray(forward)], axis=-2)
+
+    def mix(plate_vecs):  # [n, 3] x [..., 3, 3] -> [..., n, 3]
+        return np.einsum("nc,...cw->...nw", plate_vecs, cam)
+
+    return mix(globe.forward), mix(globe.right), mix(globe.up)

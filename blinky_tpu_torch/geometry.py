@@ -187,6 +187,39 @@ def plate_uv_to_ray_c(u, v, forward32, right32, up32, dist32, xp, f32, f64):
     return normalize_c(rx, ry, rz, xp, f32, f64)
 
 
+def ray_to_plate_index(x, y, z, plate_forward):
+    """Closest plate by maximum dot product, first index wins ties
+    (``fisheye.c:2023-2050`` scans with a strict ``>``; ``argmax`` keeps the
+    first maximum).  *x, y, z*: ray components of any broadcastable shape,
+    arrays or tensors; *plate_forward*: [n, 3].  Returns int32 [...]."""
+    if m.xp(x, y, z) is torch:
+        f = torch.as_tensor(np.asarray(plate_forward), device=x.device)
+        dots = x[..., None] * f[:, 0] + y[..., None] * f[:, 1] + z[..., None] * f[:, 2]
+        return torch.argmax(dots, dim=-1).to(torch.int32)
+    f0, f1, f2 = (np.asarray(plate_forward[:, i]).copy() for i in range(3))
+    dots = x[..., None] * f0 + y[..., None] * f1 + z[..., None] * f2
+    return np.argmax(dots, axis=-1).astype(np.int32)
+
+
+def ray_to_plate_uv(x, y, z, p_forward, p_right, p_up, p_fov_rad):
+    """Project a ray onto one plate's image plane (``fisheye.c:2052-2066``):
+    dot the ray with the plate frame, recompute ``dist = 0.5/tan(fov/2)``,
+    then ``u = x/z*dist + 0.5``, ``v = -y/z*dist + 0.5``; valid iff both lie
+    in the closed interval [0, 1].
+
+    ``p_forward, p_right, p_up``: per-element plate frames [..., 3];
+    ``p_fov_rad``: per-element plate fov [...].  Returns (u, v, valid).
+    """
+    rx = p_right[..., 0] * x + p_right[..., 1] * y + p_right[..., 2] * z
+    ry = p_up[..., 0] * x + p_up[..., 1] * y + p_up[..., 2] * z
+    rz = p_forward[..., 0] * x + p_forward[..., 1] * y + p_forward[..., 2] * z
+    dist = 0.5 / m.tan(p_fov_rad / 2)
+    u = m.safe_div(rx, rz) * dist + 0.5
+    v = m.safe_div(-ry, rz) * dist + 0.5
+    valid = (rz != 0) & (u >= 0) & (u <= 1) & (v >= 0) & (v <= 1)
+    return u, v, valid
+
+
 def plate_dist(fov_rad):
     """Pinhole plane distance for a plate fov: ``0.5 / tan(fov/2)``
     (``fisheye.c:1868``)."""

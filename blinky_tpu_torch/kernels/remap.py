@@ -758,6 +758,13 @@ class RemapKernel:
         return out.view(torch.uint32) if is_rgba else out
 
 
+def remap_frames(lensmap, frames, palette=None, background=None, rubix=False,
+                 decode_rgb=False, *, device="cuda"):
+    """One-shot convenience wrapper around :class:`RemapKernel` on *device*."""
+    return RemapKernel(lensmap, palette, background, device=device)(
+        frames, rubix=rubix, decode_rgb=decode_rgb)
+
+
 def host_remap(lensmap, frame, palette=None, background=None,
                rubix=False, decode_rgb=False) -> np.ndarray:
     """Pure-NumPy single-frame remap: no device.

@@ -669,14 +669,21 @@ lensmap_resolve.given_launches = 0  # the launches in resolver mode 2 (a script 
 
 
 def inverse_grid(lens, globe, scale, width_px, height_px, platesize,
-                 numcells, cell_size, pad_size, view_basis=None):
+                 numcells, cell_size, pad_size, view_basis=None, row_range=None):
     """The full inverse-path lensmap computation over the pixel grid:
     :func:`lens_ray_grid` (lens math) then :func:`rays_to_lensmap`.  The
     lens math deliberately rides IEEE nan/inf (the Lua VM's C operators
     never trap — ``fisheye.c`` masks invalid pixels afterwards), so
-    NumPy's RuntimeWarnings are suppressed for the duration."""
+    NumPy's RuntimeWarnings are suppressed for the duration.
+
+    ``row_range=(r0, r1)`` computes only screen rows ``r0..r1`` (the
+    resumable build's cursor, ``fisheye.c:306-322``): every per-pixel
+    quantity is elementwise in the pixel's absolute coordinates, so a row
+    block is bit-identical to the same rows of a full build, and its
+    ``plates_used`` covers just the block."""
     with np.errstate(all="ignore"):
-        vx, vy, vz, lens_valid = lens_ray_grid(lens, scale, width_px, height_px)
+        vx, vy, vz, lens_valid = lens_ray_grid(lens, scale, width_px, height_px,
+                                               row_range=row_range)
         return rays_to_lensmap(
             globe, vx, vy, vz, lens_valid, platesize,
             numcells, cell_size, pad_size, view_basis=view_basis)

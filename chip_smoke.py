@@ -134,6 +134,33 @@ times every kernel against its plain PyTorch version.  Phases:
    screens beside the built-in fast globe's; each Lua lens stage's time
    beside the built-in's, the resolver's over the posed batch, and the
    mode-2 kernels and K13 beside their bounds.
+11. the rest of the Session surface: with every launch counter at 0, a 1080p
+   Session renders the batch under ``fisheye 0`` at ``fov 90`` and 110, plain
+   (K1) and with ``decode_rgb`` (K2), then after ``setviewangles 10 30 0``
+   (the plain table on the float32 builder: the lens stage, K8, K1); phase
+   8's 720p Session renders its panos through ``render_equirect`` compact
+   under ``fisheye 0`` (the faces, K10, then the plain view, K1); a 1080p
+   ``render_aa`` at factor 2 under ``fisheye 0`` (K1 at 3840x2160, K11); a
+   ``Session(1920, 1080, build_budget_s=1/60)`` with its float32 builder warm
+   switches to stereographic and renders until the exact build lands (the
+   float32 preview first: the lens stage, K8, K1), and another with a cold
+   builder switches to hammer (the partial table's preview, a new
+   RemapKernel each render); ``f_saveglobe`` through ``render`` and
+   ``render_equirect``; a console session runs ``f_shortcutkeys``,
+   ``press_key``, ``bind`` / ``unbind`` and ``stuffcmds`` of its command
+   line, and its config is exec'd into a fresh Session; the counters are read
+   and printed.  The plain views are held bit-equal to their plain versions
+   and ``host_remap`` for frames 0 and 63, K8 to ``rays_to_lensmap_torch``,
+   the equirect lanes 0 and 127 to the all-host path, ``render_aa`` to its
+   plain versions, the time-sliced build's final screens to a blocking
+   build's, every partial render to the background on its unbuilt rows and
+   to ``host_remap`` of its table, the PCX files to ``save_globe_pcx`` of
+   the host's frame 0 (of the faces' lane 0, low byte), and the replayed
+   config's screens to the console session's; K1's time on the plain table
+   beside its byte bound, the plain table's host build, the preview's
+   first-frame latency beside the blocking build, the renders and the
+   largest render call until the swap, and the partial preview's render
+   with its table upload are printed.
 
 The line before the card's name and power limit lists every kernel with its
 launches in its path's run (phase 2 for K1-K4, phase 6 for K5-K7, phase 7
@@ -437,6 +464,7 @@ def main():
     lenses_phase(dev, frames, frames_dev, kernels)
     lua_launches, lua_rows = lua_phase(dev, frames, frames_dev, kernels)
     launches.update(lua_launches)
+    surface_phase(dev, frames, frames_dev, kernels)
 
     k1, k2 = main_ms["remap_gather"], main_ms["remap_lut"]
     rows = [
@@ -2226,6 +2254,380 @@ def lua_phase(dev, frames, frames_dev, kernels):
          k13_plain, k13_bound, k13_by, None, None),
     ]
     return counted, rows
+
+
+# phase 11: the rest of the Session surface.  The cold lens of the partial
+# preview is one no earlier phase built on the float32 builder in a Session
+# of this size; its exact 1080p host build takes about a second
+SLICE_BUDGET_S = 1 / 60
+COLD_LENS = "hammer"
+
+
+def surface_phase(dev, frames, frames_dev, kernels):
+    """Phase 11: the fisheye-0 plain view, time-sliced builds with the float32
+    preview, f_saveglobe and the console commands.  Its launch counts are
+    printed here; the kernels line keeps each kernel's launches in its own
+    path's phase."""
+    import os
+    import shutil
+    import tempfile
+
+    from blinky_tpu_torch import lenses
+    from blinky_tpu_torch.api import Session
+    from blinky_tpu_torch.bench.sol import cuda_ms
+    from blinky_tpu_torch.bench.throughput import device_pano
+    from blinky_tpu_torch.camera import view_basis_from_angles
+    from blinky_tpu_torch.io.cubemap import save_globe_pcx
+    from blinky_tpu_torch.kernels import ingest, remap
+    from blinky_tpu_torch.lensmap import builder
+
+    S, H, W = 1080, 1080, 1920
+    phase_t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    panos = device_pano(PANO_H, PANO_W, PANO_B, device=dev)  # phase 8's panos
+    torch.cuda.synchronize()
+    src = frames_dev.reshape(-1, B_MAIN)
+
+    # ------------------------------------------------ the path, counted
+    path_kernels = {"remap_gather": remap.remap_gather, "remap_lut": remap.remap_lut,
+                    "lensmap_resolve": builder.lensmap_resolve,
+                    "equirect_gather": ingest.equirect_gather,
+                    "downsample_rgba": remap.downsample_rgba}
+    for fn in list(kernels.values()) + list(path_kernels.values()):
+        fn.launches = 0
+    plain = Session(W, H, device=dev)                         # a: the plain view
+    views, plain_s = {}, {}
+    for fov in (90, 110):
+        t0 = time.perf_counter()
+        plain.cmd(f"fisheye 0; fov {fov}")
+        out = plain.render(frames_dev)
+        torch.cuda.synchronize()
+        plain_s[fov] = time.perf_counter() - t0  # the exact host build, then K1
+        views[fov] = (out, plain.render(frames_dev, decode_rgb=True), plain._plain_cache[1],
+                      plain._plain_lm_cache[1])
+    plain.cmd("setviewangles 10 30 0")                        # b: rotated, on K8
+    out_rot = plain.render(frames_dev)
+    k_rot, lm_rot = plain._plain_cache[1], plain._plain_lm_cache[1]
+    eq = Session(EQ_W, EQ_H, platesize=EQ_S, device=dev)      # c: render_equirect
+    eq.cmd("fisheye 0")
+    eq_out = eq.render_equirect(panos, mode="compact")
+    aa = Session(W, H, device=dev)                            # d: render_aa
+    aa.cmd("fisheye 0; fov 100")
+    aa_out = aa.render_aa(frames_dev, factor=AA_FACTOR)
+    sl = Session(W, H, device=dev, build_budget_s=SLICE_BUDGET_S)  # e: the float32 preview
+    sl.cmd("f_lens stereographic")
+    require(sl.warm_device_builder(), "stereographic has no device builder")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sl.cmd("f_lens stereographic")
+    first = sl.render(frames_dev)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    require(sl.build_progress is not None and not sl._preview_is_partial
+            and isinstance(sl._lensmap.flat_idx, torch.Tensor),
+            "the time-sliced stereographic build did not preview through the float32 builder")
+    preview_lm, preview_k, progress0 = sl._lensmap, sl._kernel, sl.build_progress
+    slice_walls, final = [first_s], first
+    while sl.build_progress is not None:
+        t1 = time.perf_counter()
+        final = sl.render(frames_dev)
+        torch.cuda.synchronize()
+        slice_walls.append(time.perf_counter() - t1)
+    sliced_s = time.perf_counter() - t0
+    bg = np.full((H, W), 251, np.uint8)                       # f: the partial preview
+    cold = Session(W, H, device=dev, build_budget_s=SLICE_BUDGET_S)
+    cold.set_background(bg)
+    cold.cmd(f"f_lens {COLD_LENS}")
+    partials = []
+    while True:
+        t1 = time.perf_counter()
+        out = cold.render(frames_dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        pb = cold._pending_build
+        # (the render, its wall time, the table it showed, the rows built)
+        partials.append((out[..., 0].cpu().numpy(), out[..., B_MAIN - 1].cpu().numpy(),
+                         (out[pb._row:] == 251).all().item() if pb is not None else True,
+                         wall, cold._lensmap, pb._row if pb is not None else H,
+                         cold._preview_is_partial))
+        if pb is None:
+            break
+    del out
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_saveglobe_"))
+    cwd = os.getcwd()
+    try:
+        os.chdir(tmp)
+        sv = Session(W, H, device=dev)                        # g: f_saveglobe
+        sv.cmd("f_saveglobe shot")
+        sv.render(frames_dev)
+        shot = {i: (tmp / f"shot{i}.pcx").read_bytes() for i in range(6)}
+        eqs = Session(EQ_W, EQ_H, platesize=EQ_S, device=dev)
+        eqs.cmd("f_saveglobe eq 1")
+        eqs_out = eqs.render_equirect(panos, mode="compact")
+        eq_files = {i: (tmp / f"eq{i}.pcx").read_bytes() for i in range(6)}
+        con = Session(W, H, device=dev,                       # h: the console
+                      cmdline_cmds=["f_fov 150", 'bind 8 "f_lens cube"'])
+        con.cmd("f_shortcutkeys")
+        con.press_key("4")
+        con.cmd('bind 3 "f_globe tetra"; unbind 5; bind 3; bind 5; stuffcmds; stuffcmds x')
+        con_out = con.render(frames_dev)
+        cfg = tmp / "config.cfg"
+        con.write_config(cfg)
+        fresh = Session(W, H, device=dev, defaults=False)
+        fresh.cmd(f"exec {cfg}")
+        fresh_out = fresh.render(frames_dev)
+        torch.cuda.synchronize()
+        launches = {name: fn.launches for name, fn in path_kernels.items()}
+        run_s = time.perf_counter() - phase_t0
+        phase(11, f"launches in the Session surface's run (a: fisheye 0 at fov 90 and 110, "
+              f"plain and decode_rgb, b: after setviewangles 10 30 0, c: render_equirect "
+              f"compact under fisheye 0, d: render_aa factor {AA_FACTOR} under fisheye 0, e: "
+              f"the time-sliced stereographic build previewed by the float32 builder, f: the "
+              f"{COLD_LENS} build previewed by its partial table, g: f_saveglobe through render "
+              f"and render_equirect, h: the console session and its config's replay): "
+              f"{launches}; {run_s:.3f} s")
+        for name, n in launches.items():
+            require(n >= 1, f"{name} was not launched by the Session surface's path")
+
+        # ------------------------------------------------ g and h: files and console
+        for i in range(6):
+            (tmp / f"shot{i}.pcx").unlink()
+            (tmp / f"eq{i}.pcx").unlink()
+        save_globe_pcx("shot", frames[..., 0], sv.globe, sv.palette)
+        require(all(shot[i] == (tmp / f"shot{i}.pcx").read_bytes() for i in range(6)),
+                "f_saveglobe from the batch on the card differs from save_globe_pcx of frame 0")
+        require(sv.console[-6:] == [f"Wrote shot{i}.pcx" for i in range(6)],
+                f"f_saveglobe's console: {sv.console[-6:]}")
+        require(not eqs._equirect_fused, "render_equirect composed a chain with a save pending")
+        faces = eqs._equirect_cache[1](panos)
+        lane0 = faces.view(torch.int32)[..., 0].cpu().numpy().view(np.uint32)
+        save_globe_pcx("eq", lane0, eqs.globe, eqs.palette, True)
+        require(all(eq_files[i] == (tmp / f"eq{i}.pcx").read_bytes() for i in range(6)),
+                "f_saveglobe through render_equirect differs from the faces' lane 0")
+        require(torch.equal(eqs_out.view(torch.int32), eqs.render(faces).view(torch.int32)),
+                "render_equirect with a save pending differs from the faces' render")
+        require(torch.equal(eqs.render_equirect(panos, mode="compact").view(torch.int32),
+                            eqs_out.view(torch.int32)),
+                "render_equirect compact after the save differs from the faces route")
+        phase(11, f"f_saveglobe shot, then a render of the B={B_MAIN} batch on the card: its 6 "
+              "PCX files equal save_globe_pcx of frame 0 from the host, byte for byte; "
+              "f_saveglobe eq 1, then render_equirect compact: the faces route (no composed "
+              "chain), its 6 files equal those of the ingested faces' lane 0 (low byte), and "
+              "its screens equal the faces' render and the next compact call's")
+        del faces
+        require(con.lens_name == "winkeltripel" and con.zoom.command() == "f_fov 150"
+                and con.bindings["3"] == "f_globe tetra" and "5" not in con.bindings
+                and con.bindings["8"] == "f_lens cube",
+                f"the console session's state: {con.lens_name} {con.zoom.command()} "
+                f"{con.bindings}")
+        require(con.console[-3:] == ['"3" = "f_globe tetra"', '"5" is not bound',
+                                     "stuffcmds : execute command line parameters"],
+                f"the console session's last lines: {con.console[-3:]}")
+        require(fresh.config_str() == con.config_str(),
+                "the config's replay gives another config")
+        require(torch.equal(fresh_out, con_out), "the config's replay renders other screens")
+        require(torch.equal(fresh_out, remap.remap_gather_plain(
+            src, fresh._kernel.flat_idx, fresh._kernel.valid, fresh._kernel.background,
+            fill=True).reshape(fresh_out.shape)), "the replayed render differs from K1's plain "
+            "version")
+        phase(11, "console: f_shortcutkeys, press_key('4') (winkeltripel), bind / unbind, "
+              "stuffcmds of the command line (f_fov 150, bind 8) and its usage line; "
+              f"config_str ({len(con.config_str().splitlines())} lines) written and exec'd "
+              f"into a fresh Session: the same config and bit-equal {W}x{H} screens at "
+              f"B={B_MAIN}")
+        del con_out, fresh_out
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # ------------------------------------------------ a and b: the plain view
+    rect = lenses.get("rectilinear", plain.globe)
+    for fov, (out, rgb, k, lm) in views.items():
+        require(isinstance(lm.flat_idx, np.ndarray), f"fov {fov}: the plain table is not exact")
+        e = int((out.int() - remap.remap_gather_plain(
+            src, k.flat_idx, k.valid, k.background, fill=True).reshape(out.shape).int())
+            .abs().max())
+        require(e == 0, f"fisheye 0 fov {fov}: K1 differs from its plain version ({e})")
+        require(torch.equal(rgb, remap.remap_lut_plain(
+            src, k.flat_idx, k.valid, k.tint, k.background, None, k.rgb_lut).reshape(rgb.shape)),
+            f"fisheye 0 fov {fov}: decode_rgb (K2) differs from its plain version")
+        for b in (0, B_MAIN - 1):
+            require(np.array_equal(out[..., b].cpu().numpy(),
+                                   remap.host_remap(lm, frames[..., b], plain.palette)),
+                    f"fisheye 0 fov {fov}: frame {b} differs from host_remap")
+            require(np.array_equal(rgb[..., b, :].cpu().numpy(), remap.host_remap(
+                lm, frames[..., b], plain.palette, decode_rgb=True)),
+                f"fisheye 0 fov {fov}: decode_rgb frame {b} differs from host_remap")
+        n = k.flat_idx.numel()
+        rows = source_rows(k.flat_idx, k.valid, src.shape[0], True)
+        nbytes = n * 6 + (rows + n) * B_MAIN
+        k1_ms, k1_plain = cuda_ms_pair(
+            lambda: remap.remap_gather(src, k.flat_idx, k.valid, k.background, fill=True),
+            lambda: remap.remap_gather_plain(src, k.flat_idx, k.valid, k.background, fill=True))
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        phase(11, f"fisheye 0, fov {fov}: the plain table (rectilinear, scale {lm.scale:.6f}) "
+              f"built on the host and the first render in {plain_s[fov]:.3f} s; "
+              f"{float(lm.valid.mean()):.6f} of the pixels valid; K1 and K2 (decode_rgb) "
+              f"bit-equal to their plain versions and to host_remap for frames 0 and "
+              f"{B_MAIN - 1}; K1 {k1_ms:.4f} ms, plain {k1_plain:.4f} ms; {rows} distinct "
+              f"source rows, {nbytes} bytes, bound {bound_ms:.4f} ms, "
+              f"{100 * bound_ms / k1_ms:.1f} % of it")
+    del views
+    require(isinstance(lm_rot.flat_idx, torch.Tensor) and lm_rot.flat_idx.is_cuda,
+            "the rotated plain view did not build on the card")
+    vb = torch.from_numpy(builder.basis_f32(view_basis_from_angles(10.0, 30.0, 0.0))).to(dev)
+    rays = builder.lens_rays_torch(rect, lm_rot.scale, W, H, dev)
+    want = builder.rays_to_lensmap_torch(plain.globe, *rays, S, 10, 4.0, 1.0, view_basis=vb)
+    for f in ("plate", "px", "py", "valid", "tint", "flat_idx", "plates_used"):
+        require(torch.equal(getattr(lm_rot, f), want[f]),
+                f"the rotated plain view's {f} differs from rays_to_lensmap_torch")
+    del rays, want
+    require(torch.equal(out_rot, remap.remap_gather_plain(
+        src, k_rot.flat_idx, k_rot.valid, k_rot.background, fill=True).reshape(out_rot.shape)),
+        "the rotated plain view's render differs from K1's plain version")
+    lm_rot_np = lm_rot.to_numpy()
+    for b in (0, B_MAIN - 1):
+        require(np.array_equal(out_rot[..., b].cpu().numpy(),
+                               remap.host_remap(lm_rot_np, frames[..., b], plain.palette)),
+                f"the rotated plain view's frame {b} differs from host_remap of its table")
+    exact_rot = plain.render_host(frames[..., 0])  # the same view on the exact host builder
+    share = float((out_rot[..., 0].cpu().numpy() != exact_rot).mean())
+    require(share <= 0.02, f"the rotated plain view differs from the exact one on {share}")
+    phase(11, "fisheye 0 after setviewangles 10 30 0 under 'auto': the plain table built on the "
+          "card (the lens stage, then K8, bit-equal to rays_to_lensmap_torch on the same rays), "
+          f"then K1, bit-equal to its plain version and host_remap for frames 0 and "
+          f"{B_MAIN - 1}; frame 0 differs from the exact host build's view on {share:.6f} of "
+          "the pixels")
+    del out_rot
+
+    # ------------------------------------------------ c and d: equirect and AA
+    require(eq_out.dtype == torch.uint32 and tuple(eq_out.shape) == (EQ_H, EQ_W, PANO_B),
+            f"render_equirect under fisheye 0 gave {eq_out.dtype} {tuple(eq_out.shape)}")
+    require(not eq._equirect_fused, "render_equirect composed a chain under fisheye 0")
+    eq_lm = eq._plain_lm_cache[1]
+    bits = panos.view(torch.int32).reshape(-1, PANO_B)
+    ing = ingest.EquirectIngest(PANO_H, PANO_W, EQ_S, globe=eq.globe, bilinear=True, device=dev)
+    for b in (0, PANO_B - 1):
+        pano = bits[:, b].cpu().numpy().view(np.uint32).reshape(PANO_H, PANO_W)
+        host = remap.host_remap(eq_lm, ing.host(pano), eq.palette)
+        require(np.array_equal(eq_out.view(torch.int32)[..., b].cpu().numpy().view(np.uint32),
+                               host),
+                f"render_equirect under fisheye 0: lane {b} differs from the all-host path")
+    del bits
+    hi_sess = next(iter(aa._aa_cache.values()))
+    require(not hi_sess.fisheye_enabled and hi_sess.fov == 100.0,
+            "render_aa's hi-res session did not replay fisheye 0 and fov")
+    hi = hi_sess.render(aa._rgba_screen(frames_dev))
+    require(torch.equal(aa_out.view(torch.int32),
+                        remap.downsample_rgba_plain(hi.view(torch.int32), AA_FACTOR)),
+            "render_aa under fisheye 0 differs from downsample_rgba_plain of its hi-res render")
+    hk = hi_sess._plain_cache[1]
+    rgba_src = aa._rgba_screen(frames_dev).view(torch.int32).reshape(-1, B_MAIN)
+    require(torch.equal(hi.view(torch.int32), remap.remap_gather_plain(
+        rgba_src, hk.flat_idx, hk.valid, hk.background_rgba).reshape(hi.shape)),
+        "render_aa's hi-res plain view differs from K1's plain version")
+    del hi, rgba_src
+    phase(11, f"render_equirect compact under fisheye 0 ({PANO_W}x{PANO_H} -> {EQ_W}x{EQ_H} "
+          f"B={PANO_B}): the faces (K10) through the plain view (K1), u32, lanes 0 and "
+          f"{PANO_B - 1} equal EquirectIngest.host + host_remap; render_aa factor "
+          f"{AA_FACTOR} under fisheye 0 (the hi-res session replays fisheye 0 and fov 100: K1 "
+          "at 3840x2160, then K11) bit-equal to the plain versions")
+    del eq_out, aa_out, panos
+
+    # ------------------------------------------------ e and f: time-sliced builds
+    blk = Session(W, H, device=dev)
+    blk.cmd("f_lens stereographic")
+    t1 = time.perf_counter()
+    blk.lensmap
+    blocking_s = time.perf_counter() - t1
+    want = blk.render(frames_dev)
+    require(torch.equal(final, want),
+            "the time-sliced stereographic build's final screens differ from a blocking build's")
+    require(np.array_equal(sl.lensmap.flat_idx, blk.lensmap.flat_idx),
+            "the time-sliced build's table differs from the blocking build's")
+    require(torch.equal(first, remap.remap_gather_plain(
+        src, preview_k.flat_idx, preview_k.valid, preview_k.background,
+        fill=True).reshape(first.shape)), "the float32 preview's render differs from K1's "
+        "plain version")
+    rays = builder.lens_rays_torch(sl.lens, preview_lm.scale, W, H, dev)
+    want_t = builder.rays_to_lensmap_torch(
+        sl.globe, *rays, S, 10, 4.0, 1.0,
+        view_basis=torch.from_numpy(builder.basis_f32(builder.IDENTITY_BASIS)).to(dev))
+    require(torch.equal(preview_lm.flat_idx, want_t["flat_idx"])
+            and torch.equal(preview_lm.valid, want_t["valid"]),
+            "the float32 preview's table differs from rays_to_lensmap_torch")
+    prev_share = float((preview_lm.flat_idx.cpu().numpy() != blk.lensmap.flat_idx).mean())
+    del rays, want_t
+    # the first frame's parts, on a second switch: the command, the preview
+    # (the float32 build and the exact build's empty tables), the first slice,
+    # then the remap kernel on the preview's tables and K1
+    parts = []
+    for step in (lambda: sl.cmd("f_lens stereographic"), sl._rebuild,
+                 lambda: sl._advance_build(SLICE_BUDGET_S),
+                 lambda: remap.RemapKernel(sl._lensmap, sl.palette, None,
+                                           device=dev)(frames_dev)):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        parts.append(1e3 * (time.perf_counter() - t1))
+    sl.lensmap  # finishes the build
+    phase(11, f"Session({W}, {H}, build_budget_s=1/60), the float32 builder warm, then f_lens "
+          f"stereographic: the first frame (the float32 preview: the lens stage, K8, K1; "
+          f"bit-equal to the plain versions; {prev_share:.6f} of its pixels off the exact "
+          f"table) {1e3 * first_s:.3f} ms after the command, against the blocking exact build's "
+          f"{blocking_s:.3f} s; progress after it {progress0:.4f}; {len(slice_walls)} renders "
+          f"until build_progress is None, the largest render call "
+          f"{1e3 * max(slice_walls):.3f} ms, the median "
+          f"{1e3 * float(np.median(slice_walls)):.3f} ms, {sliced_s:.3f} s in all; the final "
+          f"screens bit-equal to the blocking Session's.  A second switch, by parts: the "
+          f"command {parts[0]:.3f} ms, the preview's build {parts[1]:.3f} ms, the first slice "
+          f"{parts[2]:.3f} ms, the remap kernel and K1 {parts[3]:.3f} ms")
+    del final, want, first
+    upload = []
+    for b_idx, (o0, o63, bg_ok, wall, lm, built, partial) in enumerate(partials):
+        require(bg_ok, f"{COLD_LENS} render {b_idx}: an unbuilt row differs from the background")
+        lm_np = lm if isinstance(lm.flat_idx, np.ndarray) else lm.to_numpy()
+        for b, o in ((0, o0), (B_MAIN - 1, o63)):
+            require(np.array_equal(o, remap.host_remap(lm_np, frames[..., b], cold.palette, bg)),
+                    f"{COLD_LENS} render {b_idx}: frame {b} differs from host_remap of the "
+                    "table it showed")
+        require(partial or built == H, f"{COLD_LENS} render {b_idx}: not the partial preview")
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        remap.RemapKernel(partials[0][4], cold.palette, bg, device=dev)
+        torch.cuda.synchronize()
+        upload.append(time.perf_counter() - t1)
+    walls = [p[3] for p in partials]
+    # a partial render's parts, on a second switch: the slice, the partial
+    # table's copy, the remap kernel (its tables uploaded) and K1
+    cold.cmd(f"f_lens {COLD_LENS}")
+    cold._rebuild()
+    pb, cparts = cold._pending_build, []
+    for step in (lambda: pb.step(SLICE_BUDGET_S), pb.partial,
+                 lambda: remap.RemapKernel(pb.partial(), cold.palette, bg,
+                                           device=dev)(frames_dev)):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        cparts.append(1e3 * (time.perf_counter() - t1))
+    cold_lm = cold.lensmap
+    require(np.array_equal(cold_lm.flat_idx, partials[-1][4].flat_idx),
+            f"{COLD_LENS}: the last table differs from the exact one")
+    phase(11, f"{COLD_LENS} with a cold float32 builder, build_budget_s=1/60: {len(partials)} "
+          f"renders through the partial preview, each a new RemapKernel (its tables uploaded) "
+          f"and K1; every render's unbuilt rows are the background and frames 0 and "
+          f"{B_MAIN - 1} equal host_remap of the table it showed; render wall clock with its "
+          f"upload: largest {1e3 * max(walls):.3f} ms, median "
+          f"{1e3 * float(np.median(walls)):.3f} ms; a {W}x{H} table's upload alone "
+          + ", ".join(f"{1e3 * u:.3f}" for u in upload) + f" ms; a second switch's render "
+          f"by parts: the slice {cparts[0]:.3f} ms, the partial table's copy {cparts[1]:.3f} "
+          f"ms, its copy, remap kernel (the upload) and K1 {cparts[2]:.3f} ms; phase 11 took "
+          f"{time.perf_counter() - phase_t0:.3f} s")
+    del partials
+    torch.cuda.empty_cache()
 
 
 def calc_scale_of(lens, width_px, height_px):

@@ -1110,6 +1110,110 @@ def test_session_backend_torch_on_card(cuda_device):
         assert sess.warm_device_builder()
 
 
+# ---------------------- the plain view, time-sliced builds and f_saveglobe
+
+
+def _host_rays(monkeypatch):
+    """The float32 lens stage computed on the CPU and moved to the card, so
+    that K8's tables on the card and its plain version's on the CPU come
+    from the same rays (the stage's transcendentals differ between the
+    card and the CPU in their last bits)."""
+    lens_rays = builder.lens_rays_torch
+
+    def host_rays(lens, scale, w, h, device, dtype=torch.float32):
+        return tuple(t.to(device) for t in lens_rays(lens, scale, w, h, torch.device("cpu"),
+                                                     dtype))
+
+    monkeypatch.setattr(builder, "lens_rays_torch", host_rays)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("source", ["u8", "rgba"])
+def test_plain_view_on_card_equals_cpu(cuda_device, monkeypatch, source):
+    """fisheye 0 on the card: the plain view's K1, and K2 for decode_rgb,
+    equal the CPU session's plain versions at two fov values; a rotated
+    plain view builds through K8 and equals the CPU's float32 build."""
+    _host_rays(monkeypatch)
+    frames = synthetic_cubemap_batch(48, 3)
+    card = Session(64, 48, device=cuda_device)
+    cpu = Session(64, 48, device="cpu")
+    fr = frames if source == "u8" else remap.frames_to_rgba(frames, card.palette)
+    view = (lambda t: t.view(torch.int32)) if source == "rgba" else (lambda t: t)
+    for cmd in ("fisheye 0; fov 90", "fov 110", "setviewangles 10 30 0"):
+        for sess in (card, cpu):
+            sess.cmd(cmd)
+        n1, n2, n8 = (remap.remap_gather.launches, remap.remap_lut.launches,
+                      builder.lensmap_resolve.launches)
+        got = card.render(fr)
+        assert remap.remap_gather.launches == n1 + 1
+        assert builder.lensmap_resolve.launches == n8 + cmd.startswith("setviewangles")
+        assert got.device.type == "cuda"
+        _equal(view(got).cpu(), view(cpu.render(fr)))
+        if source == "u8":
+            rgb = card.render(fr, decode_rgb=True)
+            assert remap.remap_lut.launches == n2 + 1
+            _equal(rgb.cpu(), cpu.render(fr, decode_rgb=True))
+        assert card._lensmap is None  # the fisheye view was never built
+
+
+@pytest.mark.cuda
+def test_sliced_build_device_preview_on_card(cuda_device, monkeypatch):
+    """Session(build_budget_s=...) on the card: warm on the card, a lens
+    switch previews through the float32 builder there (K8, then K1), equal
+    to the CPU session's preview warmed on the CPU; both swap to the exact
+    table, equal to a blocking build."""
+    _host_rays(monkeypatch)
+    frames = synthetic_cubemap_batch(32, 2)
+    sessions = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        sess = Session(64, 48, platesize=32, device=dev, build_budget_s=0.0005)
+        sess.cmd("f_lens winkeltripel")
+        sess.lensmap
+        assert sess.warm_device_builder()
+        sess.cmd("f_fov 140")
+        sessions[dev.type] = sess
+    card, cpu = sessions["cuda"], sessions["cpu"]
+    n8 = builder.lensmap_resolve.launches
+    got = card.render(frames)
+    assert builder.lensmap_resolve.launches == n8 + 1
+    assert card.build_progress is not None and not card._preview_is_partial
+    assert card._lensmap.flat_idx.device.type == "cuda"
+    _equal(got.cpu(), cpu.render(frames))
+    for f in ("flat_idx", "valid", "tint", "plates_used"):
+        _equal(getattr(card._lensmap, f).cpu(), getattr(cpu._lensmap, f))
+    while card.build_progress is not None:
+        got = card.render(frames)
+    assert isinstance(card._lensmap.flat_idx, np.ndarray)
+    blocking = Session(64, 48, platesize=32, device="cpu")
+    blocking.cmd("f_lens winkeltripel; f_fov 140")
+    _equal(got.cpu(), blocking.render(frames))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("source", ["u8", "rgba"])
+def test_saveglobe_from_frames_on_card(cuda_device, tmp_path, monkeypatch, source):
+    """f_saveglobe from a batch on the card: frame 0 is copied to the host
+    (a torch.uint32 batch through int32) and the files equal save_globe_pcx
+    of that frame from the host, byte for byte."""
+    from blinky_tpu_torch.io.cubemap import save_globe_pcx
+
+    monkeypatch.chdir(tmp_path)
+    frames = synthetic_cubemap_batch(48, 3)
+    sess = Session(64, 48, device=cuda_device)
+    fr = frames if source == "u8" else remap.frames_to_rgba(frames, sess.palette)
+    t = torch.from_numpy(fr.view(np.int32) if source == "rgba" else fr).to(cuda_device)
+    if source == "rgba":
+        t = t.view(torch.uint32)
+    sess.cmd("f_saveglobe shot")
+    sess.render(t)
+    got = {i: (tmp_path / f"shot{i}.pcx").read_bytes() for i in range(6)}
+    (tmp_path / "host").mkdir()
+    monkeypatch.chdir(tmp_path / "host")
+    save_globe_pcx("shot", fr[..., 0], sess.globe, sess.palette)
+    for i in range(6):
+        assert got[i] == (tmp_path / "host" / f"shot{i}.pcx").read_bytes(), i
+
+
 # ------------------------------------- the 360-video path and the AA resolve
 
 

@@ -4,7 +4,7 @@ Sessions gives bit-equal screens and the same console output (tolerance 0:
 the screens are integers).  The float32 device builder behind a rotated
 view is held to the JAX Session's by the builder's boundary tolerance (0.15
 of the pixels at 64x48, tests/test_lensmap_parity.py:96).  What the port does
-not have yet raises."""
+not have yet (the sharded render) raises."""
 
 import subprocess
 import sys
@@ -132,16 +132,20 @@ def test_defaults_mirror_f_init():
 
 
 def test_unported_surface_raises():
+    """Every console command of blinky_tpu's Session is the port's too; of
+    its methods only the sharded render is missing, and it raises."""
     j = JSession(64, 48, backend="numpy")
     p = Session(64, 48, device="cpu")
-    for name in sorted(api._UNPORTED_COMMANDS):
-        assert name in j._commands, name
-        with pytest.raises(NotImplementedError, match=name):
-            p.cmd(f"{name} 1")
+    assert not hasattr(api, "_UNPORTED_COMMANDS")
+    assert sorted(p._commands) == sorted(j._commands)
+    assert api._UNPORTED_METHODS == {"render_sharded"}
     for name in sorted(api._UNPORTED_METHODS):
         assert hasattr(JSession, name), name
         with pytest.raises(NotImplementedError, match=name):
             getattr(p, name)
+    for name in ("press_key", "build_progress"):
+        assert hasattr(p, name), name
+    assert p.build_progress is None
     with pytest.raises(AttributeError):
         p.no_such_attribute
     # every lens of blinky_tpu loads and renders as there (the last twelve
@@ -152,11 +156,12 @@ def test_unported_surface_raises():
         assert (p.lens_name, p.lens_valid) == (j.lens_name, j.lens_valid), line
         _same(p.render(_frames(1)), j.render(_frames(1)))
     assert p.console == j.console
-    p.cmd("fisheye 0")
-    with pytest.raises(NotImplementedError, match="fisheye 0"):
-        p.render(_frames(1))
-    with pytest.raises(NotImplementedError):
-        Session(64, 48, device="cpu", build_budget_s=0.01)
+    # fisheye 0 renders the plain view, and time-sliced builds are taken
+    for s in (j, p):
+        s.cmd("fisheye 0")
+    _same(p.render(_frames(1)), j.render(_frames(1)))
+    sliced = Session(64, 48, device="cpu", build_budget_s=0.01, cmdline_cmds=["f_fov 90"])
+    assert sliced.build_budget_s == 0.01 and sliced.cmdline_cmds == ["f_fov 90"]
     # the card unless the caller asks for the CPU; nothing is allocated
     # until a render, so this needs no card
     assert Session(64, 48).device == torch.device("cuda")
@@ -421,11 +426,13 @@ def test_render_equirect_state_changes_and_fallbacks():
         got = p.render_equirect(panos, mode=mode)
         assert got.dtype == torch.uint32
         _same(got, j.render_equirect(panos, mode=mode))
-    # fisheye 0 raises where render raises
-    p.cmd("f_lens panini; fisheye 0")
+    # fisheye 0: every mode steps aside to the faces' plain view
+    for s in (j, p):
+        s.cmd("f_lens panini; fisheye 0")
     for mode in ("compact", "fused", "faces"):
-        with pytest.raises(NotImplementedError, match="fisheye 0"):
-            p.render_equirect(panos, mode=mode)
+        got = p.render_equirect(panos, mode=mode)
+        assert got.dtype == torch.uint32
+        _same(got, j.render_equirect(panos, mode=mode))
 
 
 def test_render_equirect_alternating_modes_keep_both_chains(monkeypatch):
@@ -576,11 +583,9 @@ def test_palette_decode_in_pieces_and_cached(monkeypatch, chunk):
 ], ids=["defaults", "grid_tetra_vfov", "stereo_fov_alias", "stereo_cover", "hammer_contain_off"])
 def test_config_str_replays_into_a_fresh_session(script, tmp_path):
     """config_str replayed into a bare Session gives the same state and an
-    equal lensmap; its lines are blinky_tpu's minus the bind and fov ones."""
+    equal lensmap; its lines are blinky_tpu's, binds and fov cvar included."""
     j, p = _pair(script)
-    jlines = [ln for ln in j.config_str().splitlines()
-              if not ln.startswith(("unbindall", "bind ", "fov "))]
-    assert p.config_str().splitlines() == jlines
+    assert p.config_str() == j.config_str()
     fresh = Session(64, 48, device="cpu", defaults=False)
     for line in p.config_str().splitlines():
         fresh.cmd(line)
