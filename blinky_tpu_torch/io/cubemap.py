@@ -120,6 +120,18 @@ def to_batch_layout(frames_bpss: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(np.moveaxis(frames_bpss, 0, -1))
 
 
+def from_batch_layout(frames_pssb: np.ndarray) -> np.ndarray:
+    """device layout [P, S, S, B] -> [B, P, S, S] (C++ unpacker when built)."""
+    from blinky_tpu_torch import native
+
+    frames_pssb = np.asarray(frames_pssb)
+    if frames_pssb.dtype == np.uint8:
+        out = native.unpack_batch(frames_pssb)
+        if out is not None:
+            return out
+    return np.ascontiguousarray(np.moveaxis(frames_pssb, -1, 0))
+
+
 def equirect_to_cubemap(pano, globe=None, platesize: int = 512,
                         bilinear: bool = True) -> np.ndarray:
     """Resample an equirectangular panorama into globe plates: the

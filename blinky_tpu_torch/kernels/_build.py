@@ -94,11 +94,37 @@ def sources() -> list:
     return sorted(CSRC.glob("*.cu"))
 
 
-def _stale() -> bool:
-    if not LIBRARY.exists():
-        return True
-    built = LIBRARY.stat().st_mtime
-    return any(p.stat().st_mtime > built for p in CSRC.iterdir())
+def compile_locked(library: Path, deps, command, timeout=None):
+    """Build *library* unless it is newer than every file of *deps*.
+
+    ``command(tmp)`` gives the compiler's argument list, writing to a
+    temporary name beside the library; that file replaces the library only
+    when the compiler succeeds, so no process ever loads a half-written
+    library.  Threads and processes are serialised by an ``fcntl`` lock on
+    ``<library>.lock``.  Returns None when the library was up to date, else
+    the compiler's ``CompletedProcess`` (text output) with its wall-clock
+    ``seconds``; errors of the run itself (``OSError``, a timeout) propagate.
+    """
+    library.parent.mkdir(parents=True, exist_ok=True)
+    with open(library.with_name(library.name + ".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)  # another process may be building
+        if library.exists() and all(Path(d).stat().st_mtime <= library.stat().st_mtime
+                                    for d in deps):
+            return None
+        tmp = library.with_name(f"{library.name}.{os.getpid()}.tmp")
+        t0 = time.perf_counter()
+        try:
+            proc = subprocess.run(command(tmp), capture_output=True, text=True,
+                                  timeout=timeout)
+        except BaseException:
+            tmp.unlink(missing_ok=True)
+            raise
+        proc.seconds = time.perf_counter() - t0
+        if proc.returncode == 0:
+            os.replace(tmp, library)  # loaders never see a half-written library
+        else:
+            tmp.unlink(missing_ok=True)
+        return proc
 
 
 def _nvcc() -> str:
@@ -114,23 +140,17 @@ def _nvcc() -> str:
 
 def _build() -> None:
     global last_build
-    BUILD_DIR.mkdir(exist_ok=True)
-    with open(BUILD_DIR / "build.lock", "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)  # another process may be building
-        if not _stale():
-            return
-        tmp = LIBRARY.with_name(f"{LIBRARY.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, *NVCC_PARALLEL, "-o", str(tmp), *map(str, sources())]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, LIBRARY)  # loaders never see a half-written library
-        last_build = {"seconds": seconds, "log": proc.stdout + proc.stderr}
+    proc = compile_locked(
+        LIBRARY, list(CSRC.iterdir()),
+        lambda tmp: [_nvcc(), *NVCC_FLAGS, *NVCC_PARALLEL, "-o", str(tmp),
+                     *map(str, sources())])
+    if proc is None:
+        return
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{' '.join(map(str, proc.args))}\n"
+            f"{proc.stdout}{proc.stderr}")
+    last_build = {"seconds": proc.seconds, "log": proc.stdout + proc.stderr}
 
 
 def library():
@@ -138,8 +158,7 @@ def library():
     global _lib
     with _lock:
         if _lib is None:
-            if _stale():
-                _build()
+            _build()
             lib = ctypes.CDLL(str(LIBRARY))
             for name, argtypes in _SIGNATURES.items():
                 fn = getattr(lib, name)

@@ -1,28 +1,63 @@
 """ctypes bindings for the native host runtime (with pure-Python fallback).
 
-The port shares :mod:`blinky_tpu`'s native library: it loads the committed
-``blinky_tpu/native/libblinky_native.so`` by path, without importing
-``blinky_tpu`` (whose package import pulls in jax), and binds the same
-entry points.  The f64 lens math routes through its glibc libm loops
-(:mod:`blinky_tpu_torch.xmath`) and ``create_palmap`` through its
-``palmap_build``, so both packages compute bit-identical tables.  Every
-entry point returns None when the library is unavailable, and the callers
-take the NumPy implementations, as in :mod:`blinky_tpu.native`.
+The port builds its own copy of the native library: at first use,
+``native/src/blinky_native.cpp`` is compiled with the flags of the JAX
+package's Makefile (``blinky_tpu/native/Makefile``) into
+``blinky_tpu_torch/build/libblinky_native.so``, and rebuilt whenever the
+source is newer.  The same source and flags give the same machine code, so
+the f64 lens math (glibc libm loops, :mod:`blinky_tpu_torch.xmath`),
+``create_palmap``'s ``palmap_build`` and the forward quad fill compute the
+JAX package's bits.  The build is the CUDA kernels' routine
+(:func:`blinky_tpu_torch.kernels._build.compile_locked`): serialised between
+threads and between processes under an ``fcntl`` lock and written under a
+temporary name, then renamed, so no process ever loads a half-written
+library.
+
+Every entry point returns None when the library is unavailable (no C++
+compiler, or a failing build), and the callers take the NumPy
+implementations, as in :mod:`blinky_tpu.native`.
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
+import subprocess
 import threading
 from pathlib import Path
 
 import numpy as np
 
-_SO = (Path(__file__).resolve().parents[2] / "blinky_tpu" / "native"
-       / "libblinky_native.so")
+_PKG = Path(__file__).resolve().parents[1]
+SOURCE = Path(__file__).resolve().parent / "src" / "blinky_native.cpp"
+BUILD_DIR = _PKG / "build"
+LIBRARY = BUILD_DIR / "libblinky_native.so"
+# blinky_tpu/native/Makefile's CXXFLAGS: -ffp-contract=off keeps the forward
+# rasterizer's scanline interpolation bit-equal to the Python fallback (no FMA
+# contraction), and -march=x86-64-v2 runs on any host of that baseline
+CXXFLAGS = ["-O3", "-march=x86-64-v2", "-ffp-contract=off", "-fPIC", "-shared",
+            "-std=c++17", "-pthread"]
+
 _lib = None
 _tried = False
 _load_lock = threading.Lock()
+
+
+def build_library(source: Path = SOURCE, library: Path = LIBRARY) -> bool:
+    """Compile *source* into *library* unless the library is newer than the
+    source.  Returns True when a library is in place (built now or before),
+    False when the compiler is missing or fails and there is none."""
+    from blinky_tpu_torch.kernels._build import compile_locked
+
+    try:
+        proc = compile_locked(
+            library, [source],
+            lambda tmp: [os.environ.get("CXX", "g++"), *CXXFLAGS, "-o", str(tmp),
+                         str(source)],
+            timeout=120)
+    except (OSError, subprocess.SubprocessError):
+        return library.exists()
+    return proc is None or proc.returncode == 0 or library.exists()
 
 
 def _load():
@@ -33,24 +68,27 @@ def _load():
         return _lib
     with _load_lock:
         if not _tried:
-            _lib = _bind_library()
+            _lib = _build_and_bind()
             _tried = True
     return _lib
 
 
-def _bind_library():
+def _build_and_bind():
+    if not build_library():
+        return None
     try:
-        lib = ctypes.CDLL(str(_SO))
+        lib = ctypes.CDLL(str(LIBRARY))
     except OSError:
         return None
     try:
-        _bind(lib)
+        bind(lib)
     except AttributeError:
-        return None  # stale .so missing newer symbols -> Python fallbacks
+        return None  # a library missing newer symbols -> Python fallbacks
     return lib
 
 
-def _bind(lib) -> None:
+def bind(lib) -> None:
+    """Set the argument and result types of every entry point of *lib*."""
     u8p = ctypes.POINTER(ctypes.c_uint8)
     lib.pal_nearest.restype = ctypes.c_int
     lib.pal_nearest.argtypes = [u8p, ctypes.c_int, ctypes.c_int, ctypes.c_int]
@@ -132,6 +170,23 @@ def pcx_encode_body(img: np.ndarray, mode: str = "reference"):
     else:
         n = lib.pcx_encode_body_rle(_u8(img), w, h, _u8(out))
     return out[:n].tobytes()
+
+
+def pcx_decode_body_many(bodies: list, total: int, nthreads: int | None = None):
+    """Decode many equal-size PCX bodies in parallel -> [count, total] u8."""
+    lib = _load()
+    if lib is None:
+        return None
+    arrs = [np.frombuffer(b, dtype=np.uint8) for b in bodies]
+    count = len(arrs)
+    ptrs = (ctypes.POINTER(ctypes.c_uint8) * count)(*[_u8(a) for a in arrs])
+    lens = (ctypes.c_long * count)(*[len(a) for a in arrs])
+    out = np.empty((count, total), dtype=np.uint8)
+    nt = nthreads or min(8, os.cpu_count() or 1)
+    rc = lib.pcx_decode_body_many(ptrs, lens, count, _u8(out), total, nt)
+    if rc != 0:
+        raise ValueError("truncated PCX body in batch")
+    return out
 
 
 def forward_rasterize_plate(lx, ly, ok, owned, offgrid, plate,
@@ -223,3 +278,65 @@ def pack_batch(frames_bpss: np.ndarray):
     dst = np.empty((P, S, S, B), dtype=np.uint8)
     lib.pack_batch(_u8(src), _u8(dst), B, P, S)
     return dst
+
+
+def unpack_batch(frames_pssb: np.ndarray):
+    """[P, S, S, B] -> [B, P, S, S]; None if unavailable."""
+    lib = _load()
+    if lib is None:
+        return None
+    src = np.ascontiguousarray(frames_pssb, dtype=np.uint8)
+    P, S, S2, B = src.shape
+    if S != S2:
+        raise ValueError(f"plates must be square, got {S}x{S2}")
+    dst = np.empty((B, P, S, S), dtype=np.uint8)
+    lib.unpack_batch(_u8(src), _u8(dst), B, P, S)
+    return dst
+
+
+def gif_lzw_encode(pixels: np.ndarray, min_code_size: int):
+    """Raw GIF LZW codestream for *pixels* (u8, < 2**min_code_size);
+    None if the native lib is unavailable."""
+    lib = _load()
+    if lib is None:
+        return None
+    px = np.ascontiguousarray(pixels.reshape(-1), dtype=np.uint8)
+    cap = 2 * px.size + 4096
+    out = np.empty(cap, dtype=np.uint8)
+    n = lib.gif_lzw_encode(_u8(px), px.size, int(min_code_size), _u8(out), cap)
+    if n < 0:
+        raise ValueError("GIF LZW encode overflow")
+    return out[:n].tobytes()
+
+
+def gif_lzw_decode(stream: bytes, min_code_size: int, total: int):
+    """Decode a raw GIF LZW codestream to *total* pixels; None if the
+    native lib is unavailable, ValueError on a corrupt stream (the io/
+    decoders' error contract)."""
+    lib = _load()
+    if lib is None:
+        return None
+    data = np.frombuffer(stream, dtype=np.uint8)
+    out = np.empty(max(total, 1), dtype=np.uint8)
+    n = lib.gif_lzw_decode(_u8(data), len(data), int(min_code_size),
+                           _u8(out), total)
+    if n < 0:
+        raise ValueError("corrupt GIF LZW stream")
+    return out[:n]
+
+
+def png_unfilter(scan: np.ndarray, channels: int):
+    """PNG scanline unfilter: scan [H, 1+W*C] u8 -> [H, W*C] u8; None if
+    the native lib is unavailable, ValueError on an unknown filter byte
+    (the decoder's error contract)."""
+    lib = _load()
+    if lib is None:
+        return None
+    scan = np.ascontiguousarray(scan, dtype=np.uint8)
+    h, stride1 = scan.shape
+    out = np.empty((h, stride1 - 1), dtype=np.uint8)
+    rc = lib.png_unfilter(_u8(scan), _u8(out), h, stride1 - 1,
+                          int(channels))
+    if rc != 0:
+        raise ValueError("unsupported PNG filter")
+    return out

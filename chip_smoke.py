@@ -8,11 +8,14 @@ the port's main paths at 1920x1080 (panini + cube, ``f_fov 180``):
 ``Session.render``, ``Session.render_posed`` and the float32 device builder's
 (``Session(backend="torch")``, ``setviewangles``, ``PosedRemapKernel``,
 ``zoom_sweep_remap``), the 360-video path at 4096x2048 panos -> 1280x720
-(``Session.render_equirect``, ``Session.render_aa``), and the twelve lenses
-that ride the forward rasterizer and the float32 builder; then checks and
+(``Session.render_equirect``, ``Session.render_aa``), the twelve lenses
+that ride the forward rasterizer and the float32 builder, and the recorded
+path from files through ``timedemo`` back to files; then checks and
 times every kernel against its plain PyTorch version.  Phases:
 
-1. set-up: the card's name and power limit, the kernel build;
+1. set-up: the card's name and power limit, the kernel build, and the
+   native host library removed, rebuilt and timed (the run fails if it
+   does not load, so no phase measures the NumPy fallbacks);
 2. main path: with every launch counter at 0, the Session renders a
    64-frame 1080p batch plain (K1), with ``f_rubix`` and with RGB decode
    (K2), and the speed-of-light probe entry point runs (K3, K4); the counters
@@ -161,11 +164,35 @@ times every kernel against its plain PyTorch version.  Phases:
    first-frame latency beside the blocking build, the renders and the
    largest render call until the swap, and the partial preview's render
    with its table upload are printed.
+12. recorded inputs and outputs, in a temporary directory that it removes:
+   96 rolled 1080p cubemaps written as ``f_saveglobe`` PCX dumps (576
+   plates), a ``.dem`` of 24 messages, 8 frames of true-colour PNG faces at
+   S = 1080, four 4096x2048 PNG panoramas and a PAK holding
+   ``gfx/palette.lmp``.  With every launch counter at 0, the saveglobe dumps
+   are imported, the ``.dem`` track is read and resampled by
+   ``lerp_pose_track`` to 96 poses, both go into a demo container and back,
+   ``timedemo`` replays the 96 frames on ``Session(1920, 1080)`` at B = 64
+   (one full batch, one padded to ``n_valid = 32``) plain (K1), with
+   ``f_rubix`` and with ``decode_rgb`` (K2), the 96 screens are rendered,
+   the first batch goes through ``render_posed`` on its 64 ``.dem`` poses
+   (K7, K6), the PNG faces are imported and rendered as u32 frames (K1), the
+   panoramas are imported at S = 720 (``EquirectIngest.host``), and the
+   PAK's palette drives a ``decode_rgb`` render (K2); the counters are read.
+   The imports are held equal to what was written, every last batch's valid
+   frames and padded lanes to ``host_remap``, the posed screens to
+   ``static_ray_posed_plain`` on the card, the equirect import to
+   ``EquirectIngest`` (K10) on the card; 8 ``decode_rgb`` screens go through
+   the PNG codec, the 96 u8 screens through the GIF codec, both round trips
+   exact, and 8 u32 screens through ``encode_gif_u32``.  The codecs' seconds
+   a frame, the import's seconds a pano beside K10's ms, and each replay's
+   frames/s split into the iterator's pack, the copy to the card and K1/K2
+   by their profiler records are printed, and one more call of each replay
+   cut into spans on one clock (``timedemo_spans``).
 
 The line before the card's name and power limit lists every kernel with its
 launches in its path's run (phase 2 for K1-K4, phase 6 for K5-K7, phase 7
 for K8 and K9, phase 8 for K10-K12, phase 10 for the mode-2 kernels and
-K13), its
+K13; phase 12's launches of K1, K2, K6 and K7 are added to theirs), its
 time, its plain version's and its library call's time where one PyTorch call
 computes the same function, and its bound.
 
@@ -175,6 +202,7 @@ Catches nothing: any failure exits non-zero before the last line, which is
 
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -209,6 +237,7 @@ def main():
               file=sys.stderr)
         return 1
 
+    from blinky_tpu_torch import native
     from blinky_tpu_torch.api import Session
     from blinky_tpu_torch.bench import sol
     from blinky_tpu_torch.bench.throughput import run_gather_throughput
@@ -236,6 +265,19 @@ def main():
             # registers, shared memory, spills, and any wgmma serialisation note
             if any(k in line for k in ("Used", "spill", "Compiling entry", "C75")):
                 print("  ptxas:", line.strip().removeprefix("ptxas info    :").strip())
+    # the port's native host library, built anew from its source and timed:
+    # every later phase runs its host paths (palmap, the libm loops, the
+    # forward quad fill, the codecs, pack_batch) and never their NumPy fallbacks
+    had = native.LIBRARY.exists()
+    native.LIBRARY.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    built = native.build_library()
+    native_s = time.perf_counter() - t0
+    require(built and native.available(), "the port's native library did not build")
+    phase(1, f"native library {native.LIBRARY.relative_to(ROOT)} built from "
+          f"{native.SOURCE.relative_to(ROOT)} in {native_s:.3f} s "
+          f"({'a copy already present was removed first' if had else 'none was present'}; "
+          f"{' '.join([os.environ.get('CXX', 'g++'), *native.CXXFLAGS])}) and loaded")
 
     # ---------------------------------------------------------------- 2
     for fn in kernels.values():
@@ -465,6 +507,8 @@ def main():
     lua_launches, lua_rows = lua_phase(dev, frames, frames_dev, kernels)
     launches.update(lua_launches)
     surface_phase(dev, frames, frames_dev, kernels)
+    for name, n in recorded_phase(dev, kernels).items():
+        launches[name] += n
 
     k1, k2 = main_ms["remap_gather"], main_ms["remap_lut"]
     rows = [
@@ -2628,6 +2672,383 @@ def surface_phase(dev, frames, frames_dev, kernels):
           f"{time.perf_counter() - phase_t0:.3f} s")
     del partials
     torch.cuda.empty_cache()
+
+
+REPLAY_N = 96          # recorded frames: one full batch of B_MAIN, then 32 padded
+DEM_MESSAGES = 24      # the .dem track's messages, resampled to REPLAY_N poses
+PNG_SCREENS = 8        # decode_rgb screens through the PNG codec
+FACE_FRAMES = 8        # true-colour PNG face sets
+IMPORT_PANOS = 4       # equirect panoramas through import_equirect_dir
+IMPORT_PANO_H, IMPORT_PANO_W, IMPORT_S = 2048, 4096, 720
+PROFILE_ITERS = 5
+
+
+def recorded_phase(dev, kernels):
+    """Phase 12: recorded inputs and outputs, in a temporary directory that
+    it removes.  Returns the launches of K1, K2, K6 and K7 in the path's
+    run, which the kernels line adds to each kernel's own path's."""
+    import shutil
+    import tempfile
+
+    from blinky_tpu_torch.api import Session
+    from blinky_tpu_torch.bench.sol import cuda_ms
+    from blinky_tpu_torch.bench.throughput import device_pano
+    from blinky_tpu_torch.io import dataset, demfile, gif, pak, png
+    from blinky_tpu_torch.io.cubemap import save_globe_pcx, synthetic_cubemap, to_batch_layout
+    from blinky_tpu_torch.kernels import ingest, posed, remap, static_ray
+    from blinky_tpu_torch.palette import default_palette
+
+    S, H, W, B = 1080, 1080, 1920, B_MAIN
+    phase_t0 = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="blinky_recorded_"))
+    try:
+        # ------------------------------------------------ the recordings, written
+        sess = Session(W, H, device=dev)
+        pal = sess.palette
+        base = synthetic_cubemap(S)
+        seq = np.stack([np.roll(base, i, axis=2) for i in range(REPLAY_N)])
+        (tmp / "saveglobe").mkdir()
+        t0 = time.perf_counter()
+        for i in range(REPLAY_N):
+            save_globe_pcx(tmp / "saveglobe" / f"frame{i:04d}_", seq[i], sess.globe, pal,
+                           with_margins=True)
+        pcx_enc_s = (time.perf_counter() - t0) / REPLAY_N
+        track = np.stack([np.linspace(-30, 30, DEM_MESSAGES),
+                          np.linspace(0, 690, DEM_MESSAGES) % 360,
+                          10 * np.sin(np.linspace(0, 6, DEM_MESSAGES))], 1).astype(np.float32)
+        demfile.write_dem(tmp / "track.dem", track)
+        (tmp / "faces").mkdir()
+        face_rgb = remap.unpack_rgb(remap.frames_to_rgba(seq[:FACE_FRAMES], pal))
+        t0 = time.perf_counter()
+        for n in range(FACE_FRAMES):
+            for i in range(6):
+                (tmp / "faces" / f"face{n:02d}_{i}.png").write_bytes(
+                    png.encode_png(face_rgb[n, i]))
+        face_enc_s = (time.perf_counter() - t0) / FACE_FRAMES
+        (tmp / "panos").mkdir()
+        panos_u32 = device_pano(IMPORT_PANO_H, IMPORT_PANO_W, IMPORT_PANOS, device=dev)
+        pano_rgb = remap.unpack_rgb(panos_u32.view(torch.int32).cpu().numpy().view(np.uint32))
+        del panos_u32
+        t0 = time.perf_counter()
+        for n in range(IMPORT_PANOS):
+            (tmp / "panos" / f"pano{n:02d}.png").write_bytes(png.encode_png(pano_rgb[:, :, n]))
+        pano_enc_s = (time.perf_counter() - t0) / IMPORT_PANOS
+        pak_pal = np.ascontiguousarray(np.roll(default_palette(), 1, axis=1))
+        pak.write_pak(tmp / "pak0.pak", {"maps/start.bsp": b"\x1d" * 1000,
+                                         "gfx/palette.lmp": pak_pal.tobytes()})
+        require(sess.lensmap is not None, "the 1080p lensmap did not build")
+        sess.render(seq[0][..., None])  # the remap kernel's operands, uploaded once
+        torch.cuda.synchronize()
+        phase(12, f"written in {tmp}: {REPLAY_N * 6} f_saveglobe PCX plates "
+              f"({pcx_enc_s:.4f} s a frame of six {S}x{S} plates), a .dem of "
+              f"{DEM_MESSAGES} messages, {FACE_FRAMES * 6} PNG faces at S = {S} "
+              f"({face_enc_s:.4f} s a frame of six), {IMPORT_PANOS} {IMPORT_PANO_W}x"
+              f"{IMPORT_PANO_H} PNG panos ({pano_enc_s:.4f} s a pano), a PAK with "
+              "gfx/palette.lmp")
+
+        # ------------------------------------------------ the path, counted
+        path_kernels = {"remap_gather": remap.remap_gather, "remap_lut": remap.remap_lut,
+                        "static_ray_posed": static_ray.static_ray_posed,
+                        "posed_layout": posed.posed_layout}
+        for fn in list(kernels.values()) + list(path_kernels.values()):
+            fn.launches = 0
+        t0 = time.perf_counter()
+        frames, sg_pal, stems = dataset.import_saveglobe_dir(tmp / "saveglobe")
+        pcx_dec_s = (time.perf_counter() - t0) / REPLAY_N
+        dem = demfile.read_dem(tmp / "track.dem")
+        poses = demfile.lerp_pose_track(dem.poses, REPLAY_N)
+        t0 = time.perf_counter()
+        dataset.write_demo(tmp / "demo.npz", frames, sg_pal, poses)
+        demo_w_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        demo = dataset.read_demo(tmp / "demo.npz")
+        demo_r_s = time.perf_counter() - t0
+        frames = demo["frames"]
+        clocks, lasts = {}, {}
+        for name, kw in (("plain", {}), ("f_rubix", dict(rubix=True)),
+                         ("decode_rgb", dict(decode_rgb=True))):
+            lasts[name], clock = dataset.timedemo(sess, frames, batch=B, **kw)
+            # a FrameClock runs on: read it as timedemo returns, as its line was
+            clocks[name] = (clock.frames, clock.seconds, sess.console[-1])
+        screens, first = [], None
+        for batch_np, n_valid in dataset.FrameBatchIterator(frames, B):
+            if first is None:
+                first = torch.from_numpy(batch_np).to(dev)
+            screens.append(sess.render(batch_np)[..., :n_valid].cpu().numpy())
+        screens = np.concatenate(screens, axis=-1)
+        posed_out = sess.render_posed(first, demo["poses"][:B])
+        t0 = time.perf_counter()
+        faces, face_stems = dataset.import_rgb_faces_dir(tmp / "faces")
+        face_dec_s = (time.perf_counter() - t0) / FACE_FRAMES
+        faces_out = sess.render(to_batch_layout(faces))
+        t0 = time.perf_counter()
+        eq_frames, eq_stems = dataset.import_equirect_dir(tmp / "panos", platesize=IMPORT_S)
+        eq_s = (time.perf_counter() - t0) / IMPORT_PANOS
+        pak_sess = Session(W, H, palette=pak.load_palette_from_pak(tmp / "pak0.pak"),
+                           device=dev)
+        pak_out = pak_sess.render(first, decode_rgb=True)
+        torch.cuda.synchronize()
+        launches = {name: fn.launches for name, fn in path_kernels.items()}
+        phase(12, f"launches in the recorded path's run (import_saveglobe_dir, the demo "
+              f"container, timedemo plain, f_rubix and decode_rgb over {REPLAY_N} frames, the "
+              f"{REPLAY_N} screens, render_posed of the first batch on the .dem poses, the "
+              f"true-colour faces, the PAK palette's decode_rgb render): {launches}")
+        for name, n in launches.items():
+            require(n >= 1, f"{name} was not launched by the recorded path")
+
+        # ------------------------------------------------ codecs out, timed
+        rgb8 = [lasts["decode_rgb"][..., j, :].cpu().numpy() for j in range(PNG_SCREENS)]
+        t0 = time.perf_counter()
+        pngs = [png.encode_png(x) for x in rgb8]
+        png_enc_s = (time.perf_counter() - t0) / PNG_SCREENS
+        t0 = time.perf_counter()
+        back = [png.decode_png(d) for d in pngs]
+        png_dec_s = (time.perf_counter() - t0) / PNG_SCREENS
+        for j in range(PNG_SCREENS):
+            require(np.array_equal(back[j], rgb8[j]), f"PNG round trip of screen {j} differs")
+        t0 = time.perf_counter()
+        gif_data = gif.encode_gif(screens, pal, delay_cs=4)
+        gif_enc_s = (time.perf_counter() - t0) / REPLAY_N
+        t0 = time.perf_counter()
+        gif_frames, gif_pal, delays = gif.decode_gif(gif_data)
+        gif_dec_s = (time.perf_counter() - t0) / REPLAY_N
+        require(np.array_equal(gif_frames, screens) and np.array_equal(gif_pal, pal)
+                and delays == [4] * REPLAY_N, "GIF round trip of the u8 screens differs")
+        u32 = faces_out.view(torch.int32).cpu().numpy().view(np.uint32)
+        t0 = time.perf_counter()
+        gif32 = gif.encode_gif_u32(np.moveaxis(u32, -1, 0), delay_cs=4)
+        gif32_s = time.perf_counter() - t0
+        q_frames, q_pal, _ = gif.decode_gif(gif32)
+        colours = len(np.unique(u32))
+        exact32 = np.array_equal(q_pal[q_frames], remap.unpack_rgb(u32))
+        require(colours > 256 or exact32, "encode_gif_u32 of at most 256 colours is not exact")
+        phase(12, f"codecs at S = {S}, {W}x{H}: PCX {pcx_enc_s:.4f} s to encode and {pcx_dec_s:.4f} s to "
+              f"decode a frame of six plates; PNG {W}x{H} RGB {png_enc_s:.4f} s to encode, "
+              f"{png_dec_s:.4f} s to decode a screen ({sum(map(len, pngs)) // PNG_SCREENS} "
+              f"bytes); PNG faces {face_enc_s:.4f} s to encode, {face_dec_s:.4f} s to import "
+              f"a frame of six; GIF of the {REPLAY_N} u8 screens {gif_enc_s:.4f} s to encode, "
+              f"{gif_dec_s:.4f} s to decode a screen ({len(gif_data)} bytes), round trip "
+              f"exact; encode_gif_u32 of {FACE_FRAMES} u32 screens {gif32_s:.4f} s "
+              f"({colours} colours, {'exact' if exact32 else 'quantized'}); the demo "
+              f"container {demo_w_s:.3f} s to write and {demo_r_s:.3f} s to read "
+              f"({frames.nbytes} bytes of frames)")
+
+        # ------------------------------------------------ checks
+        require(np.array_equal(frames, seq) and np.array_equal(sg_pal, pal)
+                and stems == [f"frame{i:04d}_" for i in range(REPLAY_N)],
+                "import_saveglobe_dir differs from the frames written")
+        require(np.array_equal(dem.poses, track), "read_dem differs from the track written")
+        require(np.array_equal(demo["poses"], poses) and demo["poses"].shape == (REPLAY_N, 3),
+                "the demo container's poses differ from lerp_pose_track's")
+        zero = np.zeros_like(frames[0])
+        n_last = REPLAY_N - B
+        for name, kw in (("plain", {}), ("f_rubix", dict(rubix=True)),
+                         ("decode_rgb", dict(decode_rgb=True))):
+            out, counted = lasts[name], clocks[name][0]
+            require(counted == REPLAY_N, f"timedemo {name} counted {counted} frames")
+            got = out.cpu().numpy()
+            lane = (lambda j: got[..., j, :]) if kw.get("decode_rgb") else (lambda j: got[..., j])
+            for j in range(n_last):
+                require(np.array_equal(lane(j), sess.render_host(frames[B + j], **kw)),
+                        f"timedemo {name}: frame {B + j} differs from host_remap")
+            pad = sess.render_host(zero, **kw)
+            for j in range(n_last, B):
+                require(np.array_equal(lane(j), pad), f"timedemo {name}: padded lane {j} "
+                        "differs from host_remap of a zero frame")
+        for b in (0, B - 1, B, REPLAY_N - 1):
+            require(np.array_equal(screens[..., b], sess.render_host(frames[b])),
+                    f"screen {b} differs from host_remap")
+        phase(12, f"timedemo plain, f_rubix and decode_rgb: the last batch's {n_last} frames "
+              f"bit-equal host_remap and its {B - n_last} padded lanes host_remap of a zero "
+              f"frame; the {REPLAY_N} screens' frames 0, {B - 1}, {B}, {REPLAY_N - 1} "
+              "equal host_remap")
+        kern = sess._posed_cache[1]
+        bases = posed.bases_from_pose_track(demo["poses"][:B])
+        for lo in range(0, B, CHUNK):
+            src, bb, expanded = posed.prep_posed_inputs(first[..., lo:lo + CHUNK],
+                                                        bases[lo:lo + CHUNK], S,
+                                                        kern.background, dev)
+            ref = static_ray.static_ray_posed_plain(
+                src, kern.ray_table, bb, kern.globe, S, kern.numcells, kern.cell_size,
+                kern.pad_size, expanded, kern.background, 1)
+            e = int((posed_out[lo:lo + CHUNK].long() - ref.long()).abs().max())
+            require(e == 0, f"render_posed on the .dem poses {lo}.. differs from "
+                    f"static_ray_posed_plain (max {e})")
+        phase(12, f"render_posed of the first batch on its {B} .dem poses (K7, K6) bit-equal "
+              "static_ray_posed_plain on the card")
+        want_faces = remap.frames_to_rgba(seq[:FACE_FRAMES], pal)
+        require(np.array_equal(faces, want_faces) and len(face_stems) == FACE_FRAMES,
+                "import_rgb_faces_dir differs from the faces written")
+        for n in range(FACE_FRAMES):
+            require(np.array_equal(u32[..., n], sess.render_host(faces[n])),
+                    f"true-colour face frame {n} differs from host_remap")
+        phase(12, f"import_rgb_faces_dir of {FACE_FRAMES} PNG face sets equals the frames "
+              "written; their u32 render (K1) bit-equals host_remap")
+        ing = ingest.EquirectIngest(IMPORT_PANO_H, IMPORT_PANO_W, IMPORT_S, device=dev)
+        panos = remap.pack_rgba(pano_rgb)
+        panos_dev = torch.from_numpy(panos.view(np.int32)).to(dev).view(torch.uint32)
+        k10 = ing(panos_dev).view(torch.int32).cpu().numpy().view(np.uint32)
+        require(np.array_equal(np.moveaxis(k10, -1, 0), eq_frames) and len(eq_stems) == IMPORT_PANOS,
+                "import_equirect_dir differs from EquirectIngest (K10) on the card")
+        one = panos_dev[..., :1].contiguous()
+        k10_ms = cuda_ms(lambda: ing(one), ITERS)
+        _, k10_rec, _ = profiled(lambda: ing(one), ITERS)
+        k10_dev = sum(t for n_, t in k10_rec.items() if "equirect" in n_)
+        phase(12, f"import_equirect_dir of {IMPORT_PANOS} {IMPORT_PANO_W}x{IMPORT_PANO_H} PNG "
+              f"panos at S = {IMPORT_S} equals EquirectIngest (K10) on the card; the host "
+              f"import {eq_s:.4f} s a pano (PNG decode and EquirectIngest.host) against K10's "
+              f"{k10_ms:.4f} ms a pano by the events, "
+              + (f"{k10_dev:.4f} ms by its kernel record" if k10_dev else
+                 "its kernel record lost by the profiler"))
+        require(np.array_equal(pak_sess.palette, pak_pal), "load_palette_from_pak differs")
+        pak_np = pak_out.cpu().numpy()
+        for b in (0, B - 1):
+            require(np.array_equal(pak_np[..., b, :],
+                                   pak_sess.render_host(frames[b], decode_rgb=True)),
+                    f"the PAK palette's decode_rgb render, frame {b}, differs from host_remap")
+        require(not np.array_equal(pak_np[..., 0, :], sess.render_host(frames[0], decode_rgb=True)),
+                "the PAK palette's render equals the default palette's")
+        phase(12, "load_palette_from_pak's palette drives a decode_rgb render (K2) bit-equal "
+              f"to host_remap for frames 0 and {B - 1}")
+
+        # ------------------------------------------------ where a replay's time goes
+        chunk = frames[:B]
+        packs = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            batch_np = to_batch_layout(chunk)
+            packs.append(1e3 * (time.perf_counter() - t0))
+        # K1/K2 on the render's own operands by events (late in a run the
+        # profiler can lose a profile's kernel records, PROFILE_TAIL_S)
+        batch_dev = torch.from_numpy(batch_np).to(dev)
+        src = batch_dev.reshape(-1, B)
+        k = sess._kernel
+        copy_ev = cuda_ms(lambda: torch.from_numpy(batch_np).to(dev), 3)
+        raw = {"plain": lambda: remap.remap_gather(src, k.flat_idx, k.valid, k.background,
+                                                   fill=True),
+               "f_rubix": lambda: remap.remap_lut(src, k.flat_idx, k.valid, k.tint,
+                                                  k.background, k.tint_lut, None, fill=True),
+               "decode_rgb": lambda: remap.remap_lut(src, k.flat_idx, k.valid, k.tint,
+                                                     k.background, None, k.rgb_lut, fill=True)}
+        for name, kw, rec in (("plain", {}, "remap_gather"),
+                              ("f_rubix", dict(rubix=True), "remap_lut"),
+                              ("decode_rgb", dict(decode_rgb=True), "remap_lut")):
+            kernel = "K1" if rec == "remap_gather" else "K2"
+            kern_ev = cuda_ms(raw[name], ITERS)
+            wall, recs, busy = profiled(lambda kw=kw: sess.render(batch_np, **kw), PROFILE_ITERS)
+            copy = sum(t for n_, t in recs.items() if "memcpy" in n_.lower())
+            kern_rec = sum(t for n_, t in recs.items() if rec in n_)
+            n_frames, seconds, line = clocks[name]
+            phase(12, f"timedemo {name}: \"{line}\" ({n_frames / seconds:.2f} frames/s, "
+                  f"{1e3 * seconds:.3f} ms for {n_frames} frames); each part alone, a batch "
+                  f"of {B}: the iterator's pack (to_batch_layout, host) {min(packs):.3f} ms "
+                  "(of " + ", ".join(f"{x:.3f}" for x in packs) + f"), Session.render of the "
+                  f"packed NumPy batch {wall:.3f} ms a call under the profiler, the device "
+                  f"busy {busy:.3f} ms of it: the copy to the card {copy:.3f} ms by its "
+                  f"record ({copy_ev:.3f} ms by the events), {kernel} "
+                  + (f"{kern_rec:.4f} ms by its kernel record" if kern_rec else
+                     "not recorded by the profiler") + f" ({kern_ev:.4f} ms by the events "
+                  "on the render's operands)")
+            window, spans, n_frames = timedemo_spans(sess, frames, B, kw)
+            require(n_frames == REPLAY_N, f"timedemo {name} under the span probe counted "
+                    f"{n_frames} frames")
+            cover = {what: union_ms([(a, b) for w, a, b in spans if w == what])
+                     for what in ("pack", "to_batch_layout", "copy", "kernel", "render call")}
+            idle = window - union_ms([(a, b) for w, a, b in spans if w in ("copy", "kernel")])
+            pace = max(("pack", "copy", "kernel"), key=cover.get)
+            phase(12, f"timedemo {name} under the span probe, one call: the window "
+                  f"{window:.3f} ms ({REPLAY_N / window * 1e3:.2f} frames/s); spans in ms "
+                  "from its start, the iterator thread's packs and on the card each "
+                  "render's copy and kernel: " + "; ".join(
+                      f"{w} {a:.3f}-{b:.3f}" for w, a, b in sorted(spans, key=lambda x: x[1]))
+                  + "; covered: " + ", ".join(f"{w} {t:.3f}" for w, t in cover.items())
+                  + f" (the packs' padding {cover['pack'] - cover['to_batch_layout']:.3f})"
+                  + f"; the card idle {idle:.3f} ms ({100 * idle / window:.1f} % of the "
+                  f"window); the pace is set by the {pace}")
+        del batch_dev, src
+        phase(12, f"phase 12 took {time.perf_counter() - phase_t0:.3f} s")
+    finally:
+        shutil.rmtree(tmp)
+    return launches
+
+
+def timedemo_spans(sess, frames, batch, kw):
+    """One ``timedemo`` call, its window cut into spans on the host clock:
+    the iterator thread's packs (``FrameBatchIterator._pack``, the padding
+    included) and the ``to_batch_layout`` call inside each, the main thread's ``Session.render`` calls, and on the card
+    each render's copy (events around the copy of its frames, which this
+    probe takes out of ``RemapKernel`` by wrapping ``remap.frames_tensor``)
+    and its kernel (the copy's end to an event after the render returns).
+    Card events are placed on the host clock from an anchor recorded on an
+    idle card.  Returns (the window in ms, [(what, start ms, end ms)] from
+    the window's start, the frames the clock counted)."""
+    from blinky_tpu_torch.io import dataset
+    from blinky_tpu_torch.kernels import remap
+
+    host, marks = [], []
+    pack0, layout0 = dataset.FrameBatchIterator._pack, dataset.to_batch_layout
+    tensor0, render0 = remap.frames_tensor, sess.render
+
+    def event():
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+
+    def pack(self, i0):
+        t0 = time.perf_counter()
+        out = pack0(self, i0)
+        host.append(("pack", t0, time.perf_counter()))
+        return out
+
+    def layout(chunk):
+        t0 = time.perf_counter()
+        out = layout0(chunk)
+        host.append(("to_batch_layout", t0, time.perf_counter()))
+        return out
+
+    def frames_tensor(frames):
+        t, is_rgba = tensor0(frames)
+        start = event()
+        t = t.to(sess.device)
+        marks.append(("copy", start, event()))
+        return t, is_rgba
+
+    def render(frames, **k):
+        t0 = time.perf_counter()
+        out = render0(frames, **k)
+        marks.append(("kernel", marks[-1][2], event()))
+        host.append(("render call", t0, time.perf_counter()))
+        return out
+
+    torch.cuda.synchronize()
+    t_anchor = time.perf_counter()
+    anchor = event()
+    anchor.synchronize()
+    dataset.FrameBatchIterator._pack, dataset.to_batch_layout = pack, layout
+    remap.frames_tensor, sess.render = frames_tensor, render
+    try:
+        _, clock = dataset.timedemo(sess, frames, batch=batch, **kw)
+        t_end = time.perf_counter()
+    finally:
+        dataset.FrameBatchIterator._pack, dataset.to_batch_layout = pack0, layout0
+        remap.frames_tensor = tensor0
+        del sess.render
+    torch.cuda.synchronize()
+    to_ms = lambda t: 1e3 * (t - clock.start)  # noqa: E731
+    dev_ms = lambda e: to_ms(t_anchor) + anchor.elapsed_time(e)  # noqa: E731
+    spans = [(w, to_ms(a), to_ms(b)) for w, a, b in host]
+    spans += [(w, dev_ms(a), dev_ms(b)) for w, a, b in marks]
+    return to_ms(t_end), spans, clock.frames
+
+
+def union_ms(spans):
+    """The length of the union of (start, end) spans."""
+    total, reach = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b > reach:
+            total += b - max(a, reach)
+            reach = b
+    return total
 
 
 def calc_scale_of(lens, width_px, height_px):

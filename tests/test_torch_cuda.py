@@ -1739,3 +1739,82 @@ def test_lua_drop_ins_on_card_equal_cpu(cuda_device, k, tmp_path):
     _equal(scat.render(frames).cpu(), cpu.render(frames))
     _equal(scat.render_posed(frames, poses, render_scale=k).cpu(),
            cpu.render_posed(frames, poses, render_scale=k))
+
+
+def _replay_frames(n, S):
+    """n rolled copies of the synthetic cubemap, [N, P, S, S] (a recorded demo)."""
+    base = synthetic_cubemap_batch(S, 1)[..., 0]
+    return np.stack([np.roll(base, i, axis=2) for i in range(n)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["u8", "u32"])
+@pytest.mark.parametrize("rubix,decode_rgb", [(None, False), (True, False), (None, True)])
+def test_timedemo_on_card_equals_cpu(cuda_device, kind, rubix, decode_rgb):
+    """timedemo through K1 (K2 for rubix or decode_rgb on u8 frames) on the
+    card: the last, padded batch equals the CPU Session's, and the clock
+    counts the valid frames."""
+    from blinky_tpu_torch.io import dataset
+
+    frames = _replay_frames(10, 32)
+    if kind == "u32":
+        frames = remap.frames_to_rgba(frames, default_palette())
+    card = Session(64, 48, platesize=32, device=cuda_device)
+    cpu = Session(64, 48, platesize=32, device="cpu")
+    n1, n2 = remap.remap_gather.launches, remap.remap_lut.launches
+    out, clock = dataset.timedemo(card, frames, batch=4, rubix=rubix, decode_rgb=decode_rgb)
+    want, _ = dataset.timedemo(cpu, frames, batch=4, rubix=rubix, decode_rgb=decode_rgb)
+    assert out.device.type == "cuda" and clock.frames == 10
+    _equal(out.cpu(), want)
+    lut = kind == "u8" and (rubix or decode_rgb)
+    assert remap.remap_lut.launches - n2 == (3 if lut else 0)
+    assert remap.remap_gather.launches - n1 == (0 if lut else 3)
+    assert card.console[-1].startswith("10 frames")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,batch", [(10, 4), (5, 8), (6, 3)])
+def test_frame_batch_iterator_renders_on_card_equal_cpu(cuda_device, n, batch):
+    """Every batch of the prefetching iterator through Session.render on
+    the card, the padded last one included, equals the CPU Session's; the
+    padding lanes render frame zeros."""
+    from blinky_tpu_torch.io import dataset
+
+    frames = _replay_frames(n, 24)
+    card = Session(64, 48, platesize=24, device=cuda_device)
+    cpu = Session(64, 48, platesize=24, device="cpu")
+    seen = 0
+    for fr, n_valid in dataset.FrameBatchIterator(frames, batch):
+        got = card.render(fr)
+        _equal(got.cpu(), cpu.render(fr))
+        if n_valid < batch:
+            zero = card.render(np.zeros_like(fr[..., :1]))
+            _equal(got[..., n_valid:], zero.expand(*zero.shape[:-1], batch - n_valid))
+        seen += n_valid
+    assert seen == n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 2])
+def test_render_posed_from_dem_track_on_card_equals_cpu(cuda_device, monkeypatch, tmp_path, k):
+    """A .dem camera track, read and resampled by lerp_pose_track to the
+    frame count, drives render_posed on the card (K7, K6): equal to the CPU
+    Session's on the host ray table."""
+    from blinky_tpu_torch.io import demfile
+
+    _host_tables(monkeypatch)
+    track = np.array([[0, 0, 0], [10, 90, 0], [-30, 200, 15], [0, 350, 0], [5, 10, 0]],
+                     np.float32)
+    demfile.write_dem(tmp_path / "t.dem", track)
+    dem = demfile.read_dem(tmp_path / "t.dem")
+    np.testing.assert_array_equal(dem.poses, track)
+    B = 9
+    poses = demfile.lerp_pose_track(dem.poses, B)
+    frames = np.moveaxis(_replay_frames(B, 32), 0, -1).copy()
+    card = Session(64, 48, platesize=32, device=cuda_device)
+    cpu = Session(64, 48, platesize=32, device="cpu")
+    n6, n7 = static_ray.static_ray_posed.launches, posed.posed_layout.launches
+    got = card.render_posed(frames, poses, render_scale=k)
+    assert static_ray.static_ray_posed.launches == n6 + 1
+    assert posed.posed_layout.launches == n7 + 1
+    _equal(got.cpu(), cpu.render_posed(frames, poses, render_scale=k))

@@ -116,10 +116,14 @@ def test_session_time_sliced_build_swaps_to_exact(lens):
     reports progress, and converges to the blocking exact result; blinky_tpu's
     sliced Session ends on the same screen."""
     frames = _frames()
-    sess = Session(64, 48, platesize=32, build_budget_s=0.001, device="cpu")
+    # a first slice shorter than any block: the first render builds only
+    # INITIAL_ROWS of the 48 rows, however fast the host (a 1 ms slice can
+    # finish a 64x48 build at once)
+    sess = Session(64, 48, platesize=32, build_budget_s=1e-9, device="cpu")
     sess.cmd(f"f_lens {lens}")
     assert sess.render(frames).shape == (48, 64)
     assert sess.build_progress is not None
+    sess.build_budget_s = 0.001
     for _ in range(500):
         out = sess.render(frames)
         if sess.build_progress is None:
