@@ -29,7 +29,8 @@ times every kernel against its plain PyTorch version.  Phases:
    its bytes, its bound at 3.35 TB/s and its share of that bound;
 3. every source kind through ``RemapKernel``, and out-of-range indices under
    the clip and the fill rule, against the plain versions;
-4. the headline shape: a texel-compacted 1080p source at B = 1024 and 4096;
+4. the headline shape: a texel-compacted 1080p source at B = 1024 and 4096,
+   K1 held to its plain version over the whole batch and timed beside it;
 5. the probes' results: K3 at 64x384x2048x1024 (the JAX probe's source
    values below 128, and every u8 value), its extrapolation to a 1080p
    screen beside K1's 1080p time, K4 over 1 GiB, and the card's int8 and
@@ -189,10 +190,27 @@ times every kernel against its plain PyTorch version.  Phases:
    by their profiler records are printed, and one more call of each replay
    cut into spans on one clock (``timedemo_spans``).
 
+13. (run right after phase 1, while this process holds nothing on the card)
+   the bench suite's entry point, each run in a process of its own
+   (``python -m blinky_tpu_torch.bench``, launch counts gathered through
+   ``BLINKY_BENCH_LAUNCHES``): the headline, whose batch must be the
+   planner's derivation for this card, with its frames/s, ms a batch, GB/s
+   and K1's share of its byte bound; ``--all --quick``, whose eight configs
+   must each be there with every gated key measured and every ``exact``
+   True, and which exits non-zero if any of its measurements finds a kernel
+   (K1, K2, K5-K8, K10) differing from its plain version on that
+   measurement's inputs, as each holds them before it times them
+   (``throughput.checked``); ``--sol`` (K3, K4); ``--check --configs 0-3`` against the
+   committed H100 baseline, whose verdict is printed (exit 0 or 1: a speed
+   gate, not a correctness check); and two calibrate probes, one at
+   B = 128 that must run and one past the card's memory that must be
+   classified as out of memory.
+
 The line before the card's name and power limit lists every kernel with its
 launches in its path's run (phase 2 for K1-K4, phase 6 for K5-K7, phase 7
 for K8 and K9, phase 8 for K10-K12, phase 10 for the mode-2 kernels and
-K13; phase 12's launches of K1, K2, K6 and K7 are added to theirs), its
+K13; phase 12's launches of K1, K2, K6 and K7 and phase 13's are added to
+theirs), its
 time, its plain version's and its library call's time where one PyTorch call
 computes the same function, and its bound.
 
@@ -240,14 +258,18 @@ def main():
     from blinky_tpu_torch import native
     from blinky_tpu_torch.api import Session
     from blinky_tpu_torch.bench import sol
+    from blinky_tpu_torch.bench.__main__ import kernel_wrappers
     from blinky_tpu_torch.bench.throughput import run_gather_throughput
     from blinky_tpu_torch.io.cubemap import synthetic_cubemap, synthetic_cubemap_batch
     from blinky_tpu_torch.kernels import _build, remap
     from blinky_tpu_torch.palette import rgba_lut
 
     dev = torch.device("cuda")
-    kernels = {"remap_gather": remap.remap_gather, "remap_lut": remap.remap_lut,
-               "onehot_gather": sol.onehot_gather, "stream_read": sol.stream_read}
+    # the main path's kernels (phase 2), by the names of the one mapping from
+    # kernel names to wrappers, which phase 13's launch counts use too
+    wrappers = kernel_wrappers()
+    kernels = {name: wrappers[name]
+               for name in ("remap_gather", "remap_lut", "onehot_gather", "stream_read")}
 
     # ---------------------------------------------------------------- 1
     smi = subprocess.run(
@@ -278,6 +300,10 @@ def main():
           f"{native.SOURCE.relative_to(ROOT)} in {native_s:.3f} s "
           f"({'a copy already present was removed first' if had else 'none was present'}; "
           f"{' '.join([os.environ.get('CXX', 'g++'), *native.CXXFLAGS])}) and loaded")
+
+    # phase 13, the bench's entry point, runs here, while this process holds
+    # nothing on the card: its processes fill the card's memory
+    bench_launches = bench_phase(dev)
 
     # ---------------------------------------------------------------- 2
     for fn in kernels.values():
@@ -449,12 +475,15 @@ def main():
     # ---------------------------------------------------------------- 4
     for batch in (1024, 4096):
         torch.cuda.empty_cache()
-        r = run_gather_throughput(batch, device=dev, iters=ITERS)
+        r = run_gather_throughput(batch=batch, iters=ITERS, rubix=False,
+                                  texel_compact=True, device=dev, plain=True)
         require(r["equal"], f"headline B={batch}: kernel differs from the plain version")
         phase(4, f"{r['config']}: K1 {r['ms_per_batch']:.4f} ms/batch "
               f"{r['fps']:.1f} frames/s {r['gbps']:.1f} GB/s; plain (index_select + "
               f"where) {r['plain_ms_per_batch']:.4f} ms/batch {r['plain_fps']:.1f} "
               f"frames/s {r['plain_gbps']:.1f} GB/s; {r['bytes_per_batch']} bytes/batch; "
+              f"byte bound {r['bound_bytes'] / HBM_BYTES_PER_S * 1e3:.4f} ms "
+              f"({100 * r['bound_bytes'] / HBM_BYTES_PER_S * 1e3 / r['ms_per_batch']:.1f} %); "
               f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     # ---------------------------------------------------------------- 5
@@ -508,6 +537,8 @@ def main():
     launches.update(lua_launches)
     surface_phase(dev, frames, frames_dev, kernels)
     for name, n in recorded_phase(dev, kernels).items():
+        launches[name] += n
+    for name, n in bench_launches.items():
         launches[name] += n
 
     k1, k2 = main_ms["remap_gather"], main_ms["remap_lut"]
@@ -3317,6 +3348,143 @@ def sweep():
                   f"{lib_ms:.4f} ms", flush=True)
     return 0
 
+
+
+# phase 13: the bench suite's entry point.  Each run is a process of its
+# own, as a user starts it; these bound each run (the quick suite takes a
+# few minutes) and the batch of the small calibrate probe
+BENCH_TIMEOUT_S = 600
+SMALL_PROBE_B = 128
+# the kernels each run must have launched
+BENCH_PATHS = {
+    "headline": ("remap_gather",),
+    "--all --quick": ("remap_gather", "posed_gather", "static_ray_posed", "posed_layout",
+                      "lensmap_resolve", "equirect_gather"),
+    "--sol": ("onehot_gather", "stream_read"),
+    "--check --configs 0-3": ("remap_gather", "lensmap_resolve"),
+    "calibrate probe": ("remap_gather",),
+}
+
+
+def bench_phase(dev):
+    """Phase 13: ``python -m blinky_tpu_torch.bench`` as a user runs it, in
+    processes of its own.  Returns the kernels' launches summed over every
+    process of the phase, which the kernels line adds to each kernel's own
+    path's."""
+    import math
+    import shutil
+    import tempfile
+
+    from blinky_tpu_torch.bench import autobatch, calibrate, check
+    from blinky_tpu_torch.bench.__main__ import LAUNCHES_ENV, launch_counts
+
+    phase_t0 = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="blinky_bench_"))
+    free, total = torch.cuda.mem_get_info(dev)
+    phase(13, f"this process holds {torch.cuda.memory_reserved(dev)} bytes of the card; "
+          f"{free} of {total} bytes free for the bench's processes")
+    runs = {}
+
+    def counted(name, fn):
+        """Run *fn* with every process it starts recording its launches in a
+        file of its own; require the run's kernels launched."""
+        path = tmp / f"{len(runs)}.jsonl"
+        os.environ[LAUNCHES_ENV] = str(path)
+        try:
+            t0 = time.perf_counter()
+            out = fn()
+            seconds = time.perf_counter() - t0
+        finally:
+            del os.environ[LAUNCHES_ENV]
+        lines = [json.loads(line) for line in path.read_text().splitlines()]
+        n = {k: sum(line["launches"][k] for line in lines) for k in launch_counts()}
+        runs[name] = n
+        for kernel in BENCH_PATHS[name]:
+            require(n[kernel] >= 1, f"bench {name}: {kernel} was not launched")
+        phase(13, f"{name}: {len(lines)} processes in {seconds:.1f} s, launches "
+              f"{ {k: v for k, v in n.items() if v} }")
+        return out
+
+    def bench(*flags, ok=(0,)):
+        proc = subprocess.run([sys.executable, "-m", "blinky_tpu_torch.bench", *flags],
+                              cwd=ROOT, capture_output=True, text=True,
+                              timeout=BENCH_TIMEOUT_S)
+        require(proc.returncode in ok, f"bench {' '.join(flags)} exited "
+                f"{proc.returncode}: {proc.stderr[-3000:]}")
+        return [json.loads(line) for line in proc.stdout.splitlines() if line.startswith("{")]
+
+    try:
+        # ------------------------------------------------ the headline
+        (head,) = counted("headline", bench)
+        texels = head["source_rows"]
+        src_lane = autobatch.texels_bytes_per_lane(texels)
+        screen = autobatch.screen_bytes_per_lane(1920, 1080)
+        derived = autobatch.feasible_batch(src_lane, screen,
+                                           budget=autobatch.effective_budget_bytes(dev),
+                                           quantum=autobatch.QUANTUM)
+        require(head["metric"] == "warped_1080p_frames_per_sec_per_chip" and head["equal"],
+                f"headline: {head}")
+        require(head["batch"] == derived, f"headline batch {head['batch']}, the planner "
+                f"derives {derived} for this card")
+        bound_ms = head["bound_bytes"] / HBM_BYTES_PER_S * 1e3
+        phase(13, f"headline {head['config']}: {head['value']} frames/s, "
+              f"{head['ms_per_batch']:.4f} ms a batch, {head['gbps']:.1f} GB/s; K1 at "
+              f"B={head['batch']} (the planner's: {src_lane} + {screen} bytes a lane, "
+              f"EFFECTIVE_FRACTION {autobatch.EFFECTIVE_FRACTION} of "
+              f"{autobatch.device_hbm_bytes(dev)} bytes) against its byte bound "
+              f"{bound_ms:.4f} ms ({head['bound_bytes']} B): "
+              f"{100 * bound_ms / head['ms_per_batch']:.1f} %")
+
+        # ------------------------------------------------ the quick suite
+        results = counted("--all --quick", lambda: bench("--all", "--quick"))
+        require(sorted(r["config"] for r in results) == list(range(8)),
+                f"--all --quick gave configs {[r['config'] for r in results]}")
+        for r in results:
+            leaves = dict(check._walk(r))
+            missing = [k for k, v in leaves.items() if check._kind(k) and v is None]
+            errors = [k for k in leaves if k.endswith("_error")]
+            require(not missing and not errors, f"config {r['config']}: not measured "
+                    f"{missing}, errors { {k: leaves[k] for k in errors} }")
+            require(all(v for k, v in leaves.items() if k.rsplit('.', 1)[-1] == "exact"),
+                    f"config {r['config']}: exact is False")
+            phase(13, f"--all --quick config {r['config']}: {json.dumps(r)}")
+
+        # ------------------------------------------------ the probes
+        probes = counted("--sol", lambda: bench("--sol"))
+        for p_ in probes:
+            if p_["probe"] in ("onehot_gather", "stream_read"):
+                require(p_["equal"], f"--sol {p_['probe']} differs from its plain version")
+        phase(13, "--sol: " + ", ".join(f"{p_['probe']} {p_['ms']:.4f} ms" for p_ in probes))
+
+        # ------------------------------------------------ the gate
+        rc = {}
+
+        def gate():
+            lines = bench("--check", "--configs", "0-3", ok=(0, 1))
+            rc["verdict"] = lines[-1]
+            return lines
+
+        counted("--check --configs 0-3", gate)
+        v = rc["verdict"]
+        require(v.get("metric") == "bench_check" and v["status"] in ("pass", "fail"),
+                f"--check: {v}")
+        phase(13, f"--check --configs 0-3 against {check.BASELINE_PATH.relative_to(ROOT)}: "
+              f"{v['status']}; failures {v['failures']}")
+
+        # ------------------------------------------------ calibrate probes
+        per_lane = calibrate.probe_layout_bytes()
+        past = math.ceil(autobatch.device_hbm_bytes(dev) / per_lane / 128) * 128 + 128
+        ran = counted("calibrate probe", lambda: (
+            calibrate._spawn_probe(SMALL_PROBE_B, BENCH_TIMEOUT_S),
+            calibrate._spawn_probe(past, BENCH_TIMEOUT_S)))
+        require(ran == (True, False), f"calibrate probes B={SMALL_PROBE_B} and B={past} "
+                f"(past {autobatch.device_hbm_bytes(dev)} bytes): {ran}, expected "
+                "(ran, out of memory)")
+        phase(13, f"calibrate probes: B={SMALL_PROBE_B} ran; B={past} ({per_lane * past} "
+              f"bytes) ran out of memory; phase 13 took {time.perf_counter() - phase_t0:.1f} s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {k: sum(n[k] for n in runs.values()) for k in launch_counts()}
 
 
 if __name__ == "__main__":

@@ -1818,3 +1818,121 @@ def test_render_posed_from_dem_track_on_card_equals_cpu(cuda_device, monkeypatch
     assert static_ray.static_ray_posed.launches == n6 + 1
     assert posed.posed_layout.launches == n7 + 1
     _equal(got.cpu(), cpu.render_posed(frames, poses, render_scale=k))
+
+
+# ------------------------------------------------------------ the bench suite
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 130, 300])
+def test_bench_sources_on_card_equal_cpu(cuda_device, B):
+    """bench/throughput.py's generators on the card, every layout, equal to
+    the same generators on the CPU (held to the JAX package's there)."""
+    from blinky_tpu_torch.bench import throughput as tt
+    from blinky_tpu_torch.kernels.remap import compact_rows, compact_texels
+
+    g = globes.get("cube")
+    lens = lenses.get("panini", g)
+    lm = build_lensmap(lens, g, calc_scale(Zoom("fov", 180), lens, 64, 48), 64, 48, 48)
+    slabs, _ = compact_rows(lm, rubix=True)
+    texels, _ = compact_texels(lm, rubix=True)
+    for rgba in (False, True):
+        for make in (lambda d: tt.device_source(48, B, False, rgba, device=d),
+                     lambda d: tt.device_source(48, B, True, rgba, device=d),
+                     lambda d: tt.device_source(48, B, True, rgba, (1, 4, 7, 10), device=d),
+                     lambda d: tt.device_source_rows(48, B, rgba, slabs, device=d),
+                     lambda d: tt.device_source_texels(48, B, rgba, texels, device=d)):
+            _equal(make(cuda_device).cpu(), make("cpu"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [16400, 10001])
+def test_k1_at_a_lane_slice_of_a_large_batch(cuda_device, B):
+    """K1 on the headline's texel-compacted source at a batch past any it
+    ran before (rows of 16 KB in 16-byte vectors; a ragged B's texel path),
+    a source past 2^31 bytes: lanes at both ends and in the middle of the
+    full-batch screen equal the plain version on those lanes alone."""
+    from blinky_tpu_torch.bench import throughput as tt
+
+    torch.cuda.empty_cache()
+    config, src, idx, valid, bg, _ = tt.gather_operands(batch=B, rubix=False,
+                                                        texel_compact=True,
+                                                        device=cuda_device)
+    assert src.numel() > 2**31
+    n = remap.remap_gather.launches
+    out = remap.remap_gather(src, idx, valid, bg)
+    assert remap.remap_gather.launches == n + 1
+    for b0 in (0, B // 2 - 37, B - 128):
+        _equal(out[:, b0:b0 + 128],
+               remap.remap_gather_plain(src[:, b0:b0 + 128].contiguous(), idx, valid, bg))
+    del out, src
+    torch.cuda.empty_cache()
+
+
+GATHER_MODES = {
+    "full rubix": dict(), "full": dict(rubix=False), "full rgba": dict(rubix=False, rgba=True),
+    "compact rubix": dict(compact=True), "compact rubix rgba": dict(rgba=True, compact=True),
+    "postgather": dict(rgba=True, tint_post=True),
+    "postgather compact": dict(rgba=True, tint_post=True, compact=True),
+    "rowcrop": dict(rubix=False, row_crop=True), "rowcrop rubix rgba": dict(rgba=True, row_crop=True),
+    "texels": dict(rubix=False, texel_compact=True),
+    "texels rubix rgba": dict(rgba=True, texel_compact=True),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", list(GATHER_MODES))
+def test_run_gather_throughput_on_card(cuda_device, mode):
+    """Every source layout of the bench at 1080p, B = 160 (K1 on the card):
+    K1 equals its plain version on the checked lanes, and its screen on the
+    first lanes equals the CPU's on the same source's lanes."""
+    from blinky_tpu_torch.bench import throughput as tt
+
+    kw = GATHER_MODES[mode]
+    r = tt.run_gather_throughput(batch=160, iters=2, device=cuda_device, **kw)
+    assert r["equal"] and r["batch"] == 160 and r["fps"] > 0
+    config, src, idx, valid, bg, tint = tt.gather_operands(batch=4, device=cuda_device, **kw)
+    assert config == r["config"].replace("B=160", "B=4")
+    got = remap.remap_gather(src, idx, valid, bg, **tint)
+    _, csrc, cidx, cvalid, cbg, ctint = tt.gather_operands(batch=4, device="cpu", **kw)
+    _equal(got.cpu(), remap.remap_gather(csrc, cidx, cvalid, cbg, **ctint))
+
+
+BENCH_RUNS = {
+    "throughput": ("run_throughput", dict(batch=160, iters=1), ("remap_gather",)),
+    "throughput rubix decode": ("run_throughput", dict(batch=160, iters=1, rubix=True,
+                                                       decode_rgb=True), ("remap_lut",)),
+    "pose tracked": ("run_pose_tracked_throughput", dict(batch=160, iters=1),
+                     ("lensmap_resolve", "remap_gather")),
+    "per-frame poses": ("run_per_frame_pose_throughput", dict(batch=10, reps=1),
+                        ("posed_layout", "static_ray_posed")),
+    "static-ray poses": ("run_static_ray_pose_throughput", dict(batch=10, reps=1),
+                         ("posed_layout", "static_ray_posed")),
+    "forward poses": ("run_forward_posed_throughput", dict(batch=10, reps=1),
+                      ("posed_gather", "static_ray_posed")),
+    "build bench": ("run_build_bench", dict(device_iters=2), ("lensmap_resolve",)),
+    "equirect faces": ("run_equirect_throughput", dict(batch=20, iters=1),
+                       ("equirect_gather", "remap_gather")),
+    "equirect texels rubix": ("run_equirect_throughput",
+                              dict(batch=20, iters=1, texel_compact=True, rubix=True),
+                              ("equirect_gather", "remap_gather")),
+    "equirect fused nearest": ("run_equirect_throughput",
+                               dict(batch=20, iters=1, fused=True, bilinear=False),
+                               ("equirect_gather",)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(BENCH_RUNS))
+def test_bench_run_holds_its_kernels_on_card(cuda_device, case):
+    """Each measurement of the suite at its full width on the card launches
+    its kernels and finds them equal to their plain versions."""
+    from blinky_tpu_torch.bench import throughput as tt
+    from blinky_tpu_torch.bench.__main__ import launch_counts
+
+    name, kw, kernels = BENCH_RUNS[case]
+    before = launch_counts()
+    r = getattr(tt, name)(**kw, device=cuda_device)
+    after = launch_counts()
+    assert r["equal"] is True, r
+    assert all(after[k] > before[k] for k in kernels), (before, after)

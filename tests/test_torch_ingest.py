@@ -263,7 +263,8 @@ def test_device_pano_equals_jax(h, w, b, chunk):
                          ids=["faces", "compact", "fused", "compact_rubix_nearest"])
 def test_run_equirect_throughput_runs_the_chain(monkeypatch, kw):
     """The chain of each formulation at a tiny shape, with the timer replaced
-    by a host clock; the JAX probe's keys."""
+    by a host clock; the JAX probe's keys, and ``equal``: the chain held to
+    the plain versions."""
     import time
 
     from blinky_tpu_torch.bench import throughput
@@ -276,11 +277,12 @@ def test_run_equirect_throughput_runs_the_chain(monkeypatch, kw):
         fn()
         return max((time.perf_counter() - t0) * 1e3, 1e-6)
 
-    monkeypatch.setattr(throughput, "cuda_ms", host_ms)
+    monkeypatch.setattr(throughput, "device_ms",
+                        lambda fn, iters, device, warmup=1: host_ms(fn, iters, warmup))
     r = throughput.run_equirect_throughput(
         pano_h=32, pano_w=64, platesize=24, width=48, height=36, batch=2, iters=1,
         device="cpu", **kw)
-    assert set(r) == {"config", "fps", "ms_per_batch"}
+    assert set(r) == {"config", "fps", "ms_per_batch", "equal"} and r["equal"] is True
     assert r["fps"] == pytest.approx(2 / (r["ms_per_batch"] * 1e-3))
     assert tuple(seen[0].shape) == (36, 48, 2) and seen[0].dtype == torch.uint32
     # every formulation renders the Session's screens for the same panos

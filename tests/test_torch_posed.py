@@ -944,7 +944,7 @@ def test_render_posed_chunks_under_a_tiny_budget(monkeypatch):
         reads.append(device)
         return 2 * lane + 1
 
-    monkeypatch.setattr(autobatch, "effective_budget_bytes", budget)
+    monkeypatch.setattr(autobatch, "free_budget_bytes", budget)
     monkeypatch.setattr(static_ray, "static_ray_posed", counted)
     assert torch.equal(ps.render_posed(frames, np.asarray(POSES)), whole)
     assert calls == [5] and reads == []
