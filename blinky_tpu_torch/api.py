@@ -25,8 +25,9 @@ globe script directories (``lens_dirs``, ``globe_dirs``) hold ``.py`` and
 path a built-in takes.  The 360-video path (:meth:`Session.render_equirect`)
 and the supersampled render (:meth:`Session.render_aa`) run on the device
 through :mod:`blinky_tpu_torch.kernels.ingest` and
-:func:`blinky_tpu_torch.kernels.remap.downsample_rgba`.  The sharded render
-(``render_sharded``) is not ported yet and raises ``NotImplementedError``.
+:func:`blinky_tpu_torch.kernels.remap.downsample_rgba`; the sharded render
+(:meth:`Session.render_sharded`) over a device mesh through
+:mod:`blinky_tpu_torch.parallel`.
 """
 
 from __future__ import annotations
@@ -76,10 +77,6 @@ SHORTCUT_BINDINGS = {
     "o": "f_globe tetra",
     "p": "f_globe fast",
 }
-
-# blinky_tpu's Session entry points that the port does not have yet
-_UNPORTED_METHODS = frozenset({"render_sharded"})
-
 
 _SINGLE_CHARS = "{})(':"  # common/common.c:1063 — NQ splits these alone
 
@@ -449,13 +446,6 @@ class Session:
                 "f_rubixgrid 10 4 1",
             ):
                 self.cmd(c)
-
-    def __getattr__(self, name):
-        # only reached when normal lookup fails
-        if name in _UNPORTED_METHODS:
-            raise NotImplementedError(
-                f"Session.{name} is not ported to blinky_tpu_torch yet")
-        raise AttributeError(name)
 
     # ------------------------------------------------------------------ io
     def _print(self, msg: str) -> None:
@@ -1073,6 +1063,36 @@ class Session:
                                        device=self.device)
         rubix = self.rubix_enabled if rubix is None else rubix
         return self._kernel(frames, rubix=rubix, decode_rgb=decode_rgb)
+
+    def render_sharded(self, frames, mesh, rubix=None, decode_rgb: bool = False):
+        """:meth:`render` over a device mesh
+        (:func:`blinky_tpu_torch.parallel.make_mesh`, or
+        :func:`~blinky_tpu_torch.parallel.make_slice_mesh` for two levels):
+        the frame batch splits on B over the mesh's data axes, the lensmap
+        rows over "space", and every device gathers locally
+        (:func:`blinky_tpu_torch.parallel.remap_sharded`).  Bit-equal to
+        :meth:`render` on the same table; returns a
+        :class:`~blinky_tpu_torch.parallel.ShardedArray`.  Uses the exact
+        lensmap: a pending time-sliced build is finished first (a sharded
+        batch is offline throughput work, not the interactive preview)."""
+        from blinky_tpu_torch.parallel import remap_sharded
+
+        if not hasattr(frames, "ndim"):
+            frames = np.asarray(frames)
+        self._sync_platesize(frames)
+        if not self.fisheye_enabled:
+            raise ValueError("render_sharded needs fisheye enabled "
+                             "(the plain view is single-device)")
+        if self._changed or self._lensmap is None:
+            self._rebuild()
+        if self.lensmap is None:  # the property finishes a pending sliced build
+            raise ValueError("no valid lensmap (check lens/zoom state)")
+        if self._kernel is None:
+            self._kernel = RemapKernel(self._lensmap, self.palette, self._background,
+                                       device=self.device)
+        rubix = self.rubix_enabled if rubix is None else rubix
+        return remap_sharded(self._kernel, frames, mesh, rubix=rubix,
+                             decode_rgb=decode_rgb)
 
     def render_host(self, frames, rubix=None, decode_rgb: bool = False):
         """Render ONE [P, S, S] NumPy frame entirely on the host, with

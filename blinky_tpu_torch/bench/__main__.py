@@ -6,7 +6,7 @@
     python -m blinky_tpu_torch.bench --check-update [--quick] [--configs ...]
     python -m blinky_tpu_torch.bench --calibrate       # the memory walk
     python -m blinky_tpu_torch.bench --sol             # K3, K4 and the yardsticks
-    python -m blinky_tpu_torch.bench --sharded         # batch scaling on one card
+    python -m blinky_tpu_torch.bench --sharded         # batch and weak scaling
 
 The headline is the texel-compacted 1080p remap (panini + cube, ``f_fov
 180``, K1) at the batch the planner derives for this card
@@ -23,8 +23,10 @@ The flags ``--config4k-*``, ``--config-eq-*``, ``--config-rowcrop-*`` and
 ``--calibrate-probe N`` run one measurement each, in the processes the suite
 and the walk start.  Every measurement holds its kernels to their plain
 versions before it times them and exits non-zero when one differs
-(``throughput.checked``).  ``--sharded`` needs one card: the multi-device
-scalings wait for multi-GPU support.
+(``throughput.checked``).  ``--sharded`` runs the one-card batch scaling,
+then the static and the posed weak scaling over the cards there are
+(``run_sharded_scaling``, ``run_posed_sharded_scaling``: one row each on a
+machine with one card).
 
 Without a CUDA device it exits 1: the bench never measures the CPU.  With
 ``BLINKY_BENCH_LAUNCHES=<file>`` in the environment, every process of a run
@@ -146,17 +148,20 @@ def run(argv) -> int:
             print(json.dumps({"metric": "speed_of_light_probe", **r}), flush=True)
         return 0
     if "--sharded" in argv:
-        import torch
+        from blinky_tpu_torch.bench.throughput import (
+            checked, run_batch_scaling, run_posed_sharded_scaling, run_sharded_scaling,
+        )
 
-        from blinky_tpu_torch.bench.throughput import checked, run_batch_scaling
-
-        if torch.cuda.device_count() > 1:
-            raise NotImplementedError(
-                "the sharded scalings need multi-GPU support (ROADMAP §1 item 7); "
-                "--sharded measures batch scaling on one card")
+        # the one-card batch scaling, then both weak scalings over the cards
         for r in run_batch_scaling():
             checked(r, f"batch scaling B={r['batch']}")
             print(json.dumps({"metric": "batch_scaling_1080p", **r}), flush=True)
+        for r in run_sharded_scaling():
+            checked(r, f"sharded scaling over {r['devices']} devices")
+            print(json.dumps({"metric": "sharded_weak_scaling", **r}), flush=True)
+        for r in run_posed_sharded_scaling():
+            checked(r, f"posed sharded scaling over {r['devices']} devices")
+            print(json.dumps({"metric": "posed_sharded_weak_scaling", **r}), flush=True)
         return 0
 
     from blinky_tpu_torch.bench.throughput import (

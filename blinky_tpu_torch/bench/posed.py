@@ -143,14 +143,15 @@ def rotate_rays_launch_ms(lib, vx, vy, vz, bases, iters=20):
     batch = int(bases.shape[0]) if bases is not None else int(vx.shape[0])
     shape = ((batch,) if bases is not None else ()) + tuple(vx.shape)
     npix = vx.numel() // (1 if bases is not None else batch)
-    out = [torch.empty(shape, dtype=torch.float32, device=dev) for _ in range(3)]
-    args = (vx.data_ptr(), vy.data_ptr(), vz.data_ptr(), npix, _build.ptr(bases), batch,
-            out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(), _build.stream(dev))
+    with _build.on_device(dev) as stream:
+        out = [torch.empty(shape, dtype=torch.float32, device=dev) for _ in range(3)]
+        args = (vx.data_ptr(), vy.data_ptr(), vz.data_ptr(), npix, _build.ptr(bases), batch,
+                out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(), stream)
 
-    def launch():
-        _build.check(lib.blinky_rotate_rays(*args), "rotate_rays")
+        def launch():
+            _build.check(lib.blinky_rotate_rays(*args), "rotate_rays")
 
-    return cuda_ms(launch, iters), tuple(out)
+        return cuda_ms(launch, iters), tuple(out)
 
 
 def sass_functions(sass):

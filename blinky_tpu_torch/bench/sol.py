@@ -80,15 +80,13 @@ def onehot_gather(idx, src):
     if not _build.on_card(k, src.device):
         return onehot_gather_plain(idx, src)
     T = idx.shape[1]
-    out = torch.empty((W, T, B), dtype=torch.uint8, device=src.device)
-    if out.numel():
-        lib = _build.library()
-        with torch.cuda.device(src.device):
-            rc = lib.blinky_onehot_gather(idx.data_ptr(), src.data_ptr(), W, T,
-                                          R, B, out.data_ptr(),
-                                          _build.stream(src.device))
-        _build.check(rc, k)
-        onehot_gather.launches += 1
+    with _build.on_device(src.device) as stream:
+        out = torch.empty((W, T, B), dtype=torch.uint8, device=src.device)
+        if out.numel():
+            rc = _build.library().blinky_onehot_gather(idx.data_ptr(), src.data_ptr(), W, T,
+                                                       R, B, out.data_ptr(), stream)
+            _build.check(rc, k)
+            onehot_gather.launches += 1
     return out
 
 
@@ -117,13 +115,12 @@ def stream_read(x):
         return stream_read_plain(x)
     if x.data_ptr() % 16:
         raise ValueError(f"{k}: x must be 16-byte aligned")
-    out = torch.empty((1, 1), dtype=torch.int32, device=x.device)
-    lib = _build.library()
-    with torch.cuda.device(x.device):
-        rc = lib.blinky_stream_read(x.data_ptr(), x.numel(), out.data_ptr(),
-                                    _build.stream(x.device))
-    _build.check(rc, k)
-    stream_read.launches += 1
+    with _build.on_device(x.device) as stream:
+        out = torch.empty((1, 1), dtype=torch.int32, device=x.device)
+        rc = _build.library().blinky_stream_read(x.data_ptr(), x.numel(), out.data_ptr(),
+                                                 stream)
+        _build.check(rc, k)
+        stream_read.launches += 1
     return out
 
 

@@ -601,6 +601,133 @@ def run_batch_scaling(width=1920, height=1080, platesize=1080,
     return out
 
 
+def _sync_all(devices) -> None:
+    for d in dict.fromkeys(devices):
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
+
+
+def _best_wall_s(fn, devices, iters: int, reps: int) -> float:
+    """Seconds a call of ``fn()``: the best of *reps* host-clock windows of
+    *iters* calls, every device of *devices* synchronised around each
+    window (the JAX function's timing, over several cards)."""
+    fn()
+    _sync_all(devices)
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        _sync_all(devices)
+        times.append((time.perf_counter() - t0) / iters)
+    return min(times)
+
+
+def run_sharded_scaling(width=640, height=480, platesize=480, per_device_batch=32,
+                        iters=4, reps=3, budget=None, *, devices=None) -> list:
+    """Weak scaling of the static remap over 1, 2, 4, ... of *devices* (by
+    default every card there is; a list that repeats a device runs logical
+    shards of it): frames split on B over the data shards, screen rows over
+    "space" (2 row blocks from 4 devices on), K1 on every cell
+    (``blinky_tpu_torch.parallel``).  ``per_device_batch=None`` derives each
+    step's batch from the source layout and the per-device budget
+    (``feasible_batch(n_devices=...)``, the budget of ``devices[0]`` unless
+    *budget* is given).  Each row's ``equal`` holds the assembled sharded
+    output to K1 on the whole batch on ``devices[0]``; times are host-clock
+    windows with every device synchronised."""
+    from blinky_tpu_torch.parallel import (
+        _blocks, _cells, _lanes, make_mesh, shard_frames, shard_kernel, visible_devices,
+    )
+
+    devices = [torch.device(d) for d in (visible_devices() if devices is None else devices)]
+    g = globes.get("cube")
+    lens = lenses.get("panini", g)
+    scale = calc_scale(Zoom("fov", 180), lens, width, height)
+    lm = build_lensmap(lens, g, scale, width, height, platesize)
+    whole = RemapKernel(lm, device=devices[0])
+    out = []
+    n = 1
+    while n <= len(devices):
+        n_space = 2 if n >= 4 else 1
+        mesh = make_mesh(n // n_space, n_space, devices=devices)
+        copies = shard_kernel(whole, mesh).reshape(_cells(mesh).shape)
+        if per_device_batch is None:
+            B = feasible_batch(planes_bytes_per_lane(platesize, g.numplates),
+                               screen_bytes_per_lane(width, height), device=devices[0],
+                               budget=budget, n_devices=n // n_space)
+        else:
+            B = per_device_batch * (n // n_space)
+        src = device_source(platesize, B, False, False, device=devices[0])
+        frames = shard_frames(src, mesh)
+        cells = _cells(mesh)
+        lanes, rows = _lanes(B, cells.shape[0]), _blocks(height, n_space)
+        work = []
+        for (gi, si), dev in np.ndenumerate(cells):
+            k = copies[gi, si]
+            part = frames.piece((slice(0, 6), slice(0, platesize), slice(0, platesize),
+                                 slice(*lanes[gi])), dev).reshape(-1, lanes[gi][1] - lanes[gi][0])
+            work.append((k, part, rows[si], lanes[gi]))
+
+        def step():
+            return [remap_gather(p, k.flat_idx, k.valid, k.background) for k, p, _, _ in work]
+
+        got = torch.empty((height * width, B), dtype=torch.uint8, device=devices[0])
+        for o, (_, _, (r0, r1), (b0, b1)) in zip(step(), work):
+            got.view(height, width, B)[r0:r1, :, b0:b1] = o.view(r1 - r0, width, b1 - b0)
+        equal = torch.equal(got, remap_gather(src.reshape(-1, B), whole.flat_idx,
+                                              whole.valid, whole.background))
+        del got
+        dt = _best_wall_s(step, cells.flat, iters, reps)
+        out.append(dict(devices=n, mesh=f"{n // n_space}x{n_space}", batch=B, fps=B / dt,
+                        fps_per_device=B / dt / n, equal=equal))
+        n *= 2
+    return out
+
+
+def run_posed_sharded_scaling(width=320, height=240, platesize=240, per_device_poses=4,
+                              iters=3, reps=3, budget=None, *, devices=None) -> list:
+    """Weak scaling of the per-frame-pose pipeline over 1, 2, 4, ... of
+    *devices* (as :func:`run_sharded_scaling`): the poses split over the
+    data shards (``posed_remap_sharded``: the lens stage once a device,
+    then K7 and K6 a call).  ``per_device_poses=None`` derives the pose
+    chunk from the posed live-set model and the per-device budget.  Each
+    row's ``equal`` holds the assembled output to the unsharded
+    ``PosedRemapKernel`` on ``devices[0]``."""
+    from blinky_tpu_torch.bench.autobatch import posed_bytes_per_lane
+    from blinky_tpu_torch.kernels.posed import (
+        PosedRemapKernel, bases_from_pose_track, posed_remap_sharded,
+    )
+    from blinky_tpu_torch.parallel import make_mesh, visible_devices
+
+    devices = [torch.device(d) for d in (visible_devices() if devices is None else devices)]
+    g = globes.get("cube")
+    lens = lenses.get("panini", g)
+    scale = calc_scale(Zoom("fov", 180), lens, width, height)
+    out = []
+    n = 1
+    while n <= len(devices):
+        mesh = make_mesh(n, 1, devices=devices)
+        if per_device_poses is None:
+            B = feasible_batch(posed_bytes_per_lane(platesize, g.numplates, width, height),
+                               0, device=devices[0], budget=budget, n_devices=n)
+        else:
+            B = per_device_poses * n
+        frames = device_source(platesize, B, False, False, device=devices[0])
+        poses = np.stack([np.linspace(-20, 20, B), np.linspace(0, 90, B), np.zeros(B)],
+                         axis=1)
+        bases = bases_from_pose_track(poses)
+        kern = PosedRemapKernel(lens, g, width, height, scale, platesize=platesize,
+                                device=devices[0])
+        equal = torch.equal(posed_remap_sharded(kern, frames, bases, mesh).to(devices[0]),
+                            kern(frames, bases))
+        dt = _best_wall_s(lambda: posed_remap_sharded(kern, frames, bases, mesh),
+                          mesh.devices.flat, iters, reps)
+        out.append(dict(devices=n, poses=B, fps=B / dt, fps_per_device=B / dt / n,
+                        equal=equal))
+        n *= 2
+    return out
+
+
 def pan_poses(batch: int) -> np.ndarray:
     """The posed benches' pose track: pitch drifting -20..20, yaw panning
     0..90 degrees, no roll."""

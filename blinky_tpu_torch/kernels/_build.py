@@ -14,6 +14,7 @@ tensors on a CUDA device.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import fcntl
 import os
@@ -192,8 +193,17 @@ def ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def stream(device):
-    """The raw handle of PyTorch's current stream on *device*."""
+@contextlib.contextmanager
+def on_device(device):
+    """Make *device* the current CUDA device for a wrapper's allocations and
+    launch, and yield the raw handle of PyTorch's current stream there.
+
+    The CUDA runtime launches into the current device's context, and refuses
+    a stream of another device; attributes a launch sets or reads (K3's
+    shared-memory limit, the SM count of a block-stride grid) apply to the
+    current device too.  So every wrapper allocates and launches inside
+    this block, whichever card is current in the caller."""
     import torch
 
-    return torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(device):
+        yield torch.cuda.current_stream(device).cuda_stream

@@ -159,17 +159,15 @@ def equirect_gather(src, idx, w=None, *, plate_mask=None, valid=None, bg=None,
         return equirect_gather_plain(src, idx, w, plate_mask=plate_mask, valid=valid,
                                      bg=bg, tint_rgb=tint_rgb, tint_mask=tint_mask)
     rows, B = src.shape
-    out = torch.empty((n, B), dtype=torch.int32, device=dev)
-    if out.numel():
-        lib = _build.library()
-        with torch.cuda.device(dev):
-            rc = lib.blinky_equirect_gather(
+    with _build.on_device(dev) as stream:
+        out = torch.empty((n, B), dtype=torch.int32, device=dev)
+        if out.numel():
+            rc = _build.library().blinky_equirect_gather(
                 src.data_ptr(), rows, B, idx.data_ptr(), _build.ptr(w), taps, n,
                 _build.ptr(plate_mask), _build.ptr(valid), _build.ptr(bg),
-                _build.ptr(tint_rgb), _build.ptr(tint_mask), out.data_ptr(),
-                _build.stream(dev))
-        _build.check(rc, k)
-        equirect_gather.launches += 1
+                _build.ptr(tint_rgb), _build.ptr(tint_mask), out.data_ptr(), stream)
+            _build.check(rc, k)
+            equirect_gather.launches += 1
     return out
 
 
@@ -450,9 +448,36 @@ class CompactEquirectChain:
 
 def equirect_screen_sharded(kernel: EquirectScreenKernel, panos, mesh,
                             rubix=False):
-    """The fused pano -> screen kernel with the pano batch sharded over
-    several devices: not ported yet (it goes with the multi-GPU slice, like
-    ``posed_remap_sharded``)."""
-    raise NotImplementedError(
-        "equirect_screen_sharded is not ported to blinky_tpu_torch yet: "
-        "it waits for the multi-GPU slice")
+    """The fused pano -> screen kernel with the pano batch (``[H, W, B]``
+    u32, batch-innermost) split on B over the mesh's data axes: the
+    composed tables and the screen's operands replicated on every device
+    of the mesh (once per (kernel, mesh)), each shard's lanes through K10
+    there.  Returns a :class:`blinky_tpu_torch.parallel.ShardedArray`
+    ``[H_out, W_out, B]`` of ``torch.uint32``, bit-equal to
+    ``kernel(panos, rubix=rubix)``."""
+    import copy
+
+    from blinky_tpu_torch.parallel import ShardedArray, _row_kernel, lane_shards, per_device
+
+    src = panos_bits(panos, kernel.pano_hw, panos.device if isinstance(
+        panos, torch.Tensor) else "cpu")
+    B = src.shape[1]
+
+    def make(dev):
+        c = copy.copy(kernel)
+        c.device = dev
+        c.idx = kernel.idx.to(dev)
+        c.w = None if kernel.w is None else kernel.w.to(dev)
+        c.remap = _row_kernel(kernel.remap, 0, kernel.shape[0], dev)
+        return c
+
+    shards = list(lane_shards(mesh, B))
+    copies = per_device(kernel, mesh, make)
+    H, W = kernel.shape
+    pieces = []
+    for b0, b1, dev in shards:
+        part = src[:, b0:b1].to(dev).contiguous()
+        out = copies[dev](part.view(torch.uint32).reshape(kernel.pano_hw + (b1 - b0,)),
+                          rubix=rubix)
+        pieces.append(((slice(0, H), slice(0, W), slice(b0, b1)), out))
+    return ShardedArray((H, W, B), torch.uint32, pieces)

@@ -147,21 +147,21 @@ def posed_layout(frames, planes):
         rows = None
     if rows is None and any(st < 0 for st in frames.stride()):
         raise ValueError(f"{name}: frames of strides {frames.stride()}: negative strides")
-    out = torch.empty((B, planes * S * S), dtype=frames.dtype, device=frames.device)
-    if out.numel():
-        lib = _build.library()
-        with torch.cuda.device(frames.device):
+    with _build.on_device(frames.device) as stream:
+        out = torch.empty((B, planes * S * S), dtype=frames.dtype, device=frames.device)
+        if out.numel():
+            lib = _build.library()
             if rows is None:
                 rc = lib.blinky_posed_layout_strided(
                     frames.data_ptr(), *frames.stride(), P, S, B, frames.element_size(),
-                    planes * S * S, out.data_ptr(), _build.stream(frames.device))
+                    planes * S * S, out.data_ptr(), stream)
             else:
                 ld = max(rows.stride(0), B)  # a single texel's stride is free
                 rc = lib.blinky_posed_layout(
                     rows.data_ptr(), ld, T, B, frames.element_size(), planes * S * S,
-                    out.data_ptr(), _build.stream(frames.device))
-        _build.check(rc, name)
-        posed_layout.launches += 1
+                    out.data_ptr(), stream)
+            _build.check(rc, name)
+            posed_layout.launches += 1
     return out
 
 
@@ -222,16 +222,15 @@ def gather_posed(src, idx, valid, background, k):
     if not _build.on_card(name, src.device):
         return gather_posed_plain(src, idx, valid, background, k)
     B, N = src.shape
-    out = torch.empty((B, hb * k, wb * k), dtype=src.dtype, device=src.device)
-    if out.numel():
-        lib = _build.library()
-        with torch.cuda.device(src.device):
-            rc = lib.blinky_posed_gather(
+    with _build.on_device(src.device) as stream:
+        out = torch.empty((B, hb * k, wb * k), dtype=src.dtype, device=src.device)
+        if out.numel():
+            rc = _build.library().blinky_posed_gather(
                 src.data_ptr(), N, src.element_size(), B, idx.data_ptr(),
                 valid.data_ptr(), background.data_ptr(), int(k), hb, wb,
-                out.data_ptr(), _build.stream(src.device))
-        _build.check(rc, name)
-        gather_posed.launches += 1
+                out.data_ptr(), stream)
+            _build.check(rc, name)
+            gather_posed.launches += 1
     return out
 
 
@@ -309,11 +308,59 @@ class PosedRemapKernel:
         return self._static(frames, bases)
 
 
-def posed_remap_sharded(*args, **kwargs):
-    """Not ported: the pose-sharded posed pipeline waits for multi-GPU."""
-    raise NotImplementedError(
-        "posed_remap_sharded waits for multi-GPU support, which is not "
-        "ported to blinky_tpu_torch yet")
+def posed_remap_sharded(kernel: PosedRemapKernel, frames, bases, mesh):
+    """The per-frame-pose pipeline with the POSE axis split over the mesh's
+    data axes: each data shard's poses and their frames go to the devices
+    of its row of the mesh, where the float32 lens stage runs once (the
+    ray table of that device's copy of *kernel*, made once per (kernel,
+    mesh)) and every call is K7 and K6 there.  Returns a
+    :class:`blinky_tpu_torch.parallel.ShardedArray` ``[B, H, W]``, bit-equal
+    to ``kernel(frames, bases)``."""
+    from blinky_tpu_torch.kernels.static_ray import ray_table_from_lens
+
+    def table(dev):
+        k = kernel.render_scale
+        return ray_table_from_lens(kernel.lens, kernel.scale * k, kernel.width_px // k,
+                                   kernel.height_px // k, backend="torch", device=dev)
+
+    return _posed_sharded(kernel, kernel._static, frames, bases, mesh, table)
+
+
+def _posed_sharded(owner, kernel, frames, bases, mesh, table):
+    """The pose split of :func:`posed_remap_sharded` and
+    ``static_ray_posed_sharded``: *kernel*, a ``StaticRayPosedKernel``,
+    copied once per device of the mesh with ``table(device)`` as its ray
+    table and the background replicated (cached in ``owner._sharded_for``),
+    then called on each data shard's lanes on each device of its row (a
+    shard on its own kernel's device is handed over as a lane slice, which
+    K7 lays out in place)."""
+    import copy
+
+    from blinky_tpu_torch.parallel import ShardedArray, lane_shards, per_device
+
+    frames, is_rgba = frames_tensor(frames)
+    B = frames.shape[-1]
+    bases = np.asarray(bases) if not isinstance(bases, torch.Tensor) else bases
+    if tuple(bases.shape) != (B, 3, 3):
+        raise ValueError(f"bases must be [B={B}, 3, 3], got {tuple(bases.shape)}")
+
+    def make(dev):
+        c = copy.copy(kernel)
+        c.device = dev
+        c.ray_table = table(dev).device(dev)
+        c.background = kernel.background.to(dev)
+        return c
+
+    shards = list(lane_shards(mesh, B))
+    copies = per_device(owner, mesh, make)
+    pieces = []
+    for b0, b1, dev in shards:
+        part = frames[..., b0:b1]
+        if part.device != dev:
+            part = part.to(dev).contiguous()
+        out = copies[dev](part.view(torch.uint32) if is_rgba else part, bases[b0:b1])
+        pieces.append(((slice(b0, b1),) + tuple(slice(0, n) for n in out.shape[1:]), out))
+    return ShardedArray((B,) + tuple(pieces[0][1].shape[1:]), pieces[0][1].dtype, pieces)
 
 
 def sweep_remap_plain(src, vx, vy, vz, lens_valid, globe, platesize, numcells,
@@ -392,23 +439,22 @@ def sweep_remap(src, vx, vy, vz, lens_valid, globe, platesize, numcells,
     if not _build.on_card(name, dev):
         return sweep_remap_plain(src, vx, vy, vz, lens_valid, globe, S, numcells,
                                  cell_size, pad_size, expanded, background, plates)
-    out = torch.empty(shape, dtype=src.dtype, device=dev)
-    if out.numel():
-        consts, nplates, resolver, fast_dist, fast_half = globe_args
-        lines = (grid_line_words(S, float(numcells), float(cell_size), float(pad_size), dev)
-                 if expanded else None)
-        lib = _build.library()
-        with torch.cuda.device(dev):
-            rc = lib.blinky_sweep_remap(
+    with _build.on_device(dev) as stream:
+        out = torch.empty(shape, dtype=src.dtype, device=dev)
+        if out.numel():
+            consts, nplates, resolver, fast_dist, fast_half = globe_args
+            lines = (grid_line_words(S, float(numcells), float(cell_size), float(pad_size),
+                                     dev) if expanded else None)
+            rc = _build.library().blinky_sweep_remap(
                 vx.data_ptr(), vy.data_ptr(), vz.data_ptr(), lens_valid.data_ptr(),
                 shape[1] * shape[2], shape[0], consts.ctypes.data, nplates, resolver,
                 fast_dist, fast_half, _build.ptr(plates), _build.ptr(lines), S,
                 int(expanded), src.data_ptr(),
                 src.numel(), src.element_size(), background.data_ptr(), out.data_ptr(),
-                _build.stream(dev))
-        _build.check(rc, name)
-        sweep_remap.launches += 1
-        sweep_remap.given_launches += resolver == RESOLVERS["script"]
+                stream)
+            _build.check(rc, name)
+            sweep_remap.launches += 1
+            sweep_remap.given_launches += resolver == RESOLVERS["script"]
     return out
 
 

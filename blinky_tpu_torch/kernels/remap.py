@@ -156,17 +156,15 @@ def remap_gather(src, idx, valid, bg, *, fill: bool = False, tint_rgb=None,
         return remap_gather_plain(src, idx, valid, bg, fill=fill,
                                   tint_rgb=tint_rgb, tint_mask=tint_mask)
     rows, B = src.shape
-    out = torch.empty((n, B), dtype=src.dtype, device=dev)
-    if out.numel():
-        lib = _build.library()
-        with torch.cuda.device(dev):
-            rc = lib.blinky_remap_gather(
+    with _build.on_device(dev) as stream:
+        out = torch.empty((n, B), dtype=src.dtype, device=dev)
+        if out.numel():
+            rc = _build.library().blinky_remap_gather(
                 src.data_ptr(), rows, src.element_size(), B, idx.data_ptr(),
                 valid.data_ptr(), bg.data_ptr(), _build.ptr(tint_rgb),
-                _build.ptr(tint_mask), int(fill), n, out.data_ptr(),
-                _build.stream(dev))
-        _build.check(rc, k)
-        remap_gather.launches += 1
+                _build.ptr(tint_mask), int(fill), n, out.data_ptr(), stream)
+            _build.check(rc, k)
+            remap_gather.launches += 1
     return out
 
 
@@ -200,17 +198,15 @@ def remap_lut(src, idx, valid, tint, bg, tint_lut=None, rgb_lut=None, *,
                                fill=fill)
     rows, B = src.shape
     shape = (n, B, 3) if rgb_lut is not None else (n, B)
-    out = torch.empty(shape, dtype=torch.uint8, device=dev)
-    if out.numel():
-        lib = _build.library()
-        with torch.cuda.device(dev):
-            rc = lib.blinky_remap_lut(
+    with _build.on_device(dev) as stream:
+        out = torch.empty(shape, dtype=torch.uint8, device=dev)
+        if out.numel():
+            rc = _build.library().blinky_remap_lut(
                 src.data_ptr(), rows, B, idx.data_ptr(), valid.data_ptr(),
                 tint.data_ptr(), bg.data_ptr(), _build.ptr(tint_lut),
-                _build.ptr(rgb_lut), int(fill), n, out.data_ptr(),
-                _build.stream(dev))
-        _build.check(rc, k)
-        remap_lut.launches += 1
+                _build.ptr(rgb_lut), int(fill), n, out.data_ptr(), stream)
+            _build.check(rc, k)
+            remap_lut.launches += 1
     return out
 
 
@@ -274,17 +270,16 @@ def downsample_rgba(hi, factor: int, *, device="cuda"):
         raise ValueError(f"screen {tuple(hi.shape[:2])} not divisible by {factor}")
     if not _build.on_card(name, hi.device):
         return downsample_rgba_plain(hi, k).view(torch.uint32)
-    hi = hi.contiguous()
     H, W = hi.shape[0] // k, hi.shape[1] // k
     B = hi.shape[2] if hi.dim() == 3 else 1
-    out = torch.empty((H, W) + tuple(hi.shape[2:]), dtype=torch.int32, device=hi.device)
-    if out.numel():
-        lib = _build.library()
-        with torch.cuda.device(hi.device):
-            rc = lib.blinky_downsample_rgba(hi.data_ptr(), k, H, W, B, out.data_ptr(),
-                                            _build.stream(hi.device))
-        _build.check(rc, name)
-        downsample_rgba.launches += 1
+    with _build.on_device(hi.device) as stream:
+        hi = hi.contiguous()
+        out = torch.empty((H, W) + tuple(hi.shape[2:]), dtype=torch.int32, device=hi.device)
+        if out.numel():
+            rc = _build.library().blinky_downsample_rgba(hi.data_ptr(), k, H, W, B,
+                                                         out.data_ptr(), stream)
+            _build.check(rc, name)
+            downsample_rgba.launches += 1
     return out.view(torch.uint32)
 
 
@@ -330,19 +325,17 @@ def tint_expand_rgba(frames):
         raise ValueError(f"{name}: {P} source planes: expected <= {MAX_PLATES}")
     if not _build.on_card(name, frames.device):
         return tint_expand_rgba_plain(frames)
-    frames = frames.contiguous()
-    out = torch.empty((2 * MAX_PLATES,) + tuple(frames.shape[1:]), dtype=torch.int32,
-                      device=frames.device)
-    if out.numel():
-        per_plane = out.numel() // (2 * MAX_PLATES)
-        tints = _plate_tints_rgb()
-        lib = _build.library()
-        with torch.cuda.device(frames.device):
-            rc = lib.blinky_tint_expand_rgba(frames.data_ptr(), P, per_plane,
-                                             tints.ctypes.data, out.data_ptr(),
-                                             _build.stream(frames.device))
-        _build.check(rc, name)
-        tint_expand_rgba.launches += 1
+    with _build.on_device(frames.device) as stream:
+        frames = frames.contiguous()
+        out = torch.empty((2 * MAX_PLATES,) + tuple(frames.shape[1:]), dtype=torch.int32,
+                          device=frames.device)
+        if out.numel():
+            per_plane = out.numel() // (2 * MAX_PLATES)
+            tints = _plate_tints_rgb()
+            rc = _build.library().blinky_tint_expand_rgba(
+                frames.data_ptr(), P, per_plane, tints.ctypes.data, out.data_ptr(), stream)
+            _build.check(rc, name)
+            tint_expand_rgba.launches += 1
     return out
 
 
@@ -594,6 +587,20 @@ def frames_tensor(frames):
     is_rgba = a.dtype == np.uint32
     a = a.view(np.int32) if is_rgba else a.astype(np.uint8, copy=False)
     return torch.from_numpy(np.ascontiguousarray(a)), is_rgba
+
+
+def host_array(x) -> np.ndarray:
+    """A result as a NumPy array on the host: a tensor copied from its
+    device (``torch.uint32`` through its int32 bits, to NumPy ``uint32``);
+    anything else (a NumPy array, a
+    :class:`blinky_tpu_torch.parallel.ShardedArray`) through
+    ``np.asarray``."""
+    if isinstance(x, torch.Tensor):
+        x = x.cpu()
+        if x.dtype == torch.uint32:
+            return x.view(torch.int32).numpy().view(np.uint32)
+        return x.numpy()
+    return np.asarray(x)
 
 
 def _rgba_bits(a: np.ndarray, device) -> torch.Tensor:

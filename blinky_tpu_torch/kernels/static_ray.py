@@ -290,23 +290,22 @@ def static_ray_posed(src, table, bases, globe, platesize, numcells,
         return static_ray_posed_plain(src, table, bases, globe, S, numcells,
                                       cell_size, pad_size, expanded, background, k,
                                       plates)
-    out = torch.empty((B, hb * k, wb * k), dtype=src.dtype, device=dev)
-    if out.numel():
-        consts, nplates, resolver, fast_dist, fast_half = globe_args
-        lines = (grid_line_words(S, float(numcells), float(cell_size), float(pad_size), dev)
-                 if expanded else None)
-        lib = _build.library()
-        with torch.cuda.device(dev):
-            rc = lib.blinky_static_ray_posed(
+    with _build.on_device(dev) as stream:
+        out = torch.empty((B, hb * k, wb * k), dtype=src.dtype, device=dev)
+        if out.numel():
+            consts, nplates, resolver, fast_dist, fast_half = globe_args
+            lines = (grid_line_words(S, float(numcells), float(cell_size), float(pad_size),
+                                     dev) if expanded else None)
+            rc = _build.library().blinky_static_ray_posed(
                 table.vx.data_ptr(), table.vy.data_ptr(), table.vz.data_ptr(),
                 table.lens_valid.data_ptr(), hb, wb, bases.data_ptr(), B,
                 consts.ctypes.data, nplates, resolver, fast_dist, fast_half, _build.ptr(plates),
                 _build.ptr(lines), S, int(expanded),
                 src.data_ptr(), N, src.element_size(), background.data_ptr(),
-                int(k), out.data_ptr(), _build.stream(dev))
-        _build.check(rc, name)
-        static_ray_posed.launches += 1
-        static_ray_posed.given_launches += resolver == RESOLVERS["script"]
+                int(k), out.data_ptr(), stream)
+            _build.check(rc, name)
+            static_ray_posed.launches += 1
+            static_ray_posed.given_launches += resolver == RESOLVERS["script"]
     return out
 
 
@@ -388,9 +387,14 @@ class StaticRayPosedKernel:
         return out.view(torch.uint32) if out.dtype == torch.int32 else out
 
 
-def static_ray_posed_sharded(*args, **kwargs):
-    """Not ported: the pose-sharded static-ray pipeline waits for
-    multi-GPU."""
-    raise NotImplementedError(
-        "static_ray_posed_sharded waits for multi-GPU support, which is not "
-        "ported to blinky_tpu_torch yet")
+def static_ray_posed_sharded(kernel: StaticRayPosedKernel, frames, bases, mesh):
+    """The static-ray posed pipeline with the POSE axis split over the
+    mesh's data axes: the ray table replicated on every device of the mesh
+    (once per (kernel, mesh)), each data shard's poses and frames on the
+    devices of its row, K7 and K6 there.  Returns a
+    :class:`blinky_tpu_torch.parallel.ShardedArray` ``[B, H, W]``, bit-equal
+    to ``kernel(frames, bases)``."""
+    from blinky_tpu_torch.kernels.posed import _posed_sharded
+
+    return _posed_sharded(kernel, kernel, frames, bases, mesh,
+                          lambda dev: kernel.ray_table)

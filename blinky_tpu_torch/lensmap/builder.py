@@ -169,13 +169,14 @@ def lens_ray_grid(lens, scale, width_px, height_px, xp=np, dtype=np.float64,
     return vx, vy, vz, lens_valid
 
 
-def lens_rays_torch(lens, scale, width_px, height_px, device, dtype=torch.float32):
+def lens_rays_torch(lens, scale, width_px, height_px, device, dtype=torch.float32,
+                    row_range=None):
     """The float32 lens stage as the kernels take it: :func:`lens_ray_grid`
     on *device*, each ray plane broadcast to the grid, cast to float32 and
     made contiguous, with the bool mask.  [H, W], or [N, H, W] for a 1-d
-    *scale*."""
+    *scale*; ``row_range=(r0, r1)`` computes screen rows r0..r1 only."""
     vx, vy, vz, lens_valid = lens_ray_grid(lens, scale, width_px, height_px, torch,
-                                           dtype, device)
+                                           dtype, device, row_range=row_range)
     shape = lens_valid.shape
     planes = tuple(torch.broadcast_to(torch.as_tensor(v, device=lens_valid.device), shape)
                    .to(torch.float32).contiguous() for v in (vx, vy, vz))
@@ -428,17 +429,15 @@ def rotate_rays(vx, vy, vz, bases=None):
         return rotate_normalize_torch(vx, vy, vz, bases)
     batch = int(bases.shape[0]) if bases is not None else shape[0]
     out_shape = (batch,) + shape if bases is not None else shape
-    out = [torch.empty(out_shape, dtype=torch.float32, device=dev) for _ in range(3)]
     npix = vx.numel() if bases is not None else vx.numel() // max(batch, 1)
-    if out[0].numel():
-        lib = _build.library()
-        with torch.cuda.device(dev):
-            rc = lib.blinky_rotate_rays(vx.data_ptr(), vy.data_ptr(), vz.data_ptr(), npix,
-                                        _build.ptr(bases), batch, out[0].data_ptr(),
-                                        out[1].data_ptr(), out[2].data_ptr(),
-                                        _build.stream(dev))
-        _build.check(rc, name)
-        rotate_rays.launches += 1
+    with _build.on_device(dev) as stream:
+        out = [torch.empty(out_shape, dtype=torch.float32, device=dev) for _ in range(3)]
+        if out[0].numel():
+            rc = _build.library().blinky_rotate_rays(
+                vx.data_ptr(), vy.data_ptr(), vz.data_ptr(), npix, _build.ptr(bases), batch,
+                out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(), stream)
+            _build.check(rc, name)
+            rotate_rays.launches += 1
     return tuple(out)
 
 
@@ -640,27 +639,25 @@ def lensmap_resolve(globe, vx, vy, vz, lens_valid, platesize, numcells,
         return rays_to_lensmap_torch(globe, vx, vy, vz, lens_valid, S, numcells,
                                      cell_size, pad_size,
                                      view_basis=torch.from_numpy(basis), plate=plate)
-    out = {f: torch.empty(shape, dtype=dt, device=dev) for f, dt in (
-        ("plate", torch.int32), ("px", torch.int32), ("py", torch.int32),
-        ("valid", torch.bool), ("tint", torch.uint8), ("flat_idx", torch.int32))}
-    used = torch.zeros(MAX_PLATES, dtype=torch.int32, device=dev)
-    if vx.numel():
-        plates, nplates, resolver, fast_dist, fast_half = globe_args
-        lines = grid_line_words(S, float(numcells), float(cell_size), float(pad_size), dev)
-        lib = _build.library()
-        with torch.cuda.device(dev):
-            rc = lib.blinky_lensmap_resolve(
+    with _build.on_device(dev) as stream:
+        out = {f: torch.empty(shape, dtype=dt, device=dev) for f, dt in (
+            ("plate", torch.int32), ("px", torch.int32), ("py", torch.int32),
+            ("valid", torch.bool), ("tint", torch.uint8), ("flat_idx", torch.int32))}
+        used = torch.zeros(MAX_PLATES, dtype=torch.int32, device=dev)
+        if vx.numel():
+            plates, nplates, resolver, fast_dist, fast_half = globe_args
+            lines = grid_line_words(S, float(numcells), float(cell_size), float(pad_size), dev)
+            rc = _build.library().blinky_lensmap_resolve(
                 vx.data_ptr(), vy.data_ptr(), vz.data_ptr(), lens_valid.data_ptr(),
                 vx.numel(), basis.ctypes.data, plates.ctypes.data, nplates, resolver,
                 fast_dist, fast_half, _build.ptr(plate), lines.data_ptr(), S,
                 out["plate"].data_ptr(),
                 out["px"].data_ptr(), out["py"].data_ptr(), out["valid"].data_ptr(),
-                out["tint"].data_ptr(), out["flat_idx"].data_ptr(), used.data_ptr(),
-                _build.stream(dev))
-        _build.check(rc, name)
-        lensmap_resolve.launches += 1
-        lensmap_resolve.given_launches += resolver == RESOLVERS["script"]
-    out["plates_used"] = used != 0
+                out["tint"].data_ptr(), out["flat_idx"].data_ptr(), used.data_ptr(), stream)
+            _build.check(rc, name)
+            lensmap_resolve.launches += 1
+            lensmap_resolve.given_launches += resolver == RESOLVERS["script"]
+        out["plates_used"] = used != 0
     return out
 
 

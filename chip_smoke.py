@@ -206,11 +206,26 @@ times every kernel against its plain PyTorch version.  Phases:
    B = 128 that must run and one past the card's memory that must be
    classified as out of memory.
 
+14. the mesh, the CLI and the viewer: the sharded functions
+   (``blinky_tpu_torch.parallel``) at 1080p B = 64 on a logical (4, 2) mesh of
+   the card, a two-level (2, 2, 2) one and the mesh of the cards there are,
+   each bit-equal to its unsharded path (``remap_sharded`` on u8, f_rubix,
+   decode_rgb, expanded and RGBA sources, ``build_lensmap_sharded``, the two
+   posed sharded functions, the two equirect ones at 4096x2048 -> S = 720 ->
+   1280x720 B = 128, ``Session.render_sharded``); the split's cost against
+   the unsharded render; both weak scalings; ``python -m
+   blinky_tpu_torch.cli`` in eleven processes at once, each output held to the
+   same command on the CPU (byte-equal, the float32 lens stage's two within
+   ``FLOAT_STAGE``), and one 1080p ``reproject`` timed; ``cli serve`` in a
+   process of its own to ``device_ready``; and the viewer in this process:
+   its start to ``device_ready``, ``/frame.png`` byte-equal to the CPU
+   session's screen, a drag-look, a lens key and ``/record.gif``.
+
 The line before the card's name and power limit lists every kernel with its
 launches in its path's run (phase 2 for K1-K4, phase 6 for K5-K7, phase 7
 for K8 and K9, phase 8 for K10-K12, phase 10 for the mode-2 kernels and
-K13; phase 12's launches of K1, K2, K6 and K7 and phase 13's are added to
-theirs), its
+K13; phase 12's launches of K1, K2, K6 and K7 and phase 13's and 14's are
+added to theirs), its
 time, its plain version's and its library call's time where one PyTorch call
 computes the same function, and its bound.
 
@@ -537,6 +552,8 @@ def main():
     launches.update(lua_launches)
     surface_phase(dev, frames, frames_dev, kernels)
     for name, n in recorded_phase(dev, kernels).items():
+        launches[name] += n
+    for name, n in mesh_phase(dev, frames, frames_dev, lm).items():
         launches[name] += n
     for name, n in bench_launches.items():
         launches[name] += n
@@ -2036,19 +2053,21 @@ def lua_phase(dev, frames, frames_dev, kernels):
             consts, nplates, resolver, fast_dist, fast_half = builder.resolver_args(globe)
             basis = builder.basis_f32(builder.IDENTITY_BASIS)
             lines = builder.grid_line_words(S, 10.0, 4.0, 1.0, dev)
-            outs = [torch.empty(npix, dtype=dt, device=dev) for dt in (
-                torch.int32, torch.int32, torch.int32, torch.bool, torch.uint8, torch.int32)]
-            used = torch.zeros(6, dtype=torch.int32, device=dev)
-            args = ([t.data_ptr() for t in rays_e] + [npix, basis.ctypes.data,
-                    consts.ctypes.data, nplates, resolver, fast_dist, fast_half,
-                    None if plate is None else plate.data_ptr(), lines.data_ptr(), S]
-                    + [t.data_ptr() for t in outs] + [used.data_ptr(), _build.stream(dev)])
-            lib = _build.library()
+            with _build.on_device(dev) as stream:
+                outs = [torch.empty(npix, dtype=dt, device=dev) for dt in (
+                    torch.int32, torch.int32, torch.int32, torch.bool, torch.uint8,
+                    torch.int32)]
+                used = torch.zeros(6, dtype=torch.int32, device=dev)
+                args = ([t.data_ptr() for t in rays_e] + [npix, basis.ctypes.data,
+                        consts.ctypes.data, nplates, resolver, fast_dist, fast_half,
+                        None if plate is None else plate.data_ptr(), lines.data_ptr(), S]
+                        + [t.data_ptr() for t in outs] + [used.data_ptr(), stream])
+                lib = _build.library()
 
-            def launch():
-                _build.check(lib.blinky_lensmap_resolve(*args), "lensmap_resolve")
+                def launch():
+                    _build.check(lib.blinky_lensmap_resolve(*args), "lensmap_resolve")
 
-            return cuda_ms(launch, iters)
+                return cuda_ms(launch, iters)
 
         k8_dev, k8_fast = k8_launch_ms(g_lua, plate_e), k8_launch_ms(g_ref, None)
         k8_plain = cuda_ms(lambda: builder.rays_to_lensmap_torch(
@@ -3485,6 +3504,402 @@ def bench_phase(dev):
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return {k: sum(n[k] for n in runs.values()) for k in launch_counts()}
+
+
+# phase 14: the mesh (blinky_tpu_torch.parallel), the CLI and the viewer.  The
+# CLI's comparisons run at a size the CPU finishes in seconds; one 1080p
+# reproject is timed.
+MESH_B = 64
+CLI_S, CLI_W, CLI_H, CLI_FRAMES = 48, 64, 48, 6
+CLI_1080_FRAMES = 16
+VIEW_W, VIEW_H, VIEW_S = 640, 480, 256
+CLI_TIMEOUT_S = 300
+# the CLI's outputs through the float32 lens stage on the card, held to the
+# same command on the CPU by the port's rules for two lens stages: render_posed
+# 0.02 of the run's pixels, the fused sweep 0.06 of a step's
+# (tests/test_torch_posed.py)
+FLOAT_STAGE = {"reproject --follow-poses": 0.02, "sweep": 0.06}
+
+
+def mesh_phase(dev, frames, frames_dev, lm):
+    """Phase 14: the sharded functions at the main path's sizes on a logical
+    (4, 2) mesh of the card, a two-level (2, 2, 2) one and the mesh of the
+    cards there are, each bit-equal to its unsharded path; the split's cost;
+    both weak scalings; the CLI in processes of its own, each output byte-equal
+    to the same command on the CPU; and the viewer from its start to
+    ``device_ready``.  Returns the kernels' launches in this process's run of
+    the phase."""
+    import shutil
+    import socket
+    import tempfile
+    import urllib.request
+
+    from blinky_tpu_torch import parallel
+    from blinky_tpu_torch.api import Session
+    from blinky_tpu_torch.bench.__main__ import kernel_wrappers
+    from blinky_tpu_torch.bench.sol import cuda_ms
+    from blinky_tpu_torch.bench.throughput import (
+        device_pano, device_source, run_posed_sharded_scaling, run_sharded_scaling,
+    )
+    from blinky_tpu_torch.io.cubemap import synthetic_cubemap
+    from blinky_tpu_torch.io.gif import decode_gif
+    from blinky_tpu_torch.io.png import encode_png
+    from blinky_tpu_torch.kernels import ingest, posed, remap, static_ray
+    from blinky_tpu_torch.kernels.remap import host_array
+    from blinky_tpu_torch.lensmap import Zoom, build_lensmap, calc_scale
+    from blinky_tpu_torch import globes, lenses
+    from blinky_tpu_torch.viewer import Viewer
+
+    phase_t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    wrappers = kernel_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    H, W, S = lm.height_px, lm.width_px, lm.platesize
+    B = frames_dev.shape[-1]
+
+    def equal(a, b):
+        bits = (lambda t: t.view(torch.int32) if t.dtype == torch.uint32 else t)
+        return torch.equal(bits(a), bits(b))
+
+    # ------------------------------------------------ a: the sharded remap
+    logical = parallel.make_mesh(4, 2, devices=[dev] * 8)
+    two_level = parallel.make_slice_mesh(2, 2, 2, devices=[dev] * 8)
+    cards = parallel.make_mesh(devices=parallel.visible_devices(dev.type)) \
+        if dev.type == "cuda" else parallel.make_mesh(1, 1, devices=[dev])
+    sess = Session(W, H, device=dev)
+    kernel = remap.RemapKernel(lm, sess.palette, device=dev)
+    sources = {
+        "u8": (frames_dev, {}), "u8 f_rubix": (frames_dev, dict(rubix=True)),
+        "u8 decode_rgb": (frames_dev, dict(decode_rgb=True)),
+        "expanded": (device_source(S, B, True, False, device=dev), dict(rubix=True)),
+        "RGBA": (device_source(S, B, False, True, device=dev).view(torch.uint32), {}),
+    }
+    checked = []
+    for kind, (src, kw) in sources.items():
+        want = kernel(src, **kw)
+        for name, mesh in (("(4, 2) logical", logical), ("(2, 2, 2) logical", two_level),
+                           (f"{cards.shape} of the cards", cards)):
+            got = parallel.remap_sharded(kernel, src, mesh, **kw)
+            require(equal(got.to(dev), want),
+                    f"remap_sharded {kind} on the {name} mesh differs from RemapKernel")
+            checked.append(f"{kind} {name}")
+        del want, got
+    phase(14, f"remap_sharded at {W}x{H} B={B} bit-equal to RemapKernel on the same frames: "
+          f"{len(checked)} cases (u8, f_rubix, decode_rgb, expanded, RGBA on the (4, 2) and "
+          f"(2, 2, 2) logical meshes of {dev} and the mesh of the cards there are, "
+          f"{cards.shape})")
+
+    # the split's cost: remap_sharded on the logical mesh against the
+    # unsharded render of the same frames, by events and by the wall clock
+    plain_k = lambda: kernel(frames_dev)  # noqa: E731
+    sharded = lambda: parallel.remap_sharded(kernel, frames_dev, logical)  # noqa: E731
+    walls = {}
+    for name, fn in (("unsharded", plain_k), ("sharded", sharded), ("sharded again", sharded),
+                     ("unsharded again", plain_k)):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls[name] = (time.perf_counter() - t0) * 1e3
+    ev_plain, ev_shard = cuda_ms(plain_k, ITERS), cuda_ms(sharded, ITERS)
+    copy_ms = cuda_ms(lambda: parallel.shard_frames(frames_dev, logical), ITERS)
+    phase(14, f"the split's cost at {W}x{H} B={B} u8 on the (4, 2) logical mesh of one "
+          f"card: remap_sharded {ev_shard:.4f} ms by the events ({len(logical.devices.flat)} "
+          f"cells, each K1 on its rows and lanes, after shard_frames' lane copies "
+          f"{copy_ms:.4f} ms), the unsharded render {ev_plain:.4f} ms; wall clock "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in walls.items()))
+
+    # ------------------------------------------------ b: the sharded build
+    g = globes.get("cube")
+    for lens_name, zoom in (("panini", ("fov", 180)), ("stereographic", ("fov", 300))):
+        lens = lenses.get(lens_name, g)
+        scale = calc_scale(Zoom(*zoom), lens, W, H)
+        got = parallel.build_lensmap_sharded(lens, g, scale, W, H, logical, platesize=S)
+        want = build_lensmap(lens, g, scale, W, H, S, backend="torch", device=dev)
+        for f in ("plate", "px", "py", "valid", "tint", "flat_idx", "plates_used"):
+            require(equal(getattr(got, f).to(dev), getattr(want, f)),
+                    f"build_lensmap_sharded {lens_name}: {f} differs from the unsharded build")
+    phase(14, f"build_lensmap_sharded (panini + cube f_fov 180, stereographic f_fov 300) at "
+          f"{W}x{H} on the (4, 2) logical mesh: every table bit-equal to "
+          "build_lensmap(backend='torch') (the lens stage on each row block, then K8)")
+
+    # ------------------------------------------------ c: the posed paths
+    lens = lenses.get("panini", g)
+    scale = calc_scale(Zoom("fov", 180), lens, W, H)
+    rng = np.random.default_rng(14)
+    bases = posed.bases_from_pose_track(np.stack(
+        [rng.uniform(-30, 30, B), rng.uniform(0, 360, B), rng.uniform(-10, 10, B)], axis=1))
+    pk = posed.PosedRemapKernel(lens, g, W, H, scale, platesize=S, device=dev)
+    sk = static_ray.StaticRayPosedKernel(lens, g, W, H, scale, platesize=S, device=dev)
+    for name, fn, k in (("posed_remap_sharded", posed.posed_remap_sharded, pk),
+                        ("static_ray_posed_sharded", static_ray.static_ray_posed_sharded, sk)):
+        want = k(frames_dev, bases)
+        for mname, mesh in (("(4, 2)", logical), ("(2, 2, 2)", two_level)):
+            require(equal(fn(k, frames_dev, bases, mesh).to(dev), want),
+                    f"{name} on the {mname} mesh differs from the unsharded kernel")
+        del want
+    phase(14, f"posed_remap_sharded and static_ray_posed_sharded at {W}x{H} B={B} (the poses "
+          "over the data shards: K7 and K6 a shard) bit-equal to PosedRemapKernel and "
+          "StaticRayPosedKernel on the (4, 2) and (2, 2, 2) logical meshes")
+
+    # ------------------------------------------------ d: the equirect paths
+    panos = device_pano(PANO_H, PANO_W, PANO_B, device=dev)
+    eq = Session(EQ_W, EQ_H, platesize=EQ_S, device=dev)
+    ing = ingest.EquirectIngest(PANO_H, PANO_W, EQ_S, globe=eq.globe, device=dev)
+    faces = parallel.ingest_equirect_sharded(ing, panos, logical)
+    require(equal(faces.to(dev), ing(panos)), "ingest_equirect_sharded differs from the ingest")
+    del faces
+    ek = ingest.EquirectScreenKernel(ing, remap.RemapKernel(eq.lensmap, eq.palette, device=dev))
+    for rubix in (False, True):
+        require(equal(ingest.equirect_screen_sharded(ek, panos, logical, rubix=rubix).to(dev),
+                      ek(panos, rubix=rubix)),
+                f"equirect_screen_sharded rubix={rubix} differs from the fused kernel")
+    phase(14, f"ingest_equirect_sharded and equirect_screen_sharded (plain and f_rubix) at "
+          f"{PANO_W}x{PANO_H} -> S={EQ_S} -> {EQ_W}x{EQ_H} B={PANO_B} on the (4, 2) logical "
+          "mesh bit-equal to EquirectIngest and EquirectScreenKernel (K10 a shard)")
+    del panos, ing, ek, eq
+
+    # ------------------------------------------------ e: Session.render_sharded
+    sess.cmd("f_rubix")
+    require(equal(sess.render_sharded(frames_dev, logical).to(dev), sess.render(frames_dev)),
+            "Session.render_sharded (f_rubix) differs from Session.render")
+    sess.cmd("f_rubix")
+    require(equal(sess.render_sharded(frames, cards).to(dev), sess.render(frames)),
+            "Session.render_sharded of the NumPy batch differs from Session.render")
+    phase(14, "Session.render_sharded bit-equal to Session.render (f_rubix on the card's "
+          "batch over the (4, 2) logical mesh; the NumPy batch over the cards' mesh)")
+    del sources, sess, kernel, pk, sk
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------ f: the scalings
+    for devs, what in ((None if dev.type == "cuda" else [dev], "the cards there are"),
+                       ([dev] * 4, "4 logical shards of one card")):
+        rows = run_sharded_scaling(width=640, height=480, platesize=480, per_device_batch=32,
+                                   iters=3, reps=2, devices=devs)
+        rows_p = run_posed_sharded_scaling(width=320, height=240, platesize=240,
+                                           per_device_poses=4, iters=2, reps=2, devices=devs)
+        require(all(r["equal"] for r in rows + rows_p), f"a sharded scaling over {what} "
+                "differs from the unsharded kernel")
+        phase(14, f"run_sharded_scaling over {what}: " + "; ".join(
+            f"{r['devices']} ({r['mesh']}) B={r['batch']} {r['fps']:.1f} frames/s" for r in rows)
+            + "; run_posed_sharded_scaling: " + "; ".join(
+            f"{r['devices']} B={r['poses']} {r['fps']:.1f} frames/s" for r in rows_p))
+
+    # ------------------------------------------------ g: the CLI, in processes
+    tmp = Path(tempfile.mkdtemp(prefix="blinky_cli_"))
+    card = dev.type
+
+    def spawn(args, out):
+        return subprocess.Popen([sys.executable, "-m", "blinky_tpu_torch.cli", *args,
+                                 "--device", card], cwd=ROOT, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True), out
+
+    def on_cpu(args):
+        """The same command in this process on the CPU, its stdout captured."""
+        import contextlib
+        import io
+
+        from blinky_tpu_torch import cli
+
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main([*args, "--device", "cpu"])
+        return rc, buf.getvalue()
+
+    try:
+        demo, demo1080 = tmp / "demo.npz", tmp / "demo1080.npz"
+        require(on_cpu(["demo-synth", "--frames", str(CLI_FRAMES), "--platesize", str(CLI_S),
+                        "--out", str(demo)])[0] == 0, "demo-synth on the CPU")
+        require(on_cpu(["demo-synth", "--frames", str(CLI_1080_FRAMES), "--platesize",
+                        str(S), "--out", str(demo1080)])[0] == 0, "the 1080p demo-synth")
+        size = ["--width", str(CLI_W), "--height", str(CLI_H)]
+        rep = ["reproject", "--demo", str(demo), *size, "--batch", "3"]
+        cmds = {
+            "demo-synth": ["demo-synth", "--frames", str(CLI_FRAMES), "--platesize",
+                           str(CLI_S), "--out"],
+            "reproject": [*rep, "--format", "ppm", "--outdir"],
+            "reproject --rubix": [*rep, "--rubix", "--format", "pcx", "--outdir"],
+            "reproject --shard": [*rep, "--shard", "--format", "npz", "--outdir"],
+            "reproject --aa 2": [*rep, "--aa", "2", "--format", "png", "--outdir"],
+            "reproject --follow-poses": [*rep, "--follow-poses", "--format", "npz", "--outdir"],
+            "reproject --format gif": [*rep, "--cmd", "f_lens fisheye1", "--format", "gif",
+                                       "--outdir"],
+            "sweep": ["sweep", *size, "--steps", "4", "--start", "120", "--stop", "300",
+                      "--out"],
+            "parity": ["parity", "--lens", "panini", "--width", "48", "--height", "36"],
+            "bench --quick": ["bench", "--quick"],
+        }
+        t0 = time.perf_counter()
+        procs = {}
+        for name, args in cmds.items():
+            out = None
+            if args[-1] in ("--out", "--outdir"):
+                out = tmp / "card" / name.replace(" ", "_").replace("-", "")
+                if args[-1] == "--out":
+                    out.parent.mkdir(exist_ok=True)
+                    out = out.with_suffix(".npz" if name == "demo-synth" else ".gif")
+                args = [*args, str(out)]
+            procs[name] = spawn(args, out)
+        timed_out = tmp / "card" / "reproject1080"
+        procs["reproject 1080p"] = spawn(
+            ["reproject", "--demo", str(demo1080), "--width", str(W), "--height", str(H),
+             "--batch", str(CLI_1080_FRAMES), "--format", "pcx", "--outdir", str(timed_out)],
+            timed_out)
+        cpu_runs = {}
+        for name, args in cmds.items():  # meanwhile, the same commands on the CPU
+            if name == "bench --quick":
+                continue
+            if args[-1] in ("--out", "--outdir"):
+                out = procs[name][1]
+                cpu_out = tmp / "cpu" / out.relative_to(tmp / "card")
+                cpu_out.parent.mkdir(parents=True, exist_ok=True)
+                args = [*args, str(cpu_out)]
+            cpu_runs[name] = on_cpu(args)
+        results = {}
+        for name, (proc, out) in procs.items():
+            stdout, stderr = proc.communicate(timeout=CLI_TIMEOUT_S)
+            require(proc.returncode == 0 or (name == "parity" and proc.returncode in (0, 1)),
+                    f"cli {name} exited {proc.returncode}: {stderr[-3000:]}")
+            results[name] = (proc.returncode, stdout)
+        cli_s = time.perf_counter() - t0
+        same, near = [], []
+        for name, (rc, stdout) in results.items():
+            if name in ("bench --quick", "reproject 1080p"):
+                continue
+            crc, cout = cpu_runs[name]
+            require(rc == crc, f"cli {name}: exit {rc} on the card, {crc} on the CPU")
+            if name == "parity":
+                require(stdout == cout, f"cli parity: {stdout!r} on the card, {cout!r} on the CPU")
+                same.append(name)
+                continue
+            out = procs[name][1]
+            files = sorted(out.iterdir()) if out.is_dir() else [out]
+            for f in files:
+                other = tmp / "cpu" / f.relative_to(tmp / "card")
+                if f.read_bytes() == other.read_bytes():
+                    continue
+                if f.suffix == ".npz":
+                    with np.load(f) as a, np.load(other) as b_:
+                        if all(np.array_equal(a[k], b_[k]) for k in a.files):
+                            continue
+                        share = float((a["screen"] != b_["screen"]).mean())
+                else:
+                    a, b_ = decode_gif(f.read_bytes())[0], decode_gif(other.read_bytes())[0]
+                    share = max(float((a[..., i] != b_[..., i]).mean())
+                                for i in range(a.shape[-1]))
+                # the float32 lens stage (render_posed's ray table, the fused
+                # sweep's): the card's transcendentals and the CPU's differ in
+                # their last bits, which flips boundary texels
+                require(name in FLOAT_STAGE and share <= FLOAT_STAGE[name],
+                        f"cli {name}: {f.name} on the card differs from --device cpu")
+                near.append(f"{name} ({share:.4f} of the pixels, within "
+                            f"{FLOAT_STAGE[name]})")
+                break
+            else:
+                same.append(f"{name} ({len(files)} files)")
+        bench_line = json.loads(results["bench --quick"][1].splitlines()[-1])
+        require(bench_line.get("equal") is True, f"cli bench --quick: {bench_line}")
+        report = [ln for ln in results["reproject 1080p"][1].splitlines() if "fps" in ln]
+        phase(14, f"the CLI in {len(procs)} processes at once ({cli_s:.1f} s wall): on the "
+              f"card, byte-equal to --device cpu: {', '.join(same)}; not byte-equal, the float32 "
+              f"lens stage: {', '.join(near) or 'none'}; bench --quick "
+              f"{bench_line['fps']:.1f} frames/s at B=16 (1080p, the card); reproject of "
+              f"{CLI_1080_FRAMES} {W}x{H} frames to PCX on the card: {report}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # ------------------------------------------------ h: the viewer
+    def free_port():
+        with socket.socket() as s_:
+            s_.bind(("127.0.0.1", 0))
+            return s_.getsockname()[1]
+
+    # `serve` in a process of its own, as a user starts it: its start to
+    # device_ready on /state (the kernel library is built; the process's
+    # start, the CUDA context, the native library's load, the float32 build
+    # and the first K1 launch are in it)
+    port = free_port()
+    t0 = time.perf_counter()
+    server = subprocess.Popen(
+        [sys.executable, "-m", "blinky_tpu_torch.cli", "serve", "--width", str(VIEW_W),
+         "--height", str(VIEW_H), "--platesize", str(VIEW_S), "--port", str(port),
+         "--device", dev.type], cwd=ROOT, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+        text=True)
+    try:
+        state, bound_s = None, None
+        while time.perf_counter() - t0 < CLI_TIMEOUT_S and server.poll() is None:
+            try:
+                with urllib.request.urlopen(f"http://127.0.0.1:{port}/state", timeout=5) as r:
+                    state = json.loads(r.read())
+                bound_s = bound_s or time.perf_counter() - t0
+                if state["device_ready"] or state["device_error"]:
+                    break
+            except OSError:
+                pass
+            time.sleep(0.05)
+        serve_s = time.perf_counter() - t0
+        require(state is not None and state["device_ready"] and state["device_error"] == "",
+                f"cli serve's /state: {state}")
+    finally:
+        server.terminate()
+        _, err = server.communicate(timeout=30)
+    phase(14, f"cli serve ({VIEW_W}x{VIEW_H}) in a process of its own: bound and answering "
+          f"/state {bound_s:.3f} s after its start, device_ready {serve_s:.3f} s after it, "
+          "device_error empty")
+    port = free_port()
+    vs = Session(VIEW_W, VIEW_H, platesize=VIEW_S, device=dev)
+    vs.cmd("f_shortcutkeys")
+    vframes = synthetic_cubemap(VIEW_S)[None]
+    t0 = time.perf_counter()
+    v = Viewer(vs, vframes, port=port, device_warm=False)
+    v.start()
+    try:
+        v.start_background_warm()
+        require(v.device_ready.wait(120), "the viewer's warm did not finish in 120 s")
+        ready_s = time.perf_counter() - t0
+
+        def fetch(path, status=False):
+            sep = "&" if "?" in path else "?"
+            with urllib.request.urlopen(f"{v.address}{path}{sep}t={v.token}", timeout=60) as r:
+                body = r.read()
+                return (body, r.headers.get("X-Status", "")) if status else body
+
+        state = json.loads(fetch("/state"))
+        require(state["device_ready"] is True and state["device_error"] == "",
+                f"the viewer's /state: {state}")
+        # the viewer time-slices the exact build (1/60 s a frame) behind the
+        # float32 preview: poll until the exact table has landed
+        polls, hud = 0, "[exact build"
+        while "[exact build" in hud and polls < 2000:
+            png, hud = fetch("/frame.png?i=0", status=True)
+            polls += 1
+        cpu = Session(VIEW_W, VIEW_H, platesize=VIEW_S, device="cpu")
+        want = encode_png(cpu.palette[host_array(cpu.render(vframes[0]))])
+        require(png == want, "the viewer's /frame.png differs from the CPU session's screen")
+        fetch("/cmd?c=setviewangles%2010%2030%200")
+        dragged = fetch("/frame.png?i=0")
+        fetch("/key?k=3")
+        gif = fetch("/record.gif?n=1")
+        require(len(dragged) > 0 and dragged != png and gif[:6] == b"GIF89a",
+                "the viewer's drag-look or record.gif")
+        phase(14, f"viewer ({VIEW_W}x{VIEW_H}): start to device_ready {ready_s:.3f} s (the "
+              "kernel library already built by phase 1: the warm paid the native library's "
+              "load, the float32 build, the first K1 launch); /frame.png, once the sliced "
+              f"exact build landed ({polls} polls), byte-equal to the CPU session's screen; "
+              "a drag-look, the key 3 (f_lens "
+              f"{vs.lens_name}) and /record.gif answered; device_error empty")
+    finally:
+        v.stop()
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    phase(14, f"launches in the phase's run (this process): "
+          f"{ {k: n for k, n in launches.items() if n} }; phase 14 took "
+          f"{time.perf_counter() - phase_t0:.1f} s")
+    for name in ("remap_gather", "remap_lut", "posed_layout", "static_ray_posed",
+                 "lensmap_resolve", "equirect_gather"):
+        require(launches[name] >= 1, f"phase 14 did not launch {name}")
+    return launches
 
 
 if __name__ == "__main__":

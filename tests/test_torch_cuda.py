@@ -1936,3 +1936,150 @@ def test_bench_run_holds_its_kernels_on_card(cuda_device, case):
     after = launch_counts()
     assert r["equal"] is True, r
     assert all(after[k] > before[k] for k in kernels), (before, after)
+
+
+# ------------------------------------------ launches on a card not current,
+# and the mesh (blinky_tpu_torch.parallel)
+
+
+@pytest.fixture
+def two_cards():
+    """The first and the last card; skips below two (the split itself is
+    covered on one card by the logical mesh below)."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two NVIDIA GPUs: a launch on a card that is not the "
+                    "current one, and a mesh of two cards")
+    return torch.device("cuda", 0), torch.device("cuda", torch.cuda.device_count() - 1)
+
+
+def _every_kernel(dev):
+    """Each hand-written kernel once, on tensors on *dev*, at a small size:
+    {name: output on the host}."""
+    from blinky_tpu_torch.kernels.posed import PosedRemapKernel, bases_from_pose_track
+
+    W, H, S, B = 64, 48, 32, 4
+    g = globes.get("cube")
+    lens = lenses.get("panini", g)
+    scale = calc_scale(Zoom("fov", 180), lens, W, H)
+    frames = synthetic_cubemap_batch(S, B)
+    lm = build_lensmap(lens, g, scale, W, H, S)
+    k = remap.RemapKernel(lm, default_palette(), device=dev)
+    rgba = remap.frames_to_rgba(frames, default_palette())
+    bases = bases_from_pose_track([(0, 0, 0), (5, 10, 0), (-10, 30, 5), (0, 90, 0)])
+    sess = Session(W, H, platesize=S, device=dev)
+    rng = np.random.default_rng(0)
+    panos = rng.integers(0, 2**32, (24, 48, B), dtype=np.uint64).astype(np.uint32)
+    src = torch.randint(0, 256, (2, 96, 64), dtype=torch.uint8, device=dev,
+                        generator=torch.Generator(dev).manual_seed(1))
+    idx = torch.randint(0, 96, (2, 128), dtype=torch.int32, device=dev,
+                        generator=torch.Generator(dev).manual_seed(2))
+    rays = builder.lens_rays_torch(lens, scale, W, H, dev)
+    outs = {
+        "K1": k(frames), "K2": k(frames, rubix=True, decode_rgb=True),
+        "K5": sess.render_posed(frames, np.zeros((B, 3)), exact=True),
+        "K6+K7": PosedRemapKernel(lens, g, W, H, scale, platesize=S, device=dev)(frames, bases),
+        "K8": build_lensmap(lens, g, scale, W, H, S, backend="torch", device=dev).flat_idx,
+        "K9": posed.zoom_sweep_remap(lens, g, [scale, scale * 1.1], frames[..., 0], W, H,
+                                     device=dev),
+        "K10": ingest.EquirectIngest(24, 48, S, device=dev)(panos),
+        "K11": remap.downsample_rgba(k(rgba), 2),
+        "K12": remap.tint_expand_rgba(torch.from_numpy(rgba.view(np.int32)).to(dev)),
+        "K13": builder.rotate_rays(*rays[:3], torch.from_numpy(bases.astype(np.float32)).to(dev)),
+        "K3": sol.onehot_gather(idx, src),
+        "K4": sol.stream_read(torch.ones((4, 1024), dtype=torch.uint8, device=dev)),
+    }
+    for name, t in outs.items():
+        assert all(x.device == dev for x in (t if isinstance(t, tuple) else (t,))), name
+    return {name: [x.cpu() for x in (t if isinstance(t, tuple) else (t,))]
+            for name, t in outs.items()}
+
+
+@pytest.mark.cuda
+def test_kernels_launch_on_the_last_card_while_card0_is_current(two_cards):
+    """Every kernel on the last card, with card 0 current in the caller:
+    it launches there (the wrappers enter ``_build.on_device``) and equals
+    the same call on card 0."""
+    first, last = two_cards
+    with torch.cuda.device(first):
+        want = _every_kernel(first)
+        got = _every_kernel(last)
+        assert torch.cuda.current_device() == first.index
+    torch.cuda.synchronize(last)
+    for name in want:
+        for a, b in zip(got[name], want[name]):
+            _equal(a.view(torch.int32) if a.dtype == torch.uint32 else a,
+                   b.view(torch.int32) if b.dtype == torch.uint32 else b)
+
+
+def _mesh_cases(mesh, dev0):
+    """Every sharded function on *mesh* against its unsharded path on
+    *dev0*; returns how many comparisons ran."""
+    from blinky_tpu_torch import parallel
+    from blinky_tpu_torch.kernels.posed import (
+        PosedRemapKernel, bases_from_pose_track, posed_remap_sharded,
+    )
+
+    W, H, S, B = 64, 48, 32, 8
+    g = globes.get("cube")
+    lens = lenses.get("panini", g)
+    scale = calc_scale(Zoom("fov", 180), lens, W, H)
+    pal = default_palette()
+    frames = synthetic_cubemap_batch(S, B)
+    k = remap.RemapKernel(build_lensmap(lens, g, scale, W, H, S), pal, device=dev0)
+    n = 0
+
+    def same(sharded, want):
+        nonlocal n
+        got = sharded.to(dev0)
+        _equal(got.view(torch.int32) if got.dtype == torch.uint32 else got,
+               want.view(torch.int32) if want.dtype == torch.uint32 else want)
+        n += 1
+
+    ex = remap.expand_frames_tinted(frames, pal)
+    rgba = remap.frames_to_rgba(frames, pal)
+    for src, kw in ((frames, {}), (frames, dict(rubix=True)), (frames, dict(decode_rgb=True)),
+                    (ex, dict(rubix=True)), (ex, dict(rubix=True, decode_rgb=True)),
+                    (rgba, {})):
+        same(parallel.remap_sharded(k, src, mesh, **kw), k(src, **kw))
+    bases = bases_from_pose_track(np.stack([np.linspace(-20, 20, B), np.linspace(0, 90, B),
+                                            np.zeros(B)], axis=1))
+    sk = static_ray.StaticRayPosedKernel(lens, g, W, H, scale, platesize=S, device=dev0)
+    same(static_ray.static_ray_posed_sharded(sk, frames, bases, mesh), sk(frames, bases))
+    pk = PosedRemapKernel(lens, g, W, H, scale, platesize=S, device=dev0)
+    same(posed_remap_sharded(pk, frames, bases, mesh), pk(frames, bases))
+    lm_sh = parallel.build_lensmap_sharded(lens, g, scale, W, H, mesh, platesize=S)
+    lm = build_lensmap(lens, g, scale, W, H, S, backend="torch", device=dev0)
+    for f in ("plate", "px", "py", "valid", "tint", "flat_idx", "plates_used"):
+        same(getattr(lm_sh, f), getattr(lm, f))
+    rng = np.random.default_rng(0)
+    panos = rng.integers(0, 2**32, (24, 48, B), dtype=np.uint64).astype(np.uint32)
+    ik = ingest.EquirectIngest(24, 48, S, device=dev0)
+    same(parallel.ingest_equirect_sharded(ik, panos, mesh), ik(panos))
+    ek = ingest.EquirectScreenKernel(ik, k)
+    for rubix in (False, True):
+        same(ingest.equirect_screen_sharded(ek, panos, mesh, rubix=rubix), ek(panos, rubix=rubix))
+    sess = Session(W, H, platesize=S, device=dev0)
+    same(sess.render_sharded(frames, mesh), sess.render(frames))
+    return n
+
+
+@pytest.mark.cuda
+def test_sharded_functions_on_a_two_card_mesh(two_cards):
+    from blinky_tpu_torch import parallel
+
+    first, last = two_cards
+    mesh = parallel.make_mesh(2, 1, devices=[first, last])
+    assert _mesh_cases(mesh, first) == 19
+
+
+@pytest.mark.cuda
+def test_logical_mesh_on_one_card(cuda_device):
+    """A (4, 2) mesh of logical shards of one card: remap_sharded and
+    static_ray_posed_sharded (and every other sharded function) equal
+    their unsharded paths bit for bit."""
+    from blinky_tpu_torch import parallel
+
+    mesh = parallel.make_mesh(4, 2, devices=[cuda_device] * 8)
+    assert _mesh_cases(mesh, cuda_device) == 19
+    two_level = parallel.make_slice_mesh(2, 2, 2, devices=[cuda_device] * 8)
+    assert _mesh_cases(two_level, cuda_device) == 19

@@ -496,11 +496,26 @@ def test_static_ray_kernel_validates():
 
 
 def test_unported_posed_entry_points_raise():
-    for fn, what in ((jposed.posed_remap_sharded, posed.posed_remap_sharded),
-                     (jstatic.static_ray_posed_sharded, static_ray.static_ray_posed_sharded)):
+    """The two pose-sharded functions, ported with the multi-GPU slice
+    (tests/test_torch_sharding.py holds their outputs), keep the JAX names
+    and raise on a pose track that does not match the batch and on a batch
+    that does not split evenly over the mesh."""
+    from blinky_tpu_torch.parallel import make_mesh
+
+    _, _, pg, pl, scale = _panini()
+    mesh2 = make_mesh(2, 1, devices=[torch.device("cpu")] * 2)
+    frames = _source("u8")  # B = 5 poses: odd
+    bases = posed.bases_from_pose_track(POSES)
+    kerns = (posed.PosedRemapKernel(pl, pg, W, H, scale, platesize=S, device="cpu"),
+             static_ray.StaticRayPosedKernel(pl, pg, W, H, scale, platesize=S, device="cpu"))
+    for fn, what, kern in ((jposed.posed_remap_sharded, posed.posed_remap_sharded, kerns[0]),
+                           (jstatic.static_ray_posed_sharded,
+                            static_ray.static_ray_posed_sharded, kerns[1])):
         assert fn.__name__ == what.__name__
-        with pytest.raises(NotImplementedError, match="multi-GPU"):
-            what(None, None)
+        with pytest.raises(ValueError, match="bases must be"):
+            what(kern, frames, bases[:2], mesh2)
+        with pytest.raises(ValueError, match="split evenly"):
+            what(kern, frames, bases, mesh2)
 
 
 # ---------------------------------------- the fused posed pipeline and sweep

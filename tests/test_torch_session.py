@@ -132,17 +132,16 @@ def test_defaults_mirror_f_init():
 
 
 def test_unported_surface_raises():
-    """Every console command of blinky_tpu's Session is the port's too; of
-    its methods only the sharded render is missing, and it raises."""
+    """Every console command and every public method of blinky_tpu's
+    Session is the port's too (the sharded render came with the multi-GPU
+    slice); nothing is left to raise NotImplementedError."""
     j = JSession(64, 48, backend="numpy")
     p = Session(64, 48, device="cpu")
     assert not hasattr(api, "_UNPORTED_COMMANDS")
+    assert not hasattr(api, "_UNPORTED_METHODS")
     assert sorted(p._commands) == sorted(j._commands)
-    assert api._UNPORTED_METHODS == {"render_sharded"}
-    for name in sorted(api._UNPORTED_METHODS):
-        assert hasattr(JSession, name), name
-        with pytest.raises(NotImplementedError, match=name):
-            getattr(p, name)
+    for name in sorted(n for n in dir(JSession) if not n.startswith("_")):
+        assert hasattr(Session, name), name
     for name in ("press_key", "build_progress"):
         assert hasattr(p, name), name
     assert p.build_progress is None
@@ -189,6 +188,40 @@ out = s.render_posed(frames, np.array([(0.0, 0.0, 0.0), (10.0, 20.0, 5.0)]))
 assert out.shape == (2, 48, 64) and out.device.type == "cpu"
 out = s.render_posed(frames, np.zeros((2, 3)), exact=True, render_scale=2)
 assert out.shape == (2, 48, 64)
+bad = [m for m, mod in sys.modules.items()
+       if mod is not None and m.split(".")[0] in ("jax", "jaxlib", "blinky_tpu")]
+assert not bad, bad
+print("ok")
+"""
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "ok"
+
+
+def test_mesh_cli_viewer_and_examples_import_without_jax():
+    """The multi-GPU slice's modules (parallel, cli, viewer, the examples)
+    import and run with jax made unimportable, and pull in neither jax nor
+    blinky_tpu."""
+    code = """
+import sys, io, contextlib, importlib.util, pathlib
+sys.modules["jax"] = None
+import numpy as np, torch
+from blinky_tpu_torch import cli, parallel, viewer
+from blinky_tpu_torch.api import Session
+from blinky_tpu_torch.io.cubemap import synthetic_cubemap_batch
+for p in sorted(pathlib.Path("blinky_tpu_torch/examples").glob("*.py")):
+    spec = importlib.util.spec_from_file_location("ex_" + p.stem.replace("3", "x3"), p)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+s = Session(64, 48, platesize=32, device="cpu")
+mesh = parallel.make_mesh(4, 2, devices=[torch.device("cpu")] * 8)
+frames = synthetic_cubemap_batch(32, 8)
+assert np.array_equal(np.asarray(s.render_sharded(frames, mesh)), s.render(frames).numpy())
+with contextlib.redirect_stdout(io.StringIO()):
+    assert cli.main(["lenses", "--device", "cpu"]) == 0
+v = viewer.Viewer(s, frames[..., 0])
+v.start()
+v.stop()
 bad = [m for m, mod in sys.modules.items()
        if mod is not None and m.split(".")[0] in ("jax", "jaxlib", "blinky_tpu")]
 assert not bad, bad
