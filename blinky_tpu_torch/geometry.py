@@ -129,11 +129,15 @@ def normalize_c(x, y, z, xp, f32, f64):
     truncated back to float32 (C calls the double ``sqrt`` on a float),
     float32 reciprocal, float32 multiplies.  Zero length leaves the vector
     unchanged (NaN lengths proceed — NaN is truthy in ``if (length)``).
-    On tensors *xp* is ``torch`` and *f32*, *f64* are torch dtypes."""
+    On tensors *xp* is ``torch`` and *f32*, *f64* are torch dtypes; the
+    square root is taken in float64 for either *f64*, which rounds as a
+    correctly rounded float32 square root does (53 >= 2 * 24 + 2 bits), on
+    every device: the CPU's vectorised float32 ``torch.sqrt`` is an ulp off
+    on some inputs, the card's is correctly rounded."""
     if xp is torch:
         x, y, z = x.to(f32), y.to(f32), z.to(f32)
         sumsq = x * x + y * y + z * z  # f32, left-to-right
-        length = torch.sqrt(sumsq.to(f64)).to(f32)
+        length = torch.sqrt(sumsq.to(torch.float64)).to(f32)
         nonzero = length != 0
         one = torch.ones_like(length)
         inv = torch.where(nonzero, one / torch.where(nonzero, length, one), one)
@@ -159,6 +163,22 @@ def ray_to_plate_index_c(x32, y32, z32, plate_forward32, xp):
         x32[..., None] * f0 + y32[..., None] * f1 + z32[..., None] * f2
     )  # f32 arithmetic; comparisons identical in f32 or promoted f64
     return xp.argmax(dots, axis=-1).astype(xp.int32)
+
+
+def ray_to_plate_uv_c(x32, y32, z32, p_forward32, p_right32, p_up32, p_fov32, f64):
+    """``ray_to_plate_uv`` (``fisheye.c:2052-2066``) with the C types:
+    float32 dot products promoted to double, ``dist`` recomputed in double
+    from the float32-stored fov, u/v in double, closed-interval bounds.
+    NumPy arrays; *f64* is ``np.float64``."""
+    rx = (p_right32[..., 0] * x32 + p_right32[..., 1] * y32 + p_right32[..., 2] * z32).astype(f64)
+    ry = (p_up32[..., 0] * x32 + p_up32[..., 1] * y32 + p_up32[..., 2] * z32).astype(f64)
+    rz = (p_forward32[..., 0] * x32 + p_forward32[..., 1] * y32
+          + p_forward32[..., 2] * z32).astype(f64)
+    dist = 0.5 / m.tan(p_fov32.astype(f64) / 2)
+    u = m.safe_div(rx, rz) * dist + 0.5
+    v = m.safe_div(-ry, rz) * dist + 0.5
+    valid = (rz != 0) & (u >= 0) & (u <= 1) & (v >= 0) & (v <= 1)
+    return u, v, valid
 
 
 def plate_uv_to_ray_c(u, v, forward32, right32, up32, dist32, xp, f32, f64):

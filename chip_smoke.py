@@ -221,11 +221,29 @@ times every kernel against its plain PyTorch version.  Phases:
    its start to ``device_ready``, ``/frame.png`` byte-equal to the CPU
    session's screen, a drag-look, a lens key and ``/record.gif``.
 
+15. (run right after phase 7) globes that no shipped layout has
+   (``bench/fuzz_globes.py``): with every launch counter at 0, four seeded
+   random globes of 1, 2, 4 and 6 plates and the tie layout (two plates on
+   one forward beside a third), each a Python globe module loaded by
+   ``f_globe`` from the Session's ``globe_dirs``, under a random
+   ``f_rubixgrid``: the exact host lensmap, then a random ``[6, 1080, 1080,
+   64]`` u8 batch rendered plain (K1), with ``f_rubix`` and with
+   ``decode_rgb`` (K2); ``build_lensmap(backend="torch")`` (the lens stage,
+   K8 in max-dot mode); ``render_posed`` of 16 poses at k = 1 on the 1- and
+   6-plate globes (K7, K6); ``zoom_sweep_remap`` of an 8-step ramp on the
+   2-plate globe (K9); the counters are read.  Each screen is held bit-equal
+   to its plain version on the card and frames 0 and 63 to ``host_remap``,
+   K8 to its plain version on the same rays, the float32 build to the exact
+   one within the boundary tolerance (its share printed), the posed screens
+   to ``static_ray_posed_plain`` and the sweep to its plain version step by
+   step.  Then each kernel's time on each globe by its kernel record, beside
+   the main path's row.
+
 The line before the card's name and power limit lists every kernel with its
 launches in its path's run (phase 2 for K1-K4, phase 6 for K5-K7, phase 7
 for K8 and K9, phase 8 for K10-K12, phase 10 for the mode-2 kernels and
-K13; phase 12's launches of K1, K2, K6 and K7 and phase 13's and 14's are
-added to theirs), its
+K13; phase 12's launches of K1, K2, K6 and K7, phase 15's of K1, K2 and
+K6-K9, and phase 13's and 14's are added to theirs), its
 time, its plain version's and its library call's time where one PyTorch call
 computes the same function, and its bound.
 
@@ -265,6 +283,7 @@ def phase(n, msg):
 
 
 def main():
+    script_t0 = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on a GPU",
               file=sys.stderr)
@@ -545,6 +564,11 @@ def main():
     builder_launches, builder_rows = builder_phase(dev, frames, frames_dev, kernels, lm,
                                                    lensmap_s)
     launches.update(builder_launches)
+    main_rows = {"remap_gather": main_ms["remap_gather"]["ms"],
+                 "remap_lut": main_ms["remap_lut"]["ms"],
+                 **{row[0]: row[4] for row in posed_rows + builder_rows}}
+    for name, n in random_globes_phase(dev, main_rows).items():
+        launches[name] += n
     equirect_launches, equirect_rows = equirect_phase(dev, frames, frames_dev, kernels)
     launches.update(equirect_launches)
     lenses_phase(dev, frames, frames_dev, kernels)
@@ -558,6 +582,8 @@ def main():
     for name, n in bench_launches.items():
         launches[name] += n
 
+    print(f"chip_smoke: every phase passed in {time.perf_counter() - script_t0:.1f} s",
+          flush=True)
     k1, k2 = main_ms["remap_gather"], main_ms["remap_lut"]
     rows = [
         ("remap_gather", "remap_gather.cu", "blinky_tpu/kernels/remap.py:88",
@@ -3899,6 +3925,245 @@ def mesh_phase(dev, frames, frames_dev, lm):
     for name in ("remap_gather", "remap_lut", "posed_layout", "static_ray_posed",
                  "lensmap_resolve", "equirect_gather"):
         require(launches[name] >= 1, f"phase 14 did not launch {name}")
+    return launches
+
+
+# phase 15: globes that no shipped layout has (bench/fuzz_globes.py), on the
+# main paths at full width.  Random globes of these plate counts, drawn from
+# RG_SEED + the count, and the tie layout (two plates on one forward).
+RG_PLATES = (1, 2, 4, 6)
+RG_SEED = 1500
+RG_POSES = 16          # render_posed at k = 1 on the 1- and 6-plate globes
+RG_POSED = ("rand1", "rand6")
+RG_SWEEP = "rand2"     # zoom_sweep_remap of an RG_SWEEP_STEPS ramp
+RG_SWEEP_STEPS = 8
+# the timed kernels, each named as its wrapper and inside its kernel record
+RG_RECORDS = ("remap_gather", "remap_lut", "lensmap_resolve", "static_ray_posed",
+              "sweep_remap")
+
+
+def random_globes_phase(dev, main_rows):
+    """Phase 15: four seeded random globes (1, 2, 4 and 6 plates) and the tie
+    layout through the main paths at 1920x1080, S = 1080: each globe's exact
+    host lensmap under a random rubix grid renders a random [6, S, S, 64] u8
+    batch plain (K1), with ``f_rubix`` (K2) and with ``decode_rgb`` (K2),
+    each screen bit-equal to the kernel's plain version and, for frames 0
+    and 63, to ``host_remap``; ``build_lensmap(backend="torch")`` (the lens
+    stage and K8 in max-dot mode), K8 bit-equal to its plain version on the
+    same rays and the build within ``F32_SHARE`` of the exact one;
+    ``render_posed`` of RG_POSES poses at k = 1 on the 1- and 6-plate globes
+    (K7, K6) bit-equal to K6's plain version; ``zoom_sweep_remap`` of an
+    RG_SWEEP_STEPS ramp on the 2-plate globe (K9) bit-equal to its plain
+    version step by step.  Then each kernel's time on each globe by its
+    kernel record, beside *main_rows* (kernel name -> the main path's ms).
+    Returns the launches of the paths' run."""
+    import shutil
+    import tempfile
+
+    from blinky_tpu_torch.api import Session
+    from blinky_tpu_torch.bench import builder as bb
+    from blinky_tpu_torch.bench.fuzz_globes import (ODD_PLATES, random_plates,
+                                                    random_rubix_grid, write_globe)
+    from blinky_tpu_torch.bench.posed import posed_poses
+    from blinky_tpu_torch.kernels import posed, remap, static_ray
+    from blinky_tpu_torch.lensmap import build_lensmap
+    from blinky_tpu_torch.lensmap import builder
+
+    phase_t0 = time.perf_counter()
+    S, H, W = 1080, 1080, 1920
+    npix = H * W
+    layouts = {}
+    for n in RG_PLATES:
+        rng = np.random.default_rng(RG_SEED + n)
+        layouts[f"rand{n}"] = (random_plates(rng, n), random_rubix_grid(rng))
+    rng = np.random.default_rng(RG_SEED)
+    layouts["tie"] = (ODD_PLATES["tie"], random_rubix_grid(rng))
+    gen = torch.Generator(dev).manual_seed(RG_SEED)
+    frames_rg = torch.randint(0, 256, (6, S, S, B_MAIN), dtype=torch.uint8, device=dev,
+                              generator=gen)
+    bg = rng.integers(0, 256, (H, W), dtype=np.uint8)
+    poses = posed_poses(RG_POSES)
+    bases_np = posed.bases_from_pose_track(poses)
+    fovs = bb.sweep_fovs(steps=RG_SWEEP_STEPS)
+    tmp = Path(tempfile.mkdtemp(prefix="blinky_globes_"))
+    for name, (plates, _) in layouts.items():
+        write_globe(tmp, name, plates)
+
+    # ------------------------------------------------ the paths, counted
+    path_kernels = [remap.remap_gather, remap.remap_lut, builder.lensmap_resolve,
+                    static_ray.static_ray_posed, posed.posed_layout, posed.sweep_remap]
+    for fn in path_kernels:
+        fn.launches = 0
+    sess = Session(W, H, device=dev, globe_dirs=[tmp])
+    sess.set_background(bg)
+    run = {}
+    for name, (plates, grid) in layouts.items():
+        r = run[name] = {"grid": grid}
+        t0 = time.perf_counter()
+        sess.cmd(f"f_globe {name}")
+        sess.cmd("f_rubixgrid {} {!r} {!r}".format(*grid))
+        require(sess.globe_valid and sess.globe.numplates == len(plates),
+                f"f_globe {name} did not load the written globe")
+        r["lm"] = sess.lensmap
+        r["exact_s"] = time.perf_counter() - t0
+        r["globe"], r["lens"] = sess.globe, sess.lens
+        r["out"] = sess.render(frames_rg)
+        sess.cmd("f_rubix")
+        r["rubix"] = sess.render(frames_rg)
+        sess.cmd("f_rubix")
+        r["rgb"] = sess.render(frames_rg, decode_rgb=True)
+        r["kernel"] = sess._kernel
+        r["f32"] = build_lensmap(sess.lens, sess.globe, r["lm"].scale, W, H, S, *grid,
+                                 backend="torch", device=dev)
+        if name in RG_POSED:
+            r["posed"] = sess.render_posed(frames_rg[..., :RG_POSES], poses, render_scale=1)
+            r["posed_kernel"] = sess._posed_cache[1]
+        if name == RG_SWEEP:
+            r["scales"] = bb.sweep_scales(sess.lens, W, H, fovs)
+            r["sweep"] = posed.zoom_sweep_remap(sess.lens, sess.globe, r["scales"],
+                                                frames_rg[..., 0].contiguous(), W, H,
+                                                device=dev)
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in path_kernels}
+    shutil.rmtree(tmp, ignore_errors=True)
+    phase(15, f"launches in the random globes' run ({', '.join(layouts)}: exact host "
+          f"lensmap, render plain, f_rubix and decode_rgb of the random [6, {S}, {S}, "
+          f"{B_MAIN}] batch, build_lensmap(backend='torch'), render_posed of {RG_POSES} "
+          f"poses on {' and '.join(RG_POSED)}, zoom_sweep_remap of {RG_SWEEP_STEPS} steps on "
+          f"{RG_SWEEP}): {launches}")
+    for name, n in launches.items():
+        require(n >= 1, f"{name} was not launched by the random globes' paths")
+
+    # ------------------------------------------------ checks
+    src = frames_rg.reshape(-1, B_MAIN)
+    ident = torch.from_numpy(builder.basis_f32(builder.IDENTITY_BASIS)).to(dev)
+    for name, r in run.items():
+        k, lm, g, grid = r["kernel"], r["lm"], r["globe"], r["grid"]
+        valid = float(lm.valid.mean())
+        require(lm.valid.any(), f"{name}: no pixel of the screen shows a plate")
+        plain = {
+            "out": remap.remap_gather_plain(src, k.flat_idx, k.valid, k.background,
+                                            fill=True),
+            "rubix": remap.remap_lut_plain(src, k.flat_idx, k.valid, k.tint, k.background,
+                                           k.tint_lut),
+            "rgb": remap.remap_lut_plain(src, k.flat_idx, k.valid, k.tint, k.background,
+                                         None, k.rgb_lut)}
+        for kind, ref in plain.items():
+            got = r[kind]
+            e = int((got.int() - ref.reshape(got.shape).int()).abs().max())
+            require(torch.equal(got, ref.reshape(got.shape)),
+                    f"{name}: render {kind} differs from the plain version (max {e})")
+        del plain
+        for b in (0, B_MAIN - 1):
+            f = frames_rg[..., b].cpu().numpy()
+            for kind, kw in (("out", {}), ("rubix", dict(rubix=True)),
+                             ("rgb", dict(decode_rgb=True))):
+                got = r[kind][..., b, :] if kind == "rgb" else r[kind][..., b]
+                require(np.array_equal(got.cpu().numpy(), remap.host_remap(
+                    lm, f, sess.palette, bg, **kw)), f"{name}: render {kind} frame {b} "
+                    "differs from host_remap")
+        # K8 on the lens stage's own rays, against its plain version
+        rays = builder.lens_rays_torch(r["lens"], lm.scale, W, H, dev)
+        got = builder.lensmap_resolve(g, *rays, S, *grid, builder.IDENTITY_BASIS)
+        want = builder.rays_to_lensmap_torch(g, *rays, S, *grid, view_basis=ident)
+        f32 = r["f32"]
+        for f in ("plate", "px", "py", "valid", "tint", "flat_idx", "plates_used"):
+            e = int((got[f].long() - want[f].long()).abs().max())
+            require(got[f].dtype == want[f].dtype and torch.equal(got[f], want[f]),
+                    f"{name}: lensmap_resolve {f} differs from rays_to_lensmap_torch (max {e})")
+            require(torch.equal(getattr(f32, f), got[f]),
+                    f"{name}: build_lensmap(backend='torch') {f} differs from K8 on its rays")
+        r["rays"] = rays
+        f32 = f32.to_numpy()
+        share = float((f32.flat_idx != lm.flat_idx).mean())
+        same = f32.valid & lm.valid & (f32.plate == lm.plate)
+        off = max(int(np.abs(getattr(f32, f) - getattr(lm, f))[same].max(initial=0))
+                  for f in ("px", "py"))
+        r["share"] = share
+        g_ = r["globe"]
+        phase(15, f"{name}: {g_.numplates} plates, fovs "
+              f"{[round(float(v), 2) for v in np.degrees(g_.fov_rad)]} deg, f_rubixgrid "
+              "{} {:.4f} {:.4f}; ".format(*grid) + f"exact host lensmap in "
+              f"{r['exact_s']:.3f} s, {valid:.4f} of the pixels valid, plates used "
+              f"{lm.plates_used[:g_.numplates].astype(int).tolist()}; render, f_rubix and "
+              f"decode_rgb bit-equal the plain versions on the card and host_remap for "
+              f"frames 0 and {B_MAIN - 1}; K8 bit-equal its plain version; the float32 "
+              f"build's flat_idx differs from the exact build's on {share:.6f} of the pixels "
+              f"({int((f32.flat_idx != lm.flat_idx).sum())} of {npix}), px and py by at most "
+              f"{off} texel where both are valid on one plate")
+        require(share <= F32_SHARE and off <= 1,
+                f"{name}: the float32 build is not within the boundary tolerance of the "
+                f"exact one ({share}, {off})")
+        if name in RG_POSED:
+            kern = r["posed_kernel"]
+            for lo in range(0, RG_POSES, CHUNK):
+                src_c, b32, exp = posed.prep_posed_inputs(
+                    frames_rg[..., lo:lo + CHUNK], bases_np[lo:lo + CHUNK], S,
+                    kern.background, dev)
+                ref = static_ray.static_ray_posed_plain(
+                    src_c, kern.ray_table, b32, kern.globe, S, kern.numcells, kern.cell_size,
+                    kern.pad_size, exp, kern.background, 1)
+                e = int((r["posed"][lo:lo + CHUNK].long() - ref.long()).abs().max())
+                require(torch.equal(r["posed"][lo:lo + CHUNK], ref),
+                        f"{name}: render_posed poses {lo}.. differ from "
+                        f"static_ray_posed_plain (max {e})")
+            phase(15, f"{name}: render_posed of {RG_POSES} poses at k = 1 bit-equal "
+                  "static_ray_posed_plain on the card")
+        if name == RG_SWEEP:
+            step_rays = builder.lens_rays_torch(
+                r["lens"], torch.tensor(r["scales"], dtype=torch.float64), W, H, dev)
+            src_d = frames_rg[..., 0].contiguous().reshape(-1)
+            zero_bg = torch.zeros((H, W), dtype=torch.uint8, device=dev)
+            args = (src_d, *step_rays, g, S, 10.0, 4.0, 1.0, False, zero_bg)
+            require(torch.equal(posed.sweep_remap(*args), r["sweep"]),
+                    f"{name}: zoom_sweep_remap differs from sweep_remap on the same rays")
+            for n in range(RG_SWEEP_STEPS):
+                ref = posed.sweep_remap_plain(src_d, *(t[n:n + 1] for t in step_rays), g, S,
+                                              10.0, 4.0, 1.0, False, zero_bg)
+                e = int((r["sweep"][n:n + 1].long() - ref.long()).abs().max())
+                require(torch.equal(r["sweep"][n:n + 1], ref),
+                        f"{name}: sweep step {n} differs from its plain version (max {e})")
+            r["sweep_args"] = args
+            phase(15, f"{name}: zoom_sweep_remap of {RG_SWEEP_STEPS} steps (f_fov "
+                  f"{fovs[0]}..{fovs[-1]}) bit-equal sweep_remap_plain step by step")
+
+    # ------------------------------------------------ times, by kernel record
+    for name, r in run.items():
+        k, g, grid = r["kernel"], r["globe"], r["grid"]
+        calls = [
+            lambda k=k: remap.remap_gather(src, k.flat_idx, k.valid, k.background, fill=True),
+            lambda k=k: remap.remap_lut(src, k.flat_idx, k.valid, k.tint, k.background,
+                                        k.tint_lut),
+            lambda g=g, grid=grid, rays=r["rays"]: builder.lensmap_resolve(
+                g, *rays, S, *grid, builder.IDENTITY_BASIS)]
+        if name in RG_POSED:
+            kern = r["posed_kernel"]
+            src_c, b32, exp = posed.prep_posed_inputs(frames_rg[..., :RG_POSES], bases_np, S,
+                                                      kern.background, dev)
+            calls.append(lambda kern=kern, src_c=src_c, b32=b32, exp=exp:
+                         static_ray.static_ray_posed(
+                             src_c, kern.ray_table, b32, kern.globe, S, kern.numcells,
+                             kern.cell_size, kern.pad_size, exp, kern.background, 1))
+        if name == RG_SWEEP:
+            calls.append(lambda args=r["sweep_args"]: posed.sweep_remap(*args))
+        _, dev_ms, _ = profiled(lambda calls=calls: [c() for c in calls], ITERS, sync=False)
+        r["ms"] = {kname: sum(t for n_, t in dev_ms.items() if kname in n_)
+                   for kname in RG_RECORDS if any(kname in n_ for n_ in dev_ms)}
+        rows = source_rows(k.flat_idx, k.valid, src.shape[0], True)
+        n_valid = int(k.valid.sum())
+        k1_bytes = npix * 6 + (rows + npix) * B_MAIN
+        r["k1_bound"] = k1_bytes / HBM_BYTES_PER_S * 1e3
+        phase(15, f"{name} by kernel record (ms a call; the main path's row beside it): "
+              + ", ".join(f"{kname} {t:.4f} ({main_rows[kname]:.4f})"
+                          for kname, t in r["ms"].items())
+              + f"; K1 reads {rows} distinct source rows for {n_valid} valid pixels, "
+              f"{k1_bytes} bytes, bound {r['k1_bound']:.4f} ms, "
+              f"{100 * r['k1_bound'] / r['ms']['remap_gather']:.1f} % of it")
+        for kname in ("remap_gather", "remap_lut", "lensmap_resolve"):
+            require(r["ms"].get(kname, 0) > 0, f"{name}: no kernel record of {kname}")
+    del frames_rg, src, run
+    torch.cuda.empty_cache()
+    phase(15, f"phase 15 took {time.perf_counter() - phase_t0:.3f} s")
     return launches
 
 

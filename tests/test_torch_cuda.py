@@ -2083,3 +2083,71 @@ def test_logical_mesh_on_one_card(cuda_device):
     assert _mesh_cases(mesh, cuda_device) == 19
     two_level = parallel.make_slice_mesh(2, 2, 2, devices=[cuda_device] * 8)
     assert _mesh_cases(two_level, cuda_device) == 19
+
+
+# ---------------------------------------- globes that no shipped layout has
+
+
+def _fuzz_globe(layout):
+    """A random globe (``rand<n>``: n plates from the seed 1600 + n) or an
+    odd layout of ``bench/fuzz_globes.py``, with a random rubix grid."""
+    from blinky_tpu_torch.bench.fuzz_globes import ODD_PLATES, random_plates, random_rubix_grid
+
+    rng = np.random.default_rng(1600 + len(layout))
+    if layout.startswith("rand"):
+        plates = random_plates(rng, int(layout[4:]))
+    else:
+        plates = ODD_PLATES[layout]
+    return globes.make_globe(layout, plates), random_rubix_grid(rng)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["tie", "rand3", "rand5"])
+def test_random_globes_on_card_equal_plain(cuda_device, layout):
+    """The tie layout (two plates on one forward beside a third) and two
+    random globes at 160x120: K8 (max-dot) against its plain version on the
+    lens stage's rays under three view bases; the exact table's K1 (fill and
+    clip) and K2 (rubix, decode, both) on random frames, B = 5 and 16; K6 on
+    random poses, u8 and expanded, against theirs."""
+    from blinky_tpu_torch.camera import view_basis_from_angles
+
+    W, H, S = 160, 120, 120
+    g, grid = _fuzz_globe(layout)
+    lens = lenses.get("panini", g)
+    scale = calc_scale(Zoom("fov", 180), lens, W, H)
+    rng = np.random.default_rng(len(layout) + 16)
+    rays = builder.lens_rays_torch(lens, scale, W, H, cuda_device)
+    for angles in BASES.values():
+        vb = view_basis_from_angles(*angles)
+        got = builder.lensmap_resolve(g, *rays, S, *grid, vb)
+        want = builder.rays_to_lensmap_torch(
+            g, *rays, S, *grid,
+            view_basis=torch.from_numpy(np.asarray(vb, np.float64)).to(cuda_device))
+        _tables_equal(got, want)
+    assert not bool(want["valid"].all()) and bool(want["valid"].any())
+
+    lm = build_lensmap(lens, g, scale, W, H, S, *grid)
+    pal = default_palette()
+    k = remap.RemapKernel(lm, pal, rng.integers(0, 256, (H, W), dtype=np.uint8),
+                          device=cuda_device)
+    for B in (5, 16):
+        src = _texels(False, (6 * S * S, B), rng, cuda_device)
+        for fill in (False, True):
+            _equal(remap.remap_gather(src, k.flat_idx, k.valid, k.background, fill=fill),
+                   remap.remap_gather_plain(src, k.flat_idx, k.valid, k.background,
+                                            fill=fill))
+        for luts in ((k.tint_lut, None), (None, k.rgb_lut), (k.tint_lut, k.rgb_lut)):
+            _equal(remap.remap_lut(src, k.flat_idx, k.valid, k.tint, k.background, *luts),
+                   remap.remap_lut_plain(src, k.flat_idx, k.valid, k.tint, k.background,
+                                         *luts))
+
+    table = static_ray.ray_table_from_lens(lens, scale, W, H).device(cuda_device)
+    B = 7
+    poses = np.stack([rng.uniform(-90, 90, B), rng.uniform(0, 360, B),
+                      rng.uniform(-45, 45, B)], 1)
+    bases = torch.from_numpy(posed.bases_from_pose_track(poses)).float().to(cuda_device)
+    bg = _texels(False, (H, W), rng, cuda_device)
+    for kind in ("u8", "expanded"):
+        src = _posed_source(kind, B, S, rng, cuda_device)
+        args = (src, table, bases, g, S, *grid, kind == "expanded", bg, 1)
+        _equal(static_ray.static_ray_posed(*args), static_ray.static_ray_posed_plain(*args))
