@@ -48,6 +48,7 @@ from blinky_tpu_torch.kernels.remap import (
 from blinky_tpu_torch.lensmap import (
     Zoom, ZoomError, build_lensmap, calc_scale, device_builder_warm,
 )
+from blinky_tpu_torch.utils.timing import spanned
 
 HELP_TEXT = """-----------------------------
 Welcome to the FISHEYE ADDON!
@@ -1028,6 +1029,7 @@ class Session:
         for p in save_globe_pcx(name, fr, self.globe, self.palette, bool(with_margins)):
             self._print(f"Wrote {p}")
 
+    @spanned("session.render")
     def render(self, frames, rubix: Optional[bool] = None, decode_rgb: bool = False):
         """Remap a cubemap frame ([P, S, S]) or batch ([P, S, S, B]), a
         NumPy array or a tensor, through the current lensmap on the
@@ -1252,6 +1254,7 @@ class Session:
         hi = self._rgba_screen(hi_sess.render(frames, rubix=rubix))
         return downsample_rgba(hi, factor) if factor > 1 else hi
 
+    @spanned("session.render_equirect")
     def render_equirect(self, panos, bilinear: bool = True,
                         mode: str = "compact"):
         """Warp equirectangular panoramas end-to-end on the device.
@@ -1390,6 +1393,7 @@ class Session:
                 self.cmd(line)
 
     # ---------------------------------------------------------------- posed
+    @spanned("session.render_posed")
     def render_posed(self, frames, poses, render_scale=1,
                      target_fps: float = 60.0, exact: bool = False,
                      block: bool = True):

@@ -83,10 +83,8 @@ def onehot_gather(idx, src):
     with _build.on_device(src.device) as stream:
         out = torch.empty((W, T, B), dtype=torch.uint8, device=src.device)
         if out.numel():
-            rc = _build.library().blinky_onehot_gather(idx.data_ptr(), src.data_ptr(), W, T,
-                                                       R, B, out.data_ptr(), stream)
-            _build.check(rc, k)
-            onehot_gather.launches += 1
+            _build.launch(onehot_gather, k, "blinky_onehot_gather",
+                idx.data_ptr(), src.data_ptr(), W, T, R, B, out.data_ptr(), stream)
     return out
 
 
@@ -117,10 +115,8 @@ def stream_read(x):
         raise ValueError(f"{k}: x must be 16-byte aligned")
     with _build.on_device(x.device) as stream:
         out = torch.empty((1, 1), dtype=torch.int32, device=x.device)
-        rc = _build.library().blinky_stream_read(x.data_ptr(), x.numel(), out.data_ptr(),
-                                                 stream)
-        _build.check(rc, k)
-        stream_read.launches += 1
+        _build.launch(stream_read, k, "blinky_stream_read",
+            x.data_ptr(), x.numel(), out.data_ptr(), stream)
     return out
 
 

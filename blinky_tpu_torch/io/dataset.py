@@ -27,7 +27,7 @@ from pathlib import Path
 import numpy as np
 
 from blinky_tpu_torch.io.cubemap import to_batch_layout
-from blinky_tpu_torch.utils.timing import FrameClock
+from blinky_tpu_torch.utils.timing import FrameClock, span
 
 
 def write_demo(path, frames, palette, poses=None) -> None:
@@ -232,7 +232,8 @@ class FrameBatchIterator:
         t.start()
         try:
             while True:
-                item, err = q.get()
+                with span("loader.wait"):
+                    item, err = q.get()
                 if item is stop:
                     if err is not None:
                         raise err

@@ -23,6 +23,8 @@ import threading
 import time
 from pathlib import Path
 
+from blinky_tpu_torch.utils.timing import span
+
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
@@ -159,16 +161,34 @@ def library():
     global _lib
     with _lock:
         if _lib is None:
-            _build()
-            lib = ctypes.CDLL(str(LIBRARY))
-            for name, argtypes in _SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            lib.blinky_error_string.argtypes = [ctypes.c_int]
-            lib.blinky_error_string.restype = ctypes.c_char_p
+            with span("build.kernel_library"):
+                _build()
+                lib = ctypes.CDLL(str(LIBRARY))
+                for name, argtypes in _SIGNATURES.items():
+                    fn = getattr(lib, name)
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
+                lib.blinky_error_string.argtypes = [ctypes.c_int]
+                lib.blinky_error_string.restype = ctypes.c_char_p
             _lib = lib
     return _lib
+
+
+def launch(wrapper, name: str, entry: str, *args) -> None:
+    """Launch one kernel for *wrapper*, a kernel's wrapper function: call
+    the library's entry point *entry* with *args*, check its code, and
+    count the launch in ``wrapper.launches``.
+
+    The call runs inside the span ``launch.<name>`` (*name*: the kernel's
+    name in the bench suite's kernels line).  The caller has evaluated
+    *args* before, so the span holds the ctypes call alone: the conversion
+    of the arguments, the entry point's own host work and the CUDA launch,
+    any wait for a free slot in the card's launch queue included."""
+    fn = getattr(library(), entry)
+    with span(f"launch.{name}"):
+        rc = fn(*args)
+    check(rc, wrapper.__name__)
+    wrapper.launches += 1
 
 
 def check(rc: int, kernel: str) -> None:

@@ -42,6 +42,7 @@ from blinky_tpu_torch.kernels.remap import (
     _ALPHA, _check_rows, _require, _rgba_tensor, _tint_rgba, compact_texels, remap_gather,
 )
 from blinky_tpu_torch.palette import MAX_PLATES
+from blinky_tpu_torch.utils.timing import spanned
 
 
 def _build_tables(pano_h, pano_w, platesize, globe, bilinear):
@@ -162,12 +163,10 @@ def equirect_gather(src, idx, w=None, *, plate_mask=None, valid=None, bg=None,
     with _build.on_device(dev) as stream:
         out = torch.empty((n, B), dtype=torch.int32, device=dev)
         if out.numel():
-            rc = _build.library().blinky_equirect_gather(
+            _build.launch(equirect_gather, k, "blinky_equirect_gather",
                 src.data_ptr(), rows, B, idx.data_ptr(), _build.ptr(w), taps, n,
                 _build.ptr(plate_mask), _build.ptr(valid), _build.ptr(bg),
                 _build.ptr(tint_rgb), _build.ptr(tint_mask), out.data_ptr(), stream)
-            _build.check(rc, k)
-            equirect_gather.launches += 1
     return out
 
 
@@ -202,6 +201,7 @@ class EquirectIngest:
       tables and float32 weights (bit-equal to the device path's math).
     """
 
+    @spanned("build.ingest")
     def __init__(self, pano_h: int, pano_w: int, platesize: int,
                  globe=None, bilinear: bool = True, *, device="cuda"):
         from blinky_tpu_torch import globes as globes_mod
@@ -381,6 +381,7 @@ class EquirectScreenKernel:
     operands are reused in place.
     """
 
+    @spanned("build.screen_kernel")
     def __init__(self, ingest: EquirectIngest, remap):
         _check_composition(
             ingest, remap,
@@ -421,6 +422,7 @@ class CompactEquirectChain:
     there for it).
     """
 
+    @spanned("build.compact_chain")
     def __init__(self, ingest: EquirectIngest, remap):
         _check_composition(
             ingest, remap,

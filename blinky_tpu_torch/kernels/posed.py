@@ -37,6 +37,7 @@ import torch
 from blinky_tpu_torch.kernels import _build
 from blinky_tpu_torch.kernels.remap import frames_tensor
 from blinky_tpu_torch.palette import MAX_PLATES
+from blinky_tpu_torch.utils.timing import spanned
 
 
 def check_render_scale(width_px: int, height_px: int, k: int) -> None:
@@ -150,18 +151,15 @@ def posed_layout(frames, planes):
     with _build.on_device(frames.device) as stream:
         out = torch.empty((B, planes * S * S), dtype=frames.dtype, device=frames.device)
         if out.numel():
-            lib = _build.library()
             if rows is None:
-                rc = lib.blinky_posed_layout_strided(
+                _build.launch(posed_layout, name, "blinky_posed_layout_strided",
                     frames.data_ptr(), *frames.stride(), P, S, B, frames.element_size(),
                     planes * S * S, out.data_ptr(), stream)
             else:
                 ld = max(rows.stride(0), B)  # a single texel's stride is free
-                rc = lib.blinky_posed_layout(
+                _build.launch(posed_layout, name, "blinky_posed_layout",
                     rows.data_ptr(), ld, T, B, frames.element_size(), planes * S * S,
                     out.data_ptr(), stream)
-            _build.check(rc, name)
-            posed_layout.launches += 1
     return out
 
 
@@ -225,18 +223,17 @@ def gather_posed(src, idx, valid, background, k):
     with _build.on_device(src.device) as stream:
         out = torch.empty((B, hb * k, wb * k), dtype=src.dtype, device=src.device)
         if out.numel():
-            rc = _build.library().blinky_posed_gather(
+            _build.launch(gather_posed, "posed_gather", "blinky_posed_gather",
                 src.data_ptr(), N, src.element_size(), B, idx.data_ptr(),
                 valid.data_ptr(), background.data_ptr(), int(k), hb, wb,
                 out.data_ptr(), stream)
-            _build.check(rc, name)
-            gather_posed.launches += 1
     return out
 
 
 gather_posed.launches = 0
 
 
+@spanned("posed.bases")
 def bases_from_pose_track(poses) -> np.ndarray:
     """[B, 3] (pitch, yaw, roll) degrees -> [B, 3, 3] float64 bases, rows
     (forward, right, up)."""
@@ -445,15 +442,13 @@ def sweep_remap(src, vx, vy, vz, lens_valid, globe, platesize, numcells,
             consts, nplates, resolver, fast_dist, fast_half = globe_args
             lines = (grid_line_words(S, float(numcells), float(cell_size), float(pad_size),
                                      dev) if expanded else None)
-            rc = _build.library().blinky_sweep_remap(
+            _build.launch(sweep_remap, name, "blinky_sweep_remap",
                 vx.data_ptr(), vy.data_ptr(), vz.data_ptr(), lens_valid.data_ptr(),
                 shape[1] * shape[2], shape[0], consts.ctypes.data, nplates, resolver,
                 fast_dist, fast_half, _build.ptr(plates), _build.ptr(lines), S,
                 int(expanded), src.data_ptr(),
                 src.numel(), src.element_size(), background.data_ptr(), out.data_ptr(),
                 stream)
-            _build.check(rc, name)
-            sweep_remap.launches += 1
             sweep_remap.given_launches += resolver == RESOLVERS["script"]
     return out
 

@@ -42,6 +42,7 @@ import torch
 
 from blinky_tpu_torch.kernels import _build
 from blinky_tpu_torch.palette import MAX_PLATES, create_palmap, rgba_lut
+from blinky_tpu_torch.utils.timing import spanned
 
 
 # ------------------------------------------------------------ plain versions
@@ -159,12 +160,10 @@ def remap_gather(src, idx, valid, bg, *, fill: bool = False, tint_rgb=None,
     with _build.on_device(dev) as stream:
         out = torch.empty((n, B), dtype=src.dtype, device=dev)
         if out.numel():
-            rc = _build.library().blinky_remap_gather(
+            _build.launch(remap_gather, k, "blinky_remap_gather",
                 src.data_ptr(), rows, src.element_size(), B, idx.data_ptr(),
                 valid.data_ptr(), bg.data_ptr(), _build.ptr(tint_rgb),
                 _build.ptr(tint_mask), int(fill), n, out.data_ptr(), stream)
-            _build.check(rc, k)
-            remap_gather.launches += 1
     return out
 
 
@@ -201,12 +200,10 @@ def remap_lut(src, idx, valid, tint, bg, tint_lut=None, rgb_lut=None, *,
     with _build.on_device(dev) as stream:
         out = torch.empty(shape, dtype=torch.uint8, device=dev)
         if out.numel():
-            rc = _build.library().blinky_remap_lut(
+            _build.launch(remap_lut, k, "blinky_remap_lut",
                 src.data_ptr(), rows, B, idx.data_ptr(), valid.data_ptr(),
                 tint.data_ptr(), bg.data_ptr(), _build.ptr(tint_lut),
                 _build.ptr(rgb_lut), int(fill), n, out.data_ptr(), stream)
-            _build.check(rc, k)
-            remap_lut.launches += 1
     return out
 
 
@@ -276,10 +273,8 @@ def downsample_rgba(hi, factor: int, *, device="cuda"):
         hi = hi.contiguous()
         out = torch.empty((H, W) + tuple(hi.shape[2:]), dtype=torch.int32, device=hi.device)
         if out.numel():
-            rc = _build.library().blinky_downsample_rgba(hi.data_ptr(), k, H, W, B,
-                                                         out.data_ptr(), stream)
-            _build.check(rc, name)
-            downsample_rgba.launches += 1
+            _build.launch(downsample_rgba, name, "blinky_downsample_rgba",
+                hi.data_ptr(), k, H, W, B, out.data_ptr(), stream)
     return out.view(torch.uint32)
 
 
@@ -332,10 +327,8 @@ def tint_expand_rgba(frames):
         if out.numel():
             per_plane = out.numel() // (2 * MAX_PLATES)
             tints = _plate_tints_rgb()
-            rc = _build.library().blinky_tint_expand_rgba(
+            _build.launch(tint_expand_rgba, name, "blinky_tint_expand_rgba",
                 frames.data_ptr(), P, per_plane, tints.ctypes.data, out.data_ptr(), stream)
-            _build.check(rc, name)
-            tint_expand_rgba.launches += 1
     return out
 
 
@@ -632,6 +625,7 @@ class RemapKernel:
     tensors on that device.
     """
 
+    @spanned("build.remap_kernel")
     def __init__(self, lensmap, palette=None, background=None, *, device="cuda"):
         self.device = torch.device(device)
         self.lensmap = lensmap

@@ -296,15 +296,13 @@ def static_ray_posed(src, table, bases, globe, platesize, numcells,
             consts, nplates, resolver, fast_dist, fast_half = globe_args
             lines = (grid_line_words(S, float(numcells), float(cell_size), float(pad_size),
                                      dev) if expanded else None)
-            rc = _build.library().blinky_static_ray_posed(
+            _build.launch(static_ray_posed, name, "blinky_static_ray_posed",
                 table.vx.data_ptr(), table.vy.data_ptr(), table.vz.data_ptr(),
                 table.lens_valid.data_ptr(), hb, wb, bases.data_ptr(), B,
                 consts.ctypes.data, nplates, resolver, fast_dist, fast_half, _build.ptr(plates),
                 _build.ptr(lines), S, int(expanded),
                 src.data_ptr(), N, src.element_size(), background.data_ptr(),
                 int(k), out.data_ptr(), stream)
-            _build.check(rc, name)
-            static_ray_posed.launches += 1
             static_ray_posed.given_launches += resolver == RESOLVERS["script"]
     return out
 

@@ -40,6 +40,7 @@ from blinky_tpu_torch.kernels import _build
 from blinky_tpu_torch.globes import Globe
 from blinky_tpu_torch.lenses import LensDef
 from blinky_tpu_torch.palette import MAX_PLATES
+from blinky_tpu_torch.utils.timing import spanned
 
 # tint-plane value meaning "no tint" in the compact 7-row LUT space
 # (the reference stores 255, fisheye.c:732; we use row 6 of the tint LUT).
@@ -169,6 +170,7 @@ def lens_ray_grid(lens, scale, width_px, height_px, xp=np, dtype=np.float64,
     return vx, vy, vz, lens_valid
 
 
+@spanned("lensmap.lens_stage")
 def lens_rays_torch(lens, scale, width_px, height_px, device, dtype=torch.float32,
                     row_range=None):
     """The float32 lens stage as the kernels take it: :func:`lens_ray_grid`
@@ -433,11 +435,9 @@ def rotate_rays(vx, vy, vz, bases=None):
     with _build.on_device(dev) as stream:
         out = [torch.empty(out_shape, dtype=torch.float32, device=dev) for _ in range(3)]
         if out[0].numel():
-            rc = _build.library().blinky_rotate_rays(
+            _build.launch(rotate_rays, name, "blinky_rotate_rays",
                 vx.data_ptr(), vy.data_ptr(), vz.data_ptr(), npix, _build.ptr(bases), batch,
                 out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(), stream)
-            _build.check(rc, name)
-            rotate_rays.launches += 1
     return tuple(out)
 
 
@@ -647,15 +647,13 @@ def lensmap_resolve(globe, vx, vy, vz, lens_valid, platesize, numcells,
         if vx.numel():
             plates, nplates, resolver, fast_dist, fast_half = globe_args
             lines = grid_line_words(S, float(numcells), float(cell_size), float(pad_size), dev)
-            rc = _build.library().blinky_lensmap_resolve(
+            _build.launch(lensmap_resolve, name, "blinky_lensmap_resolve",
                 vx.data_ptr(), vy.data_ptr(), vz.data_ptr(), lens_valid.data_ptr(),
                 vx.numel(), basis.ctypes.data, plates.ctypes.data, nplates, resolver,
                 fast_dist, fast_half, _build.ptr(plate), lines.data_ptr(), S,
                 out["plate"].data_ptr(),
                 out["px"].data_ptr(), out["py"].data_ptr(), out["valid"].data_ptr(),
                 out["tint"].data_ptr(), out["flat_idx"].data_ptr(), used.data_ptr(), stream)
-            _build.check(rc, name)
-            lensmap_resolve.launches += 1
             lensmap_resolve.given_launches += resolver == RESOLVERS["script"]
         out["plates_used"] = used != 0
     return out
@@ -710,6 +708,7 @@ def device_builder_warm(lens, globe, width_px, height_px, platesize=None,
     return _warm_key(lens, globe, width_px, height_px, platesize, device) in _WARM_BUILDERS
 
 
+@spanned("build.lensmap")
 def build_lensmap(
     lens: LensDef,
     globe: Globe,

@@ -28,6 +28,8 @@ from pathlib import Path
 
 import numpy as np
 
+from blinky_tpu_torch.utils.timing import span
+
 _PKG = Path(__file__).resolve().parents[1]
 SOURCE = Path(__file__).resolve().parent / "src" / "blinky_native.cpp"
 BUILD_DIR = _PKG / "build"
@@ -68,7 +70,8 @@ def _load():
         return _lib
     with _load_lock:
         if not _tried:
-            _lib = _build_and_bind()
+            with span("build.native_library"):
+                _lib = _build_and_bind()
             _tried = True
     return _lib
 

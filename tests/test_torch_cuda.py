@@ -239,6 +239,59 @@ def test_launch_counters_count_launches(cuda_device):
 
 
 @pytest.mark.cuda
+def test_launch_span_holds_one_launch_of_its_kernel(cuda_device, tmp_path):
+    """Under the profiler each ``launch.remap_gather`` span holds exactly
+    one ``cudaLaunchKernel``, whose K1 record (matched by its correlation
+    id) starts after the call; the launch counter still counts.
+
+    A profile loses the card's records of its first launches, more as the
+    process ages (PERF.md §7), so the spans checked are those of the calls
+    after a lead-in and a pause, inside the probe's own span, and the
+    profile pauses again before it stops."""
+    import json
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+
+    src, idx, valid, bg = _case(64, torch.uint8, 3, cuda_device)
+    remap.remap_gather(src, idx, valid, bg)  # the library, outside the profile
+    torch.cuda.synchronize()
+    n0 = remap.remap_gather.launches
+    lead = 0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t_end = time.perf_counter() + 0.5
+        while time.perf_counter() < t_end:
+            remap.remap_gather(src, idx, valid, bg)
+            lead += 1
+        torch.cuda.synchronize()
+        time.sleep(0.25)
+        with torch.profiler.record_function("probe"):
+            for _ in range(5):
+                remap.remap_gather(src, idx, valid, bg)
+            torch.cuda.synchronize()
+        time.sleep(0.3)
+    assert remap.remap_gather.launches == n0 + lead + 5
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    ev = [e for e in json.loads(path.read_text())["traceEvents"]
+          if e.get("ph") == "X" and "dur" in e]
+    (probe,) = [e for e in ev if e.get("cat") == "user_annotation" and e["name"] == "probe"]
+    spans = [e for e in ev if e.get("cat") == "user_annotation"
+             and e["name"] == "launch.remap_gather" and probe["ts"] <= e["ts"]
+             and e["ts"] + e["dur"] <= probe["ts"] + probe["dur"]]
+    runtime = [e for e in ev if e.get("cat") == "cuda_runtime"
+               and e["name"].startswith("cudaLaunchKernel")]
+    kernels = {e["args"]["correlation"]: e for e in ev if e.get("cat") == "kernel"}
+    assert len(spans) == 5
+    for s in spans:
+        inside = [r for r in runtime
+                  if s["ts"] <= r["ts"] and r["ts"] + r["dur"] <= s["ts"] + s["dur"]]
+        assert len(inside) == 1, inside
+        k = kernels[inside[0]["args"]["correlation"]]
+        assert "remap_gather_kernel" in k["name"] and k["ts"] >= inside[0]["ts"]
+
+
+@pytest.mark.cuda
 def test_session_on_card_equals_host(cuda_device):
     """The slice end to end at a small size: Session.render on the card
     (through K1, and K2 for rubix and decode) equals render_host."""

@@ -23,15 +23,27 @@ ROOT = Path(__file__).resolve().parent.parent
 SOURCES = sorted((ROOT / "blinky_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
+def _entry_point(call):
+    """The C entry point that *call* launches, or None: an attribute call
+    named ``blinky_*`` (not the error string), or ``_build.launch(wrapper,
+    name, "blinky_*", ...)``."""
+    if not isinstance(call, ast.Call) or not isinstance(call.func, ast.Attribute):
+        return None
+    name = call.func.attr
+    if name == "launch" and len(call.args) >= 3 and isinstance(call.args[2], ast.Constant):
+        name = call.args[2].value
+    if isinstance(name, str) and name.startswith("blinky_") and name != "blinky_error_string":
+        return name
+    return None
+
+
 def _launches(tree):
     """(call, the chain of its enclosing nodes) for every call of a C entry
-    point: an attribute call named ``blinky_*`` (not the error string)."""
+    point (:func:`_entry_point`)."""
     found = []
 
     def walk(node, chain):
-        if (isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute)
-                and node.func.attr.startswith("blinky_")
-                and node.func.attr != "blinky_error_string"):
+        if _entry_point(node):
             found.append((node, chain))
         for child in ast.iter_child_nodes(node):
             walk(child, chain + [node])
@@ -57,7 +69,7 @@ def test_every_launch_is_inside_on_device():
         for call, chain in _launches(ast.parse(path.read_text())):
             launches += 1
             if not _inside_on_device(chain):
-                outside.append(f"{path.relative_to(ROOT)}:{call.lineno} {call.func.attr}")
+                outside.append(f"{path.relative_to(ROOT)}:{call.lineno} {_entry_point(call)}")
     assert not outside, outside
     # every entry point of the library is launched somewhere
     assert launches >= len(_build._SIGNATURES), launches
