@@ -58,10 +58,17 @@
 #include <string.h>
 
 #include "common.cuh"
+#include "ring.cuh"
 
 namespace {
 
+using blinky::bar_sync;
 using blinky::kThreads;
+using blinky::mbar_arrive;
+using blinky::mbar_arrive_tx;
+using blinky::mbar_init;
+using blinky::mbar_wait;
+using blinky::smem_u32;
 
 // ------------------------------------------------------------------ K3
 
@@ -78,10 +85,6 @@ constexpr int kOutBytes = kTileT * kOutPitch;   // per warpgroup
 constexpr int kSmemBytes = 1024 + kStages * kStageBytes + 2 * kOneHotBytes + 2 * kOutBytes +
                            2 * kStages * 8;
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
 // The byte of a [rows][128] tile under the 128-byte swizzle, as TMA writes
 // it and wgmma reads it: 16-byte chunk c of row r lands at chunk c ^ (r % 8).
 __device__ __forceinline__ int sw128(int row, int col) {
@@ -94,36 +97,6 @@ __device__ __forceinline__ int sw128(int row, int col) {
 // half m / 2.  So d = 32s + 16h + 8p + j  ->  k = 32s + 16h + 4(j/2) + 2p + j%2.
 __device__ __forceinline__ int onehot_k(int d) {
   return (d & ~15) + ((d & 6) << 1) + ((d >> 2) & 2) + (d & 1);
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive_tx(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
-
-__device__ __forceinline__ void bar_sync(int id, int count) {
-  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
 }
 
 // Keeps the compiler from moving a register's uses across a wgmma fence or wait.
@@ -194,7 +167,7 @@ __global__ void __launch_bounds__(kBlockThreads, 1) onehot_gather_kernel(
   }
   for (int i = tid; i < 2 * kOneHotBytes / 16; i += kBlockThreads)
     ((uint4*)onehot)[i] = make_uint4(0, 0, 0, 0);  // the one-hots start empty
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  blinky::fence_async_shared();
   __syncthreads();
 
   if (tid >= kConsumers) {
@@ -302,7 +275,7 @@ __global__ void __launch_bounds__(kBlockThreads, 1) onehot_gather_kernel(
       };
       set_row(i, idx_a, prev_a);
       if (i + 128 < kTileT) set_row(i + 128, idx_b, prev_b);
-      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");  // for wgmma's reads
+      blinky::fence_async_shared();  // for wgmma's reads
       bar_sync(wg_bar, 128);
 
       // every operand register is defined before the fence

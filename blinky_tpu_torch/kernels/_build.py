@@ -45,6 +45,9 @@ _SIGNATURES = {
     # fill, npix, out, stream
     "blinky_remap_gather": [_vp, _ll, _i, _i, _vp, _vp, _vp, _vp, _vp, _i,
                             _ll, _vp, _vp],
+    # the same arguments: K1's ring path
+    "blinky_remap_gather_ring": [_vp, _ll, _i, _i, _vp, _vp, _vp, _vp, _vp, _i,
+                                 _ll, _vp, _vp],
     # src, rows, batch, idx, valid, tint, bg, tint_lut, rgb_lut, fill, npix,
     # out, stream
     "blinky_remap_lut": [_vp, _ll, _i, _vp, _vp, _vp, _vp, _vp, _vp, _i, _ll,

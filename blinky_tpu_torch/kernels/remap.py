@@ -130,6 +130,21 @@ def _check_rows(kernel, src, dtypes):
             f"{tuple(src.shape)}")
 
 
+# K1's ring path (``remap_gather.cu``'s note): rows of at least this many
+# bytes, measured on the H100 where the ring stops beating the register path
+RING_MIN_ROW_BYTES = 192
+
+
+def ring_path(row_bytes: int, src_ptr: int, out_ptr: int) -> bool:
+    """Whether K1 runs on its ring of bulk copies: rows of at least
+    :data:`RING_MIN_ROW_BYTES`, a multiple of 16 bytes, with the source and
+    the output on 16-byte boundaries (the bulk copies' alignment).  The one
+    place that decides: :func:`remap_gather` launches the ring's entry point
+    and counts ``remap_gather.bulk_launches`` on its answer."""
+    return (row_bytes >= RING_MIN_ROW_BYTES and row_bytes % 16 == 0
+            and src_ptr % 16 == 0 and out_ptr % 16 == 0)
+
+
 def remap_gather(src, idx, valid, bg, *, fill: bool = False, tint_rgb=None,
                  tint_mask=None):
     """K1: ``out[p] = valid[p] ? src[row(idx[p])] : bg[p]`` -> [N, B].
@@ -138,7 +153,9 @@ def remap_gather(src, idx, valid, bg, *, fill: bool = False, tint_rgb=None,
     ``idx`` [N] int32; ``valid`` [N] bool; ``bg`` [N] of src's dtype.
     ``fill`` picks the out-of-range rule (see :func:`_gather_rows`).
     ``tint_rgb`` [N] int32 and ``tint_mask`` [N] bool add the post-gather
-    true-color tint (int32 sources only).
+    true-color tint (int32 sources only).  Long rows run on the kernel's
+    ring of bulk copies (:func:`ring_path`), counted in
+    ``remap_gather.bulk_launches`` beside ``remap_gather.launches``.
     """
     k = "remap_gather"
     _check_rows(k, src, (torch.uint8, torch.int32))
@@ -160,14 +177,19 @@ def remap_gather(src, idx, valid, bg, *, fill: bool = False, tint_rgb=None,
     with _build.on_device(dev) as stream:
         out = torch.empty((n, B), dtype=src.dtype, device=dev)
         if out.numel():
-            _build.launch(remap_gather, k, "blinky_remap_gather",
-                src.data_ptr(), rows, src.element_size(), B, idx.data_ptr(),
-                valid.data_ptr(), bg.data_ptr(), _build.ptr(tint_rgb),
-                _build.ptr(tint_mask), int(fill), n, out.data_ptr(), stream)
+            args = (src.data_ptr(), rows, src.element_size(), B, idx.data_ptr(),
+                    valid.data_ptr(), bg.data_ptr(), _build.ptr(tint_rgb),
+                    _build.ptr(tint_mask), int(fill), n, out.data_ptr(), stream)
+            if ring_path(B * src.element_size(), src.data_ptr(), out.data_ptr()):
+                _build.launch(remap_gather, k, "blinky_remap_gather_ring", *args)
+                remap_gather.bulk_launches += 1
+            else:
+                _build.launch(remap_gather, k, "blinky_remap_gather", *args)
     return out
 
 
 remap_gather.launches = 0
+remap_gather.bulk_launches = 0
 
 
 def remap_lut(src, idx, valid, tint, bg, tint_lut=None, rgb_lut=None, *,

@@ -450,6 +450,9 @@ def main():
                   + n * B_MAIN * (3 if rgb is not None else 1))
         variants[name] = time_variant(name, run, ref, nbytes)
     del src32, expanded, noise, zeros
+    phase(2, f"K1's ring path (rows of {remap.RING_MIN_ROW_BYTES} bytes and more, "
+          f"remap.ring_path) took {remap.remap_gather.bulk_launches} of K1's "
+          f"{remap.remap_gather.launches} launches so far")
     main_ms = {"remap_gather": variants["K1 u8 (render)"],
                "remap_lut": variants["K2 rubix (render f_rubix)"]}
     walls = []
@@ -3221,8 +3224,12 @@ def profiled(fn, iters, sync=True, tries=6):
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3 / iters
             time.sleep(PROFILE_TAIL_S)
+        # the program's spans (utils/timing.py::span) also land on the device's
+        # timeline, each as an annotation as long as the work it holds: not
+        # device work of their own
         recs = sorted((e.time_range.start, e.time_range.elapsed_us(), e.name)
-                      for e in prof.events() if e.device_type.name == "CUDA")
+                      for e in prof.events() if e.device_type.name == "CUDA"
+                      and not getattr(e, "is_user_annotation", False))
         if lead and len(recs) > 1:
             # the timed calls' records: those after the lead-in's pause, the
             # widest gap, unless the lead-in left no record

@@ -83,6 +83,103 @@ def test_remap_kernels_equal_plain(cuda_device, B):
     torch.cuda.synchronize()
 
 
+
+# K1's ring path (remap.ring_path): dtype, B, pixels N, source rows R, the
+# share of valid pixels, and what is special.  The ring takes rows of
+# RING_MIN_ROW_BYTES and more that are a multiple of 16 bytes on aligned
+# pointers, runs of as many whole rows as its 64-KB stage holds (at most
+# 128, spread over four producer warps), and a longer row in pieces of
+# 64 KB, one pixel a run; the rest keeps the register path.
+_RING_MIN = remap.RING_MIN_ROW_BYTES
+RING_CASES = {
+    "u8_B1024": (torch.uint8, 1024, 4099, 3000, 0.8, ""),    # the batch cell's rows
+    "u32_B128": (torch.int32, 128, 5003, 2000, 0.8, ""),     # the 360 cell's rows
+    "u32_B128_tint": (torch.int32, 128, 5003, 2000, 0.8, "tint"),
+    "u8_under_threshold": (torch.uint8, _RING_MIN - 16, 999, 500, 0.8, ""),
+    "u8_at_threshold": (torch.uint8, _RING_MIN, 999, 500, 0.8, ""),
+    "u8_over_threshold": (torch.uint8, _RING_MIN + 16, 999, 500, 0.8, ""),
+    "u8_B21760": (torch.uint8, 21760, 301, 150, 0.8, ""),  # the headline's rows, 3 a run
+    "u32_B8200": (torch.int32, 8200, 67, 40, 0.8, ""),     # 32,800 B: one a run
+    "u32_B16400": (torch.int32, 16400, 37, 20, 0.8, ""),   # pieces of 65,536 + 64
+    "u8_B70000": (torch.uint8, 70000, 29, 20, 0.8, ""),    # pieces of 65,536 + 4,464
+    "u8_all_invalid": (torch.uint8, 1024, 777, 300, 0.0, ""),
+    "u8_all_valid": (torch.uint8, 1024, 777, 300, 1.0, "in_range"),
+    "u32_N1": (torch.int32, 128, 1, 10, 1.0, ""),
+    "u8_src_off16": (torch.uint8, 1024, 999, 300, 0.8, "offset"),    # the register path
+    "u32_src_off16": (torch.int32, 128, 999, 300, 0.8, "offset"),    # the register path
+    "u8_B64": (torch.uint8, 64, 4099, 3000, 0.8, ""),                # the register path
+}
+
+
+def _ring_case(case, device):
+    dtype, B, n, R, share, kind = RING_CASES[case]
+    rng = np.random.default_rng(len(case) * 7907 + B + n)
+    el = 1 if dtype == torch.uint8 else 4
+    flat = torch.from_numpy(rng.integers(0, 256, R * B * el + 16, dtype=np.uint8)).to(device)
+    off = el if kind == "offset" else 0  # one texel past a 16-byte boundary
+    src = flat[off:off + R * B * el].view(dtype).reshape(R, B)
+    assert (src.data_ptr() % 16 != 0) == (kind == "offset")
+    lo, hi = (0, R) if kind == "in_range" else (-2 * R - 3, 2 * R + 3)
+    idx = rng.integers(lo, hi, n).astype(np.int32)
+    valid = rng.random(n) < share
+    bg = rng.integers(0, 256, n * el, dtype=np.uint8).view(np.uint8 if el == 1 else np.int32)
+    return (src, *(torch.from_numpy(a).to(device) for a in (idx, valid, bg))), kind
+
+
+def _k1_counted(src, idx, valid, bg, ring, **kw):
+    """K1 once, with the launch and ring counters' steps checked."""
+    n0, b0 = remap.remap_gather.launches, remap.remap_gather.bulk_launches
+    got = remap.remap_gather(src, idx, valid, bg, **kw)
+    torch.cuda.synchronize()
+    assert remap.remap_gather.launches == n0 + 1
+    assert remap.remap_gather.bulk_launches == b0 + ring
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(RING_CASES))
+def test_k1_ring_path_equals_plain(cuda_device, case):
+    """K1 on either side of the ring's threshold, under both out-of-range
+    rules (the tint under the clip rule, as its callers use it): bit-equal
+    to the plain version, and counted as a ring launch exactly when the
+    row and the pointers qualify."""
+    (src, idx, valid, bg), kind = _ring_case(case, cuda_device)
+    row_bytes = src.shape[1] * src.element_size()
+    ring = kind != "offset" and row_bytes >= _RING_MIN and row_bytes % 16 == 0
+    if kind == "tint":
+        tr = torch.from_numpy(np.random.default_rng(1).integers(
+            -2**31, 2**31, idx.numel(), dtype=np.int64).astype(np.int32)).to(cuda_device)
+        tm = valid & (torch.arange(idx.numel(), device=cuda_device) % 3 > 0)
+        kw = dict(tint_rgb=tr, tint_mask=tm)
+        _equal(_k1_counted(src, idx, valid, bg, ring, **kw),
+               remap.remap_gather_plain(src, idx, valid, bg, **kw))
+        return
+    for fill in (False, True):
+        _equal(_k1_counted(src, idx, valid, bg, ring, fill=fill),
+               remap.remap_gather_plain(src, idx, valid, bg, fill=fill))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", ["pc1080_u8_B1024_fill", "v360_u32_B128_clip"])
+def test_k1_ring_path_on_the_cells_lensmaps(cuda_device, cell):
+    """The ring at the benchmark cells' shapes, on a real panini lensmap's
+    texel-compacted rows: 1080p u8 at B = 1024 under the fill rule (the
+    batch cell), 720p u32 at B = 128 under the clip rule (the 360 cell's
+    second stage); every launch takes the ring."""
+    from blinky_tpu_torch.bench import throughput as tt
+
+    torch.cuda.empty_cache()
+    if cell.startswith("pc1080"):
+        kw = dict(width=1920, height=1080, platesize=1080, batch=1024, rubix=False)
+    else:
+        kw = dict(width=1280, height=720, platesize=720, batch=128, rubix=False, rgba=True)
+    _, src, idx, valid, bg, _ = tt.gather_operands(texel_compact=True, device=cuda_device, **kw)
+    fill = cell.endswith("fill")
+    got = _k1_counted(src, idx, valid, bg, True, fill=fill)
+    _equal(got, remap.remap_gather_plain(src, idx, valid, bg, fill=fill))
+    del got, src
+    torch.cuda.empty_cache()
+
 # K2 (remap_lut) on its edges: B, pixels N, source rows R, and what is
 # special.  B % 16 == 0 with aligned pointers takes 16-texel vectors, any
 # other B (or a source that starts off a 16-byte boundary) single texels;

@@ -284,6 +284,52 @@ def test_wrappers_check_operands_and_devices(pal):
     assert remap.remap_gather.launches == 0 and remap.remap_lut.launches == 0
 
 
+
+_RING_MIN = remap.RING_MIN_ROW_BYTES
+
+
+@pytest.mark.parametrize("row_bytes,src_off,out_off,ring", [
+    (_RING_MIN, 0, 0, True),
+    (_RING_MIN - 16, 0, 0, False),        # under the threshold: the register path
+    (_RING_MIN + 16, 0, 0, True),
+    (1024, 0, 0, True),                   # the batch cell's rows, u8 B = 1024
+    (512, 0, 0, True),                    # the 360 cell's rows, u32 B = 128
+    (256, 0, 0, True),                    # render_aa's rows, u32 B = 64
+    (64, 0, 0, False),                    # u8 B = 64
+    (21760, 0, 0, True),                  # the headline's rows
+    (70000, 0, 0, True),                  # longer than a stage: in pieces
+    (1024 + 4, 0, 0, False),              # no multiple of 16 bytes
+    (1024, 1, 0, False), (1024, 4, 0, False), (1024, 8, 0, False),   # src off 16
+    (1024, 0, 4, False), (1024, 0, 8, False),                        # out off 16
+    (1024, 16, 32, True),
+])
+def test_ring_path_decides_on_row_bytes_and_alignment(row_bytes, src_off, out_off, ring):
+    base = 1 << 40
+    assert remap.ring_path(row_bytes, base + src_off, base + out_off) is ring
+
+
+@pytest.mark.parametrize("dtype,B", [(torch.uint8, 1024), (torch.int32, 128),
+                                     (torch.uint8, 64)])
+def test_remap_gather_on_the_cpu_runs_the_plain_version(dtype, B):
+    """On the CPU neither counter moves, whatever the row, and the wrapper
+    returns the plain version's screen."""
+    rng = np.random.default_rng(B)
+    R, n = 50, 333
+    if dtype == torch.uint8:
+        src = rng.integers(0, 256, (R, B), dtype=np.uint8)
+        bg = rng.integers(0, 256, n, dtype=np.uint8)
+    else:
+        src = rng.integers(-2**31, 2**31, (R, B), dtype=np.int64).astype(np.int32)
+        bg = rng.integers(-2**31, 2**31, n, dtype=np.int64).astype(np.int32)
+    src, bg = torch.from_numpy(src), torch.from_numpy(bg)
+    idx = torch.from_numpy(rng.integers(-2 * R, 2 * R, n).astype(np.int32))
+    valid = torch.from_numpy(rng.random(n) < 0.8)
+    n0, b0 = remap.remap_gather.launches, remap.remap_gather.bulk_launches
+    for fill in (False, True):
+        got = remap.remap_gather(src, idx, valid, bg, fill=fill)
+        assert torch.equal(got, remap.remap_gather_plain(src, idx, valid, bg, fill=fill))
+    assert (remap.remap_gather.launches, remap.remap_gather.bulk_launches) == (n0, b0)
+
 # --------------------------------------------------------- host functions
 
 
