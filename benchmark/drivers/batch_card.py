@@ -14,6 +14,9 @@ from benchmark.drivers._ring import drain, release, step  # noqa: F401
 from benchmark.reference import lensmap as ref_lensmap
 from benchmark.reference import remap as ref_remap
 
+# the program's span around each call this driver makes
+ENTRY_SPAN = "session.render"
+
 
 def _reference_render(run, hi):
     c = run.cfg

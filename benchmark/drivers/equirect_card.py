@@ -15,6 +15,9 @@ from benchmark.drivers._ring import drain, release, step  # noqa: F401
 from benchmark.reference import equirect as ref_equirect
 from benchmark.reference import lensmap as ref_lensmap
 
+# the program's span around each call this driver makes
+ENTRY_SPAN = "session.render_equirect"
+
 BACKGROUND = -(1 << 24)  # palette colour 0 (black) as packed RGBA, alpha 0xFF
 
 

@@ -18,7 +18,7 @@ CELLS = [w["name"] for w in SPEC["workloads"]]
 def _run(cell, seed=2**31 + 3):
     res, _ = harness.run_cell(SPEC, cell, seed, 0.3, False, device="cpu",
                               t_start=time.perf_counter(), cfg_override=SMALL_CFG,
-                              mix_override=SMALL_MIX[cell])
+                              mix_override=SMALL_MIX)
     return res
 
 
@@ -27,7 +27,7 @@ def test_the_control_fails_the_limit(cell):
     _, _, mix = harness.resolve(SPEC, cell)
     limit = mix["limits"]["screen_mismatch"]
     readings = list(control.readings(cell, [1, 2, 3], 0.2, False, device="cpu",
-                                     cfg_override=SMALL_CFG, mix_override=SMALL_MIX[cell],
+                                     cfg_override=SMALL_CFG, mix_override=SMALL_MIX,
                                      spec=SPEC))
     assert all(r["screen_mismatch"] > limit for _, r in readings), readings
 

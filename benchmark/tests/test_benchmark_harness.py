@@ -193,6 +193,17 @@ def test_roofline_share_counts_what_the_inputs_need():
     assert rooflines.share_of_bound(1.0, 0, 1.0) is None
 
 
+def test_share_of_op_bound_is_counted_as_k6s_bound():
+    # K6 at 1080p, B = 64: 86 FP32 operations a pose and pixel, a bound of
+    # 0.3407 ms; 0.8283 ms a call is 41.1 % of it
+    ops = 86 * 64 * 1920 * 1080
+    assert ops == 11_413_094_400
+    assert ops / rooflines.FP32_OPS_PER_S == pytest.approx(0.3407e-3, abs=5e-8)
+    assert rooflines.share_of_op_bound(ops, 2, 2 * 0.8283e-3) == pytest.approx(41.13, abs=0.01)
+    assert rooflines.share_of_op_bound(ops, 0, 1.0) is None
+    assert rooflines.share_of_op_bound(ops, 3, 0.0) is None
+
+
 # --------------------------------------------------------------- rehearsal
 
 
@@ -201,7 +212,7 @@ def test_roofline_share_counts_what_the_inputs_need():
 def test_cell_runs_on_the_cpu_at_a_tiny_size(cell, traced):
     res, run = harness.run_cell(SPEC, cell, 2**31 + 7, 0.4, traced, device="cpu",
                                 t_start=time.perf_counter(), cfg_override=SMALL_CFG,
-                                mix_override={**SMALL_MIX[cell], "trace_seconds": 0.1})
+                                mix_override={**SMALL_MIX, "trace_seconds": 0.1})
     assert res["correct"] is True, res["checks"]
     assert list(res)[-1] == "checks" and res["attempted"] == run.calls > 0
     assert set(res) >= {"correct", "attempted", "failed", "metrics", "device"}

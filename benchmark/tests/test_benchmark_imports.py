@@ -59,7 +59,7 @@ from benchmark.tests.conftest import SMALL_CFG, SMALL_MIX
 spec = harness.benchmark_spec()
 for w in spec["workloads"]:
     harness.run_cell(spec, w["name"], 5, 0.2, False, device="cpu", t_start=time.perf_counter(),
-                     cfg_override=SMALL_CFG, mix_override=SMALL_MIX[w["name"]])
+                     cfg_override=SMALL_CFG, mix_override=SMALL_MIX)
 print(json.dumps(sorted({{m.split(".")[0] for m in sys.modules}})))
 """
 
@@ -92,7 +92,7 @@ spec = harness.benchmark_spec()
 try:
     harness.run_cell(spec, "pc1080.batch_card", 5, 0.1, False, device="cpu",
                      t_start=time.perf_counter(), cfg_override=SMALL_CFG,
-                     mix_override=SMALL_MIX["pc1080.batch_card"])
+                     mix_override=SMALL_MIX)
 except ImportError as e:
     print("refused:", e)
 else:

@@ -1,6 +1,6 @@
 """The readers of the program's spans (``entry_self_ms``, ``launch_wait_ms``,
-``rebuilds_in_window``) on synthetic Chrome traces, and both cells traced
-on the CPU with them."""
+``rebuilds_in_window``) on synthetic Chrome traces, and every cell they
+list traced on the CPU with them."""
 
 import time
 
@@ -12,6 +12,8 @@ from benchmark.tests.conftest import SMALL_CFG, SMALL_MIX
 SPEC = harness.benchmark_spec()
 CELLS = [w["name"] for w in SPEC["workloads"]]
 READERS = ("entry_self_ms", "launch_wait_ms", "rebuilds_in_window")
+LISTED = {m["name"]: m["workloads"] for m in SPEC["per_layer"] if m["name"] in READERS}
+SPAN_CELLS = [c for c in CELLS if any(c in cells for cells in LISTED.values())]
 
 
 def _span(name, ts, dur):
@@ -99,22 +101,29 @@ def test_launch_wait_reads_nothing_without_launches():
 
 @pytest.mark.parametrize("name", READERS)
 def test_spans_readers_are_listed_for_both_cells(name):
+    """The first two cells by name, so that neither drops out unseen; a
+    later cell may be listed too, if the spec has it."""
     m = next(x for x in SPEC["per_layer"] if x["name"] == name)
     assert m["source"] == "program_span" and m["moves"] == "screens_per_s"
-    assert m["workloads"] == CELLS
+    assert {"pc1080.batch_card", "v360.compact_card"} <= set(m["workloads"])
+    assert set(m["workloads"]) <= set(CELLS) and len(set(m["workloads"])) == len(m["workloads"])
     assert m["layer"] == ("build" if name == "rebuilds_in_window" else "entry")
 
 
-@pytest.mark.parametrize("cell", CELLS)
+@pytest.mark.parametrize("cell", SPAN_CELLS)
 def test_traced_cpu_run_reads_the_program_spans(cell):
+    """Each reader that lists *cell* reads it; the entry span is the one its
+    driver declares."""
     res, run = harness.run_cell(SPEC, cell, 2**31 + 19, 0.4, True, device="cpu",
                                 t_start=time.perf_counter(), cfg_override=SMALL_CFG,
-                                mix_override={**SMALL_MIX[cell], "trace_seconds": 0.1})
+                                mix_override={**SMALL_MIX, "trace_seconds": 0.1})
     assert res["correct"] is True, res["checks"]
     m = res["metrics"]
-    assert m["rebuilds_in_window"]["value"] == 0  # every rebuild was in the set-up
-    assert m["entry_self_ms"]["value"] > 0 and m["entry_self_ms"]["unit"] == "ms"
+    if cell in LISTED["rebuilds_in_window"]:
+        assert m["rebuilds_in_window"]["value"] == 0  # every rebuild was in the set-up
+    if cell in LISTED["entry_self_ms"]:
+        assert m["entry_self_ms"]["value"] > 0 and m["entry_self_ms"]["unit"] == "ms"
     assert "launch_wait_ms" not in m  # no launch on the CPU
+    driver = harness.load_module("drivers", run.mix["driver"])
     names = {s.name for s in run.trace.spans}
-    assert {"bench.render", "session.render" if "batch" in cell
-            else "session.render_equirect"} <= names, names
+    assert {"bench.render", driver.ENTRY_SPAN} <= names, names
