@@ -1402,6 +1402,10 @@ class Session:
         ``frames``: [P, S, S, B] (u8 plates, the expanded [12, ...] rubix
         layout, or packed RGBA u32), a NumPy array or a tensor; ``poses``:
         [B, 3] (pitch, yaw, roll) degrees or precomputed [B, 3, 3] bases.
+        Bases given as a float32 tensor on the session's device are used in
+        place, so a caller that makes a track's bases once on the card
+        pays no upload a call (the exact and auto routes copy them to the
+        host).
         Returns a [B, H, W] tensor on the session's device (``torch.uint32``
         for RGBA).  Rubix rides the source: an expanded source renders
         tinted, a raw one untinted; the ``f_rubix`` flag is not consulted.
@@ -1453,8 +1457,13 @@ class Session:
         if frames.ndim != 4:
             raise ValueError("render_posed takes a frame batch [P, S, S, B]")
         S = frames.shape[1]
-        poses = np.asarray(poses, dtype=np.float64)
-        bases = poses if poses.ndim == 3 else bases_from_pose_track(poses)
+        if isinstance(poses, torch.Tensor) and poses.ndim == 3:
+            # bases given as a tensor stay where they lie: bases made once
+            # on the card cost a call no upload and no wait for the card
+            bases = poses
+        else:
+            poses = np.asarray(poses, dtype=np.float64)
+            bases = poses if poses.ndim == 3 else bases_from_pose_track(poses)
         # the zoom is re-solved only when what it depends on was replaced
         # (Zoom and lenses are immutable)
         zkey = (self.zoom, self.lens, self.width_px, self.height_px)
@@ -1476,6 +1485,8 @@ class Session:
             # the per-pose plate resolve needs the resolver on tensors: a
             # scalar-only script globe resolves on the exact host path
             exact = True
+        if isinstance(bases, torch.Tensor) and (exact or render_scale == "auto"):
+            bases = bases.detach().cpu().numpy().astype(np.float64)  # host paths
         if render_scale == "auto":
             render_scale = 1 if exact else self._auto_render_scale(
                 frames, bases, scale, float(target_fps))

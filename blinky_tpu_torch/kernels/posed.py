@@ -37,7 +37,7 @@ import torch
 from blinky_tpu_torch.kernels import _build
 from blinky_tpu_torch.kernels.remap import frames_tensor
 from blinky_tpu_torch.palette import MAX_PLATES
-from blinky_tpu_torch.utils.timing import spanned
+from blinky_tpu_torch.utils.timing import span, spanned
 
 
 def check_render_scale(width_px: int, height_px: int, k: int) -> None:
@@ -88,8 +88,9 @@ def prep_posed_inputs(frames, bases, platesize, background, device):
     if not expanded and P > MAX_PLATES:
         raise ValueError(f"{P} source planes: expected <= {MAX_PLATES} "
                          f"or {2 * MAX_PLATES}")
-    bases = torch.as_tensor(np.asarray(bases) if not isinstance(bases, torch.Tensor)
-                            else bases).to(device=device, dtype=torch.float32)
+    with span("posed.upload"):  # a pageable upload waits for the card's queue
+        bases = torch.as_tensor(np.asarray(bases) if not isinstance(bases, torch.Tensor)
+                                else bases).to(device=device, dtype=torch.float32)
     if tuple(bases.shape) != (B, 3, 3):
         raise ValueError(f"bases must be [B={B}, 3, 3], got {tuple(bases.shape)}")
     if is_rgba and background.dtype != torch.int32:

@@ -146,14 +146,45 @@ def test_render_posed_and_the_lens_stage_spans(tmp_path):
     first, second = [s for s in _calls(spans, "session.render_posed")
                      if not any(o[1] < s[1] and s[2] <= o[2]
                                 for o in _calls(spans, "session.render_posed"))]
-    assert "posed.bases" in _inside(spans, first)
+    assert {"posed.bases", "posed.upload"} <= set(_inside(spans, first))
     assert "lensmap.lens_stage" in _inside(spans, first)
-    assert _inside(spans, second) == ["posed.bases"]
+    assert _inside(spans, second) == ["posed.bases", "posed.upload"]
     # the float32 device builder's lens stage inside a rotated view's build
     sess.cmd("setviewangles 10 30 0")
     spans = _traced(lambda: sess.render(frames), tmp_path, "r.json")
     (build,) = _calls(spans, "build.lensmap")
     assert "lensmap.lens_stage" in _inside(spans, build)
+
+
+def test_render_posed_upload_span_under_profile_trace(tmp_path):
+    """Bases given as ``[B, 3, 3]``: each call's upload is a ``posed.upload``
+    span inside its ``session.render_posed``, and no ``posed.bases``."""
+    sess = Session(W, H, device="cpu")
+    frames = synthetic_cubemap_batch(S, 2)
+    bases = np.stack([np.eye(3)[[2, 0, 1]]] * 2)
+    with timing.profile_trace(str(tmp_path / "trace")):
+        for _ in range(2):
+            sess.render_posed(frames, bases)
+    (path,) = (tmp_path / "trace").glob("trace_*.json")
+    spans = _spans(json.loads(path.read_text())["traceEvents"])
+    calls = _calls(spans, "session.render_posed")
+    assert len(calls) == 2 and len(_calls(spans, "posed.upload")) == 2
+    assert _inside(spans, calls[1]) == ["posed.upload"]
+    assert "posed.bases" not in {n for n, *_ in spans}
+
+
+def test_unrecorded_render_posed_enters_no_record_function(monkeypatch):
+    """No profiler records: the upload's span is the one shared null
+    context, and no ``record_function`` is entered."""
+    monkeypatch.setattr(torch.profiler, "record_function", _raise)
+    monkeypatch.setattr(torch.autograd.profiler, "record_function", _raise)
+    assert timing.span("posed.upload") is timing.span("session.render_posed")
+    sess = Session(W, H, device="cpu")
+    frames = synthetic_cubemap_batch(S, 2)
+    for poses in (np.array([[0.0, 10.0, 0.0], [5.0, -20.0, 3.0]]),
+                  np.stack([np.eye(3)[[2, 0, 1]]] * 2)):
+        for _ in range(2):
+            assert sess.render_posed(frames, poses).shape == (2, H, W)
 
 
 def test_loader_spans(tmp_path):
