@@ -28,6 +28,29 @@
 //    texels of 4 poses: four 16-byte stores.  The warp's second half reads
 //    its rows in the order i ^ 4, which keeps the halves 16 banks apart.
 //    RGBA: a thread gathers 4 texels of one pose into one 16-byte store.
+//  * Long rows (blinky_posed_layout_rows; kernels/posed.py::long_row_path
+//    picks it for the vector path's shapes with rows of 128 bytes and more
+//    of u8, 256 of RGBA) take posed_layout_rows: the same tile code on 128
+//    bytes of a row (u8) or 256 (RGBA) a block, a warp reading 512 bytes of
+//    whole row runs, the shared rows 16 bytes longer than the run (which
+//    keeps the vector path's bank spacing), and the chunks of one texel
+//    tile next to each other in a one-dimensional grid.  The vector path's grid put the ~1,000
+//    blocks resident at once on one 64-byte column of rows, which at
+//    B = 1024 is 64 bytes of every 1 KB over some 270 MB, and ran at
+//    67.6 % of the byte bound from 256-byte rows up (6.33 ms at the posed
+//    cell's [6, 1080, 1080, 1024] u8 against 4.28 ms).  Runs of 128 or 256
+//    bytes a row take it to 83.0-83.5 % (u8 B = 1024, 2048) and 85.5 %
+//    (RGBA), within a few points of the card's own copy rate (x + 1 over
+//    1 GiB: 86.4 %); the run length does most of it: 64-byte runs with the
+//    chunks next to each other reach 77-80 %, and which grid index runs
+//    fastest moves 256-byte runs by 0-0.5 points and 128-byte runs by 1.5-2
+//    (chip_smoke.py --sweep; NVIDIA H100 80GB HBM3, 700 W).  u8 takes 128
+//    bytes: its byte transposes want the six blocks an SM that a 36-KB tile
+//    allows (256 bytes, three blocks of 68 KB: 82.1 % at B = 1024); RGBA,
+//    whose transpose is four word loads, takes 256 (128 bytes: 82.1 %).  On
+//    rows shorter than a block's run the vector path is as fast or faster
+//    (RGBA at B = 32: 79.6 against 77.6 %).  Bound: bytes, at about the
+//    copy rate.
 //  * Every other shape of blinky_posed_layout (a ragged B, a row stride or
 //    pointer off 16 bytes, an output row not a multiple of 16 bytes) takes
 //    one of two kernels built for it:
@@ -67,7 +90,6 @@ namespace {
 using blinky::kThreads;  // 256: one texel of the tile a thread
 constexpr int kTileTexels = 256;
 constexpr int kChunkBytes = 64;   // bytes of a texel's row one tile holds
-constexpr int kStride = 80;       // the tile's row stride in shared memory
 constexpr int kScalarElems = 2048;  // the strided path's tile, texels x poses
 constexpr int kSpanBytes = 256;     // the longest row read as one span, and a slice's chunk
 constexpr int kTileBytes = 32768;   // shared memory a tile aims at
@@ -85,90 +107,22 @@ constexpr int kTileLoads = 8;       // 16-byte loads a thread issues before stor
 #define K7_COLUMN_LOADS 1
 #endif
 
-// The vector path.  E: element bytes, 1 (u8) or 4 (RGBA).  grid.x: texel
-// tiles; grid.y: 64-byte chunks of a row.
-template <int E>
-__global__ void __launch_bounds__(kThreads) posed_layout_vec(
-    const uint8_t* __restrict__ in, long long ld_bytes, long long T, int row_bytes,
-    long long n_out, uint8_t* __restrict__ out) {
-  __shared__ __align__(16) uint8_t tile[kTileTexels * kStride];
-  const int tid = threadIdx.x;
-  const long long t0 = (long long)blockIdx.x * kTileTexels;
-  const int col0 = blockIdx.y * kChunkBytes;
-  const int units = min(kChunkBytes, row_bytes - col0) / 16;  // 16-byte units in the chunk
-
-  // a warp takes 8 rows x 4 units; quarter q holds rows q and q + 4
-  uint4 v[4];
-  int rows[4], us[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int i = j * kThreads + tid, w = i >> 5, lane = i & 31;
-    rows[j] = w * 8 + ((lane & 7) >> 2) * 4 + (lane >> 3);
-    us[j] = lane & 3;
-    const long long t = t0 + rows[j];
-    v[j] = make_uint4(0, 0, 0, 0);
-    if (t < T && us[j] < units)
-      v[j] = *(const uint4*)(in + t * ld_bytes + col0 + us[j] * 16);
-  }
-#pragma unroll
-  for (int j = 0; j < 4; ++j) *(uint4*)(tile + rows[j] * kStride + us[j] * 16) = v[j];
-  __syncthreads();
-
-  if (E == 1) {
-    // thread: word column c (poses col0 + 4c .. + 3), texels 16 g .. 16 g + 15
-    const int c = tid & 15, g = tid >> 4, h = g & 1;
-    if (c >= units * 4) return;
-    const long long tt = t0 + g * 16;
-    if (tt >= n_out) return;
-    uint32_t a[16];
-#pragma unroll
-    for (int i = 0; i < 16; ++i)
-      a[i] = *(const uint32_t*)(tile + (g * 16 + (i ^ (h << 2))) * kStride + c * 4);
-    // 4x4 byte transposes: o[q][j] = texels 4q..4q+3 of pose j (q in the
-    // read order, so q ^ h is the texel group)
-    uint32_t o[4][4];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const uint32_t x0 = __byte_perm(a[4 * q], a[4 * q + 1], 0x5140);
-      const uint32_t x1 = __byte_perm(a[4 * q], a[4 * q + 1], 0x7362);
-      const uint32_t y0 = __byte_perm(a[4 * q + 2], a[4 * q + 3], 0x5140);
-      const uint32_t y1 = __byte_perm(a[4 * q + 2], a[4 * q + 3], 0x7362);
-      o[q][0] = __byte_perm(x0, y0, 0x5410);
-      o[q][1] = __byte_perm(x0, y0, 0x7632);
-      o[q][2] = __byte_perm(x1, y1, 0x5410);
-      o[q][3] = __byte_perm(x1, y1, 0x7632);
-    }
-    const long long b0 = col0 + c * 4;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const uint4 s = h ? make_uint4(o[1][j], o[0][j], o[3][j], o[2][j])
-                        : make_uint4(o[0][j], o[1][j], o[2][j], o[3][j]);
-      *(uint4*)(out + (b0 + j) * n_out + tt) = s;
-    }
-  } else {
-    // thread: pose c of the chunk, texels 4 g .. 4 g + 3, four times
-    const long long b = col0 / 4 + (tid & 15);
-    if ((tid & 15) >= units * 4) return;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int g = j * 16 + (tid >> 4);
-      const long long tt = t0 + g * 4;
-      if (tt >= n_out) break;
-      const uint8_t* r = tile + g * 4 * kStride + (tid & 15) * 4;
-      const uint4 s = make_uint4(*(const uint32_t*)r, *(const uint32_t*)(r + kStride),
-                                 *(const uint32_t*)(r + 2 * kStride),
-                                 *(const uint32_t*)(r + 3 * kStride));
-      *(uint4*)(out + (b * n_out + tt) * 4) = s;
-    }
-  }
-}
-
-// A shared word's place: XOR its line (32 words) into its bank, a
-// permutation within each 128-byte line.
-__device__ __forceinline__ int swz(int w) { return w ^ ((w >> 5) & 31); }
+// The long-row path's shape (chosen by chip_smoke.py --sweep, the note
+// above): 64-byte chunks of a texel row a block, for u8 and for RGBA rows,
+// and K7_ROW_ORDER 0 for the chunks of one texel tile running fastest in
+// the grid (1: the texel tile fastest, as in the vector path's grid).
+#ifndef K7_ROW_CHUNKS_U8
+#define K7_ROW_CHUNKS_U8 2
+#endif
+#ifndef K7_ROW_CHUNKS_RGBA
+#define K7_ROW_CHUNKS_RGBA 4
+#endif
+#ifndef K7_ROW_ORDER
+#define K7_ROW_ORDER 0
+#endif
 
 // 4x4 byte transpose: a[j] holds 4 poses of texel j; o[p] gets texels 0..3
-// of pose p (the vector path's two rounds of __byte_perm).
+// of pose p, in two rounds of __byte_perm.
 __device__ __forceinline__ void transpose4(const uint32_t* a, uint32_t* o) {
   const uint32_t x0 = __byte_perm(a[0], a[1], 0x5140), x1 = __byte_perm(a[0], a[1], 0x7362);
   const uint32_t y0 = __byte_perm(a[2], a[3], 0x5140), y1 = __byte_perm(a[2], a[3], 0x7362);
@@ -177,6 +131,123 @@ __device__ __forceinline__ void transpose4(const uint32_t* a, uint32_t* o) {
   o[2] = __byte_perm(x1, y1, 0x5410);
   o[3] = __byte_perm(x1, y1, 0x7632);
 }
+
+// One tile of the vector paths: texels t0 .. t0 + kTileTexels - 1 and
+// bytes col0 .. col0 + 64 NC - 1 of their rows, staged in `tile` at a row
+// stride of 64 NC + 16 bytes, then written pose-major.  E: element bytes,
+// 1 (u8) or 4 (RGBA).
+template <int E, int NC>
+__device__ __forceinline__ void layout_tile(const uint8_t* __restrict__ in, long long ld_bytes,
+                                            long long T, int row_bytes, long long n_out,
+                                            uint8_t* __restrict__ out, long long t0, int col0,
+                                            uint8_t* tile) {
+  constexpr int kRow = kChunkBytes * NC + 16;    // the tile's row stride
+  constexpr int kUnits = 4 * NC;                 // 16-byte units of a tile row
+  constexpr int kLoads = kTileTexels * kUnits / kThreads;
+  const int tid = threadIdx.x;
+  const int units = min(kChunkBytes * NC, row_bytes - col0) / 16;  // units the rows hold
+
+  uint4 v[kLoads];
+  int rows[kLoads], us[kLoads];
+#pragma unroll
+  for (int j = 0; j < kLoads; ++j) {
+    const int i = j * kThreads + tid;
+    if (NC == 1) {
+      // a warp takes 8 rows x 4 units; quarter q holds rows q and q + 4
+      const int w = i >> 5, lane = i & 31;
+      rows[j] = w * 8 + ((lane & 7) >> 2) * 4 + (lane >> 3);
+      us[j] = lane & 3;
+    } else {
+      // a warp takes 512 bytes of whole row runs; a quarter, 128 bytes of one row
+      rows[j] = i / kUnits;
+      us[j] = i % kUnits;
+    }
+    const long long t = t0 + rows[j];
+    v[j] = make_uint4(0, 0, 0, 0);
+    if (t < T && us[j] < units)
+      v[j] = *(const uint4*)(in + t * ld_bytes + col0 + us[j] * 16);
+  }
+#pragma unroll
+  for (int j = 0; j < kLoads; ++j) *(uint4*)(tile + rows[j] * kRow + us[j] * 16) = v[j];
+  __syncthreads();
+
+  if (E == 1) {
+    // thread: word column c (poses col0 + 4c .. + 3), texels 16 g .. 16 g + 15,
+    // for each 64-byte chunk k of the tile
+    const int g = tid >> 4, h = g & 1;
+    const long long tt = t0 + g * 16;
+    if (tt >= n_out) return;
+#pragma unroll
+    for (int k = 0; k < NC; ++k) {
+      const int c = (tid & 15) + 16 * k;
+      if (c >= units * 4) return;
+      uint32_t a[16];
+#pragma unroll
+      for (int i = 0; i < 16; ++i)
+        a[i] = *(const uint32_t*)(tile + (g * 16 + (i ^ (h << 2))) * kRow + c * 4);
+      // o[q][j] = texels 4q..4q+3 of pose j (q in the read order, so q ^ h
+      // is the texel group)
+      uint32_t o[4][4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) transpose4(a + 4 * q, o[q]);
+      const long long b0 = col0 + c * 4;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const uint4 s = h ? make_uint4(o[1][j], o[0][j], o[3][j], o[2][j])
+                          : make_uint4(o[0][j], o[1][j], o[2][j], o[3][j]);
+        *(uint4*)(out + (b0 + j) * n_out + tt) = s;
+      }
+    }
+  } else {
+    // thread: pose p of the tile, texels 4 g .. 4 g + 3, four times, for
+    // each 64-byte chunk k of the tile
+#pragma unroll
+    for (int k = 0; k < NC; ++k) {
+      const int p = (tid & 15) + 16 * k;
+      if (p >= units * 4) return;
+      const long long b = col0 / 4 + p;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int g = j * 16 + (tid >> 4);
+        const long long tt = t0 + g * 4;
+        if (tt >= n_out) break;
+        const uint8_t* r = tile + g * 4 * kRow + p * 4;
+        const uint4 s = make_uint4(*(const uint32_t*)r, *(const uint32_t*)(r + kRow),
+                                   *(const uint32_t*)(r + 2 * kRow),
+                                   *(const uint32_t*)(r + 3 * kRow));
+        *(uint4*)(out + (b * n_out + tt) * 4) = s;
+      }
+    }
+  }
+}
+
+// The vector path.  grid.x: texel tiles; grid.y: 64-byte chunks of a row.
+template <int E>
+__global__ void __launch_bounds__(kThreads) posed_layout_vec(
+    const uint8_t* __restrict__ in, long long ld_bytes, long long T, int row_bytes,
+    long long n_out, uint8_t* __restrict__ out) {
+  __shared__ __align__(16) uint8_t tile[kTileTexels * (kChunkBytes + 16)];
+  layout_tile<E, 1>(in, ld_bytes, T, row_bytes, n_out, out,
+                    (long long)blockIdx.x * kTileTexels, blockIdx.y * kChunkBytes, tile);
+}
+
+// The long-row path: a one-dimensional grid of `tiles` texel tiles x
+// `chunks` chunks of 64 NC bytes of a row, in K7_ROW_ORDER.
+template <int E, int NC>
+__global__ void __launch_bounds__(kThreads) posed_layout_rows(
+    const uint8_t* __restrict__ in, long long ld_bytes, long long T, int row_bytes,
+    long long n_out, long long tiles, int chunks, uint8_t* __restrict__ out) {
+  extern __shared__ uint4 row_tile[];
+  const long long b = blockIdx.x;
+  const long long ti = K7_ROW_ORDER ? b % tiles : b / chunks;
+  const int chunk = (int)(K7_ROW_ORDER ? b / tiles : b % chunks);
+  layout_tile<E, NC>(in, ld_bytes, T, row_bytes, n_out, out, ti * kTileTexels,
+                     chunk * kChunkBytes * NC, (uint8_t*)row_tile);
+}
+
+// A shared word's place: XOR its line (32 words) into its bank, a
+// permutation within each 128-byte line.
+__device__ __forceinline__ int swz(int w) { return w ^ ((w >> 5) & 31); }
 
 // The tile path.  E: element bytes, 1 (u8) or 4 (RGBA).  A block takes tt
 // texels (a multiple of 64) of the poses c0 .. c0 + cb - 1; grid.x: texel
@@ -374,6 +445,32 @@ __global__ void __launch_bounds__(kThreads) posed_layout_strided(
   }
 }
 
+// The vector paths' shapes: rows, their stride and the output rows
+// multiples of 16 bytes, both pointers on 16-byte boundaries.
+bool vec_shape(const void* in, long long ld, int batch, int elem_bytes, long long n_out,
+               const void* out) {
+  return ((long long)batch * elem_bytes) % 16 == 0 && (ld * elem_bytes) % 16 == 0 &&
+         (n_out * elem_bytes) % 16 == 0 && (uintptr_t)in % 16 == 0 &&
+         (uintptr_t)out % 16 == 0;
+}
+
+template <int E>
+int launch_rows(const void* in, long long ld_bytes, long long T, int row_bytes, long long n_out,
+                void* out, cudaStream_t s) {
+  constexpr int NC = E == 1 ? K7_ROW_CHUNKS_U8 : K7_ROW_CHUNKS_RGBA;
+  constexpr int kBytes = kChunkBytes * NC;  // bytes of a row a block
+  constexpr int kSmem = kTileTexels * (kBytes + 16);
+  const int chunks = (row_bytes + kBytes - 1) / kBytes;
+  const long long tiles = (n_out + kTileTexels - 1) / kTileTexels;
+  if (tiles * chunks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(posed_layout_rows<E, NC>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (err != cudaSuccess) return (int)err;
+  posed_layout_rows<E, NC><<<(unsigned)(tiles * chunks), kThreads, kSmem, s>>>(
+      (const uint8_t*)in, ld_bytes, T, row_bytes, n_out, tiles, chunks, (uint8_t*)out);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // in: T texels of elem_bytes (1 or 4), texel t's `batch` poses at in + t * ld
@@ -387,10 +484,7 @@ extern "C" int blinky_posed_layout(const void* in, long long ld, long long T, in
   if (n_out == 0) return (int)cudaSuccess;
   cudaStream_t s = (cudaStream_t)stream;
   const long long row_bytes = (long long)batch * elem_bytes;
-  const bool vec = row_bytes % 16 == 0 && (ld * elem_bytes) % 16 == 0 &&
-                   (n_out * elem_bytes) % 16 == 0 && (uintptr_t)in % 16 == 0 &&
-                   (uintptr_t)out % 16 == 0;
-  if (vec) {
+  if (vec_shape(in, ld, batch, elem_bytes, n_out, out)) {
     const dim3 grid((unsigned)((n_out + kTileTexels - 1) / kTileTexels),
                     (unsigned)((row_bytes + kChunkBytes - 1) / kChunkBytes));
     if (grid.y > 65535) return (int)cudaErrorInvalidValue;
@@ -451,6 +545,22 @@ extern "C" int blinky_posed_layout(const void* in, long long ld, long long T, in
     }
   }
   return (int)cudaGetLastError();
+}
+
+// The long-row path (kernels/posed.py::long_row_path picks it): the same
+// arguments as blinky_posed_layout, for the vector path's shapes only (else
+// cudaErrorInvalidValue, and nothing runs).
+extern "C" int blinky_posed_layout_rows(const void* in, long long ld, long long T, int batch,
+                                        int elem_bytes, long long n_out, void* out,
+                                        void* stream) {
+  if (batch < 1 || ld < batch || T < 0 || n_out < T || (elem_bytes != 1 && elem_bytes != 4) ||
+      !vec_shape(in, ld, batch, elem_bytes, n_out, out))
+    return (int)cudaErrorInvalidValue;
+  if (n_out == 0) return (int)cudaSuccess;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int row_bytes = batch * elem_bytes;
+  return elem_bytes == 1 ? launch_rows<1>(in, ld, T, row_bytes, n_out, out, s)
+                         : launch_rows<4>(in, ld * 4, T, row_bytes, n_out, out, s);
 }
 
 // in: frames [P, S, S, batch] of elem_bytes (1 or 4) with the element strides

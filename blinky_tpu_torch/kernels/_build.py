@@ -65,6 +65,8 @@ _SIGNATURES = {
                                 _f, _f, _vp, _vp, _i, _i, _vp, _ll, _i, _vp, _i, _vp, _vp],
     # in, ld, T, batch, elem_bytes, n_out, out, stream
     "blinky_posed_layout": [_vp, _ll, _ll, _i, _i, _ll, _vp, _vp],
+    # the same arguments: K7's long-row path
+    "blinky_posed_layout_rows": [_vp, _ll, _ll, _i, _i, _ll, _vp, _vp],
     # in, sp, sy, sx, sb, P, S, batch, elem_bytes, n_out, out, stream
     "blinky_posed_layout_strided": [_vp, _ll, _ll, _ll, _ll, _i, _i, _i, _i, _ll, _vp, _vp],
     # vx, vy, vz, lens_valid, npix, basis (host), plates (host), nplates,

@@ -120,6 +120,26 @@ def posed_layout_plain(frames, planes):
     return src.reshape(B, -1)
 
 
+# K7's long-row path (``layout.cu``'s note): rows at least as long as one
+# block's run of a row, 128 bytes of u8 and 256 of RGBA; on shorter rows the
+# vector path is as fast or faster (measured on the H100)
+LONG_ROW_MIN_BYTES = {1: 128, 4: 256}
+
+
+def long_row_path(elem_bytes: int, row_bytes: int, ld_bytes: int, out_row_bytes: int,
+                  src_ptr: int, out_ptr: int) -> bool:
+    """Whether K7 runs on its long-row path: texel rows of *elem_bytes*
+    elements (1 or 4) of at least :data:`LONG_ROW_MIN_BYTES` for that size,
+    the rows, their stride and the output's pose rows multiples of 16 bytes,
+    with the frames and the output on 16-byte boundaries (the vector path's
+    shapes).  The one place that decides: :func:`posed_layout` launches the
+    path's entry point and counts ``posed_layout.long_row_launches`` on its
+    answer."""
+    return (row_bytes >= LONG_ROW_MIN_BYTES[elem_bytes] and row_bytes % 16 == 0
+            and ld_bytes % 16 == 0 and out_row_bytes % 16 == 0 and src_ptr % 16 == 0
+            and out_ptr % 16 == 0)
+
+
 def posed_layout(frames, planes):
     """K7, the pose-major layout: ``frames`` [P, S, S, B] u8 or int32 bits
     -> [B, planes*S*S], planes P..planes-1 zero-filled.
@@ -131,7 +151,9 @@ def posed_layout(frames, planes):
     take ``blinky_posed_layout``, the tiled transpose; any other dense or
     strided layout (a transpose of the plate axes, say) takes
     ``blinky_posed_layout_strided``, which reads each element at its own
-    four strides.
+    four strides.  Long texel rows take the tiled transpose's long-row
+    path (:func:`long_row_path`), counted in ``posed_layout.long_row_launches``
+    beside ``posed_layout.launches``.
     """
     name = "posed_layout"
     P, S, _, B = frames.shape
@@ -158,13 +180,18 @@ def posed_layout(frames, planes):
                     planes * S * S, out.data_ptr(), stream)
             else:
                 ld = max(rows.stride(0), B)  # a single texel's stride is free
-                _build.launch(posed_layout, name, "blinky_posed_layout",
-                    rows.data_ptr(), ld, T, B, frames.element_size(), planes * S * S,
-                    out.data_ptr(), stream)
+                el = frames.element_size()
+                long_rows = long_row_path(el, B * el, ld * el, planes * S * S * el,
+                                          rows.data_ptr(), out.data_ptr())
+                _build.launch(posed_layout, name,
+                    "blinky_posed_layout_rows" if long_rows else "blinky_posed_layout",
+                    rows.data_ptr(), ld, T, B, el, planes * S * S, out.data_ptr(), stream)
+                posed_layout.long_row_launches += long_rows
     return out
 
 
 posed_layout.launches = 0
+posed_layout.long_row_launches = 0
 
 
 def _upsample(t, k):

@@ -846,13 +846,21 @@ def test_posed_layout_batch_slices(cuda_device, dtype, lo, hi):
 
 
 def _layout_equal(frames, planes):
-    """K7 once, bit-equal to its plain version and to permute().contiguous()."""
+    """K7 once, bit-equal to its plain version and to permute().contiguous(),
+    on its long-row path exactly when ``posed.long_row_path`` says so (the
+    frames' texels evenly strided, the batch innermost).  Returns whether it
+    took that path."""
     P, S, _, B = frames.shape
-    n0 = posed.posed_layout.launches
+    n0, l0 = posed.posed_layout.launches, posed.posed_layout.long_row_launches
     got = posed.posed_layout(frames, planes)
+    el = frames.element_size()
+    long_rows = posed.long_row_path(el, B * el, max(frames.stride(2), B) * el,
+                                    planes * S * S * el, frames.data_ptr(), got.data_ptr())
     assert posed.posed_layout.launches == n0 + 1
+    assert posed.posed_layout.long_row_launches == l0 + long_rows
     _equal(got, posed.posed_layout_plain(frames, planes))
     _equal(got[:, :P * S * S], frames.permute(3, 0, 1, 2).contiguous().reshape(B, -1))
+    return long_rows
 
 
 @pytest.mark.cuda
@@ -893,6 +901,60 @@ def test_posed_layout_slices(cuda_device, dtype, width, offset, S):
         frames.view(torch.uint32) if rgba else frames, np.tile(np.eye(3), (width, 1, 1)), S,
         torch.zeros((8, 8), dtype=dtype, device=cuda_device), cuda_device)
     _equal(src, posed.posed_layout_plain(frames, 6))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,B", [(torch.uint8, 128), (torch.uint8, 256), (torch.uint8, 1024),
+                                     (torch.uint8, 2048), (torch.int32, 64), (torch.int32, 256),
+                                     (torch.int32, 32)],
+                         ids=["u8-128", "u8-256", "u8-1024", "u8-2048", "rgba-64", "rgba-256",
+                              "rgba-32"])
+@pytest.mark.parametrize("P", [3, 6, 12])
+@pytest.mark.parametrize("S", [5, 64])
+def test_posed_layout_long_rows(cuda_device, dtype, B, P, S):
+    """K7 on long rows: the long-row path where the pose rows are a
+    multiple of 16 bytes (S = 64, and RGBA's 12 planes of S = 5), the tile
+    path where they are not, and the vector path for RGBA's 128-byte rows
+    (B = 32), under the threshold; bit-equal to its plain version always."""
+    gen = torch.Generator(cuda_device).manual_seed(P * 1000 + B + S)
+    frames = torch.randint(0, 256, (P, S, S, B), dtype=torch.uint8, device=cuda_device,
+                           generator=gen)
+    if dtype == torch.int32:
+        frames = frames.int() * 16843009 + torch.arange(B, device=cuda_device, dtype=torch.int32)
+    planes, el = 12 if P == 12 else 6, frames.element_size()
+    long_rows = B * el >= posed.LONG_ROW_MIN_BYTES[el] and planes * S * S * el % 16 == 0
+    assert _layout_equal(frames, planes) == long_rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,width,lo,hi", [
+    (torch.uint8, 2048, 512, 1536), (torch.uint8, 2048, 1024, 2048), (torch.uint8, 1024, 16, 528),
+    (torch.uint8, 1024, 3, 515), (torch.int32, 512, 64, 320), (torch.int32, 512, 1, 257)],
+    ids=["u8-1024-of-2048", "u8-upper-half", "u8-512-at-16", "u8-512-at-3", "rgba-256-at-64",
+         "rgba-256-at-1"])
+def test_posed_layout_long_row_slices(cuda_device, dtype, width, lo, hi):
+    """Batch slices of a wider array (a row stride above B, a multiple of 16
+    bytes): on the long-row path where the slice starts on 16 bytes, on the
+    tile path where it does not."""
+    gen = torch.Generator(cuda_device).manual_seed(width + lo)
+    full = torch.randint(0, 256, (6, 24, 24, width), dtype=torch.uint8, device=cuda_device,
+                         generator=gen)
+    if dtype == torch.int32:
+        full = full.int() * 16843009
+    aligned = lo * full.element_size() % 16 == 0
+    assert _layout_equal(full[..., lo:hi], 6) == aligned
+
+
+@pytest.mark.cuda
+def test_posed_layout_long_rows_at_the_cells_shape(cuda_device):
+    """K7 on the posed cell's frames, [6, 1080, 1080, 1024] u8: one launch
+    on the long-row path, bit-equal to its plain version."""
+    gen = torch.Generator(cuda_device).manual_seed(1024)
+    frames = torch.randint(0, 256, (6, 1080, 1080, 1024), dtype=torch.uint8, device=cuda_device,
+                           generator=gen)
+    assert _layout_equal(frames, 6)
+    del frames
+    torch.cuda.empty_cache()
 
 
 @pytest.mark.cuda

@@ -236,3 +236,153 @@ def test_k6_given_tile_reads_its_own_pose_and_run(shape, B, given_offset):
     PB, T = _const("posed.cu", "K6_POSES_PER_BLOCK"), _const("posed.cu", "K6_THREADS")
     assert np.unique(slot).size == slot.size
     assert np.all(slot % (PB * T) < np.minimum(PB, B) * T)
+
+
+# ------------------------------------------------------- K7's vector tiles
+
+
+def _byte_perm(x, y, sel):
+    """CUDA's ``__byte_perm(x, y, sel)`` on uint32 arrays (selectors 0-7)."""
+    both = x.astype(np.uint64) | (y.astype(np.uint64) << np.uint64(32))
+    out = np.zeros_like(x, dtype=np.uint64)
+    for n in range(4):
+        nib = np.uint64((sel >> (4 * n)) & 7)
+        out |= ((both >> (np.uint64(8) * nib)) & np.uint64(0xFF)) << np.uint64(8 * n)
+    return out.astype(np.uint32)
+
+
+def _banks_free(words, phase_lanes, width):
+    """Whether each phase of *phase_lanes* lanes of a warp touches distinct
+    shared-memory banks: *words* [threads] the first 4-byte word each lane
+    reads or writes (-1: inactive), *width* words a lane; lanes on the same
+    words share them."""
+    for p in range(0, words.size, phase_lanes):
+        w = words[p:p + phase_lanes]
+        w = np.unique(w[w >= 0])
+        banks = ((w[:, None] + np.arange(width)[None, :]) % 32).ravel()
+        if np.unique(banks).size != banks.size:
+            return False
+    return True
+
+
+def k7_vec_model(frames, B, E, n_out, nc, order):
+    """The output of one K7 launch of ``layout.cu``'s vector tiles, and the
+    times each output byte was written: ``posed_layout_vec`` (nc 1, order 1:
+    the texel tile fastest) or ``posed_layout_rows`` (nc 64-byte chunks a
+    block, order 0: the chunk fastest).  *frames*: uint8 [T, ld bytes], the
+    texel rows (ld >= B * E).  Asserts every load lies in its row's B * E
+    bytes and that the shared-memory accesses are free of bank conflicts."""
+    threads = _const("common.cuh", "kThreads")
+    tile_texels, chunk = _const("layout.cu", "kTileTexels"), _const("layout.cu", "kChunkBytes")
+    T, ld = frames.shape
+    row_bytes = B * E
+    k_row, k_units = chunk * nc + 16, 4 * nc
+    loads = tile_texels * k_units // threads
+    chunks, tiles = _ceil(row_bytes, chunk * nc), _ceil(n_out, tile_texels)
+    out = np.zeros(B * n_out * E, np.uint8)
+    writes = np.zeros(B * n_out * E, np.int64)
+    tid = np.arange(threads)
+    flat = frames.ravel()
+    for blk in range(tiles * chunks):
+        ti, ch = (blk % tiles, blk // tiles) if order else (blk // chunks, blk % chunks)
+        t0, col0 = ti * tile_texels, ch * chunk * nc
+        units = min(chunk * nc, row_bytes - col0) // 16
+        tile = np.zeros(tile_texels * k_row, np.uint8)
+        for j in range(loads):
+            i = j * threads + tid
+            if nc == 1:
+                w, lane = i >> 5, i & 31
+                rows, us = w * 8 + ((lane & 7) >> 2) * 4 + (lane >> 3), lane & 3
+            else:
+                rows, us = i // k_units, i % k_units
+            t = t0 + rows
+            ok = (t < T) & (us < units)
+            src = t * ld + col0 + us * 16
+            assert np.all(col0 + us[ok] * 16 + 16 <= row_bytes)
+            slot = rows * k_row + us * 16
+            assert _banks_free(slot // 4, 8, 4)
+            for e in range(16):
+                tile[slot + e] = np.where(ok, flat[np.where(ok, src + e, 0)], 0)
+        g = tid >> 4
+        if E == 1:
+            h = g & 1
+            tt = t0 + g * 16
+            for k in range(nc):
+                c = (tid & 15) + 16 * k
+                on = (tt < n_out) & (c < units * 4)
+                a = []
+                for i in range(16):
+                    at = (g * 16 + (i ^ (h << 2))) * k_row + c * 4
+                    assert _banks_free(np.where(on, at // 4, -1), 32, 1)
+                    a.append(tile[at[:, None] + np.arange(4)].copy().view("<u4").ravel())
+                o = [[None] * 4 for _ in range(4)]
+                for q in range(4):
+                    x0 = _byte_perm(a[4 * q], a[4 * q + 1], 0x5140)
+                    x1 = _byte_perm(a[4 * q], a[4 * q + 1], 0x7362)
+                    y0 = _byte_perm(a[4 * q + 2], a[4 * q + 3], 0x5140)
+                    y1 = _byte_perm(a[4 * q + 2], a[4 * q + 3], 0x7362)
+                    o[q] = [_byte_perm(x0, y0, 0x5410), _byte_perm(x0, y0, 0x7632),
+                            _byte_perm(x1, y1, 0x5410), _byte_perm(x1, y1, 0x7632)]
+                for j in range(4):
+                    s = np.stack([np.where(h, o[1][j], o[0][j]), np.where(h, o[0][j], o[1][j]),
+                                  np.where(h, o[3][j], o[2][j]), np.where(h, o[2][j], o[3][j])],
+                                 1).astype("<u4").view(np.uint8)
+                    dst = (col0 + c * 4 + j) * n_out + tt
+                    for e in range(16):
+                        out[dst[on] + e] = s[on, e]
+                        writes[dst[on] + e] += 1
+        else:
+            for k in range(nc):
+                p = (tid & 15) + 16 * k
+                for j in range(4):
+                    gg = j * 16 + g
+                    tt = t0 + gg * 4
+                    on = (p < units * 4) & (tt < n_out)
+                    dst = ((col0 // 4 + p) * n_out + tt) * 4
+                    for q in range(4):
+                        at = (gg * 4 + q) * k_row + p * 4
+                        assert _banks_free(np.where(on, at // 4, -1), 32, 1)
+                        for e in range(4):
+                            out[dst[on] + 4 * q + e] = tile[at[on] + e]
+                            writes[dst[on] + 4 * q + e] += 1
+    return out, writes
+
+
+@pytest.mark.parametrize("nc,order", [(1, 1), (1, 0), (2, 0), (4, 0), (4, 1), ("rows", "rows")],
+                         ids=["vector path", "nc1", "nc2", "nc4", "nc4 tile-first",
+                              "long-row path"])
+@pytest.mark.parametrize("E,B,ld,P,S", [
+    (1, 128, 128, 6, 24), (1, 256, 256, 3, 24), (1, 1024, 1024, 6, 16), (1, 2048, 2048, 6, 8),
+    (1, 144, 144, 6, 16),                 # a last chunk of 16 bytes a row
+    (1, 1024, 2048, 6, 16),               # a batch slice: rows 2048 bytes apart
+    (1, 64, 64, 12, 16),                  # the vector path's own shape
+    (4, 64, 64, 6, 16), (4, 256, 256, 6, 8), (4, 36, 48, 3, 24),
+    (4, 64, 64, 12, 5),                   # 300 texels: a short last tile
+])
+def test_k7_vector_tiles_write_each_output_once(nc, order, E, B, ld, P, S):
+    """K7's vector tiles, the short rows' path and the long-row path of the
+    committed ``K7_ROW_CHUNKS_U8`` / ``_RGBA`` and ``K7_ROW_ORDER`` beside the
+    sweep's other shapes: the output equals the pose-major layout, zero planes included,
+    every byte written once, loads inside their rows, shared accesses free
+    of bank conflicts."""
+    if nc == "rows":
+        nc = _const("layout.cu", "K7_ROW_CHUNKS_U8" if E == 1 else "K7_ROW_CHUNKS_RGBA")
+        order = _const("layout.cu", "K7_ROW_ORDER")
+    rng = np.random.default_rng(B * 7 + ld + P + S)
+    T, n_out = P * S * S, 6 * S * S if P <= 6 else P * S * S
+    frames = rng.integers(0, 256, (T, ld * E), dtype=np.uint8)
+    out, writes = k7_vec_model(frames, B, E, n_out, nc, order)
+    want = np.zeros((B, n_out, E), np.uint8)
+    want[:, :T] = frames[:, :B * E].reshape(T, B, E).transpose(1, 0, 2)
+    assert np.array_equal(out, want.ravel())
+    assert np.all(writes == 1)
+
+
+def test_k7_long_row_threshold_is_a_blocks_run():
+    """``posed.long_row_path`` sends rows to the long-row path from one
+    block's run of a row on, as ``layout.cu`` sizes it for u8 and RGBA."""
+    from blinky_tpu_torch.kernels import posed
+
+    chunk = _const("layout.cu", "kChunkBytes")
+    assert posed.LONG_ROW_MIN_BYTES == {1: chunk * _const("layout.cu", "K7_ROW_CHUNKS_U8"),
+                                        4: chunk * _const("layout.cu", "K7_ROW_CHUNKS_RGBA")}

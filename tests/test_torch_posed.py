@@ -231,6 +231,53 @@ def test_prep_posed_inputs_one_pose_is_a_view(kind):
         assert not src4[:, 4 * S * S:].any()
 
 
+_U8_MIN, _RGBA_MIN = posed.LONG_ROW_MIN_BYTES[1], posed.LONG_ROW_MIN_BYTES[4]
+_CELL_ROW = 6 * 1080 * 1080  # the posed cell's pose rows: bytes of u8
+
+
+@pytest.mark.parametrize("el,row_bytes,ld_bytes,out_row_bytes,src_off,out_off,long_rows", [
+    (1, _U8_MIN, _U8_MIN, _CELL_ROW, 0, 0, True),
+    (1, _U8_MIN - 16, _U8_MIN - 16, _CELL_ROW, 0, 0, False),  # under the threshold
+    (1, _U8_MIN + 16, _U8_MIN + 16, _CELL_ROW, 0, 0, True),
+    (4, _RGBA_MIN, _RGBA_MIN, 4 * _CELL_ROW, 0, 0, True),
+    (4, _RGBA_MIN - 16, _RGBA_MIN - 16, 4 * _CELL_ROW, 0, 0, False),
+    (4, _RGBA_MIN + 16, _RGBA_MIN + 16, 4 * _CELL_ROW, 0, 0, True),
+    (1, 64, 64, _CELL_ROW, 0, 0, False),         # u8 B = 64: the vector path
+    (1, 1024, 1024, _CELL_ROW, 0, 0, True),      # the posed cell, u8 B = 1024
+    (1, 2048, 2048, _CELL_ROW, 0, 0, True),      # u8 B = 2048
+    (4, 256, 256, 4 * _CELL_ROW, 0, 0, True),    # RGBA B = 64
+    (4, 128, 128, 4 * _CELL_ROW, 0, 0, False),   # RGBA B = 32: the vector path
+    (1, 1024, 2048, _CELL_ROW, 0, 0, True),      # a batch slice, rows 2048 bytes apart
+    (1, 1024, 1024 + 8, _CELL_ROW, 0, 0, False),  # a row stride off 16 bytes
+    (1, 1024 + 4, 1024 + 4, _CELL_ROW, 0, 0, False),  # no multiple of 16 bytes
+    (1, 1024, 1024, 6 * 5 * 5, 0, 0, False),     # pose rows off 16 bytes (S = 5)
+    (1, 1024, 1024, _CELL_ROW, 1, 0, False), (1, 1024, 1024, _CELL_ROW, 4, 0, False),
+    (1, 1024, 1024, _CELL_ROW, 8, 0, False),     # frames off 16 bytes
+    (1, 1024, 1024, _CELL_ROW, 0, 4, False), (1, 1024, 1024, _CELL_ROW, 0, 8, False),
+    (1, 1024, 1024, _CELL_ROW, 16, 32, True),
+])
+def test_long_row_path_decides_on_row_bytes_and_alignment(el, row_bytes, ld_bytes, out_row_bytes,
+                                                          src_off, out_off, long_rows):
+    base = 1 << 40
+    assert posed.long_row_path(el, row_bytes, ld_bytes, out_row_bytes, base + src_off,
+                               base + out_off) is long_rows
+
+
+@pytest.mark.parametrize("dtype,B", [(torch.uint8, 1024), (torch.int32, 64),
+                                     (torch.uint8, 64)])
+def test_posed_layout_on_the_cpu_runs_the_plain_version(dtype, B):
+    """On the CPU neither K7 counter moves, whatever the row, and the
+    wrapper returns the plain version's layout, whole or as a batch slice."""
+    gen = torch.Generator().manual_seed(B)
+    frames = torch.randint(0, 256, (3, 8, 8, B), dtype=torch.uint8, generator=gen).to(dtype)
+    n0, l0 = posed.posed_layout.launches, posed.posed_layout.long_row_launches
+    for x in (frames, frames[..., B // 2:]):
+        got = posed.posed_layout(x, 6)
+        assert torch.equal(got, posed.posed_layout_plain(x, 6))
+        assert torch.equal(got[:, :3 * 64], x.permute(3, 0, 1, 2).reshape(x.shape[-1], -1))
+    assert (posed.posed_layout.launches, posed.posed_layout.long_row_launches) == (n0, l0)
+
+
 # the Session's default grid, two others, one whose unit is a whole 30
 # pixels at S = 1080 and 2160 (px / unit lands on block edges exactly), and
 # f_rubixgrid 0 0 0 (an infinite unit: no grid lines)
