@@ -41,6 +41,7 @@ import torch
 from blinky_tpu_torch import globes as globes_mod
 from blinky_tpu_torch import lenses as lenses_mod
 from blinky_tpu_torch import palette as palette_mod
+from blinky_tpu_torch.budget import feasible_batch, posed_bytes_per_lane
 from blinky_tpu_torch.io.cubemap import save_globe_pcx
 from blinky_tpu_torch.kernels.remap import (
     RemapKernel, expanded_flat_idx, frames_tensor, frames_to_rgba, host_remap,
@@ -1442,9 +1443,6 @@ class Session:
         three failures on one key the error sticks.  ``exact=True``
         ignores ``block``.
         """
-        from blinky_tpu_torch.bench.autobatch import (
-            feasible_batch, posed_bytes_per_lane,
-        )
         from blinky_tpu_torch.kernels.posed import (
             bases_from_pose_track, check_render_scale,
         )

@@ -97,7 +97,7 @@ def lens_stage_peak_planes(lens, scale, width_px, height_px, device) -> float:
     """The lens stage's peak of live device memory for one scale, its rays
     included, in float32 planes a pixel (``torch.cuda.max_memory_allocated``
     above the level before the call): what
-    :data:`blinky_tpu_torch.bench.autobatch.SWEEP_LENS_PLANES` must cover."""
+    :data:`blinky_tpu_torch.budget.SWEEP_LENS_PLANES` must cover."""
     dev = torch.device(device)
     builder.lens_rays_torch(lens, scale, width_px, height_px, dev)  # warm
     torch.cuda.synchronize(dev)

@@ -41,7 +41,8 @@ def probe_layout_bytes():
     the exact host lensmap's compaction, as ``run_gather_throughput``
     counts them."""
     from blinky_tpu_torch import globes, lenses
-    from blinky_tpu_torch.bench.autobatch import screen_bytes_per_lane, texels_bytes_per_lane
+    from blinky_tpu_torch.bench.autobatch import texels_bytes_per_lane
+    from blinky_tpu_torch.budget import screen_bytes_per_lane
     from blinky_tpu_torch.kernels.remap import compact_texels
     from blinky_tpu_torch.lensmap import Zoom, build_lensmap, calc_scale
 
@@ -111,8 +112,8 @@ def run_calibrate(probe=None, quantum=None, max_steps=None, timeout: float = 900
     from blinky_tpu_torch.bench import card_line
     from blinky_tpu_torch.bench.autobatch import (
         EFFECTIVE_FRACTION, QUANTUM, device_hbm_bytes, effective_budget_bytes,
-        feasible_batch,
     )
+    from blinky_tpu_torch.budget import feasible_batch
 
     quantum = QUANTUM if quantum is None else int(quantum)
     if probe is None:

@@ -47,10 +47,12 @@ import torch
 
 from blinky_tpu_torch import globes, lenses
 from blinky_tpu_torch.bench.autobatch import (
-    QUANTUM, effective_budget_bytes, feasible_batch, planes_bytes_per_lane,
-    rows_bytes_per_lane, screen_bytes_per_lane, texels_bytes_per_lane,
+    QUANTUM, effective_budget_bytes, rows_bytes_per_lane, texels_bytes_per_lane,
 )
 from blinky_tpu_torch.bench.sol import cuda_ms
+from blinky_tpu_torch.budget import (
+    feasible_batch, planes_bytes_per_lane, screen_bytes_per_lane,
+)
 from blinky_tpu_torch.kernels.remap import (
     RemapKernel, compact_planes, compact_rows, compact_texels, expanded_flat_idx,
     host_remap, remap_gather, remap_gather_plain, remap_lut, remap_lut_plain,
@@ -693,11 +695,9 @@ def run_posed_sharded_scaling(width=320, height=240, platesize=240, per_device_p
     chunk from the posed live-set model and the per-device budget.  Each
     row's ``equal`` holds the assembled output to the unsharded
     ``PosedRemapKernel`` on ``devices[0]``."""
-    from blinky_tpu_torch.bench.autobatch import posed_bytes_per_lane
-    from blinky_tpu_torch.kernels.posed import (
-        PosedRemapKernel, bases_from_pose_track, posed_remap_sharded,
-    )
-    from blinky_tpu_torch.parallel import make_mesh, visible_devices
+    from blinky_tpu_torch.budget import posed_bytes_per_lane
+    from blinky_tpu_torch.kernels.posed import PosedRemapKernel, bases_from_pose_track
+    from blinky_tpu_torch.parallel import make_mesh, posed_remap_sharded, visible_devices
 
     devices = [torch.device(d) for d in (visible_devices() if devices is None else devices)]
     g = globes.get("cube")

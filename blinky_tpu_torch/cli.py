@@ -366,11 +366,11 @@ def cmd_reproject(args) -> int:
     want_rubix = bool(args.rubix or sess.rubix_enabled)
     if args.batch <= 0:
         # --batch 0: derive the chunk from the source layout + the HBM
-        # budget (bench/autobatch.py — the reference sizes its buffers
+        # budget (budget.py — the reference sizes its buffers
         # from the live dimensions, fisheye.c:703-727) instead of a hand
         # constant; posed playback keeps per-pose index tables live, so
         # its chunks come out smaller
-        from blinky_tpu_torch.bench.autobatch import (
+        from blinky_tpu_torch.budget import (
             feasible_batch, planes_bytes_per_lane, posed_bytes_per_lane,
             screen_bytes_per_lane,
         )
@@ -756,7 +756,7 @@ def main(argv=None) -> int:
     p.add_argument("--demo", required=True, help="demo .npz from demo-synth / write_demo")
     p.add_argument("--batch", type=int, default=64,
                    help="frames per device chunk; 0 = derive from the "
-                        "source layout and HBM budget (bench/autobatch)")
+                        "source layout and HBM budget (budget.py)")
     p.add_argument("--rubix", action="store_true")
     p.add_argument("--shard", action="store_true",
                    help="data-parallel remap over all visible devices "

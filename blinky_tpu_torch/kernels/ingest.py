@@ -446,40 +446,3 @@ class CompactEquirectChain:
         out = remap_gather(sub, self.cidx, self.remap.valid,
                            self.remap.background_rgba, tint_rgb=tr, tint_mask=tm)
         return out.reshape(self.shape + (sub.shape[1],)).view(torch.uint32)
-
-
-def equirect_screen_sharded(kernel: EquirectScreenKernel, panos, mesh,
-                            rubix=False):
-    """The fused pano -> screen kernel with the pano batch (``[H, W, B]``
-    u32, batch-innermost) split on B over the mesh's data axes: the
-    composed tables and the screen's operands replicated on every device
-    of the mesh (once per (kernel, mesh)), each shard's lanes through K10
-    there.  Returns a :class:`blinky_tpu_torch.parallel.ShardedArray`
-    ``[H_out, W_out, B]`` of ``torch.uint32``, bit-equal to
-    ``kernel(panos, rubix=rubix)``."""
-    import copy
-
-    from blinky_tpu_torch.parallel import ShardedArray, _row_kernel, lane_shards, per_device
-
-    src = panos_bits(panos, kernel.pano_hw, panos.device if isinstance(
-        panos, torch.Tensor) else "cpu")
-    B = src.shape[1]
-
-    def make(dev):
-        c = copy.copy(kernel)
-        c.device = dev
-        c.idx = kernel.idx.to(dev)
-        c.w = None if kernel.w is None else kernel.w.to(dev)
-        c.remap = _row_kernel(kernel.remap, 0, kernel.shape[0], dev)
-        return c
-
-    shards = list(lane_shards(mesh, B))
-    copies = per_device(kernel, mesh, make)
-    H, W = kernel.shape
-    pieces = []
-    for b0, b1, dev in shards:
-        part = src[:, b0:b1].to(dev).contiguous()
-        out = copies[dev](part.view(torch.uint32).reshape(kernel.pano_hw + (b1 - b0,)),
-                          rubix=rubix)
-        pieces.append(((slice(0, H), slice(0, W), slice(b0, b1)), out))
-    return ShardedArray((H, W, B), torch.uint32, pieces)

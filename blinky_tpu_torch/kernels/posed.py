@@ -34,6 +34,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from blinky_tpu_torch.budget import feasible_batch, sweep_bytes_per_lane
 from blinky_tpu_torch.kernels import _build
 from blinky_tpu_torch.kernels.remap import frames_tensor
 from blinky_tpu_torch.palette import MAX_PLATES
@@ -333,61 +334,6 @@ class PosedRemapKernel:
         return self._static(frames, bases)
 
 
-def posed_remap_sharded(kernel: PosedRemapKernel, frames, bases, mesh):
-    """The per-frame-pose pipeline with the POSE axis split over the mesh's
-    data axes: each data shard's poses and their frames go to the devices
-    of its row of the mesh, where the float32 lens stage runs once (the
-    ray table of that device's copy of *kernel*, made once per (kernel,
-    mesh)) and every call is K7 and K6 there.  Returns a
-    :class:`blinky_tpu_torch.parallel.ShardedArray` ``[B, H, W]``, bit-equal
-    to ``kernel(frames, bases)``."""
-    from blinky_tpu_torch.kernels.static_ray import ray_table_from_lens
-
-    def table(dev):
-        k = kernel.render_scale
-        return ray_table_from_lens(kernel.lens, kernel.scale * k, kernel.width_px // k,
-                                   kernel.height_px // k, backend="torch", device=dev)
-
-    return _posed_sharded(kernel, kernel._static, frames, bases, mesh, table)
-
-
-def _posed_sharded(owner, kernel, frames, bases, mesh, table):
-    """The pose split of :func:`posed_remap_sharded` and
-    ``static_ray_posed_sharded``: *kernel*, a ``StaticRayPosedKernel``,
-    copied once per device of the mesh with ``table(device)`` as its ray
-    table and the background replicated (cached in ``owner._sharded_for``),
-    then called on each data shard's lanes on each device of its row (a
-    shard on its own kernel's device is handed over as a lane slice, which
-    K7 lays out in place)."""
-    import copy
-
-    from blinky_tpu_torch.parallel import ShardedArray, lane_shards, per_device
-
-    frames, is_rgba = frames_tensor(frames)
-    B = frames.shape[-1]
-    bases = np.asarray(bases) if not isinstance(bases, torch.Tensor) else bases
-    if tuple(bases.shape) != (B, 3, 3):
-        raise ValueError(f"bases must be [B={B}, 3, 3], got {tuple(bases.shape)}")
-
-    def make(dev):
-        c = copy.copy(kernel)
-        c.device = dev
-        c.ray_table = table(dev).device(dev)
-        c.background = kernel.background.to(dev)
-        return c
-
-    shards = list(lane_shards(mesh, B))
-    copies = per_device(owner, mesh, make)
-    pieces = []
-    for b0, b1, dev in shards:
-        part = frames[..., b0:b1]
-        if part.device != dev:
-            part = part.to(dev).contiguous()
-        out = copies[dev](part.view(torch.uint32) if is_rgba else part, bases[b0:b1])
-        pieces.append(((slice(b0, b1),) + tuple(slice(0, n) for n in out.shape[1:]), out))
-    return ShardedArray((B,) + tuple(pieces[0][1].shape[1:]), pieces[0][1].dtype, pieces)
-
-
 def sweep_remap_plain(src, vx, vy, vz, lens_valid, globe, platesize, numcells,
                       cell_size, pad_size, expanded, background, plates=None):
     """K9's plain version: per zoom step,
@@ -504,7 +450,6 @@ def zoom_sweep_remap(lens, globe, scales, frame, width_px, height_px,
     whose ray tables would not fit the device's memory budget runs in
     chunks of steps.
     """
-    from blinky_tpu_torch.bench.autobatch import feasible_batch, sweep_bytes_per_lane
     from blinky_tpu_torch.kernels.static_ray import background_tensor
     from blinky_tpu_torch.lensmap.builder import lens_rays_torch, plate_resolver_mode
 

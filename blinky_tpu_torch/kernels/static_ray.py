@@ -41,6 +41,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from blinky_tpu_torch.budget import feasible_batch, script_bytes_per_lane
 from blinky_tpu_torch.kernels import _build
 from blinky_tpu_torch.kernels.posed import (
     check_gather_operands, check_render_scale, gather_posed_plain,
@@ -215,9 +216,7 @@ def script_pose_plates(table, bases, globe):
     to [-1, MAX_PLATES] (which keeps ``plate >= 0`` and the clip to the
     globe's plates) -> int8 [B, H, W] on the table's device.  The poses go
     in pieces whose evaluation fits the device's budget
-    (:func:`blinky_tpu_torch.bench.autobatch.script_bytes_per_lane`)."""
-    from blinky_tpu_torch.bench.autobatch import feasible_batch, script_bytes_per_lane
-
+    (:func:`blinky_tpu_torch.budget.script_bytes_per_lane`)."""
     dev = table.vx.device
     B = int(bases.shape[0])
     out = torch.empty((B,) + tuple(table.vx.shape), dtype=torch.int8, device=dev)
@@ -383,16 +382,3 @@ class StaticRayPosedKernel:
                                self.pad_size, expanded, self.background,
                                self.render_scale)
         return out.view(torch.uint32) if out.dtype == torch.int32 else out
-
-
-def static_ray_posed_sharded(kernel: StaticRayPosedKernel, frames, bases, mesh):
-    """The static-ray posed pipeline with the POSE axis split over the
-    mesh's data axes: the ray table replicated on every device of the mesh
-    (once per (kernel, mesh)), each data shard's poses and frames on the
-    devices of its row, K7 and K6 there.  Returns a
-    :class:`blinky_tpu_torch.parallel.ShardedArray` ``[B, H, W]``, bit-equal
-    to ``kernel(frames, bases)``."""
-    from blinky_tpu_torch.kernels.posed import _posed_sharded
-
-    return _posed_sharded(kernel, kernel, frames, bases, mesh,
-                          lambda dev: kernel.ray_table)

@@ -36,9 +36,12 @@ import functools
 import numpy as np
 import torch
 
+from blinky_tpu_torch.kernels.ingest import EquirectScreenKernel, panos_bits
+from blinky_tpu_torch.kernels.posed import PosedRemapKernel
 from blinky_tpu_torch.kernels.remap import (
     RemapKernel, frames_tensor, remap_gather, remap_lut,
 )
+from blinky_tpu_torch.kernels.static_ray import StaticRayPosedKernel, ray_table_from_lens
 from blinky_tpu_torch.palette import MAX_PLATES
 
 
@@ -414,8 +417,6 @@ def ingest_equirect_sharded(ingest, panos, mesh: Mesh) -> ShardedArray:
     on B over the data axes: each device resamples its lanes through K10
     with the ingest's tables replicated there.  The faces ``[P, S, S, B]``
     come back split on B, ready for :func:`remap_sharded`."""
-    from blinky_tpu_torch.kernels.ingest import panos_bits
-
     src = panos_bits(panos, ingest.pano_hw, panos.device if isinstance(
         panos, torch.Tensor) else "cpu")
     B = src.shape[1]
@@ -434,3 +435,100 @@ def ingest_equirect_sharded(ingest, panos, mesh: Mesh) -> ShardedArray:
         pieces.append((tuple(slice(0, n) for n in faces.shape[:-1]) + (slice(b0, b1),),
                        faces))
     return ShardedArray(tuple(pieces[0][1].shape[:-1]) + (B,), torch.uint32, pieces)
+
+
+def equirect_screen_sharded(kernel: EquirectScreenKernel, panos, mesh,
+                            rubix=False):
+    """The fused pano -> screen kernel with the pano batch (``[H, W, B]``
+    u32, batch-innermost) split on B over the mesh's data axes: the
+    composed tables and the screen's operands replicated on every device
+    of the mesh (once per (kernel, mesh)), each shard's lanes through K10
+    there.  Returns a :class:`blinky_tpu_torch.parallel.ShardedArray`
+    ``[H_out, W_out, B]`` of ``torch.uint32``, bit-equal to
+    ``kernel(panos, rubix=rubix)``."""
+    src = panos_bits(panos, kernel.pano_hw, panos.device if isinstance(
+        panos, torch.Tensor) else "cpu")
+    B = src.shape[1]
+
+    def make(dev):
+        c = copy.copy(kernel)
+        c.device = dev
+        c.idx = kernel.idx.to(dev)
+        c.w = None if kernel.w is None else kernel.w.to(dev)
+        c.remap = _row_kernel(kernel.remap, 0, kernel.shape[0], dev)
+        return c
+
+    shards = list(lane_shards(mesh, B))
+    copies = per_device(kernel, mesh, make)
+    H, W = kernel.shape
+    pieces = []
+    for b0, b1, dev in shards:
+        part = src[:, b0:b1].to(dev).contiguous()
+        out = copies[dev](part.view(torch.uint32).reshape(kernel.pano_hw + (b1 - b0,)),
+                          rubix=rubix)
+        pieces.append(((slice(0, H), slice(0, W), slice(b0, b1)), out))
+    return ShardedArray((H, W, B), torch.uint32, pieces)
+
+
+# ------------------------------------------------------------------- poses
+
+
+def posed_remap_sharded(kernel: PosedRemapKernel, frames, bases, mesh):
+    """The per-frame-pose pipeline with the POSE axis split over the mesh's
+    data axes: each data shard's poses and their frames go to the devices
+    of its row of the mesh, where the float32 lens stage runs once (the
+    ray table of that device's copy of *kernel*, made once per (kernel,
+    mesh)) and every call is K7 and K6 there.  Returns a
+    :class:`blinky_tpu_torch.parallel.ShardedArray` ``[B, H, W]``, bit-equal
+    to ``kernel(frames, bases)``."""
+
+    def table(dev):
+        k = kernel.render_scale
+        return ray_table_from_lens(kernel.lens, kernel.scale * k, kernel.width_px // k,
+                                   kernel.height_px // k, backend="torch", device=dev)
+
+    return _posed_sharded(kernel, kernel._static, frames, bases, mesh, table)
+
+
+def static_ray_posed_sharded(kernel: StaticRayPosedKernel, frames, bases, mesh):
+    """The static-ray posed pipeline with the POSE axis split over the
+    mesh's data axes: the ray table replicated on every device of the mesh
+    (once per (kernel, mesh)), each data shard's poses and frames on the
+    devices of its row, K7 and K6 there.  Returns a
+    :class:`blinky_tpu_torch.parallel.ShardedArray` ``[B, H, W]``, bit-equal
+    to ``kernel(frames, bases)``."""
+    return _posed_sharded(kernel, kernel, frames, bases, mesh,
+                          lambda dev: kernel.ray_table)
+
+
+def _posed_sharded(owner, kernel, frames, bases, mesh, table):
+    """The pose split of :func:`posed_remap_sharded` and
+    ``static_ray_posed_sharded``: *kernel*, a ``StaticRayPosedKernel``,
+    copied once per device of the mesh with ``table(device)`` as its ray
+    table and the background replicated (cached in ``owner._sharded_for``),
+    then called on each data shard's lanes on each device of its row (a
+    shard on its own kernel's device is handed over as a lane slice, which
+    K7 lays out in place)."""
+    frames, is_rgba = frames_tensor(frames)
+    B = frames.shape[-1]
+    bases = np.asarray(bases) if not isinstance(bases, torch.Tensor) else bases
+    if tuple(bases.shape) != (B, 3, 3):
+        raise ValueError(f"bases must be [B={B}, 3, 3], got {tuple(bases.shape)}")
+
+    def make(dev):
+        c = copy.copy(kernel)
+        c.device = dev
+        c.ray_table = table(dev).device(dev)
+        c.background = kernel.background.to(dev)
+        return c
+
+    shards = list(lane_shards(mesh, B))
+    copies = per_device(owner, mesh, make)
+    pieces = []
+    for b0, b1, dev in shards:
+        part = frames[..., b0:b1]
+        if part.device != dev:
+            part = part.to(dev).contiguous()
+        out = copies[dev](part.view(torch.uint32) if is_rgba else part, bases[b0:b1])
+        pieces.append(((slice(b0, b1),) + tuple(slice(0, n) for n in out.shape[1:]), out))
+    return ShardedArray((B,) + tuple(pieces[0][1].shape[1:]), pieces[0][1].dtype, pieces)

@@ -633,8 +633,8 @@ def k6_ops_per_pose_pixel(globe):
 def posed_phase(dev, frames, frames_dev, kernels):
     """Phase 6: the posed path.  Returns (the launches of K5, K6 and K7 in
     the path's run, their rows of the kernels line)."""
+    from blinky_tpu_torch import budget
     from blinky_tpu_torch.api import Session
-    from blinky_tpu_torch.bench import autobatch
     from blinky_tpu_torch.bench.posed import posed_poses
     from blinky_tpu_torch.bench.sol import cuda_ms
     from blinky_tpu_torch.kernels import posed, remap, static_ray
@@ -950,7 +950,7 @@ def posed_phase(dev, frames, frames_dev, kernels):
         # the zoom solve and the memory query run only for a new kernel key
         # or a batch above the cap last read, so not in the timed calls
         steps = {"zoom solve": lambda: calc_scale(sess.zoom, sess.lens, W, H),
-                 "memory query": lambda: autobatch.device_memory_bytes(dev)}
+                 "memory query": lambda: budget.device_memory_bytes(dev)}
         host = {name: min(host_ms(fn) for _ in range(3)) for name, fn in steps.items()}
         walls = []
         for _ in range(3):
@@ -994,9 +994,8 @@ VIEWS = {"identity": None, "setviewangles 10 30 0": (10.0, 30.0, 0.0),
 def builder_phase(dev, frames, frames_dev, kernels, exact_lm, exact_s):
     """Phase 7: the float32 device builder's paths.  Returns (the launches of
     K8 and K9 in the paths' run, their rows of the kernels line)."""
-    from blinky_tpu_torch import globes, lenses
+    from blinky_tpu_torch import budget, globes, lenses
     from blinky_tpu_torch.api import Session
-    from blinky_tpu_torch.bench import autobatch
     from blinky_tpu_torch.bench import builder as bb
     from blinky_tpu_torch.bench.posed import posed_poses
     from blinky_tpu_torch.bench.sol import cuda_ms
@@ -1322,16 +1321,16 @@ def builder_phase(dev, frames, frames_dev, kernels, exact_lm, exact_s):
               f"{time.perf_counter() - t0:.3f} s; K8 bit-equal on its rays; "
               f"{valid:.4f} of the pixels valid")
     # the lens stage's peak of live memory, in float32 planes a pixel: what
-    # bench/autobatch.py's SWEEP_LENS_PLANES must cover for a zoom step
+    # budget.py's SWEEP_LENS_PLANES must cover for a zoom step
     for name in ("panini", "winkeltripel"):
         ln = lenses.get(name, globe)
         planes = bb.lens_stage_peak_planes(ln, scale, W, H, dev)
-        require(planes <= autobatch.SWEEP_LENS_PLANES,
+        require(planes <= budget.SWEEP_LENS_PLANES,
                 f"{name}'s lens stage holds {planes:.1f} float32 planes a pixel, more than "
-                f"the sweep's chunking allows for ({autobatch.SWEEP_LENS_PLANES})")
+                f"the sweep's chunking allows for ({budget.SWEEP_LENS_PLANES})")
         phase(7, f"{name}'s lens stage at 1080p holds at most {planes:.2f} float32 planes a "
               f"pixel live (torch.cuda.max_memory_allocated, its rays included); the sweep's "
-              f"chunking allows {autobatch.SWEEP_LENS_PLANES}")
+              f"chunking allows {budget.SWEEP_LENS_PLANES}")
 
     rows = [
         # K8's time is its kernel record's: the events read the wrapper
@@ -3564,6 +3563,7 @@ def bench_phase(dev):
     import shutil
     import tempfile
 
+    from blinky_tpu_torch import budget
     from blinky_tpu_torch.bench import autobatch, calibrate, check
     from blinky_tpu_torch.bench.__main__ import LAUNCHES_ENV, launch_counts
 
@@ -3607,10 +3607,10 @@ def bench_phase(dev):
         (head,) = counted("headline", bench)
         texels = head["source_rows"]
         src_lane = autobatch.texels_bytes_per_lane(texels)
-        screen = autobatch.screen_bytes_per_lane(1920, 1080)
-        derived = autobatch.feasible_batch(src_lane, screen,
-                                           budget=autobatch.effective_budget_bytes(dev),
-                                           quantum=autobatch.QUANTUM)
+        screen = budget.screen_bytes_per_lane(1920, 1080)
+        derived = budget.feasible_batch(src_lane, screen,
+                                        budget=autobatch.effective_budget_bytes(dev),
+                                        quantum=autobatch.QUANTUM)
         require(head["metric"] == "warped_1080p_frames_per_sec_per_chip" and head["equal"],
                 f"headline: {head}")
         require(head["batch"] == derived, f"headline batch {head['batch']}, the planner "
@@ -3803,8 +3803,8 @@ def mesh_phase(dev, frames, frames_dev, lm):
         [rng.uniform(-30, 30, B), rng.uniform(0, 360, B), rng.uniform(-10, 10, B)], axis=1))
     pk = posed.PosedRemapKernel(lens, g, W, H, scale, platesize=S, device=dev)
     sk = static_ray.StaticRayPosedKernel(lens, g, W, H, scale, platesize=S, device=dev)
-    for name, fn, k in (("posed_remap_sharded", posed.posed_remap_sharded, pk),
-                        ("static_ray_posed_sharded", static_ray.static_ray_posed_sharded, sk)):
+    for name, fn, k in (("posed_remap_sharded", parallel.posed_remap_sharded, pk),
+                        ("static_ray_posed_sharded", parallel.static_ray_posed_sharded, sk)):
         want = k(frames_dev, bases)
         for mname, mesh in (("(4, 2)", logical), ("(2, 2, 2)", two_level)):
             require(equal(fn(k, frames_dev, bases, mesh).to(dev), want),
@@ -3823,7 +3823,7 @@ def mesh_phase(dev, frames, frames_dev, lm):
     del faces
     ek = ingest.EquirectScreenKernel(ing, remap.RemapKernel(eq.lensmap, eq.palette, device=dev))
     for rubix in (False, True):
-        require(equal(ingest.equirect_screen_sharded(ek, panos, logical, rubix=rubix).to(dev),
+        require(equal(parallel.equirect_screen_sharded(ek, panos, logical, rubix=rubix).to(dev),
                       ek(panos, rubix=rubix)),
                 f"equirect_screen_sharded rubix={rubix} differs from the fused kernel")
     phase(14, f"ingest_equirect_sharded and equirect_screen_sharded (plain and f_rubix) at "

@@ -428,6 +428,7 @@ import sys
 import blinky_tpu_torch.bench.__main__, blinky_tpu_torch.bench.autobatch
 import blinky_tpu_torch.bench.calibrate, blinky_tpu_torch.bench.check
 import blinky_tpu_torch.bench.configs, blinky_tpu_torch.bench.throughput
+import blinky_tpu_torch.budget
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "blinky_tpu" or m.startswith("blinky_tpu."))
 print(bad)

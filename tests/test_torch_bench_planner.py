@@ -1,5 +1,5 @@
 """The port's batch planner and calibrate walk
-(blinky_tpu_torch/bench/autobatch.py, calibrate.py) against
+(blinky_tpu_torch/budget.py, bench/autobatch.py, calibrate.py) against
 blinky_tpu.bench.autobatch and .calibrate, on the CPU, tolerance 0."""
 
 import json
@@ -10,6 +10,7 @@ from hypothesis import given, settings
 from hypothesis import strategies as st
 
 from blinky_tpu.bench import autobatch as jab
+from blinky_tpu_torch import budget as bud
 from blinky_tpu_torch.bench import autobatch as ab
 from blinky_tpu_torch.bench import calibrate
 
@@ -25,7 +26,7 @@ V5E_BUDGET = int(jab.V5E_HBM_BYTES * jab.EFFECTIVE_FRACTION)
 @pytest.mark.parametrize("padded", [False, True])
 @pytest.mark.parametrize("planesize,nplanes", [(48, 2), (48, 6), (1080, 5), (2160, 12)])
 def test_planes_bytes_per_lane_equals_jax(planesize, nplanes, rgba, expanded, padded):
-    assert (ab.planes_bytes_per_lane(planesize, nplanes, rgba, expanded, padded)
+    assert (bud.planes_bytes_per_lane(planesize, nplanes, rgba, expanded, padded)
             == jab.planes_bytes_per_lane(planesize, nplanes, rgba, expanded, padded))
 
 
@@ -37,7 +38,7 @@ def test_rows_texels_screen_models_equal_jax(rgba):
     for n in (1, TEXELS):
         assert ab.texels_bytes_per_lane(n, rgba) == jab.texels_bytes_per_lane(n, rgba)
     for w, h in ((64, 48), (1920, 1080), (3840, 2160)):
-        assert ab.screen_bytes_per_lane(w, h, rgba) == jab.screen_bytes_per_lane(w, h, rgba)
+        assert bud.screen_bytes_per_lane(w, h, rgba) == jab.screen_bytes_per_lane(w, h, rgba)
 
 
 @settings(max_examples=400, deadline=None)
@@ -45,40 +46,40 @@ def test_rows_texels_screen_models_equal_jax(rgba):
        budget=st.integers(0, 10**12), quantum=st.sampled_from([1, 2, 16, 128, 1000]),
        cap=st.one_of(st.none(), st.integers(0, 10**6)), n_devices=st.integers(0, 9))
 def test_feasible_batch_equals_jax(src, out, budget, quantum, cap, n_devices):
-    assert (ab.feasible_batch(src, out, budget=budget, quantum=quantum, cap=cap,
+    assert (bud.feasible_batch(src, out, budget=budget, quantum=quantum, cap=cap,
                               n_devices=n_devices)
             == jab.feasible_batch(src, out, budget=budget, quantum=quantum, cap=cap,
                                   n_devices=n_devices))
 
 
 @pytest.mark.parametrize("src,out,expect", [
-    (ab.texels_bytes_per_lane(TEXELS), ab.screen_bytes_per_lane(1920, 1080), 4224),
+    (ab.texels_bytes_per_lane(TEXELS), bud.screen_bytes_per_lane(1920, 1080), 4224),
     (ab.texels_bytes_per_lane(TEXELS, rgba=True),
-     ab.screen_bytes_per_lane(1920, 1080, rgba=True), 1024),
-    (ab.rows_bytes_per_lane(ROWS, 1080), ab.screen_bytes_per_lane(1920, 1080), 2560),
-    (ab.rows_bytes_per_lane(ROWS_RUBIX, 1080), ab.screen_bytes_per_lane(1920, 1080), 1536),
+     bud.screen_bytes_per_lane(1920, 1080, rgba=True), 1024),
+    (ab.rows_bytes_per_lane(ROWS, 1080), bud.screen_bytes_per_lane(1920, 1080), 2560),
+    (ab.rows_bytes_per_lane(ROWS_RUBIX, 1080), bud.screen_bytes_per_lane(1920, 1080), 1536),
     (ab.rows_bytes_per_lane(ROWS, 1080, rgba=True),
-     ab.screen_bytes_per_lane(1920, 1080, rgba=True), 640),
-    (ab.planes_bytes_per_lane(1080, 5, padded=False), ab.screen_bytes_per_lane(1920, 1080),
+     bud.screen_bytes_per_lane(1920, 1080, rgba=True), 640),
+    (bud.planes_bytes_per_lane(1080, 5, padded=False), bud.screen_bytes_per_lane(1920, 1080),
      2048),
-    (ab.planes_bytes_per_lane(2160, 5, padded=False), ab.screen_bytes_per_lane(3840, 2160),
+    (bud.planes_bytes_per_lane(2160, 5, padded=False), bud.screen_bytes_per_lane(3840, 2160),
      512),
-    (ab.planes_bytes_per_lane(2160, 5, expanded=True, padded=False),
-     ab.screen_bytes_per_lane(3840, 2160), 256),
+    (bud.planes_bytes_per_lane(2160, 5, expanded=True, padded=False),
+     bud.screen_bytes_per_lane(3840, 2160), 256),
 ])
 def test_v5e_budget_reproduces_the_jax_calibration_table(src, out, expect):
     """tests/test_autobatch.py's table, from the JAX budget handed over."""
-    assert ab.feasible_batch(src, out, budget=V5E_BUDGET, quantum=ab.QUANTUM) == expect
+    assert bud.feasible_batch(src, out, budget=V5E_BUDGET, quantum=ab.QUANTUM) == expect
 
 
 def test_the_session_default_does_not_round():
     """Session callers keep quantum 1 and the free-memory budget: the
     posed path's, the sweep's and the script resolver's chunks."""
-    assert ab.feasible_batch(1, 0, budget=1000) == 1000
-    assert ab.feasible_batch(1, 0, budget=1000, quantum=ab.QUANTUM) == 896
-    assert ab.feasible_batch(10**15, 0, budget=V5E_BUDGET, quantum=ab.QUANTUM) == 1
-    assert ab.feasible_batch(260_000_000, 0, budget=V5E_BUDGET, quantum=ab.QUANTUM) == 62
-    assert ab.feasible_batch(1, 0, device="cpu", cap=37) == 37
+    assert bud.feasible_batch(1, 0, budget=1000) == 1000
+    assert bud.feasible_batch(1, 0, budget=1000, quantum=ab.QUANTUM) == 896
+    assert bud.feasible_batch(10**15, 0, budget=V5E_BUDGET, quantum=ab.QUANTUM) == 1
+    assert bud.feasible_batch(260_000_000, 0, budget=V5E_BUDGET, quantum=ab.QUANTUM) == 62
+    assert bud.feasible_batch(1, 0, device="cpu", cap=37) == 37
 
 
 def test_two_budgets(monkeypatch):
@@ -88,9 +89,9 @@ def test_two_budgets(monkeypatch):
     assert ab.device_hbm_bytes("cpu") == 80_000_000_000
     assert ab.effective_budget_bytes("cpu") == int(80e9 * ab.EFFECTIVE_FRACTION)
     assert 0 < ab.EFFECTIVE_FRACTION < 1
-    monkeypatch.setattr(ab, "device_memory_bytes", lambda d: 10**9)
-    assert ab.free_budget_bytes("cpu") == int(1e9 * ab.BUDGET_FRACTION)
-    assert ab.feasible_batch(10**6, 0, device="cpu") == int(1e9 * ab.BUDGET_FRACTION) // 10**6
+    monkeypatch.setattr(bud, "device_memory_bytes", lambda d: 10**9)
+    assert bud.free_budget_bytes("cpu") == int(1e9 * bud.BUDGET_FRACTION)
+    assert bud.feasible_batch(10**6, 0, device="cpu") == int(1e9 * bud.BUDGET_FRACTION) // 10**6
     monkeypatch.delenv("BLINKY_HBM_BYTES")
     with pytest.raises(ValueError, match="BLINKY_HBM_BYTES"):
         ab.device_hbm_bytes("cpu")
@@ -144,7 +145,7 @@ def test_calibrate_reaches_the_whole_memory(walk, capsys):
     assert calibrate.run_calibrate(probe=probe, device="cpu") == 0
     out = _last(capsys)
     assert out["last_ok_batch"] * PER_LANE <= HBM < out["first_fail_batch"] * PER_LANE
-    assert probes[0] == ab.feasible_batch(PER_LANE, 0, budget=ab.effective_budget_bytes("cpu"),
+    assert probes[0] == bud.feasible_batch(PER_LANE, 0, budget=ab.effective_budget_bytes("cpu"),
                                           quantum=ab.QUANTUM)
 
 
@@ -263,7 +264,7 @@ def test_committed_calibration_bounds_the_constant():
     assert cal["committed_fraction"] == ab.EFFECTIVE_FRACTION < cal["implied_fraction_lo"]
     assert cal["C_ok"] == cal["per_lane_bytes"] * cal["last_ok_batch"]
     assert cal["first_fail_batch"] == cal["last_ok_batch"] + ab.QUANTUM
-    derived = ab.feasible_batch(cal["per_lane_bytes"], 0,
+    derived = bud.feasible_batch(cal["per_lane_bytes"], 0,
                                 budget=int(cal["hbm_bytes"] * ab.EFFECTIVE_FRACTION),
                                 quantum=ab.QUANTUM)
     assert derived < cal["first_fail_batch"] and derived <= cal["last_ok_batch"]

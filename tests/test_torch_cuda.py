@@ -2227,9 +2227,7 @@ def _mesh_cases(mesh, dev0):
     """Every sharded function on *mesh* against its unsharded path on
     *dev0*; returns how many comparisons ran."""
     from blinky_tpu_torch import parallel
-    from blinky_tpu_torch.kernels.posed import (
-        PosedRemapKernel, bases_from_pose_track, posed_remap_sharded,
-    )
+    from blinky_tpu_torch.kernels.posed import PosedRemapKernel, bases_from_pose_track
 
     W, H, S, B = 64, 48, 32, 8
     g = globes.get("cube")
@@ -2256,9 +2254,9 @@ def _mesh_cases(mesh, dev0):
     bases = bases_from_pose_track(np.stack([np.linspace(-20, 20, B), np.linspace(0, 90, B),
                                             np.zeros(B)], axis=1))
     sk = static_ray.StaticRayPosedKernel(lens, g, W, H, scale, platesize=S, device=dev0)
-    same(static_ray.static_ray_posed_sharded(sk, frames, bases, mesh), sk(frames, bases))
+    same(parallel.static_ray_posed_sharded(sk, frames, bases, mesh), sk(frames, bases))
     pk = PosedRemapKernel(lens, g, W, H, scale, platesize=S, device=dev0)
-    same(posed_remap_sharded(pk, frames, bases, mesh), pk(frames, bases))
+    same(parallel.posed_remap_sharded(pk, frames, bases, mesh), pk(frames, bases))
     lm_sh = parallel.build_lensmap_sharded(lens, g, scale, W, H, mesh, platesize=S)
     lm = build_lensmap(lens, g, scale, W, H, S, backend="torch", device=dev0)
     for f in ("plate", "px", "py", "valid", "tint", "flat_idx", "plates_used"):
@@ -2269,7 +2267,7 @@ def _mesh_cases(mesh, dev0):
     same(parallel.ingest_equirect_sharded(ik, panos, mesh), ik(panos))
     ek = ingest.EquirectScreenKernel(ik, k)
     for rubix in (False, True):
-        same(ingest.equirect_screen_sharded(ek, panos, mesh, rubix=rubix), ek(panos, rubix=rubix))
+        same(parallel.equirect_screen_sharded(ek, panos, mesh, rubix=rubix), ek(panos, rubix=rubix))
     sess = Session(W, H, platesize=S, device=dev0)
     same(sess.render_sharded(frames, mesh), sess.render(frames))
     return n

@@ -203,12 +203,12 @@ def test_composition_and_subset_errors():
         ing(torch.zeros((PH, PW, B), dtype=torch.float32))
     # the sharded fused kernel (ported with the multi-GPU slice) refuses a
     # pano batch that does not split evenly over the mesh's data shards
-    from blinky_tpu_torch.parallel import make_mesh
+    from blinky_tpu_torch.parallel import equirect_screen_sharded, make_mesh
 
     mesh3 = make_mesh(3, 1, devices=[torch.device("cpu")] * 3)
     with pytest.raises(ValueError, match="split evenly"):
-        ingest.equirect_screen_sharded(ingest.EquirectScreenKernel(ing, remap),
-                                       np.zeros((PH, PW, B), np.uint32), mesh3)
+        equirect_screen_sharded(ingest.EquirectScreenKernel(ing, remap),
+                                np.zeros((PH, PW, B), np.uint32), mesh3)
 
 
 def test_wrapper_checks_operands():

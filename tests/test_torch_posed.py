@@ -1,5 +1,5 @@
 """The port's posed path (blinky_tpu_torch's camera, kernels.posed,
-kernels.static_ray, lensmap.builder.rays_to_lensmap_torch, bench.autobatch
+kernels.static_ray, lensmap.builder.rays_to_lensmap_torch, budget
 and Session.render_posed) against blinky_tpu's, on the CPU, where every
 wrapper runs its plain PyTorch version.
 
@@ -42,9 +42,9 @@ from blinky_tpu.lensmap import calc_scale as jcalc
 from blinky_tpu.lensmap.builder import TINT_NONE
 from blinky_tpu.lensmap.builder import rays_to_lensmap as jrays_to_lensmap
 from blinky_tpu.lensmap.builder import rubix_grid_mask as jrubix_grid_mask
+from blinky_tpu_torch import budget as budget_mod
 from blinky_tpu_torch import camera, globes, lenses
 from blinky_tpu_torch.api import Session
-from blinky_tpu_torch.bench import autobatch
 from blinky_tpu_torch.io.cubemap import synthetic_cubemap_batch
 from blinky_tpu_torch.kernels import posed, static_ray
 from blinky_tpu_torch.kernels.remap import expand_frames_tinted, frames_to_rgba
@@ -547,7 +547,9 @@ def test_unported_posed_entry_points_raise():
     (tests/test_torch_sharding.py holds their outputs), keep the JAX names
     and raise on a pose track that does not match the batch and on a batch
     that does not split evenly over the mesh."""
-    from blinky_tpu_torch.parallel import make_mesh
+    from blinky_tpu_torch.parallel import (
+        make_mesh, posed_remap_sharded, static_ray_posed_sharded,
+    )
 
     _, _, pg, pl, scale = _panini()
     mesh2 = make_mesh(2, 1, devices=[torch.device("cpu")] * 2)
@@ -555,9 +557,9 @@ def test_unported_posed_entry_points_raise():
     bases = posed.bases_from_pose_track(POSES)
     kerns = (posed.PosedRemapKernel(pl, pg, W, H, scale, platesize=S, device="cpu"),
              static_ray.StaticRayPosedKernel(pl, pg, W, H, scale, platesize=S, device="cpu"))
-    for fn, what, kern in ((jposed.posed_remap_sharded, posed.posed_remap_sharded, kerns[0]),
+    for fn, what, kern in ((jposed.posed_remap_sharded, posed_remap_sharded, kerns[0]),
                            (jstatic.static_ray_posed_sharded,
-                            static_ray.static_ray_posed_sharded, kerns[1])):
+                            static_ray_posed_sharded, kerns[1])):
         assert fn.__name__ == what.__name__
         with pytest.raises(ValueError, match="bases must be"):
             what(kern, frames, bases[:2], mesh2)
@@ -789,18 +791,18 @@ def test_autobatch_models_equal_jax():
     for args in ((48, 6), (48, 4), (1080, 12), (1080, 6)):
         for rgba in (False, True):
             for expanded in (False, True):
-                assert (autobatch.planes_bytes_per_lane(*args, rgba, expanded)
+                assert (budget_mod.planes_bytes_per_lane(*args, rgba, expanded)
                         == jautobatch.planes_bytes_per_lane(*args, rgba, expanded))
-        assert autobatch.screen_bytes_per_lane(1920, 1080, True) == \
+        assert budget_mod.screen_bytes_per_lane(1920, 1080, True) == \
             jautobatch.screen_bytes_per_lane(1920, 1080, True)
     for budget in (10**3, 10**9, 80 * 10**9):
-        assert (autobatch.feasible_batch(7e6, 2e6, budget=budget)
+        assert (budget_mod.feasible_batch(7e6, 2e6, budget=budget)
                 == jautobatch.feasible_batch(7e6, 2e6, budget=budget, quantum=1))
     # K6 writes no index table: twice the planes (the caller's and the
     # pose-major copy) and the screen
-    assert autobatch.posed_bytes_per_lane(1080, 6, 1920, 1080) == \
+    assert budget_mod.posed_bytes_per_lane(1080, 6, 1920, 1080) == \
         2 * 6 * 1080 * 1080 + 1920 * 1080
-    assert autobatch.feasible_batch(1, 0, device="cpu") >= 1
+    assert budget_mod.feasible_batch(1, 0, device="cpu") >= 1
 
 
 # ------------------------------------------------------------------ Session
@@ -994,7 +996,7 @@ def test_render_posed_chunks_under_a_tiny_budget(monkeypatch):
     _, ps = _sessions()
     frames = _source("expanded")
     whole = ps.render_posed(frames, np.asarray(POSES))
-    lane = autobatch.posed_bytes_per_lane(S, 12, W, H)
+    lane = budget_mod.posed_bytes_per_lane(S, 12, W, H)
     calls, reads = [], []
     real = static_ray.static_ray_posed
 
@@ -1006,7 +1008,7 @@ def test_render_posed_chunks_under_a_tiny_budget(monkeypatch):
         reads.append(device)
         return 2 * lane + 1
 
-    monkeypatch.setattr(autobatch, "free_budget_bytes", budget)
+    monkeypatch.setattr(budget_mod, "free_budget_bytes", budget)
     monkeypatch.setattr(static_ray, "static_ray_posed", counted)
     assert torch.equal(ps.render_posed(frames, np.asarray(POSES)), whole)
     assert calls == [5] and reads == []

@@ -179,7 +179,7 @@ from blinky_tpu_torch.bench import sol, throughput
 from blinky_tpu_torch.io.cubemap import synthetic_cubemap_batch
 from blinky_tpu_torch.kernels import _build, posed, remap, static_ray
 from blinky_tpu_torch.bench import autobatch
-from blinky_tpu_torch import camera
+from blinky_tpu_torch import budget, camera
 s = Session(64, 48, device="cpu")
 frames = synthetic_cubemap_batch(48, 2)
 out = s.render(frames)

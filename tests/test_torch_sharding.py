@@ -114,9 +114,7 @@ def test_graft_dryrun():
     from blinky_tpu.kernels import ingest as jingest
     from blinky_tpu.kernels import posed as jposed
     from blinky_tpu_torch.kernels.ingest import EquirectIngest
-    from blinky_tpu_torch.kernels.posed import (
-        PosedRemapKernel, bases_from_pose_track, posed_remap_sharded,
-    )
+    from blinky_tpu_torch.kernels.posed import PosedRemapKernel, bases_from_pose_track
 
     n_data, n_space = 4, 2
     W, H, S, B = 64, 32 * n_space, 32, 4 * n_data
@@ -140,7 +138,7 @@ def test_graft_dryrun():
     bases = bases_from_pose_track(poses)
     for rs in (1, 2):
         pk = PosedRemapKernel(lens, g, W, H, scale, platesize=S, render_scale=rs, device="cpu")
-        np.testing.assert_array_equal(_np(posed_remap_sharded(pk, frames, bases, mesh)),
+        np.testing.assert_array_equal(_np(parallel.posed_remap_sharded(pk, frames, bases, mesh)),
                                       _np(pk(frames, bases)))
     # the equirect ingest and the fused pano -> screen kernel
     rng = np.random.default_rng(0)
@@ -152,19 +150,19 @@ def test_graft_dryrun():
     np.testing.assert_array_equal(_np(parallel.remap_sharded(k, faces, mesh)),
                                   _np(k(_np(faces))))
     rk = RemapKernel(k.lensmap, pal, device="cpu")
-    from blinky_tpu_torch.kernels.ingest import EquirectScreenKernel, equirect_screen_sharded
+    from blinky_tpu_torch.kernels.ingest import EquirectScreenKernel
 
     ek = EquirectScreenKernel(ik, rk)
     jek = jingest.EquirectScreenKernel(jik, JRemapKernel(jk.lensmap, pal))
     for rubix in (False, True):
-        out = _np(equirect_screen_sharded(ek, panos, mesh, rubix=rubix))
+        out = _np(parallel.equirect_screen_sharded(ek, panos, mesh, rubix=rubix))
         np.testing.assert_array_equal(out, _np(ek(panos, rubix=rubix)))
         # the JAX fused kernel's blend is jitted (see _jax_host_faces):
         # held where its faces agree with the host path's, i.e. to the
         # port's remap of the JAX host faces
         np.testing.assert_array_equal(out, _np(rk(_jax_host_faces(jik, panos), rubix=rubix)))
     assert jek.remap.lensmap.width_px == W
-    assert jposed.posed_remap_sharded.__name__ == posed_remap_sharded.__name__
+    assert jposed.posed_remap_sharded.__name__ == parallel.posed_remap_sharded.__name__
 
 
 def test_graft_entry_jits():
@@ -267,9 +265,7 @@ def test_sharded_rgba_and_forward_lens():
 
 
 def test_posed_remap_sharded_matches_single_device():
-    from blinky_tpu_torch.kernels.posed import (
-        PosedRemapKernel, bases_from_pose_track, posed_remap_sharded,
-    )
+    from blinky_tpu_torch.kernels.posed import PosedRemapKernel, bases_from_pose_track
 
     W, H, S, B = 64, 48, 32, 8
     g = globes.get("cube")
@@ -281,13 +277,13 @@ def test_posed_remap_sharded_matches_single_device():
     k = PosedRemapKernel(lens, g, W, H, scale, platesize=S, device="cpu")
     ref = _np(k(frames, bases))
     mesh, _ = _meshes(8, 1)
-    out = posed_remap_sharded(k, frames, bases, mesh)
+    out = parallel.posed_remap_sharded(k, frames, bases, mesh)
     assert len(out.pieces) == 8 and out.shape == (B, H, W)
     np.testing.assert_array_equal(_np(out), ref)
     # each device ran the lens stage once: its copy's ray table, cached
     cached = k._sharded_for
     assert cached[0] is mesh and list(cached[1]) == [torch.device("cpu")]
-    posed_remap_sharded(k, frames, bases, mesh)
+    parallel.posed_remap_sharded(k, frames, bases, mesh)
     assert k._sharded_for is cached
 
 
@@ -424,12 +420,8 @@ def test_session_render_sharded_matches_render():
 
 
 def test_two_level_slice_mesh_pipelines_match_single_device():
-    from blinky_tpu_torch.kernels.posed import (
-        PosedRemapKernel, bases_from_pose_track, posed_remap_sharded,
-    )
-    from blinky_tpu_torch.kernels.static_ray import (
-        StaticRayPosedKernel, static_ray_posed_sharded,
-    )
+    from blinky_tpu_torch.kernels.posed import PosedRemapKernel, bases_from_pose_track
+    from blinky_tpu_torch.kernels.static_ray import StaticRayPosedKernel
 
     kernel, _, frames = _setup(B=8)
     g = globes.get("cube")
@@ -461,16 +453,17 @@ def test_two_level_slice_mesh_pipelines_match_single_device():
         [(0, 0, 0), (5, -12, 0), (-20, 33, 10), (0, 271, -45),
          (1, 2, 3), (10, 20, 30), (-5, 5, -5), (0, 180, 0)])
     pk = PosedRemapKernel(lens, g, 64, 48, scale, platesize=32, device="cpu")
-    np.testing.assert_array_equal(_np(posed_remap_sharded(pk, frames, bases, mesh)),
+    np.testing.assert_array_equal(_np(parallel.posed_remap_sharded(pk, frames, bases, mesh)),
                                   _np(pk(frames, bases)))
     srk = StaticRayPosedKernel(lens, g, 64, 48, scale, platesize=32, device="cpu")
-    np.testing.assert_array_equal(_np(static_ray_posed_sharded(srk, frames, bases, mesh)),
+    np.testing.assert_array_equal(_np(parallel.static_ray_posed_sharded(srk, frames, bases, mesh)),
                                   _np(srk(frames, bases)))
 
 
 def test_feasible_batch_mesh_aware():
     from blinky_tpu.bench.autobatch import feasible_batch as jfeasible
-    from blinky_tpu_torch.bench.autobatch import QUANTUM, feasible_batch
+    from blinky_tpu_torch.bench.autobatch import QUANTUM
+    from blinky_tpu_torch.budget import feasible_batch
 
     kw = dict(budget=16.2e9, quantum=QUANTUM)
     b1 = feasible_batch(3.77e6, 0, **kw)
