@@ -1,7 +1,8 @@
 """The posed path's bench tools: the seeded pose track, and the tuning
 sweeps and instruction counts of K6 and K13 on one card.
 
-    python -m blinky_tpu_torch.bench.posed [--out DIR] [--what all|maxdot|given|k13]
+    python -m blinky_tpu_torch.bench.posed [--out DIR] [--what all|maxdot|given|k13|sass]
+                                           [--against LIBRARY]
 
 Each sweep builds one source once per configuration of its tuning
 constants (set with ``nvcc -D``; every build of the run started at once),
@@ -11,7 +12,8 @@ beside the package's build, in turns:
 * ``maxdot``: K6 (``csrc/posed.cu``; ``K6_THREADS``, ``K6_POSES_PER_BLOCK``,
   ``K6_POSE_GROUP``, ``K6_MIN_BLOCKS``) on the posed main path's operands
   (``Session(1920, 1080)``, panini + cube, 64 seeded poses of the synthetic
-  1080p batch), u8 at render scales 1 and 2;
+  1080p batch), u8 at render scales 1 and 2: the cube, so K6 runs the max-dot
+  select by the cube resolver (mode 3);
 * ``given``: K6 in resolver mode 2 (``K6_POSES_PER_BLOCK``,
   ``K6_POSE_GROUP``; only mode 2 is timed) on the lfast script globe's plates
   (``bench/lua_drop_ins.py``), u8 at k = 1 and 2 and RGBA at k = 1;
@@ -21,11 +23,15 @@ beside the package's build, in turns:
   unrotated tables beside it.
 
 Then it disassembles the package's build (``cuobjdump -sass``) and counts
-the SASS instructions of K6's pose-group loop for u8 at k = 1, max-dot and
-mode 2, per pose and build pixel, with the regions the main path jumps over
-listed apart.  It needs a card, ``nvcc`` and ``cuobjdump``, and writes the
-SASS, ptxas's notes and the printed lines (``posed_bench.txt``) under
-``--out``.
+the SASS instructions of K6's pose-group loop for u8 at k = 1, max-dot,
+mode 2 and mode 3 (the cube resolver), per pose and build pixel, with the
+regions the main path jumps over listed apart, and the instructions of every
+instantiation of K8 and K9.  ``--what sass`` does only that, with no sweep.
+``--against`` names another build of the library (another checkout's): each
+function of both is compared instruction by instruction, so a change to one
+resolver can be shown to leave the others' code as it was.  It needs a
+card, ``nvcc`` and ``cuobjdump``, and writes the SASS, ptxas's notes and the
+printed lines (``posed_bench.txt``) under ``--out``.
 """
 
 from __future__ import annotations
@@ -200,6 +206,21 @@ def main_path(n, regions):
     return n - sum(size for size, call, _, nested in regions if call or nested)
 
 
+def compare_sass(funcs, other):
+    """Functions of two builds' SASS ({name: [(address, instruction)]})
+    -> (names whose instructions are the same, names whose instructions
+    differ, names in *funcs* only, names in *other* only).  Names are taken
+    without the hash nvcc gives each build's anonymous namespace."""
+    def bare(fs):
+        return {re.sub(r"_GLOBAL__N__[0-9a-f]+_", "_GLOBAL__N__", n): ins for n, ins in fs.items()}
+
+    funcs, other = bare(funcs), bare(other)
+    same = sorted(n for n in funcs if n in other
+                  and [t for _, t in funcs[n]] == [t for _, t in other[n]])
+    differ = sorted(n for n in funcs if n in other and n not in same)
+    return same, differ, sorted(set(funcs) - set(other)), sorted(set(other) - set(funcs))
+
+
 def _timed(variants, run, what, say):
     """Each variant's ms, in turns forwards and backwards, its output held
     bit-equal to the package's build (NaN equal to NaN); *variants*
@@ -266,7 +287,9 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="chiprun_out/posed_sweep")
     ap.add_argument("--iters", type=int, default=20)
-    ap.add_argument("--what", default="all", choices=["all", *SWEEPS])
+    ap.add_argument("--what", default="all", choices=["all", "sass", *SWEEPS])
+    ap.add_argument("--against", default=None,
+                    help="another build of the kernel library to compare the SASS with")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("posed sweep: no CUDA device", file=sys.stderr)
@@ -290,7 +313,7 @@ def main(argv=None):
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,clocks.max.sm",
                           "--format=csv,noheader"], capture_output=True, text=True).stdout
     say(f"card: {smi.strip()}")
-    sweeps = list(SWEEPS) if args.what == "all" else [args.what]
+    sweeps = list(SWEEPS) if args.what == "all" else [] if args.what == "sass" else [args.what]
     home = _build.library()
     t0 = time.perf_counter()
     built = _build_variants(sweeps)
@@ -321,7 +344,7 @@ def main(argv=None):
                 lambda: static_ray.static_ray_posed(  # noqa: B023
                     src, kern.ray_table, bases, kern.globe, S, kern.numcells,
                     kern.cell_size, kern.pad_size, expanded, kern.background, k), args.iters),
-                f"K6 max-dot u8 1080p B={B} k={k}", say)
+                f"K6 cube (mode 3) u8 1080p B={B} k={k}", say)
             del src
     if "given" in sweeps or "k13" in sweeps:
         tmp = tempfile.mkdtemp(prefix="blinky_lua_")
@@ -363,8 +386,12 @@ def main(argv=None):
             torch.cuda.empty_cache()
 
     cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
-    sass = subprocess.run([str(cuobjdump), "-sass", str(_build.LIBRARY)], check=True,
-                          capture_output=True, text=True).stdout
+
+    def disassemble(lib):
+        return subprocess.run([str(cuobjdump), "-sass", str(lib)], check=True,
+                              capture_output=True, text=True).stdout
+
+    sass = disassemble(_build.LIBRARY)
     # the issue floor: 128 lane-instructions a clock on every SM at the
     # card's highest SM clock, over the main path's instructions for 1080p,
     # B = 64 (four build pixels a loop iteration)
@@ -372,12 +399,26 @@ def main(argv=None):
     lanes_per_s = 128 * torch.cuda.get_device_properties(0).multi_processor_count * mhz * 1e6
     pose_pixels = B * 1920 * 1080
     for what, key in (("maxdot", "static_ray_posed_kernelIhLi1ELi0E"),
-                      ("given", "static_ray_posed_kernelIhLi1ELi2E")):
+                      ("given", "static_ray_posed_kernelIhLi1ELi2E"),
+                      ("cube", "static_ray_posed_kernelIhLi1ELi3E")):
         n, main = _sass_loop(sass, key, what, out_dir, say)
         floor = main / 4 * pose_pixels / lanes_per_s * 1e3
         say(f"K6 u8 k=1 {what}: the pose-group loop {n} SASS instructions for one pose and "
             f"four build pixels, {main} on the main path, {main / 4:.2f} a pose-pixel; issue "
             f"floor at 1080p B={B} {floor:.4f} ms ({mhz:.0f} MHz)")
+    funcs = sass_functions(sass)
+    for name, ins in sorted(funcs.items()):
+        if "lensmap_resolve_kernel" in name or "sweep_remap_kernel" in name:
+            say(f"SASS of {'K8' if 'lensmap' in name else 'K9'} {name}: {len(ins)} instructions")
+    if args.against:
+        same, differ, here, there = compare_sass(funcs, sass_functions(disassemble(args.against)))
+        say(f"SASS against {args.against}: {len(same)} functions the same instruction for "
+            f"instruction, {len(differ)} differ, {len(here)} only in this build, {len(there)} "
+            "only in the other")
+        for label, names in (("differs", differ), ("only in this build", here),
+                             ("only in the other", there)):
+            for name in names:
+                say(f"  {label}: {name} ({len(funcs.get(name, []))} instructions here)")
     (out_dir / "posed_bench.txt").write_text("\n".join(lines) + "\n")
     return 0
 

@@ -102,12 +102,19 @@
 //    every pose are copied into shared memory at its start, one 4-byte
 //    cp.async a pose and run, so no resolve waits on a plate; the gather
 //    clips its index in 32 bits from the pose's frame.
+//  * Mode 3, the cube (R == kCube, the max-dot select on a globe whose
+//    plates face the six signed axes, with signed axes for right and up):
+//    the six forward dots and their select become the largest magnitude
+//    of the unit ray's components and a pick among the plates facing the
+//    axes that reach it, and the right and up dots fused sums of exact
+//    products; bit-equal to max-dot (resolve.cuh says why).
 //
 // What is left: 179 SASS instructions a pose-pixel on the main path of the
-// max-dot mode, 146.5 in mode 2 (bench/posed.py counts them: the loop less
-// the slow paths, the expanded grid test and the background read) against
-// the 86 and 58 operations of their bounds, each IEEE sequence some ten
-// instructions with its range check and slow-path branch; at 128
+// max-dot mode, 146.5 in mode 2 and 148.5 in mode 3 (bench/posed.py counts
+// them: the loop less the slow paths, the expanded grid test and the
+// background read) against the 86 and 58 operations of their bounds (mode 3
+// is held to max-dot's 86, the work it stands for), each IEEE sequence some
+// ten instructions with its range check and slow-path branch; at 128
 // lane-instructions a clock on 132 SMs that alone is about twice the
 // operation bound (PERF.md, K6's instruction floor).
 //
@@ -392,7 +399,8 @@ __global__ void __launch_bounds__(kThreads) posed_gather_kernel(
 // scale of the vector kernels (1 or 2; the build width a multiple of kRun
 // and every pointer 16-byte aligned), or 0 for the scalar kernel, which
 // takes any width and render scale k.  R: the plate resolver; kGiven reads
-// pose b's plate of pixel p at given[b * hb * wb + p].
+// pose b's plate of pixel p at given[b * hb * wb + p]; kCube reads
+// r.cube_dirs.
 //
 // Mode 2's plates.  The block's plates are all in flight before its first
 // resolve: at its start each thread copies its run's plates of every pose of
@@ -738,6 +746,10 @@ int dispatch_resolver(int resolver, bool vec, int k, dim3 grid, size_t smem, cud
     return dispatch_static_ray_posed<T, blinky::kFast>(vec, k, grid, smem, s, vx, vy, vz, lv,
                                                        hb, wb, bases, batch, r, given, lines,
                                                        src, N, bg, out);
+  if (resolver == blinky::kCube)
+    return dispatch_static_ray_posed<T, blinky::kCube>(vec, k, grid, smem, s, vx, vy, vz, lv,
+                                                       hb, wb, bases, batch, r, given, lines,
+                                                       src, N, bg, out);
   return dispatch_static_ray_posed<T, blinky::kGiven>(vec, k, grid, smem, s, vx, vy, vz, lv,
                                                       hb, wb, bases, batch, r, given, lines,
                                                       src, N, bg, out);
@@ -808,7 +820,9 @@ extern "C" int blinky_posed_gather(const void* src, long long N, int elem_bytes,
 // to 6 x 10 floats (forward, right, up, dist of each plate), copied into the
 // launch; resolver 0 = max-dot, 1 = the fast globe with fast_dist and
 // fast_half, 2 = the plates given in given [batch, hb, wb] int8 (a script
-// globe's, clamped to [-1, 6]; null for the other resolvers); grid_lines:
+// globe's, clamped to [-1, 6]; null for the other resolvers), 3 = max-dot
+// by the cube resolver (refused unless the six plates face the six signed
+// axes and every frame vector is a signed axis); grid_lines:
 // the rubix grid-line bitmask on the device, bit px
 // of word px / 32 for px < S (lensmap/builder.py::rubix_grid_lines; read only
 // when expanded, else may be null); S the plate size; src [batch, N]
@@ -825,7 +839,8 @@ extern "C" int blinky_static_ray_posed(const float* vx, const float* vy, const f
   Resolve r;
   if (k < 1 || N < 1 || batch < 1 || hb < 1 || wb < 1 || (expanded && grid_lines == nullptr) ||
       (resolver == blinky::kGiven && given == nullptr) ||
-      !blinky::make_resolve(r, plates, nplates, resolver, fast_dist, fast_half, S, expanded))
+      !blinky::make_resolve(r, plates, nplates, resolver, fast_dist, fast_half, S, expanded,
+                            true))
     return (int)cudaErrorInvalidValue;
   const long long runs = (long long)hb * ((wb + kRun - 1) / kRun);
   const dim3 grid((unsigned)((runs + K6_THREADS - 1) / K6_THREADS),

@@ -20,6 +20,23 @@
 // kind and stays: a ray whose square underflows keeps its length and may be
 // valid.  The normalize's 1 / len is __frcp_rn(len): the correctly rounded
 // reciprocal, the same bits as __fdiv_rn(1.f, len) in fewer instructions.
+//
+// The cube resolver (kCube, K6 only).  On a globe whose six plates face the
+// six signed axes, with right and up vectors that are signed axes too (the
+// cube: every frame entry is -1, -0, 0 or +1), each dot of the max-dot
+// resolve is a signed component of the unit ray.  A product by 0 or +-1 is
+// exact and adding the zero products leaves the other unchanged, so each
+// dot equals its component but for the sign of a zero.  So kCube takes the
+// largest forward dot as the largest magnitude m (two max instructions),
+// and the plate as the first, in plate order, of the plates that face the
+// direction an axis of magnitude m points to: the strict first max of the
+// max-dot select, whose ties IEEE comparison breaks alike for -0 and +0.
+// Its rx and ry are the fused sums of the same exact products.  Bit-equal
+// to max-dot: rotate_normalize leaves a ray either finite, where the picks
+// agree and a zero rz is invalid on both sides (a zero rx or ry gives u or
+// v = 0.5 on both), or NaN in its non-finite components and zero in the
+// rest, where max-dot reads NaN from every dot and kCube a zero or NaN rz,
+// and both fail the range test.
 #pragma once
 
 #include <string.h>
@@ -37,19 +54,61 @@ constexpr int kRecord = 12;       // shared: right[3], dist, up[3], 0, forward[3
 struct Resolve {
   float plates[kMaxPlates * kPlateFloats];  // unused plates repeat plate 0
   int nplates;
-  float fast_dist, fast_half;
+  union {
+    float fast_dist;  // kFast
+    // kCube: for axis a (x, y, z), bits 6a..6a+2 hold the plate that faces
+    // +a, bits 6a+3..6a+5 that plate xor the one that faces -a
+    int cube_dirs;
+  };
+  float fast_half;
   int S, expanded;
 };
 
 // The plate resolvers: the strict first max of the forward dots, the fast
-// globe's, and a plate given per ray (a script globe's globe_plate, which
-// lensmap/builder.py::script_plates evaluates on the rotated rays first).
-constexpr int kMaxDot = 0, kFast = 1, kGiven = 2;
+// globe's, a plate given per ray (a script globe's globe_plate, which
+// lensmap/builder.py::script_plates evaluates on the rotated rays first),
+// and the cube's (the max-dot select from the ray's signed components).
+constexpr int kMaxDot = 0, kFast = 1, kGiven = 2, kCube = 3;
 
-// plates: a HOST pointer to 6 x 10 floats.  False for arguments no kernel takes.
+// A frame vector's signed axis, 2 * axis + (1 if it points down the axis):
+// -1 unless exactly one entry is nonzero and that entry is +-1.
+inline int signed_axis(const float* v) {
+  int d = -1;
+  for (int a = 0; a < 3; ++a) {
+    if (v[a] == 0.f) continue;
+    if (d >= 0 || (v[a] != 1.f && v[a] != -1.f)) return -1;
+    d = 2 * a + (v[a] < 0.f);
+  }
+  return d;
+}
+
+// kCube's table (Resolve::cube_dirs) from the six plates, or false unless
+// every forward, right and up vector is a signed axis and the forward
+// vectors are the six signed axes.
+inline bool cube_directions(Resolve& r) {
+  int plate_of[6] = {-1, -1, -1, -1, -1, -1};
+  if (r.nplates != kMaxPlates) return false;
+  for (int p = 0; p < kMaxPlates; ++p) {
+    const float* f = r.plates + p * kPlateFloats;
+    const int d = signed_axis(f);
+    if (d < 0 || signed_axis(f + 3) < 0 || signed_axis(f + 6) < 0 || plate_of[d] >= 0)
+      return false;
+    plate_of[d] = p;
+  }
+  r.cube_dirs = 0;
+  for (int a = 0; a < 3; ++a)
+    r.cube_dirs |= (plate_of[2 * a] | (plate_of[2 * a] ^ plate_of[2 * a + 1]) << 3) << (6 * a);
+  return true;
+}
+
+// plates: a HOST pointer to 6 x 10 floats.  False for arguments no kernel
+// takes; kCube only where the caller's kernel has it (cube_ok) and the
+// plates are a cube's.
 inline bool make_resolve(Resolve& r, const float* plates, int nplates, int resolver,
-                         float fast_dist, float fast_half, int S, int expanded) {
-  if (nplates < 1 || nplates > kMaxPlates || resolver < kMaxDot || resolver > kGiven || S < 1)
+                         float fast_dist, float fast_half, int S, int expanded,
+                         bool cube_ok = false) {
+  if (nplates < 1 || nplates > kMaxPlates || resolver < kMaxDot || resolver > kCube ||
+      (resolver == kCube && !cube_ok) || S < 1)
     return false;
   memcpy(r.plates, plates, sizeof(r.plates));
   r.nplates = nplates;
@@ -57,7 +116,7 @@ inline bool make_resolve(Resolve& r, const float* plates, int nplates, int resol
   r.fast_half = fast_half;
   r.S = S;
   r.expanded = expanded;
-  return true;
+  return resolver != kCube || cube_directions(r);
 }
 
 // The plate records in shared memory (kMaxPlates * kRecord floats, 16-byte
@@ -119,8 +178,8 @@ __device__ __forceinline__ void rotate_normalize(float vx, float vy, float vz, f
   z = __fmul_rn(z, inv);
 }
 
-// One ray -> its texel.  R: the plate resolver (kMaxDot, kFast or kGiven,
-// whose plate is `given`, read by no other resolver).  ROT: as for
+// One ray -> its texel.  R: the plate resolver (kMaxDot, kFast, kGiven,
+// whose plate is `given`, read by no other resolver, or kCube).  ROT: as for
 // rotate_normalize.  recs: the plate records in shared memory.
 template <int R, bool ROT>
 __device__ __forceinline__ Texel resolve_texel(float vx, float vy, float vz, bool lens_valid,
@@ -148,6 +207,22 @@ __device__ __forceinline__ Texel resolve_texel(float vx, float vy, float vz, boo
       }
     }
     plate = pc;
+  } else if constexpr (R == kCube) {
+    // the largest forward dot is the largest magnitude m; of the axes that
+    // reach it, each names the plate facing the way its sign points, and
+    // the first of those plates wins (a NaN ray's rz is zero or NaN: the
+    // pixel is invalid, whichever plate this gives)
+    const float m = fmaxf(fmaxf(fabsf(x), fabsf(y)), fabsf(z));
+    const float c[3] = {x, y, z};
+    int q[3];
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      const int pos = (r.cube_dirs >> (6 * a)) & 7, flip = (r.cube_dirs >> (6 * a + 3)) & 7;
+      q[a] = fabsf(c[a]) == m ? pos ^ (flip & (__float_as_int(c[a]) >> 31)) : kMaxPlates - 1;
+    }
+    pc = min(min(q[0], q[1]), q[2]);
+    plate = pc;
+    rz = m;
   } else if (R == kGiven) {
     // the script's plate: valid only where it is >= 0, its frame the
     // clipped plate's (rays_to_lensmap, blinky_tpu/lensmap/builder.py:232-236)
@@ -173,8 +248,15 @@ __device__ __forceinline__ Texel resolve_texel(float vx, float vy, float vz, boo
   // the chosen plate's frame dots (ray_to_plate_uv, fisheye.c:2052-2058)
   const float4 a = *(const float4*)(recs + pc * kRecord);      // right, dist
   const float4 b = *(const float4*)(recs + pc * kRecord + 4);  // up
-  const float rx = dot3(x, y, z, a.x, a.y, a.z);
-  const float ry = dot3(x, y, z, b.x, b.y, b.z);
+  float rx, ry;
+  if constexpr (R == kCube) {
+    // each product by 0 or +-1 is exact, so the fused sums round as dot3
+    rx = __fmaf_rn(x, a.x, __fmaf_rn(y, a.y, __fmul_rn(z, a.z)));
+    ry = __fmaf_rn(x, b.x, __fmaf_rn(y, b.y, __fmul_rn(z, b.z)));
+  } else {
+    rx = dot3(x, y, z, a.x, a.y, a.z);
+    ry = dot3(x, y, z, b.x, b.y, b.z);
+  }
   // The plain version divides by 1 where rz == 0 and then calls the pixel
   // invalid.  Dividing by the zero itself gives an infinite or NaN u or v,
   // which fails the range test below: the same pixels are valid, with the

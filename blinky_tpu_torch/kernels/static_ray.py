@@ -48,8 +48,9 @@ from blinky_tpu_torch.kernels.posed import (
     prep_posed_inputs,
 )
 from blinky_tpu_torch.lensmap.builder import (
-    RESOLVERS, TINT_NONE, LensMap, grid_line_words, lens_ray_grid, lens_rays_torch,
-    plate_resolver_mode, rays_to_lensmap_torch, resolver_args, rotate_rays, script_plates,
+    CUBE_RESOLVER, RESOLVERS, TINT_NONE, LensMap, cube_resolver, grid_line_words,
+    lens_ray_grid, lens_rays_torch, plate_resolver_mode, rays_to_lensmap_torch,
+    resolver_args, rotate_rays, script_plates,
 )
 from blinky_tpu_torch.palette import MAX_PLATES
 
@@ -258,7 +259,8 @@ def static_ray_posed(src, table, bases, globe, platesize, numcells,
     device, [H/k, W/k]; ``bases`` [B, 3, 3] f32; ``background`` [H, W] of
     src's dtype; ``k`` the render scale.  A script globe resolves in mode
     2 from *plates*, a contiguous int8 [B, H/k, W/k] tensor, by default
-    :func:`script_pose_plates`.
+    :func:`script_pose_plates`; a cube (:func:`cube_resolver`) in mode 3,
+    the max-dot select taken from the ray's signed components.
     """
     name = "static_ray_posed"
     check_gather_operands(name, src, table.height_px, table.width_px, background, k)
@@ -293,6 +295,8 @@ def static_ray_posed(src, table, bases, globe, platesize, numcells,
         out = torch.empty((B, hb * k, wb * k), dtype=src.dtype, device=dev)
         if out.numel():
             consts, nplates, resolver, fast_dist, fast_half = globe_args
+            if resolver == RESOLVERS["maxdot"] and cube_resolver(globe):
+                resolver = CUBE_RESOLVER
             lines = (grid_line_words(S, float(numcells), float(cell_size), float(pad_size),
                                      dev) if expanded else None)
             _build.launch(static_ray_posed, name, "blinky_static_ray_posed",
@@ -303,11 +307,13 @@ def static_ray_posed(src, table, bases, globe, platesize, numcells,
                 src.data_ptr(), N, src.element_size(), background.data_ptr(),
                 int(k), out.data_ptr(), stream)
             static_ray_posed.given_launches += resolver == RESOLVERS["script"]
+            static_ray_posed.cube_launches += resolver == CUBE_RESOLVER
     return out
 
 
 static_ray_posed.launches = 0
 static_ray_posed.given_launches = 0  # the launches in resolver mode 2 (a script globe)
+static_ray_posed.cube_launches = 0  # the launches in resolver mode 3 (a cube)
 
 
 def background_tensor(background, height_px, width_px, device):

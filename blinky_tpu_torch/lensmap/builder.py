@@ -564,6 +564,36 @@ def plate_consts(globe) -> np.ndarray:
     return out.reshape(-1)
 
 
+# K6's fourth plate resolver (csrc/resolve.cuh, kCube): the max-dot select
+# on a cube, taken from the ray's signed components.  Only K6's entry point
+# takes it; K8 and K9 resolve a cube by max-dot.
+CUBE_RESOLVER = 3
+
+
+@functools.lru_cache(maxsize=16)
+def cube_resolver(globe) -> bool:
+    """Whether K6 resolves *globe* by :data:`CUBE_RESOLVER`: a max-dot
+    globe whose six plates face the six signed axes, with every forward,
+    right and up vector a signed axis (one nonzero entry, +-1 in float32):
+    ``cube``, or a cube with its plates relabelled or turned by right
+    angles.  Each forward dot is then a signed component of the unit ray,
+    and the kernel picks the plate from the components, bit-equal to
+    max-dot.  An axis-aligned globe that misses a signed axis keeps
+    max-dot: there the largest dot need not be the largest magnitude.  Made
+    once a globe."""
+    if globe.plate_resolver is not None or globe.numplates != MAX_PLATES:
+        return False
+    facing = None
+    for vecs in (globe.forward, globe.right, globe.up):
+        vecs = np.asarray(vecs, np.float32)
+        nonzero = vecs != 0
+        if not (nonzero.sum(1) == 1).all() or not (np.abs(vecs[nonzero]) == 1).all():
+            return False
+        if facing is None:  # 2 * axis + 1 where the forward vector points down it
+            facing = 2 * nonzero.argmax(1) + (vecs[nonzero] < 0)
+    return len(set(facing.tolist())) == MAX_PLATES
+
+
 @functools.lru_cache(maxsize=16)
 def grid_line_words(platesize, numcells, cell_size, pad_size, device):
     """:func:`rubix_grid_lines` as the resolve kernels read it: an int32

@@ -570,9 +570,10 @@ def test_static_ray_posed_equals_plain(cuda_device, globe_name, kind, k):
     bg = _texels(kind == "int32", (hb * k, wb * k), rng, cuda_device)
     grid = (7.0, 2.5, 1.5)
     args = (src, table, bases, g, S, *grid, kind == "expanded", bg, k)
-    n0 = static_ray.static_ray_posed.launches
+    n0, c0 = static_ray.static_ray_posed.launches, static_ray.static_ray_posed.cube_launches
     got = static_ray.static_ray_posed(*args)
     assert static_ray.static_ray_posed.launches == n0 + 1
+    assert static_ray.static_ray_posed.cube_launches == c0 + (globe_name == "cube")
     _equal(got, static_ray.static_ray_posed_plain(*args))
 
 
@@ -595,10 +596,132 @@ def test_static_ray_posed_vector_equals_plain(cuda_device, globe_name, kind, k):
     src = _posed_source(kind, B, S, rng, cuda_device)
     bg = _texels(kind == "int32", (hb * k, wb * k), rng, cuda_device)
     args = (src, table, bases, g, S, 7.0, 2.5, 1.5, kind == "expanded", bg, k)
-    n0 = static_ray.static_ray_posed.launches
+    n0, c0 = static_ray.static_ray_posed.launches, static_ray.static_ray_posed.cube_launches
     got = static_ray.static_ray_posed(*args)
     assert static_ray.static_ray_posed.launches == n0 + 1
+    assert static_ray.static_ray_posed.cube_launches == c0 + (globe_name == "cube")
     _equal(got, static_ray.static_ray_posed_plain(*args))
+
+
+# rays that tie between the cube's faces (two or three components of the
+# largest magnitude, of either sign) and rays with -0 components
+CUBE_TIE_RAYS = [(1.0, 0.0, 1.0), (-1.0, 0.0, -1.0), (1.0, 0.0, -1.0), (-1.0, 0.0, 1.0),
+                 (1.0, 1.0, 1.0), (-1.0, -1.0, -1.0), (1.0, -1.0, 1.0), (-1.0, 1.0, -1.0),
+                 (0.0, 1.0, 1.0), (0.0, -1.0, 1.0), (1.0, 1.0, 0.0), (-1.0, -1.0, 0.0),
+                 (-0.0, 0.0, 1.0), (0.0, -0.0, -1.0), (-0.0, 1.0, -0.0), (0.5, -0.0, 0.5),
+                 (-0.0, -0.0, -0.0), (3.0, -3.0, 0.0), (1e-30, 1e-30, 1e-30)]
+
+
+def _cube_tie_bases():
+    """Bases under which the cube's faces tie exactly: the identity, a
+    90-degree yaw either way (entries 0 and +-1), a 45-degree yaw either way
+    (+-sqrt(1/2) in float32: the diagonal rays get |x| = |z|), and one that
+    turns the forward axis onto the corner direction (1, 1, 1) / sqrt(3)."""
+    s = float(np.float32(np.sqrt(0.5)))
+    c = float(np.float32(1 / np.sqrt(3)))
+    return [[[0, 0, 1], [1, 0, 0], [0, 1, 0]],
+            [[1, 0, 0], [0, 0, -1], [0, 1, 0]], [[-1, 0, 0], [0, 0, 1], [0, 1, 0]],
+            [[s, 0, s], [s, 0, -s], [0, 1, 0]], [[-s, 0, s], [s, 0, s], [0, 1, 0]],
+            [[c, c, c], [c, -c, c], [-c, c, c]]]
+
+
+def _k6_cube_counted(args):
+    """K6 on the cube: one launch, and it is a cube launch."""
+    n0, c0 = static_ray.static_ray_posed.launches, static_ray.static_ray_posed.cube_launches
+    got = static_ray.static_ray_posed(*args)
+    assert static_ray.static_ray_posed.launches == n0 + 1
+    assert static_ray.static_ray_posed.cube_launches == c0 + 1
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("build", [(23, 37), (24, 40)], ids=["ragged", "vector"])
+@pytest.mark.parametrize("poses", ["seeded", "ties"])
+@pytest.mark.parametrize("kind", ["u8", "expanded", "int32"])
+@pytest.mark.parametrize("k", [1, 2, 3])
+def test_static_ray_posed_cube_equals_plain(cuda_device, build, poses, kind, k):
+    """K6's cube resolver against the plain version (the max-dot select of
+    rays_to_lensmap_torch): every source kind and render scale, the ragged
+    37x23 grid (the scalar kernel) and a 40x24 one (the vector kernels),
+    the odd rays (NaN, inf, zero, denormal, huge) and rays that tie between
+    faces planted in the table, seeded poses over the sphere or poses that
+    tie faces exactly."""
+    rng = np.random.default_rng(k * 31 + len(kind) + len(poses))
+    (hb, wb), S = build, 32
+    g, table = _posed_table("cube", hb, wb, "cpu")
+    vx, vy, vz = (getattr(table, f).clone() for f in ("vx", "vy", "vz"))
+    for i, ray in enumerate(CUBE_TIE_RAYS):
+        y, x = divmod(i * 5 + 80, wb)
+        vx[y, x], vy[y, x], vz[y, x] = ray
+    table = static_ray.RayTable(wb, hb, vx, vy, vz, table.lens_valid).device(cuda_device)
+    if poses == "seeded":
+        angles = np.stack([rng.uniform(-90, 90, 13), rng.uniform(0, 360, 13),
+                           rng.uniform(-45, 45, 13)], 1)
+        bases = torch.from_numpy(posed.bases_from_pose_track(angles)).float()
+    else:
+        bases = torch.tensor(_cube_tie_bases(), dtype=torch.float32)
+    bases = bases.to(cuda_device)
+    B = bases.shape[0]
+    src = _posed_source(kind, B, S, rng, cuda_device)
+    bg = _texels(kind == "int32", (hb * k, wb * k), rng, cuda_device)
+    args = (src, table, bases, g, S, 7.0, 2.5, 1.5, kind == "expanded", bg, k)
+    _equal(_k6_cube_counted(args), static_ray.static_ray_posed_plain(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 2])
+def test_static_ray_posed_cube_1080(cuda_device, k):
+    """K6's cube resolver at 1080p on panini's float32 lens-stage table:
+    64 seeded poses of the posed cell's ranges (the identity and the pole
+    first), u8 frames laid out pose-major by K7, against the plain version
+    16 poses at a time."""
+    B, S = 64, 1080
+    g = globes.get("cube")
+    lens = lenses.get("panini", g)
+    wb, hb = 1920 // k, 1080 // k
+    scale = calc_scale(Zoom("fov", 180), lens, 1920, 1080) * k
+    table = static_ray.ray_table_from_lens(lens, scale, wb, hb, backend="torch",
+                                           device=cuda_device)
+    rng = np.random.default_rng(64 + k)
+    angles = np.stack([rng.uniform(-60, 60, B), rng.uniform(0, 360, B),
+                       rng.uniform(-30, 30, B)], 1)
+    angles[0], angles[1] = (0.0, 0.0, 0.0), (89.0, 180.0, 0.0)
+    bases = torch.from_numpy(posed.bases_from_pose_track(angles)).float().to(cuda_device)
+    frames = torch.from_numpy(synthetic_cubemap_batch(S, B)).to(cuda_device)
+    src = posed.posed_layout(frames, 6)
+    bg = torch.full((1080, 1920), 3, dtype=torch.uint8, device=cuda_device)
+    args = (table, bases, g, S, 10.0, 4.0, 1.0, False, bg, k)
+    got = _k6_cube_counted((src,) + args)
+    for b in range(0, B, 16):
+        want = static_ray.static_ray_posed_plain(src[b:b + 16], table, bases[b:b + 16],
+                                                 *args[2:])
+        _equal(got[b:b + 16], want)
+
+
+@pytest.mark.cuda
+def test_cube_resolver_refused_off_a_cube_and_outside_k6(cuda_device, monkeypatch):
+    """The library takes resolver 3 only from K6's entry point and only on
+    a cube: K6 refuses it on cube_edge's plates, K8 and K9 on the cube's."""
+    hb, wb, S = 8, 16, 16
+    rng = np.random.default_rng(0)
+    g, table = _posed_table("cube_edge", hb, wb, cuda_device, odd_rays=False)
+    bases = torch.eye(3, device=cuda_device)[None][:, [2, 0, 1]].contiguous()
+    src = _posed_source("u8", 1, S, rng, cuda_device)
+    bg = torch.zeros((hb, wb), dtype=torch.uint8, device=cuda_device)
+    monkeypatch.setattr(static_ray, "cube_resolver", lambda globe: True)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        static_ray.static_ray_posed(src, table, bases, g, S, 10.0, 4.0, 1.0, False, bg, 1)
+    monkeypatch.undo()
+    cube = globes.get("cube")
+    plates, n, _, fast_dist, fast_half = builder.resolver_args(cube)
+    monkeypatch.setattr(builder, "resolver_args",
+                        lambda globe: (plates, n, builder.CUBE_RESOLVER, fast_dist, fast_half))
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        builder.lensmap_resolve(cube, table.vx, table.vy, table.vz, table.lens_valid, S,
+                                10.0, 4.0, 1.0, ((0, 0, 1), (1, 0, 0), (0, 1, 0)))
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        posed.sweep_remap(src[0], table.vx[None], table.vy[None], table.vz[None],
+                          table.lens_valid[None], cube, S, 10.0, 4.0, 1.0, False, bg)
 
 
 @pytest.mark.cuda
