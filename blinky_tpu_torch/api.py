@@ -49,7 +49,7 @@ from blinky_tpu_torch.kernels.remap import (
 from blinky_tpu_torch.lensmap import (
     Zoom, ZoomError, build_lensmap, calc_scale, device_builder_warm,
 )
-from blinky_tpu_torch.utils.timing import spanned
+from blinky_tpu_torch.utils.timing import span, spanned
 
 HELP_TEXT = """-----------------------------
 Welcome to the FISHEYE ADDON!
@@ -1186,6 +1186,7 @@ class Session:
                                out=out[lo:lo + _DECODE_CHUNK])
         return out.view(screen.shape).view(torch.uint32)
 
+    @spanned("session.render_aa")
     def render_aa(self, frames, factor: int = 2, rubix: Optional[bool] = None):
         """Supersampled (anti-aliased) true-color rendering.
 
@@ -1215,7 +1216,8 @@ class Session:
             frames = np.asarray(frames)
         if not _is_rgba(frames):
             if isinstance(frames, torch.Tensor):
-                frames = self._rgba_screen(frames.to(torch.uint8))
+                with span("aa.decode"):
+                    frames = self._rgba_screen(frames.to(torch.uint8))
             else:
                 frames = frames_to_rgba(frames, self.palette)
         rubix = self.rubix_enabled if rubix is None else bool(rubix)

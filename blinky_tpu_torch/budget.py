@@ -16,7 +16,8 @@ that fits.  Its callers:
 * a script globe's resolver, ``kernels.static_ray.script_pose_plates``
   (:func:`script_bytes_per_lane`);
 * ``cli reproject --batch 0`` (:func:`planes_bytes_per_lane`,
-  :func:`screen_bytes_per_lane`, :func:`posed_bytes_per_lane`).
+  :func:`screen_bytes_per_lane`, :func:`posed_bytes_per_lane`, and
+  :func:`aa_bytes_per_lane` under ``--aa``).
 
 The arithmetic of :func:`feasible_batch` and of the plate-plane and
 screen models is :mod:`blinky_tpu.bench.autobatch`'s.  A bench process,
@@ -117,6 +118,19 @@ def posed_bytes_per_lane(planesize, nplanes, width, height, rgba=False,
     planes = planes_bytes_per_lane(planesize, nplanes, rgba, expanded)
     return (2 * planes + screen_bytes_per_lane(width, height, rgba)
             + (width * height if script else 0))
+
+
+def aa_bytes_per_lane(planesize, nplanes, width, height, factor, rgba=False) -> int:
+    """What ``Session.render_aa`` keeps per lane: the source planes, their
+    packed-RGBA decode (none when the source is *rgba* already), the
+    ``factor`` x ``factor`` supersampled screen and the screen it is
+    box-filtered to, both packed RGBA."""
+    texels = nplanes * planesize * planesize
+    source = texels * (4 if rgba else 1)
+    decoded = 0 if rgba else 4 * texels
+    k = int(factor)
+    return (source + decoded + screen_bytes_per_lane(k * width, k * height, rgba=True)
+            + screen_bytes_per_lane(width, height, rgba=True))
 
 
 # float32 planes the lens stage may hold live at once for one zoom step: the

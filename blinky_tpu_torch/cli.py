@@ -371,8 +371,8 @@ def cmd_reproject(args) -> int:
         # constant; posed playback keeps per-pose index tables live, so
         # its chunks come out smaller
         from blinky_tpu_torch.budget import (
-            feasible_batch, planes_bytes_per_lane, posed_bytes_per_lane,
-            screen_bytes_per_lane,
+            aa_bytes_per_lane, feasible_batch, planes_bytes_per_lane,
+            posed_bytes_per_lane, screen_bytes_per_lane,
         )
 
         if poses is not None:
@@ -380,6 +380,16 @@ def cmd_reproject(args) -> int:
                 S, P, args.width, args.height,
                 render_scale=1 if k == "auto" else k,
                 rgba=is_rgba, expanded=want_rubix)
+            args.batch = feasible_batch(per_lane, 0, cap=N, device=sess.device)
+        elif args.aa > 1:
+            # the decoded planes and the supersampled screen, both packed
+            # RGBA, dwarf the u8 model's planes and screen; the planes as
+            # planes_bytes_per_lane counts them (padded, doubled for rubix)
+            from blinky_tpu_torch.palette import MAX_PLATES
+
+            per_lane = aa_bytes_per_lane(
+                S, 2 * MAX_PLATES if want_rubix else max(P, MAX_PLATES),
+                args.width, args.height, args.aa, rgba=is_rgba)
             args.batch = feasible_batch(per_lane, 0, cap=N, device=sess.device)
         else:
             # under --shard each device holds only its B-shard: the

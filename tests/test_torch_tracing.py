@@ -137,6 +137,31 @@ def test_session_render_equirect_spans_nest_its_rebuilds(tmp_path):
     assert "session.render" in _inside(spans, outer)
 
 
+@pytest.mark.parametrize("source", ["tensor", "numpy", "rgba"])
+def test_session_render_aa_spans_hold_the_decode_and_the_render(tmp_path, source):
+    """``session.render_aa`` is the outermost span of a call; inside it,
+    ``aa.decode`` around the decode of u8 frames held as a tensor (a NumPy
+    batch decodes on the host, packed RGBA needs none) and the supersampled
+    session's ``session.render``, with the first call's rebuilds."""
+    sess = Session(W, H, platesize=S, device="cpu")
+    frames = synthetic_cubemap_batch(S, 2)
+    if source == "tensor":
+        frames = torch.from_numpy(frames)
+    elif source == "rgba":
+        from blinky_tpu_torch.kernels.remap import frames_to_rgba
+
+        frames = frames_to_rgba(frames, sess.palette)
+    spans = _traced(lambda: [sess.render_aa(frames, factor=2) for _ in range(2)], tmp_path)
+    first, second = _calls(spans, "session.render_aa")
+    assert len(_calls(spans, "aa.decode")) == (2 if source == "tensor" else 0)
+    for outer in (first, second):
+        inner = _inside(spans, outer)
+        assert inner.count("session.render") == 1
+        assert inner.count("aa.decode") == (1 if source == "tensor" else 0)
+    assert {"build.lensmap", "build.remap_kernel"} <= set(_inside(spans, first))
+    assert not any(n.startswith("build.") for n in _inside(spans, second))
+
+
 def test_render_posed_and_the_lens_stage_spans(tmp_path):
     sess = Session(W, H, device="cpu", backend="torch")
     frames = synthetic_cubemap_batch(S, 2)
