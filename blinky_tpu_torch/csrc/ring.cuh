@@ -1,6 +1,8 @@
 // The pieces of a shared-memory ring that Hopper's asynchronous copies fill
-// and drain, shared by K3 (sol.cu: TMA tiles into a ring, wgmma out of it)
-// and K1's ring path (remap_gather.cu: bulk row copies in, bulk stores out).
+// and drain, shared by K3 (sol.cu: TMA tiles into a ring, wgmma out of it),
+// K1's ring path (remap_gather.cu: bulk row copies in, bulk stores out) and
+// K10's (ingest.cu: bulk copies of each output's tap rows in, the blend, bulk
+// stores out).
 #pragma once
 
 #include <stdint.h>

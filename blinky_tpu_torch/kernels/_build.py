@@ -85,6 +85,9 @@ _SIGNATURES = {
     # tint_mask, out, stream
     "blinky_equirect_gather": [_vp, _ll, _i, _vp, _vp, _i, _ll, _vp, _vp, _vp, _vp, _vp,
                                _vp, _vp],
+    # the same arguments: K10's ring path
+    "blinky_equirect_gather_ring": [_vp, _ll, _i, _vp, _vp, _i, _ll, _vp, _vp, _vp, _vp, _vp,
+                                    _vp, _vp],
     # in, k, H, W, batch, out, stream
     "blinky_downsample_rgba": [_vp, _i, _ll, _ll, _i, _vp, _vp],
     # in, planes, per_plane, tints (host), out, stream

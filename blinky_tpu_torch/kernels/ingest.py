@@ -40,6 +40,7 @@ from blinky_tpu_torch import geometry
 from blinky_tpu_torch.kernels import _build
 from blinky_tpu_torch.kernels.remap import (
     _ALPHA, _check_rows, _require, _rgba_tensor, _tint_rgba, compact_texels, remap_gather,
+    ring_path,
 )
 from blinky_tpu_torch.palette import MAX_PLATES
 from blinky_tpu_torch.utils.timing import spanned
@@ -133,7 +134,11 @@ def equirect_gather(src, idx, w=None, *, plate_mask=None, valid=None, bg=None,
     onto the blend (the ingest); or ``valid`` [n] bool with ``bg`` [n] int32,
     which shows where a pixel is not valid, and optionally ``tint_rgb`` [n]
     int32 with ``tint_mask`` [n] bool, the true-colour tint applied between
-    the blend and the select (the composed screen kernel).
+    the blend and the select (the composed screen kernel).  Long rows run on
+    the kernel's ring of bulk copies, decided by K1's rule
+    (:func:`blinky_tpu_torch.kernels.remap.ring_path`: the ring wins from
+    the same row size on), counted in ``equirect_gather.ring_launches``
+    beside ``equirect_gather.launches``.
     """
     k = "equirect_gather"
     _check_rows(k, src, (torch.int32,))
@@ -163,14 +168,19 @@ def equirect_gather(src, idx, w=None, *, plate_mask=None, valid=None, bg=None,
     with _build.on_device(dev) as stream:
         out = torch.empty((n, B), dtype=torch.int32, device=dev)
         if out.numel():
-            _build.launch(equirect_gather, k, "blinky_equirect_gather",
-                src.data_ptr(), rows, B, idx.data_ptr(), _build.ptr(w), taps, n,
-                _build.ptr(plate_mask), _build.ptr(valid), _build.ptr(bg),
-                _build.ptr(tint_rgb), _build.ptr(tint_mask), out.data_ptr(), stream)
+            args = (src.data_ptr(), rows, B, idx.data_ptr(), _build.ptr(w), taps, n,
+                    _build.ptr(plate_mask), _build.ptr(valid), _build.ptr(bg),
+                    _build.ptr(tint_rgb), _build.ptr(tint_mask), out.data_ptr(), stream)
+            if ring_path(B * 4, src.data_ptr(), out.data_ptr()):
+                _build.launch(equirect_gather, k, "blinky_equirect_gather_ring", *args)
+                equirect_gather.ring_launches += 1
+            else:
+                _build.launch(equirect_gather, k, "blinky_equirect_gather", *args)
     return out
 
 
 equirect_gather.launches = 0
+equirect_gather.ring_launches = 0
 
 
 def panos_bits(panos, pano_hw, device):

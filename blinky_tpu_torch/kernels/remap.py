@@ -130,17 +130,20 @@ def _check_rows(kernel, src, dtypes):
             f"{tuple(src.shape)}")
 
 
-# K1's ring path (``remap_gather.cu``'s note): rows of at least this many
-# bytes, measured on the H100 where the ring stops beating the register path
+# K1's and K10's ring paths (``remap_gather.cu``'s and ``ingest.cu``'s
+# notes): rows of at least this many bytes, measured on the H100 where each
+# ring stops beating its register path (both at 192)
 RING_MIN_ROW_BYTES = 192
 
 
 def ring_path(row_bytes: int, src_ptr: int, out_ptr: int) -> bool:
-    """Whether K1 runs on its ring of bulk copies: rows of at least
+    """Whether K1 or K10 runs on its ring of bulk copies: rows of at least
     :data:`RING_MIN_ROW_BYTES`, a multiple of 16 bytes, with the source and
     the output on 16-byte boundaries (the bulk copies' alignment).  The one
-    place that decides: :func:`remap_gather` launches the ring's entry point
-    and counts ``remap_gather.bulk_launches`` on its answer."""
+    place that decides: :func:`remap_gather` and
+    :func:`blinky_tpu_torch.kernels.ingest.equirect_gather` launch their
+    ring's entry point and count ``remap_gather.bulk_launches`` or
+    ``equirect_gather.ring_launches`` on its answer."""
     return (row_bytes >= RING_MIN_ROW_BYTES and row_bytes % 16 == 0
             and src_ptr % 16 == 0 and out_ptr % 16 == 0)
 

@@ -1,7 +1,8 @@
 """Smoke run of the PyTorch/CUDA port (blinky_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py            # the smoke run, on one card
-    python3 chip_smoke.py --sweep    # K5's and K7's tuning constants
+    python3 chip_smoke.py --sweep      # K5's, K7's and K10's tuning constants
+    python3 chip_smoke.py --sweep k10  # K10's ring alone
 
 Builds the hand-written CUDA kernels from ``blinky_tpu_torch/csrc`` and drives
 the port's main paths at 1920x1080 (panini + cube, ``f_fov 180``):
@@ -87,7 +88,8 @@ times every kernel against its plain PyTorch version.  Phases:
    and nearest (K10, and K1 for compact and faces); a 1080p Session renders
    the 64-frame batch through ``render_aa`` at factor 2 (K1 at 3840x2160,
    then K11), and the 720p Session a rubix ``render_aa`` of the faces'
-   expansion on the card (K12); the counters are read.  The three modes are
+   expansion on the card (K12); the counters are read, K10's ring launches
+   among them (every launch of the path: its rows are 512 bytes).  The three modes are
    held bit-equal to each other, to ``equirect_gather_plain`` and the plain
    remap on the card (16 lanes at a time), and lanes 0 and 127 to the
    all-host path (``EquirectIngest.host``, ``host_remap``); K11 and K12 to
@@ -95,7 +97,8 @@ times every kernel against its plain PyTorch version.  Phases:
    Then every K10 variant (the full faces, the compact subset, the fused
    screen with and without the tint; bilinear and nearest), K11 and K12 are
    timed beside their plain versions with their bytes, bound and share of
-   it, K10-nearest beside ``torch.index_select``; the three modes end to end
+   it, each K10 variant's ring in turns with its register path,
+   K10-nearest beside ``torch.index_select``; the three modes end to end
    with the panos on the card, in panos a second
    (``bench.throughput.run_equirect_throughput``), and once from a NumPy
    batch; the compact mode at B = 1, 16 and 128; and ``render_aa``, split by
@@ -1379,6 +1382,7 @@ def equirect_phase(dev, frames, frames_dev, kernels):
                builder.lensmap_resolve, posed.sweep_remap]
     for fn in list(kernels.values()) + earlier + list(path_kernels.values()):
         fn.launches = 0
+    ingest.equirect_gather.ring_launches = 0
     outs, by_mode = {}, {}
     for mode in MODES:
         n10, n1 = ingest.equirect_gather.launches, remap.remap_gather.launches
@@ -1412,10 +1416,16 @@ def equirect_phase(dev, frames, frames_dev, kernels):
     sess.cmd("f_rubix")
     torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in path_kernels.items()}
+    k10_ring = ingest.equirect_gather.ring_launches
     phase(8, f"launches in the 360-video path's run: {launches}; (K10, K1) by mode: {by_mode}; "
-          f"K1 in all: {remap.remap_gather.launches}")
+          f"K1 in all: {remap.remap_gather.launches}; K10's ring (rows of "
+          f"{remap.RING_MIN_ROW_BYTES} bytes and more, remap.ring_path) took {k10_ring} of its "
+          f"{launches['equirect_gather']} launches")
     for name, n in launches.items():
         require(n >= 1, f"{name} was not launched by the 360-video path")
+    require(k10_ring == launches["equirect_gather"],
+            f"K10 took its ring {k10_ring} times in {launches['equirect_gather']} launches, all "
+            f"on {PANO_B * 4}-byte rows")
     for mode in MODES:
         require(by_mode[mode][0] == 4, f"{mode} launched K10 {by_mode[mode][0]} times, not 4")
         require(by_mode[mode][1] == (0 if mode == "fused" else 4),
@@ -1531,12 +1541,17 @@ def equirect_phase(dev, frames, frames_dev, kernels):
             err = max(err, e)
             require(e == 0, f"K10 {name} differs from its plain version (max {e})")
             ms, plain_ms = cuda_ms_pair(run, ref)
+            reg = lambda run=run: register_path(ingest, run)  # noqa: E731
+            require(torch.equal(reg(), run()), f"K10 {name}: the register path differs")
+            ring_ms, reg_ms = cuda_ms_pair(run, reg)
             bound = nbytes / HBM_BYTES_PER_S * 1e3
             k10[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound)
             phase(8, f"K10 equirect_gather {name}, n={idx.shape[1]} B={PANO_B}: kernel "
                   f"{ms:.4f} ms, plain {plain_ms:.4f} ms; {rows} distinct pano rows, {nbytes} "
                   f"bytes, bound {bound:.4f} ms, {100 * bound / ms:.1f} % of it "
-                  f"({nbytes / (ms * 1e-3) / 1e9:.1f} GB/s); bit-equal")
+                  f"({nbytes / (ms * 1e-3) / 1e9:.1f} GB/s); bit-equal; in turns its ring "
+                  f"{ring_ms:.4f} ms ({100 * bound / ring_ms:.1f} %), its register path "
+                  f"{reg_ms:.4f} ms ({100 * bound / reg_ms:.1f} %)")
             torch.cuda.empty_cache()
     idx_near = ingests[False].device_tables()[0]
     lib = lambda: torch.index_select(src, 0, idx_near[0])  # noqa: E731
@@ -3293,6 +3308,16 @@ def host_ms(fn):
     return (time.perf_counter() - t0) * 1e3
 
 
+def register_path(ingest, fn):
+    """``fn()`` with K10 held on its register path, whatever the rows."""
+    ring = ingest.ring_path
+    ingest.ring_path = lambda *a: False
+    try:
+        return fn()
+    finally:
+        ingest.ring_path = ring
+
+
 def cuda_ms_pair(kernel, plain):
     """(kernel ms, plain ms) per call, timed in turns: plain, kernel, kernel,
     plain; each figure the mean of its two runs."""
@@ -3327,6 +3352,22 @@ K7_ROWS_SWEEP = [{}, {"K7_ROW_CHUNKS_U8": 2, "K7_ROW_CHUNKS_RGBA": 4, "K7_ROW_OR
 K7_ROWS_SHAPES = [("u8", 64, 64), ("u8", 128, 128), ("u8", 256, 256), ("u8", 1024, 1024),
                   ("u8", 2048, 2048), ("u8", 1024, 2048), ("rgba", 32, 32), ("rgba", 64, 64),
                   ("rgba", 256, 256)]
+# K10's ring path (csrc/ingest.cu): the stages' bytes and count of the four-
+# and the one-tap ring, the cap on a stage's outputs, the consumer and
+# producer warps; the source's defaults first and again by name, so that the
+# two readings of one build show the noise
+K10_RING_SWEEP = [{}, {"K10_RING_STAGES_K4": 2, "K10_RING_STAGE_BYTES_K4": 65536},
+                  {"K10_RING_STAGES_K4": 3, "K10_RING_STAGE_BYTES_K4": 49152},
+                  {"K10_RING_STAGES_K4": 4, "K10_RING_STAGE_BYTES_K4": 40960},
+                  {"K10_RING_STAGE_BYTES_K4": 57344}, {"K10_RING_STAGE_BYTES_K4": 81920},
+                  {"K10_RING_STAGE_BYTES_K4": 90112}, {"K10_RING_STAGES_K1": 4},
+                  {"K10_RING_STAGE_BYTES_K1": 65536}, {"K10_RING_MAX_RUN": 128},
+                  {"K10_RING_CONSUMERS": 12}, {"K10_RING_PRODUCERS": 6}]
+# its shapes: the 360 cell's compact tables (4096x2048 panos, 720 plates,
+# panini 1280x720) at these batches, for the threshold; then the other modes
+# and the nearest tables at the cell's B
+K10_RING_BATCHES = (16, 32, 48, 64, 96, 128, 256)
+K10_RING_MODES = ("fused", "fused + tint", "faces", "compact, nearest", "fused, nearest")
 # cudaLimitMaxL2FetchGranularity in cudaLimit
 L2_FETCH_LIMIT = 5
 
@@ -3535,6 +3576,77 @@ def sweep_rows():
     finally:
         posed.long_row_path = choose
     print(json.dumps({"k7_rows_sweep": summary}), flush=True)
+    return 0
+
+
+def sweep_k10():
+    """K10's ring path: each configuration of K10_RING_SWEEP beside the
+    register path (the package's ``blinky_equirect_gather``) on the 360
+    cell's compact tables at each of K10_RING_BATCHES and, at B = 128, on
+    K10_RING_MODES; each held equal to the plain version and printed with
+    its share of the byte bound (the distinct pano rows the outputs that
+    read any name, the tables, the per-output operands, the outputs)."""
+    from blinky_tpu_torch.api import Session
+    from blinky_tpu_torch.kernels import _build, ingest
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         check=True, capture_output=True, text=True).stdout.strip()
+    print(f"card: {smi}", flush=True)
+    rings = build_variants({"ingest": K10_RING_SWEEP})["ingest"]
+    reg = bind_library(_build.LIBRARY)  # the register path through a handle of its own
+    variants = [("register path", reg)] + [
+        (", ".join(f"{k}={v}" for k, v in cfg.items()) or "ring, the source's defaults", lib)
+        for cfg, lib in rings]
+    dev = torch.device("cuda")
+    sess = Session(EQ_W, EQ_H, platesize=EQ_S, device=dev)
+    gen = torch.Generator(dev).manual_seed(10)
+    sess.render_equirect(torch.randint(-2**31, 2**31 - 1, (PANO_H, PANO_W, 4), dtype=torch.int32,
+                                       device=dev, generator=gen).view(torch.uint32))
+    k = sess._kernel
+    tr, tm = k.tint_rgb_mask
+    tables = {}
+    for bilinear in (True, False):
+        ing = ingest.EquirectIngest(PANO_H, PANO_W, EQ_S, globe=sess.globe, bilinear=bilinear,
+                                    device=dev)
+        sub = ingest.CompactEquirectChain(ing, k).sub.device_tables()
+        fused = ingest.EquirectScreenKernel(ing, k)
+        full = ing.device_tables()
+        tag = "" if bilinear else ", nearest"
+        w_of = (lambda w: w) if bilinear else (lambda w: None)
+        tables["compact" + tag] = (sub[0], w_of(sub[1]), dict(plate_mask=sub[2]), 4, sub[2] != 0)
+        tables["fused" + tag] = (fused.idx, w_of(fused.w),
+                                 dict(valid=k.valid, bg=k.background_rgba), 5, k.valid)
+        if bilinear:
+            tables["fused + tint"] = (fused.idx, fused.w,
+                                      dict(valid=k.valid, bg=k.background_rgba, tint_rgb=tr,
+                                           tint_mask=tm), 10, k.valid)
+            tables["faces"] = (full[0], full[1], dict(plate_mask=full[2]), 4, full[2] != 0)
+    shapes = [("compact", b) for b in K10_RING_BATCHES] + [(m, PANO_B) for m in K10_RING_MODES]
+    choose = ingest.ring_path
+    ingest.ring_path = lambda *a: _build._lib is not reg
+    summary = {}
+    try:
+        for name, batch in shapes:
+            idx, w, kw, n_ops, keep = tables[name]
+            src = torch.randint(-2**31, 2**31 - 1, (PANO_H * PANO_W, batch), dtype=torch.int32,
+                                device=dev, generator=gen)
+            what = f"K10 {name} B={batch} ({batch * 4}-byte rows)"
+            ms = time_variants(variants, lambda: ingest.equirect_gather(src, idx, w, **kw), what,
+                               ingest.equirect_gather_plain(src, idx, w, **kw))
+            rows = int(torch.unique(idx[:, keep]).numel())
+            n = idx.shape[1]
+            nbytes = (rows * batch * 4 + idx.numel() * 4 + (w.numel() * 4 if w is not None else 0)
+                      + n * n_ops + n * batch * 4)
+            bound = nbytes / HBM_BYTES_PER_S * 1e3
+            summary[what] = {label: [round(m, 4), round(100 * bound / m, 2)]
+                             for (label, _), m in zip(variants, ms)}
+            print(f"{what}: {rows} distinct pano rows, {nbytes} bytes, bound {bound:.4f} ms; "
+                  f"(ms, % of it): {summary[what]}", flush=True)
+            del src
+            torch.cuda.empty_cache()
+    finally:
+        ingest.ring_path = choose
+    print(json.dumps({"k10_ring_sweep": summary}), flush=True)
     return 0
 
 
@@ -4312,9 +4424,11 @@ def random_globes_phase(dev, main_rows):
 
 
 if __name__ == "__main__":
-    if sys.argv[1:] == ["--sweep"]:
+    if sys.argv[1:2] == ["--sweep"]:
         if not torch.cuda.is_available():
             print("chip_smoke --sweep: no CUDA device", file=sys.stderr)
             sys.exit(1)
-        sys.exit(sweep())
+        if sys.argv[2:] == ["k10"]:
+            sys.exit(sweep_k10())
+        sys.exit(sweep() or sweep_k10())
     sys.exit(main())

@@ -1620,6 +1620,143 @@ def test_equirect_gather_misaligned_and_long_rows(cuda_device, K):
     torch.cuda.synchronize()
 
 
+# K10's ring path (remap.ring_path, K1's rule): rows of RING_MIN_ROW_BYTES
+# and more, a multiple of 16 bytes, on aligned pointers; a run is as many outputs as a stage holds all the taps of, and an
+# output whose taps a stage cannot hold goes in pieces.  The tables here are
+# an EquirectIngest's on a small pano, so they hold the wrap column (taps 0
+# and 1 no neighbours in memory), pole-clamped rows (taps 0 and 2 one row)
+# and, on the tetra globe, unused plates.
+_K10_RING_MIN = remap.RING_MIN_ROW_BYTES
+K10_RING_BATCHES = [_K10_RING_MIN // 4, 128, 256]
+
+
+def _k10_tables(K, B, globe_name, device, seed):
+    """An ingest's tables on a 32x64 pano with 48-texel plates (the
+    centre texels of the polar plates sit in the first row's upper half, so
+    their rows clamp), a random [2048, B] source and both epilogues'
+    operands."""
+    ing = ingest.EquirectIngest(32, 64, 48, globe=globes.get(globe_name), bilinear=K == 4,
+                                device=device)
+    idx, w, pmask = ing.device_tables()
+    rng = np.random.default_rng(seed)
+    n = idx.shape[1]
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+    word = lambda: t(rng.integers(-2**31, 2**31, n, dtype=np.int64).astype(np.int32))  # noqa: E731
+    src = t(rng.integers(-2**31, 2**31, (32 * 64, B), dtype=np.int64).astype(np.int32))
+    ops = dict(plate_mask=pmask, valid=t(rng.random(n) < 0.8), bg=word(), tint_rgb=word(),
+               tint_mask=t(rng.random(n) < 0.5))
+    return src, idx, (w if K == 4 else None), ops
+
+
+def _k10_counted(src, idx, w, ring, **kw):
+    """K10 once, with the launch and ring counters' steps checked."""
+    n0, r0 = ingest.equirect_gather.launches, ingest.equirect_gather.ring_launches
+    got = ingest.equirect_gather(src, idx, w, **kw)
+    torch.cuda.synchronize()
+    assert ingest.equirect_gather.launches == n0 + 1
+    assert ingest.equirect_gather.ring_launches == r0 + ring
+    return got
+
+
+def _k10_register_path(monkeypatch, src, idx, w, **kw):
+    """K10 on its register path whatever the row."""
+    with monkeypatch.context() as m:
+        m.setattr(ingest, "ring_path", lambda *a: False)
+        return _k10_counted(src, idx, w, False, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [1, 4])
+@pytest.mark.parametrize("B", K10_RING_BATCHES)
+@pytest.mark.parametrize("epilogue", ["plate_mask", "screen", "screen_tint"])
+@pytest.mark.parametrize("globe_name", ["cube", "tetra"])
+def test_equirect_ring_equals_register_path(cuda_device, monkeypatch, K, B, epilogue,
+                                            globe_name):
+    """The ring against the register path and the plain version, bit for
+    bit: both tap counts, the three epilogues, B at the threshold, 128 and
+    256, on tables with the wrap column, pole-clamped rows and (tetra)
+    unused plates; the screen's invalid pixels show their background."""
+    src, idx, w, ops = _k10_tables(K, B, globe_name, cuda_device, K * 1000 + B)
+    if K == 4:
+        assert bool((idx[1] != idx[0] + 1).any()), "no wrap column in the tables"
+        assert bool((idx[0] == idx[2]).any()), "no pole-clamped row in the tables"
+    if globe_name == "tetra":
+        assert bool((ops["plate_mask"] == 0).any()), "no unused plate"
+    kw = {k: ops[k] for k in {"plate_mask": ("plate_mask",), "screen": ("valid", "bg"),
+                              "screen_tint": ("valid", "bg", "tint_rgb", "tint_mask")}[epilogue]}
+    got = _k10_counted(src, idx, w, True, **kw)
+    _equal(got, _k10_register_path(monkeypatch, src, idx, w, **kw))
+    _equal(got, ingest.equirect_gather_plain(src, idx, w, **kw))
+
+
+# rows the ring takes in pieces or whole at a stage's edge, with random
+# tables (B, pixels n, source rows): four taps of 16,384 bytes fill the
+# four-tap ring's 64-KB stage and of 16,400 are past it; one tap of 49,152
+# bytes fills the one-tap ring's 48-KB stage and of 49,168 is past it
+K10_LONG = {"B3072": (3072, 40, 20), "B4096": (4096, 33, 20), "B4100": (4100, 33, 20),
+            "B12288": (12288, 9, 12), "B12292": (12292, 9, 12)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [1, 4])
+@pytest.mark.parametrize("case", list(K10_LONG))
+def test_equirect_ring_long_rows(cuda_device, monkeypatch, K, case):
+    """Long rows on the ring, whole runs of one output and pieces, under
+    the ingest's and the tinted screen's epilogue, ordinary and extreme
+    weights: bit-equal to the register path and the plain version."""
+    B, n, rows = K10_LONG[case]
+    rng = np.random.default_rng(B + K)
+    for extreme in (False, True):
+        src, idx, w, ops = _gather_case(K, B, n, rows, rng, cuda_device, extreme)
+        for kw in (dict(plate_mask=ops["plate_mask"]),
+                   {k: ops[k] for k in ("valid", "bg", "tint_rgb", "tint_mask")}):
+            got = _k10_counted(src, idx, w, True, **kw)
+            _equal(got, _k10_register_path(monkeypatch, src, idx, w, **kw))
+            _equal(got, ingest.equirect_gather_plain(src, idx, w, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [1, 4])
+@pytest.mark.parametrize("kind", ["short", "not_16", "src_off16"])
+def test_equirect_ring_leaves_short_and_misaligned_rows(cuda_device, K, kind):
+    """Rows under the threshold, rows of no multiple of 16 bytes and a
+    source off a 16-byte boundary stay on the register path, bit-equal to
+    the plain version."""
+    B = {"short": _K10_RING_MIN // 4 - 4, "not_16": 130, "src_off16": 128}[kind]
+    src, idx, w, ops = _k10_tables(K, B + (kind == "src_off16"), "cube", cuda_device, B)
+    if kind == "src_off16":
+        src = src.reshape(-1)[1:1 + src.shape[0] * B].reshape(-1, B)
+        assert src.data_ptr() % 16 != 0
+    assert not remap.ring_path(src.shape[1] * 4, src.data_ptr(), 0)
+    kw = dict(plate_mask=ops["plate_mask"])
+    _equal(_k10_counted(src, idx, w, False, **kw), ingest.equirect_gather_plain(src, idx, w, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [1, 4])
+def test_equirect_ring_on_the_cells_compact_tables(cuda_device, monkeypatch, K):
+    """The ring on the 360 cell's own compact tables: 4096x2048 panos, 720
+    plates, panini 1280x720, B = 128; bit-equal to the register path and
+    the plain version."""
+    torch.cuda.empty_cache()
+    sess = Session(1280, 720, platesize=720, device=cuda_device)
+    gen = torch.Generator(cuda_device).manual_seed(K)
+    pano = torch.randint(-2**31, 2**31 - 1, (2048, 4096, 1), dtype=torch.int32,
+                         device=cuda_device, generator=gen)
+    sess.render_equirect(pano.view(torch.uint32))
+    ing = ingest.EquirectIngest(2048, 4096, 720, globe=sess.globe, bilinear=K == 4,
+                                device=cuda_device)
+    idx, w, pmask = ingest.CompactEquirectChain(ing, sess._kernel).sub.device_tables()
+    w = w if K == 4 else None
+    src = torch.randint(-2**31, 2**31 - 1, (2048 * 4096, 128), dtype=torch.int32,
+                        device=cuda_device, generator=gen)
+    got = _k10_counted(src, idx, w, True, plate_mask=pmask)
+    _equal(got, _k10_register_path(monkeypatch, src, idx, w, plate_mask=pmask))
+    _equal(got, ingest.equirect_gather_plain(src, idx, w, plate_mask=pmask))
+    del got, src
+    torch.cuda.empty_cache()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("K", [1, 4])
 def test_equirect_gather_source_past_int32(cuda_device, K):

@@ -25,7 +25,7 @@ from blinky_tpu.lensmap import calc_scale as jcalc
 from blinky_tpu.palette import default_palette
 from blinky_tpu_torch import globes, lenses
 from blinky_tpu_torch.io.cubemap import equirect_to_cubemap
-from blinky_tpu_torch.kernels import ingest
+from blinky_tpu_torch.kernels import ingest, remap
 from blinky_tpu_torch.kernels.remap import RemapKernel
 from blinky_tpu_torch.lensmap import Zoom, build_lensmap, calc_scale
 
@@ -234,6 +234,53 @@ def test_wrapper_checks_operands():
     with pytest.raises(ValueError, match="no kernel for device meta"):
         ingest.equirect_gather(src.to("meta"), idx.to("meta"), w.to("meta"))
     assert ingest.equirect_gather.launches == 0
+
+
+_RING_MIN = remap.RING_MIN_ROW_BYTES
+
+
+@pytest.mark.parametrize("row_bytes,src_off,out_off,ring", [
+    (_RING_MIN - 16, 0, 0, False),       # under the threshold
+    (_RING_MIN, 0, 0, True),             # at it
+    (_RING_MIN + 16, 0, 0, True),
+    (512, 0, 0, True),                   # the 360 cell's rows, B = 128
+    (49152, 0, 0, True),                 # a stage's bytes of one tap
+    (65536 + 16, 0, 0, True),            # four taps past a stage: in pieces
+    (512 + 4, 0, 0, False),              # no multiple of 16 bytes
+    (520, 0, 0, False),
+    (512, 4, 0, False), (512, 8, 0, False), (512, 12, 0, False),    # pano off 16
+    (512, 0, 4, False), (512, 0, 8, False),                         # output off 16
+    (512, 16, 48, True),
+])
+def test_equirect_ring_path_decides_on_row_bytes_and_alignment(row_bytes, src_off, out_off,
+                                                               ring):
+    """K10 takes its ring by K1's rule, the one function both wrappers
+    call: a row of the threshold's bytes or more, a multiple of 16, on
+    16-byte aligned pointers."""
+    assert ingest.ring_path is remap.ring_path
+    base = 1 << 40
+    assert ingest.ring_path(row_bytes, base + src_off, base + out_off) is ring
+
+
+@pytest.mark.parametrize("K", [1, 4])
+@pytest.mark.parametrize("B", [_RING_MIN // 4, 128, 8])
+def test_equirect_gather_on_the_cpu_runs_the_plain_version(K, B):
+    """On the CPU neither counter moves, whatever the row, and the wrapper
+    returns the plain version's rows under every epilogue."""
+    rng = np.random.default_rng(K * 100 + B)
+    rows, n = 40, 257
+    src = torch.from_numpy(rng.integers(-2**31, 2**31, (rows, B), dtype=np.int64)
+                           .astype(np.int32))
+    idx = torch.from_numpy(rng.integers(0, rows, (K, n)).astype(np.int32))
+    w = torch.from_numpy(rng.random((K, n), dtype=np.float32)) if K == 4 else None
+    word = torch.from_numpy(rng.integers(-2**31, 2**31, n, dtype=np.int64).astype(np.int32))
+    flag = torch.from_numpy(rng.random(n) < 0.5)
+    n0, r0 = ingest.equirect_gather.launches, ingest.equirect_gather.ring_launches
+    for kw in ({}, dict(plate_mask=word), dict(valid=flag, bg=word),
+               dict(valid=flag, bg=word, tint_rgb=word, tint_mask=~flag)):
+        got = ingest.equirect_gather(src, idx, w, **kw)
+        assert torch.equal(got, ingest.equirect_gather_plain(src, idx, w, **kw))
+    assert (ingest.equirect_gather.launches, ingest.equirect_gather.ring_launches) == (n0, r0)
 
 
 @pytest.mark.parametrize("kind", ["rgb", "rgb_nearest", "palette"])

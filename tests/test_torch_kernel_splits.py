@@ -12,7 +12,11 @@ retune):
   block-stride loop past the grid's 65535 blocks;
 * K6 in resolver mode 2 (``csrc/posed.cu``): the shared tile of a block's
   plates, one 4-byte word a pose and run in the vector kernels, the run's
-  bytes in the scalar kernel and off 4 bytes.
+  bytes in the scalar kernel and off 4 bytes;
+* K10's ring (``csrc/ingest.cu``): runs of outputs and pieces of long rows,
+  the producers' bulk copies of each output's taps (a pair of horizontal
+  neighbours in one copy) into a stage, the consumers' walk of the stage's
+  vectors and the run's bulk store.
 """
 
 import re
@@ -386,3 +390,142 @@ def test_k7_long_row_threshold_is_a_blocks_run():
     chunk = _const("layout.cu", "kChunkBytes")
     assert posed.LONG_ROW_MIN_BYTES == {1: chunk * _const("layout.cu", "K7_ROW_CHUNKS_U8"),
                                         4: chunk * _const("layout.cu", "K7_ROW_CHUNKS_RGBA")}
+
+
+# ------------------------------------------------------------- K10's ring
+
+
+def _k10(name):
+    return _const("ingest.cu", name)
+
+
+def k10_ring_model(src, rows_kn, copied, K, row_bytes):
+    """Every bulk copy, consumer read and bulk store of one
+    ``equirect_gather_kernel_ring<K>`` launch, as ``ingest.cu`` computes
+    them, on byte arrays.
+
+    *src*: the pano's bytes, ``row_bytes`` a row; *rows_kn* [K, n]: each
+    output's resolved tap rows; *copied* [n]: the outputs that read taps (a
+    valid pixel on a used plate).  Returns (out, writes): the output bytes
+    with each copied output's first tap in place (the consumer's vector of
+    tap 0 stands for its blend) and the count of stores of each output byte;
+    asserts on the way that every copy lands in its own slot of the stage,
+    inside it, that each warp's copies bring the bytes it expects, and that
+    every consumer read of tap k finds that tap's bytes."""
+    SB, maxrun = _k10(f"K10_RING_STAGE_BYTES_K{K}"), _k10("K10_RING_MAX_RUN")
+    P, C = _k10("K10_RING_PRODUCERS"), 32 * _k10("K10_RING_CONSUMERS")
+    slots = _ceil(_ceil(maxrun, P), 32)
+    n = rows_kn.shape[1]
+    per_out = K * row_bytes
+    whole = per_out <= SB
+    run = min(SB // per_out if whole else 1, maxrun)
+    piece = row_bytes if whole else SB // K // 16 * 16
+    pieces = _ceil(row_bytes, piece)
+    pairs = K == 4 and pieces == 1
+    out = np.zeros(n * row_bytes, np.uint8)
+    writes = np.zeros(n * row_bytes, np.int64)
+    chunk = _ceil(run, P)
+    assert chunk <= 32 * slots
+    lanes16 = np.arange(16)
+    for r in range(_ceil(n, run)):
+        p0 = r * run
+        nn = min(run, n - p0)
+        for pc in range(pieces):
+            c0 = pc * piece
+            cb = min(piece, row_bytes - c0)
+            stage = np.full(SB, -1, np.int16)
+            owners = np.zeros(nn, np.int64)
+            for pw in range(P):
+                e = min((pw + 1) * chunk, min(run, n - r * run))
+                expect = got = 0
+                for lane in range(32):
+                    for j in range(slots):
+                        i = pw * chunk + lane + 32 * j
+                        if i >= e:
+                            continue
+                        owners[i] += 1
+                        if not copied[p0 + i]:
+                            continue
+                        expect += K * cb
+                        d = i * K * cb
+                        rr = rows_kn[:, p0 + i]
+                        if K == 1:
+                            copies = [(d, rr[0] * row_bytes + c0, cb)]
+                        else:
+                            copies = []
+                            for k in (0, 2):
+                                if pairs and rr[k + 1] == rr[k] + 1:
+                                    copies.append((d + k * cb, rr[k] * row_bytes, 2 * cb))
+                                else:
+                                    copies += [(d + k * cb, rr[k] * row_bytes + c0, cb),
+                                               (d + (k + 1) * cb, rr[k + 1] * row_bytes + c0, cb)]
+                        for dst, so, size in copies:
+                            assert dst % 16 == 0 and so % 16 == 0 and size % 16 == 0
+                            assert 0 <= dst and dst + size <= SB
+                            assert (stage[dst:dst + size] == -1).all(), "two copies overlap"
+                            stage[dst:dst + size] = src[so:so + size]
+                            got += size
+                assert got == expect
+            assert (owners == 1).all(), "an output of the run has no producer lane, or two"
+            # the consumers: thread tid walks vectors tid, tid + C, ... with
+            # (i, c) stepped as the kernel steps them
+            vecs = cb // 16
+            di, dc = C // vecs, C % vecs
+            i = np.arange(C) // vecs
+            c = np.arange(C) % vecs
+            v = np.arange(C)
+            dst = np.zeros(nn * cb, np.uint8)
+            while (v < nn * vecs).any():
+                live = v < nn * vecs
+                assert (i[live] == v[live] // vecs).all() and (c[live] == v[live] % vecs).all()
+                iv, cv = i[live], c[live]
+                keep = copied[p0 + iv]
+                iv, cv = iv[keep, None], cv[keep, None]
+                for k in range(K):
+                    want = src[rows_kn[k, p0 + iv] * row_bytes + c0 + cv * 16 + lanes16]
+                    assert (stage[iv * K * cb + k * cb + cv * 16 + lanes16] == want).all(), k
+                dst[iv * cb + cv * 16 + lanes16] = stage[iv * K * cb + cv * 16 + lanes16]
+                v = v + C
+                i = i + di
+                c = c + dc
+                wrap = c >= vecs
+                c[wrap] -= vecs
+                i[wrap] += 1
+            # the bulk store: nn whole rows, or one output's piece
+            at = p0 * row_bytes + c0
+            assert pieces == 1 or nn == 1
+            out[at:at + nn * cb] = dst
+            writes[at:at + nn * cb] += 1
+    return out, writes
+
+
+@pytest.mark.parametrize("K", [1, 4])
+def test_k10_ring_fits_shared_memory(K):
+    """A K-tap ring's stages, their outputs' operands, two mbarriers each
+    and, with four taps, two output buffers fit an SM's 227 KB."""
+    SB, stages = _k10(f"K10_RING_STAGE_BYTES_K{K}"), _k10(f"K10_RING_STAGES_K{K}")
+    out = 0 if K == 1 else SB // K
+    assert stages * (SB + 32 * _k10("K10_RING_MAX_RUN") + 16) + 2 * out <= 232448
+    assert 32 * (_k10("K10_RING_CONSUMERS") + _k10("K10_RING_PRODUCERS")) <= 1024
+
+
+@pytest.mark.parametrize("K", [1, 4])
+@pytest.mark.parametrize("row_bytes", [192, 512, 1024, 12288, 16384, 16400, 49152, 49168])
+@pytest.mark.parametrize("n", [1, 37, 333])
+def test_k10_ring_copies_reads_and_stores(K, row_bytes, n):
+    """Runs of whole outputs, one output a run at a stage's edge, and
+    pieces past it: each output byte is stored once, and from its own taps;
+    horizontal neighbours (one row apart) travel in one copy."""
+    rng = np.random.default_rng(K * 7 + row_bytes + n)
+    rows = 24
+    src = rng.integers(0, 256, rows * row_bytes, dtype=np.uint8).astype(np.int16)
+    r0 = rng.integers(0, rows - 1, (2, n))
+    nb = np.where(rng.random((2, n)) < 0.7, r0 + 1, rng.integers(0, rows, (2, n)))
+    rows_kn = np.stack([r0[0], nb[0], r0[1], nb[1]])[:K]
+    copied = rng.random(n) < 0.8
+    copied[0] = True
+    out, writes = k10_ring_model(src, rows_kn, copied, K, row_bytes)
+    assert (writes == 1).all()
+    want = src.reshape(rows, row_bytes)[rows_kn[0]].reshape(-1).astype(np.uint8)
+    keep = np.repeat(copied, row_bytes)
+    assert np.array_equal(out[keep], want[keep])
