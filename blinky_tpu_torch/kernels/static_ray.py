@@ -53,6 +53,7 @@ from blinky_tpu_torch.lensmap.builder import (
     resolver_args, rotate_rays, script_plates,
 )
 from blinky_tpu_torch.palette import MAX_PLATES
+from blinky_tpu_torch.utils.timing import span
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -210,23 +211,38 @@ def _check_table(kernel, table, device):
                 f"tensor of shape {(hb, wb)} on {device} (RayTable.device)")
 
 
-def script_pose_plates(table, bases, globe):
+def script_piece(table) -> int:
+    """The poses one piece of :func:`script_pose_plates` may take on
+    *table*: as many as fit the free memory of its device now
+    (:func:`blinky_tpu_torch.budget.script_bytes_per_lane`)."""
+    return feasible_batch(script_bytes_per_lane(table.vx.numel()), 0, device=table.vx.device)
+
+
+def script_pose_plates(table, bases, globe, piece=None):
     """A script globe's plates for every pose: per pose, the table's rays
     rotated and normalized by :func:`rotate_rays` (K13 on a card) and the
     script's resolver on them as tensors (:func:`script_plates`), clamped
     to [-1, MAX_PLATES] (which keeps ``plate >= 0`` and the clip to the
     globe's plates) -> int8 [B, H, W] on the table's device.  The poses go
-    in pieces whose evaluation fits the device's budget
-    (:func:`blinky_tpu_torch.budget.script_bytes_per_lane`)."""
+    in pieces of *piece* poses, by default :func:`script_piece` read now.
+    The stage is the span ``posed.script_plates``, each piece (its K13
+    launch and its evaluation) a ``posed.script_piece``, counted by
+    ``script_pose_plates.pieces``."""
     dev = table.vx.device
     B = int(bases.shape[0])
-    out = torch.empty((B,) + tuple(table.vx.shape), dtype=torch.int8, device=dev)
-    chunk = feasible_batch(script_bytes_per_lane(table.vx.numel()), 0, device=dev)
-    for lo in range(0, B, chunk):
-        rays = rotate_rays(table.vx, table.vy, table.vz, bases[lo:lo + chunk])
-        out[lo:lo + chunk] = script_plates(globe, *rays).clamp(-1, MAX_PLATES)
-        del rays
+    with span("posed.script_plates"):
+        out = torch.empty((B,) + tuple(table.vx.shape), dtype=torch.int8, device=dev)
+        chunk = script_piece(table) if piece is None else int(piece)
+        for lo in range(0, B, chunk):
+            with span("posed.script_piece"):
+                rays = rotate_rays(table.vx, table.vy, table.vz, bases[lo:lo + chunk])
+                out[lo:lo + chunk] = script_plates(globe, *rays).clamp(-1, MAX_PLATES)
+                del rays
+            script_pose_plates.pieces += 1
     return out
+
+
+script_pose_plates.pieces = 0  # the pieces evaluated: one K13 launch and one evaluation each
 
 
 def static_ray_posed_plain(src, table, bases, globe, platesize, numcells,
@@ -379,12 +395,28 @@ class StaticRayPosedKernel:
         self.ray_table = ray_table.device(self.device)
         self.background = background_tensor(background, self.height_px,
                                              self.width_px, self.device)
+        self.script = plate_resolver_mode(globe) == "script"
+        self._script_plan = None  # (batch, poses a piece of the script's evaluation)
+
+    def _script_piece(self, batch):
+        """The poses a piece of the script's evaluation takes in a call of
+        *batch* poses.  Free memory is read at the first call and again only
+        for a batch above the one last planned, so that calls of one size
+        evaluate in the same pieces whatever the caching allocator kept
+        from the call before (a Session keeps one kernel a key)."""
+        if self._script_plan is None or batch > self._script_plan[0]:
+            self._script_plan = (batch, script_piece(self.ray_table))
+        return self._script_plan[1]
 
     def __call__(self, frames, bases):
         src, bases, expanded = prep_posed_inputs(
             frames, bases, self.platesize, self.background, self.device)
+        plates = None
+        if self.script:
+            plates = script_pose_plates(self.ray_table, bases, self.globe,
+                                        self._script_piece(int(bases.shape[0])))
         out = static_ray_posed(src, self.ray_table, bases, self.globe,
                                self.platesize, self.numcells, self.cell_size,
                                self.pad_size, expanded, self.background,
-                               self.render_scale)
+                               self.render_scale, plates=plates)
         return out.view(torch.uint32) if out.dtype == torch.int32 else out

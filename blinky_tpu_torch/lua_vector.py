@@ -486,7 +486,9 @@ class VectorInterpreter(Interpreter):
         """``torch.where(c, a, b)`` for the tensor mode: *c* becomes a
         tensor, NumPy operands become tensors on its device, and a
         number that meets no floating tensor takes the evaluation's float
-        dtype (a scalar meeting a tensor takes the tensor's)."""
+        dtype (a scalar meeting a tensor takes the tensor's).  A number
+        becomes a tensor by a fill on the device: a copy from the host
+        would wait for the device's queue, once a merge."""
         ref = next((t for t in (c, a, b) if _is_traced(t)), None)
         dev = ref.device
         c = torch.as_tensor(c, device=dev)
@@ -501,7 +503,7 @@ class VectorInterpreter(Interpreter):
                 return t.to(fdt) if t.is_floating_point() else t
             if isinstance(v, (bool, np.bool_)):
                 return bool(v)
-            return torch.tensor(float(v), dtype=fdt, device=dev)
+            return torch.full((), float(v), dtype=fdt, device=dev)
 
         a, b = operand(a), operand(b)
         return _tensor_op(torch.where, c, a, b)

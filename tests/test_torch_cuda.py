@@ -2213,6 +2213,99 @@ def test_lua_drop_ins_on_card_equal_cpu(cuda_device, k, tmp_path):
            cpu.render_posed(frames, poses, render_scale=k))
 
 
+def _lfast_session(device, tmp_path, W=640, H=360):
+    """A Session at ``lfast.posed_card``'s lens and zoom (panini, f_fov 160)
+    on the port's lfast.lua drop-in, found through ``globe_dirs``."""
+    from blinky_tpu_torch.bench import lua_drop_ins
+
+    sess = Session(W, H, platesize=H, device=device,
+                   globe_dirs=[lua_drop_ins.write_scripts(tmp_path)])
+    for line in ("fisheye 1", "f_globe lfast", "f_lens panini", "f_fov 160"):
+        sess.cmd(line)
+    return sess
+
+
+def _lfast_batch(B, S, device, seed=5):
+    """Two-plate u8 frames [2, S, S, B] and float32 bases [B, 3, 3] of seeded
+    poses, on *device*."""
+    rng = np.random.default_rng(seed)
+    frames = torch.from_numpy(rng.integers(0, 256, (2, S, S, B), dtype=np.uint8)).to(device)
+    poses = np.stack([rng.uniform(-60, 60, B), rng.uniform(0, 360, B),
+                      rng.uniform(-30, 30, B)], 1)
+    return frames, torch.from_numpy(posed.bases_from_pose_track(poses)).float().to(device)
+
+
+@pytest.mark.cuda
+def test_script_globe_posed_path_at_b64_equals_plain(cuda_device, tmp_path):
+    """``render_posed`` through lfast.lua at B = 64 on the card (K7, K13, the
+    script's tensor mode, K6 in mode 2) against its plain version on the
+    CPU on the card's ray table: K13's plates equal the plain rotate's, and
+    the screens K6's plain version, bit for bit; one K6 launch in mode 2,
+    none in mode 3."""
+    sess = _lfast_session(cuda_device, tmp_path)
+    frames, bases = _lfast_batch(64, 360, cuda_device)
+    g0 = static_ray.static_ray_posed.given_launches
+    c0 = static_ray.static_ray_posed.cube_launches
+    out = sess.render_posed(frames, bases)
+    torch.cuda.synchronize()
+    assert static_ray.static_ray_posed.given_launches == g0 + 1
+    assert static_ray.static_ray_posed.cube_launches == c0
+    kernel = sess._posed_cache[1]
+    table, g = kernel.ray_table, sess.globe
+    cpu_table, cpu_bases = table.device("cpu"), bases.cpu()
+    plates = static_ray.script_pose_plates(cpu_table, cpu_bases, g)
+    _equal(static_ray.script_pose_plates(table, bases, g).cpu(), plates)
+    assert set(plates.unique().tolist()) == {-1, 0, 1}
+    bg = kernel.background.cpu()
+    src, _, expanded = posed.prep_posed_inputs(frames.cpu(), cpu_bases, 360, bg, "cpu")
+    want = static_ray.static_ray_posed_plain(src, cpu_table, cpu_bases, g, 360,
+                                             kernel.numcells, kernel.cell_size,
+                                             kernel.pad_size, expanded, bg, 1, plates=plates)
+    _equal(out.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_script_pieces_are_counted_and_spanned_under_profile_trace(cuda_device, tmp_path,
+                                                                   monkeypatch):
+    """With a budget that takes 13 poses a piece, each call of B = 64 runs the
+    script's stage in 5 pieces: ``script_pose_plates.pieces`` counts them,
+    each is a ``posed.script_piece`` span inside its call's
+    ``posed.script_plates``, and each launches K13 once (counted by its
+    ``launch.rotate_rays`` span and the launch counter: a long process's
+    profile may lose device records, not host ones)."""
+    import json
+
+    from blinky_tpu_torch import budget
+    from blinky_tpu_torch.utils.timing import profile_trace
+
+    per_pose = budget.script_bytes_per_lane(640 * 360)
+    monkeypatch.setattr(budget, "device_memory_bytes",
+                        lambda device: int(np.ceil(13 * per_pose / budget.BUDGET_FRACTION)))
+    sess = _lfast_session(cuda_device, tmp_path)
+    frames, bases = _lfast_batch(64, 360, cuda_device)
+    first = sess.render_posed(frames, bases)
+    p0, k0 = static_ray.script_pose_plates.pieces, builder.rotate_rays.launches
+    with profile_trace(str(tmp_path / "trace")):
+        for _ in range(2):
+            _equal(sess.render_posed(frames, bases), first)
+        torch.cuda.synchronize()
+    assert static_ray.script_pose_plates.pieces == p0 + 10
+    assert builder.rotate_rays.launches == k0 + 10
+    (path,) = (tmp_path / "trace").glob("trace_*.json")
+    spans = [(e["name"], e["ts"], e["ts"] + e["dur"])
+             for e in json.loads(path.read_text())["traceEvents"]
+             if e.get("ph") == "X" and e.get("cat") == "user_annotation"]
+    stages = [s for s in spans if s[0] == "posed.script_plates"]
+    pieces = [s for s in spans if s[0] == "posed.script_piece"]
+    assert len(stages) == 2 and len(pieces) == 10
+    for _, a, b in stages:
+        inside = [(s, e) for n, s, e in pieces if a <= s and e <= b]
+        assert len(inside) == 5
+        # one K13 launch in each piece
+        assert all(sum(n == "launch.rotate_rays" and s <= x and y <= e for n, x, y in spans) == 1
+                   for s, e in inside)
+
+
 def _replay_frames(n, S):
     """n rolled copies of the synthetic cubemap, [N, P, S, S] (a recorded demo)."""
     base = synthetic_cubemap_batch(S, 1)[..., 0]
