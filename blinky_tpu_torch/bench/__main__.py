@@ -76,7 +76,7 @@ def kernel_wrappers() -> dict:
     """Every kernel's wrapper, by the kernel's name in ``chip_smoke.py``'s
     kernels line; each counts its launches in ``.launches``."""
     from blinky_tpu_torch.bench import sol
-    from blinky_tpu_torch.kernels import ingest, posed, remap, static_ray
+    from blinky_tpu_torch.kernels import ingest, posed, remap, script_tape, static_ray
     from blinky_tpu_torch.lensmap import builder
 
     return {
@@ -86,7 +86,7 @@ def kernel_wrappers() -> dict:
         "posed_layout": posed.posed_layout, "lensmap_resolve": builder.lensmap_resolve,
         "sweep_remap": posed.sweep_remap, "equirect_gather": ingest.equirect_gather,
         "downsample_rgba": remap.downsample_rgba, "tint_expand_rgba": remap.tint_expand_rgba,
-        "rotate_rays": builder.rotate_rays,
+        "rotate_rays": builder.rotate_rays, "script_tape": script_tape.script_tape,
     }
 
 

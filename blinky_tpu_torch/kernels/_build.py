@@ -182,17 +182,17 @@ def library():
     return _lib
 
 
-def launch(wrapper, name: str, entry: str, *args) -> None:
+def launch(wrapper, name: str, entry: str, *args, lib=None) -> None:
     """Launch one kernel for *wrapper*, a kernel's wrapper function: call
-    the library's entry point *entry* with *args*, check its code, and
-    count the launch in ``wrapper.launches``.
+    the entry point *entry* of *lib* (by default the kernel library) with
+    *args*, check its code, and count the launch in ``wrapper.launches``.
 
     The call runs inside the span ``launch.<name>`` (*name*: the kernel's
     name in the bench suite's kernels line).  The caller has evaluated
     *args* before, so the span holds the ctypes call alone: the conversion
     of the arguments, the entry point's own host work and the CUDA launch,
     any wait for a free slot in the card's launch queue included."""
-    fn = getattr(library(), entry)
+    fn = getattr(library() if lib is None else lib, entry)
     with span(f"launch.{name}"):
         rc = fn(*args)
     check(rc, wrapper.__name__)
@@ -202,7 +202,7 @@ def launch(wrapper, name: str, entry: str, *args) -> None:
 def check(rc: int, kernel: str) -> None:
     """Raise if an entry point reported a CUDA error for its launch."""
     if rc != 0:
-        msg = _lib.blinky_error_string(rc).decode()
+        msg = library().blinky_error_string(rc).decode()
         raise RuntimeError(f"{kernel}: CUDA error {rc} at launch: {msg}")
 
 

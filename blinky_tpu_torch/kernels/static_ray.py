@@ -25,8 +25,10 @@ A script globe's resolver runs per pose on the rotated rays, as in the JAX
 package (``blinky_tpu/kernels/static_ray.py:235-244``):
 :func:`script_pose_plates` rotates the table by each pose (K13, the
 pre-pass that runs K6's own rotation) and evaluates the script on those
-rays as tensors, and K6 reads the int8 plate it gave each pose-pixel
-(resolver mode 2).
+rays, and K6 reads the int8 plate it gave each pose-pixel (resolver mode
+2).  On a card a script whose resolver records as a tape of elementwise
+operations (:mod:`blinky_tpu_torch.kernels.script_tape`) evaluates in one
+kernel, K14; any other, and every script on the CPU, as tensors.
 
 As in the JAX package, :func:`build_ray_table` evaluates a traceable
 inverse lens in float32 on the device, which keeps the table bit-aligned
@@ -47,6 +49,7 @@ from blinky_tpu_torch.kernels.posed import (
     check_gather_operands, check_render_scale, gather_posed_plain,
     prep_posed_inputs,
 )
+from blinky_tpu_torch.kernels.script_tape import script_tape, tape_of
 from blinky_tpu_torch.lensmap.builder import (
     CUBE_RESOLVER, RESOLVERS, TINT_NONE, LensMap, cube_resolver, grid_line_words,
     lens_ray_grid, lens_rays_torch, plate_resolver_mode, rays_to_lensmap_torch,
@@ -221,28 +224,38 @@ def script_piece(table) -> int:
 def script_pose_plates(table, bases, globe, piece=None):
     """A script globe's plates for every pose: per pose, the table's rays
     rotated and normalized by :func:`rotate_rays` (K13 on a card) and the
-    script's resolver on them as tensors (:func:`script_plates`), clamped
-    to [-1, MAX_PLATES] (which keeps ``plate >= 0`` and the clip to the
-    globe's plates) -> int8 [B, H, W] on the table's device.  The poses go
-    in pieces of *piece* poses, by default :func:`script_piece` read now.
-    The stage is the span ``posed.script_plates``, each piece (its K13
-    launch and its evaluation) a ``posed.script_piece``, counted by
-    ``script_pose_plates.pieces``."""
+    script's resolver on them, clamped to [-1, MAX_PLATES] (which keeps
+    ``plate >= 0`` and the clip to the globe's plates) -> int8 [B, H, W]
+    on the table's device.  On a card, where the globe's resolver records
+    as a tape (:func:`tape_of`, kept a globe and device), the resolver is
+    K14 (:func:`script_tape`), which writes the plates in place; else it
+    runs as tensors (:func:`script_plates`).  The poses go in pieces of
+    *piece* poses, by default :func:`script_piece` read now.  The stage is
+    the span ``posed.script_plates``, each piece (its K13 launch and its
+    evaluation) a ``posed.script_piece``, counted by
+    ``script_pose_plates.pieces``, and those K14 ran by
+    ``script_pose_plates.tape_pieces``."""
     dev = table.vx.device
     B = int(bases.shape[0])
+    tape = tape_of(globe, dev) if _build.on_card("script_pose_plates", dev) else None
     with span("posed.script_plates"):
         out = torch.empty((B,) + tuple(table.vx.shape), dtype=torch.int8, device=dev)
         chunk = script_piece(table) if piece is None else int(piece)
         for lo in range(0, B, chunk):
             with span("posed.script_piece"):
                 rays = rotate_rays(table.vx, table.vy, table.vz, bases[lo:lo + chunk])
-                out[lo:lo + chunk] = script_plates(globe, *rays).clamp(-1, MAX_PLATES)
+                if tape is not None:
+                    script_tape(tape, *rays, out[lo:lo + chunk])
+                else:
+                    out[lo:lo + chunk] = script_plates(globe, *rays).clamp(-1, MAX_PLATES)
                 del rays
             script_pose_plates.pieces += 1
+            script_pose_plates.tape_pieces += tape is not None
     return out
 
 
 script_pose_plates.pieces = 0  # the pieces evaluated: one K13 launch and one evaluation each
+script_pose_plates.tape_pieces = 0  # the pieces whose evaluation was K14
 
 
 def static_ray_posed_plain(src, table, bases, globe, platesize, numcells,
@@ -396,6 +409,8 @@ class StaticRayPosedKernel:
         self.background = background_tensor(background, self.height_px,
                                              self.width_px, self.device)
         self.script = plate_resolver_mode(globe) == "script"
+        if self.script:  # the resolver's tape for K14 recorded now, in set-up
+            tape_of(globe, self.device)
         self._script_plan = None  # (batch, poses a piece of the script's evaluation)
 
     def _script_piece(self, batch):

@@ -142,7 +142,11 @@ times every kernel against its plain PyTorch version.  Phases:
    to their plain versions on the same rays and plates; lfast's tables and
    screens beside the built-in fast globe's; each Lua lens stage's time
    beside the built-in's, the resolver's over the posed batch, and the
-   mode-2 kernels and K13 beside their bounds.
+   mode-2 kernels and K13 beside their bounds.  lfast's posed plates (K14,
+   its resolver recorded as a tape) are held byte-equal to the evaluator's
+   pose by pose, and K14 on one piece of ``lfast.posed_card``'s call (as
+   many of its 1024 poses as the stage's plan takes) to the evaluator and
+   to the tape's replay, timed beside both and its 13-byte-a-ray bound.
 11. the rest of the Session surface: with every launch counter at 0, a 1080p
    Session renders the batch under ``fisheye 0`` at ``fov 90`` and 110, plain
    (K1) and with ``decode_rgb`` (K2), then after ``setviewangles 10 30 0``
@@ -246,8 +250,8 @@ times every kernel against its plain PyTorch version.  Phases:
 
 The line before the card's name and power limit lists every kernel with its
 launches in its path's run (phase 2 for K1-K4, phase 6 for K5-K7, phase 7
-for K8 and K9, phase 8 for K10-K12, phase 10 for the mode-2 kernels and
-K13; phase 12's launches of K1, K2, K6 and K7, phase 15's of K1, K2 and
+for K8 and K9, phase 8 for K10-K12, phase 10 for the mode-2 kernels, K13
+and K14; phase 12's launches of K1, K2, K6 and K7, phase 15's of K1, K2 and
 K6-K9, and phase 13's and 14's are added to theirs), its
 time, its plain version's and its library call's time where one PyTorch call
 computes the same function, and its bound.
@@ -607,7 +611,7 @@ def main():
          (sr["bytes"] + 4) / HBM_BYTES_PER_S * 1e3, "bytes", sr["library_ms"], sr["library"]),
     ] + posed_rows + builder_rows + equirect_rows + lua_rows
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": f"blinky_tpu_torch/csrc/{src_file}",
+        {"name": name, "route": "cuda", "source": os.path.normpath(f"blinky_tpu_torch/csrc/{src_file}"),
          "replaces": replaces, "launches": launches[name], "max_abs_err": e,
          "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
          "library_ms": library_ms, "library": library}
@@ -622,6 +626,7 @@ def main():
 
 POSED_B = 64
 CHUNK = 8
+SCRIPT_CELL_B = 1024  # lfast.posed_card's poses a call
 
 
 def k6_ops_per_pose_pixel(globe):
@@ -1945,10 +1950,10 @@ def lua_phase(dev, frames, frames_dev, kernels):
     from blinky_tpu_torch.bench.posed import posed_poses
     from blinky_tpu_torch.bench.sol import cuda_ms
     from blinky_tpu_torch.camera import view_basis_from_angles
-    from blinky_tpu_torch.kernels import _build, posed, remap, static_ray
+    from blinky_tpu_torch.kernels import _build, posed, remap, script_tape, static_ray
     from blinky_tpu_torch.lensmap import build_lensmap
     from blinky_tpu_torch.lensmap import builder
-    from blinky_tpu_torch.palette import rgba_lut
+    from blinky_tpu_torch.palette import MAX_PLATES, rgba_lut
 
     S, H, W = 1080, 1080, 1920
     npix = H * W
@@ -1970,7 +1975,8 @@ def lua_phase(dev, frames, frames_dev, kernels):
                         "static_ray_posed": static_ray.static_ray_posed,
                         "posed_layout": posed.posed_layout,
                         "lensmap_resolve": builder.lensmap_resolve,
-                        "sweep_remap": posed.sweep_remap, "rotate_rays": builder.rotate_rays}
+                        "sweep_remap": posed.sweep_remap, "rotate_rays": builder.rotate_rays,
+                        "script_tape": script_tape.script_tape}
         given = (builder.lensmap_resolve, static_ray.static_ray_posed, posed.sweep_remap)
         for fn in list(kernels.values()) + list(path_kernels.values()):
             fn.launches = 0
@@ -2190,6 +2196,9 @@ def lua_phase(dev, frames, frames_dev, kernels):
             for a, b in zip(rot, rot_plain):
                 require(torch.equal(a, b), f"rotate_rays poses {lo}.. differ from the plain "
                         "version")
+            require(torch.equal(plates_f[sl], builder.script_plates(g_lua, *rot).clamp(
+                -1, MAX_PLATES).to(torch.int8)), f"lfast's plates of poses {lo}.. (K14) differ "
+                "from the evaluator's")
             del rot, rot_plain
             ref = static_ray.static_ray_posed_plain(
                 src_p[sl], table, bases_p[sl], g_lua, S, kern.numcells, kern.cell_size,
@@ -2256,6 +2265,53 @@ def lua_phase(dev, frames, frames_dev, kernels):
         k13_1_bytes = 24 * npix_b + 36
         torch.cuda.empty_cache()
 
+        # K14 on one piece of lfast.posed_card's call (1080p, B = SCRIPT_CELL_B):
+        # as many poses as the stage's plan takes on this card now
+        tape = script_tape.tape_of(g_lua, dev)
+        require(tape is not None, f"lfast's resolver did not record as a tape: "
+                f"{script_tape.tape_of.reason}")
+        free_k = torch.cuda.mem_get_info(dev)[0]
+        piece = min(static_ray.script_piece(table), SCRIPT_CELL_B)
+        bases_k = torch.from_numpy(posed.bases_from_pose_track(posed_poses(piece))).float().to(dev)
+        rays_k = builder.rotate_rays(table.vx, table.vy, table.vz, bases_k)
+        out_k = torch.empty((piece,) + tuple(table.vx.shape), dtype=torch.int8, device=dev)
+        script_tape.script_tape(tape, *rays_k, out_k)
+        want_k = builder.script_plates(g_lua, *rays_k).clamp(-1, MAX_PLATES).to(torch.int8)
+        k14_err = int((out_k.to(torch.int16) - want_k.to(torch.int16)).abs().max())
+        require(torch.equal(out_k, want_k), f"K14 differs from the evaluator on a piece of "
+                f"{piece} poses on {int((out_k != want_k).sum())} rays")
+        del want_k
+        rep_k = torch.empty_like(out_k)
+
+        def replay_piece():
+            """K14's plain version, the tape replayed, CHUNK poses at a time."""
+            for lo in range(0, piece, CHUNK):
+                rep_k[lo:lo + CHUNK] = script_tape.replay(tape, *(r[lo:lo + CHUNK]
+                                                                  for r in rays_k))
+
+        replay_piece()
+        require(torch.equal(out_k, rep_k), "K14 differs from its tape's replay")
+        k14_ms = cuda_ms(lambda: script_tape.script_tape(tape, *rays_k, out_k), 10)
+        k14_replay = cuda_ms(replay_piece, 3)
+        k14_eval = cuda_ms(lambda: builder.script_plates(g_lua, *rays_k).clamp(-1, MAX_PLATES),
+                           3)
+        k14_bytes = 13 * piece * npix_b  # the three float32 rays read, the int8 plate written
+        k14_ops = sum(n.op not in ("input", "const") for n in tape.nodes) * piece * npix_b
+        k14_bytes_ms = k14_bytes / HBM_BYTES_PER_S * 1e3
+        k14_ops_ms = k14_ops / F32_OPS_PER_S * 1e3
+        k14_bound = max(k14_bytes_ms, k14_ops_ms)
+        k14_by = "bytes" if k14_bytes_ms >= k14_ops_ms else "operations"
+        phase(10, f"K14 (script_tape) on a piece of {piece} poses of lfast.posed_card's call "
+              f"(1080p, B = {SCRIPT_CELL_B}; {free_k} bytes free): the tape's "
+              f"{len(tape.nodes)} nodes, library script_tape_{tape.digest}; byte-equal to the "
+              f"evaluator (script_plates) and to the tape's replay; kernel {k14_ms:.4f} ms by "
+              f"events, the replay {k14_replay:.4f} ms ({CHUNK} poses at a time), the "
+              f"evaluator {k14_eval:.4f} ms (x{k14_eval / k14_ms:.1f}); {k14_bytes} bytes "
+              f"({k14_bytes_ms:.4f} ms), {k14_ops} operations ({k14_ops_ms:.4f} ms); bound "
+              f"{k14_bound:.4f} ms by {k14_by}, {100 * k14_bound / k14_ms:.1f} % of it")
+        del bases_k, rays_k, out_k, rep_k
+        torch.cuda.empty_cache()
+
         resolver_ms = cuda_ms(lambda: static_ray.script_pose_plates(table, bases_p, g_lua), 3)
         wall_f = []
         for _ in range(3):
@@ -2267,7 +2323,7 @@ def lua_phase(dev, frames, frames_dev, kernels):
         phase(10, f"lfast render_posed at 1080p B={POSED_B}: every pose bit-equal to "
               f"static_ray_posed_plain on the same plates, K13 to its plain version {CHUNK} poses "
               f"at a time; {posed_share:.6f} of the pixels differ from the built-in fast's "
-              f"render_posed.  The resolver over the posed batch (K13 and the script on "
+              f"render_posed.  The resolver over the posed batch (K13 and K14 on "
               f"{POSED_B} x {npix_b} rays) {resolver_ms:.4f} ms, K13 alone {k13_ms:.4f} ms "
               f"(plain {k13_plain:.4f} ms; {k13_bytes} bytes, {k13_ops} f32 operations, bound "
               f"{k13_bound:.4f} ms by {k13_by}, {100 * k13_bound / k13_ms:.1f} % of it); K6 "
@@ -2419,7 +2475,8 @@ def lua_phase(dev, frames, frames_dev, kernels):
     counted = {"lensmap_resolve_given": launches["lensmap_resolve_given"],
                "static_ray_posed_given": launches["static_ray_posed_given"],
                "sweep_remap_given": launches["sweep_remap_given"],
-               "rotate_rays": launches["rotate_rays"]}
+               "rotate_rays": launches["rotate_rays"],
+               "script_tape": launches["script_tape"]}
     rows = [
         ("lensmap_resolve_given", "lensmap.cu", "blinky_tpu/lensmap/builder.py:228", k8_err,
          k8_dev, k8_plain, k8_bound, k8_by, None, None),
@@ -2429,6 +2486,9 @@ def lua_phase(dev, frames, frames_dev, kernels):
          k9_plain, k9_bound, k9_by, None, None),
         ("rotate_rays", "lensmap.cu", "blinky_tpu/lensmap/builder.py:185", 0, k13_ms,
          k13_plain, k13_bound, k13_by, None, None),
+        ("script_tape", f"../build/script_tape_{tape.digest}.cu",
+         "blinky_tpu/lensmap/builder.py:228", k14_err, k14_ms, k14_replay, k14_bound, k14_by,
+         k14_eval, "script_plates (the evaluator's tensor mode)"),
     ]
     return counted, rows
 

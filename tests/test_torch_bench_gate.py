@@ -412,7 +412,7 @@ def test_entry_point_exits_1_without_a_card():
 
 def test_launch_counts_name_every_kernel_wrapper(tmp_path, monkeypatch):
     counts = bench_main.launch_counts()
-    assert len(counts) == 13 and all(isinstance(n, int) for n in counts.values())
+    assert len(counts) == 14 and all(isinstance(n, int) for n in counts.values())
     assert all(counts[name] == fn.launches for name, fn in bench_main.kernel_wrappers().items())
     path = tmp_path / "launches.jsonl"
     monkeypatch.setenv(bench_main.LAUNCHES_ENV, str(path))

@@ -319,7 +319,7 @@ def _launch_names(fn):
 
 @pytest.mark.parametrize("key", sorted(kernel_wrappers()))
 def test_each_wrapper_launches_under_its_kernels_name(key):
-    """Every launch of the 13 wrappers goes through ``_build.launch`` with
+    """Every launch of the 14 wrappers goes through ``_build.launch`` with
     the wrapper's own counter and the span ``launch.<key>``, *key* the
     kernel's name in the bench suite's kernels line."""
     fn = kernel_wrappers()[key]
